@@ -1,0 +1,657 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, and the script then exits non-zero):
+
+1. device: the card's name and power limit (nvidia-smi) and torch's view;
+   TF32 is switched off for matmuls and convolutions, so every fp32
+   product runs in full fp32;
+2. build: both hand-written CUDA kernels (``src/repro_torch/csrc``), one
+   nvcc per source, in parallel;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's shapes (smollm-135m heads: H 9, Hkv 3, D 64, page 16,
+   fp32 q, bf16 pages; ragged fills, scratch rows, a fill on a page
+   boundary), with device times (CUDA graphs over inputs that exceed the
+   L2) of the kernel, the plain version and one PyTorch library call
+   (SDPA on pre-gathered K/V, a yardstick the port never calls), and the
+   least time the card could take;
+4. main path: the quickstart mesh (laptop 6 slots, phone 1, home-nas 8)
+   serving smollm-135m at its full published widths with seeded random
+   weights through ``TickOrchestrator`` -> fused chunked paged batchers;
+   launch counters are zeroed just before and read just after, and each
+   kernel must have run once per layer of every fused dispatch;
+5. profile: the same workload under ``torch.profiler``: the device's
+   busy time and its split by kernel family;
+6. replay: the quickstart's four queries on the card and on the CPU with
+   the same weights; their logits must agree within a stated tolerance,
+   and a token where the streams part must be a near-tie that the
+   measured logit gap can reorder.
+
+It prints one JSON object per phase, then the card's name and power
+limit, the kernel table, and last ``{"ok": true, "device": {...}}``.
+It needs one card and the rest of the repository beside it.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth, and
+# bf16 on the tensor cores. Both products of the attention read bf16 K/V
+# pages, so the least time for the function takes the bf16 rate, whatever
+# units a kernel does its math on (fp32 q split into bf16 pieces runs at
+# it too)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+# kernel vs its plain version on the same inputs: both accumulate in fp32
+# and differ only in summation order and exp's last bits (~1e-6 on outputs
+# that are convex combinations of unit-scale V rows)
+KERNEL_TOL = 1e-4
+# timed launches cycle through this many copies of a case's inputs: their
+# live K/V (~2.3 MB a copy) then exceeds the 50 MB L2
+NCOPY = 32
+# card vs CPU logits in the replay at full width (the same weights and
+# tokens; 30 layers of fp32 matmuls summed in another order over bf16
+# pages): about 5x the largest gap this phase measured on an H100, 0.0020
+# (PERF.md); the tests' MARGIN rests on the same kind of reading
+REPLAY_LOGIT_TOL = 1e-2
+
+QUICKSTART = [
+    ("Analyze treatment options for 45-year-old diabetic patient "
+     "John Doe with elevated HbA1c", "primary"),
+    ("What are common diabetes complications", "burstable"),
+    ("password = hunter2, please rotate the production key", "secondary"),
+    ("best hiking trails near mountains", "burstable"),
+]
+HEAD = ("Clinical summary for the cardiology review board. The patient "
+        "cohort below was enrolled under the shared intake protocol, and "
+        "every note follows the same structure: history, current "
+        "medication, recent lab results, and the open question for the "
+        "board. Please answer the question at the end of each note. ")
+
+
+def long_prompts():
+    """~8 prompts of 300-1500 bytes with a common head: multi-chunk
+    prefill, same-tier prefix sharing, and (two identical notes) a shared
+    last page that the first decode write must copy."""
+    twin = HEAD + "Twin note: identical follow-up for both examiners."
+    out = [(twin, "primary"), (twin, "primary")]
+    for i, n in enumerate((2, 5, 9, 13, 16, 19)):
+        body = " ".join(f"Observation {k} for case {i}: stable vitals, "
+                        f"dosage unchanged." for k in range(n))
+        out.append((HEAD + body + f" Question {i}: next step?", "primary"))
+    return out
+
+
+def gpu_line():
+    """The card's name and power limit as nvidia-smi reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def graph_ms(fns, reps=10):
+    """Device time per call of the calls in ``fns``, one per input copy so
+    that their working set exceeds the 50 MB L2 (the main path finds a
+    layer's pages cold): captured once in a CUDA graph and replayed, so no
+    host time is inside. CUDA events around the replays."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up before capture
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(fns))
+
+
+def host_us(fn, iters=200):
+    """Host time per call of ``fn`` (the enqueue: no synchronize inside)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+# ------------------------------------------------------------ kernel phase
+
+def _bound(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _pages(gen, P, ps, Hkv, D, dev):
+    import torch
+    return [(torch.randn(P, ps, Hkv, D, generator=gen, device=dev)
+             .to(torch.bfloat16)) for _ in range(2)]
+
+
+def decode_case(dev, gen, H=9, Hkv=3, D=64, ps=16, N=128):
+    """K1 at the decode shapes of the main path's largest island: 8 slots,
+    a table width of 128 pages (max_len 2048), ragged fills, two idle
+    scratch rows (all-zero table, fill 1) and fills on page boundaries."""
+    import torch
+    valid = [1, 16, 17, 300, 1024, 1, 1600, 32]
+    B = len(valid)
+    P = 1 + B * N
+    kp, vp = _pages(gen, P, ps, Hkv, D, dev)
+    q = torch.randn(B, H, D, generator=gen, device=dev)
+    bt = torch.zeros(B, N, dtype=torch.int32, device=dev)
+    for b, v in enumerate(valid):
+        if b not in (0, 5):                     # rows 0 and 5 stay idle
+            n = -(-v // ps)
+            bt[b, :n] = 1 + b * N + torch.randperm(N, generator=gen,
+                                                   device=dev)[:n].int()
+    lens = torch.tensor(valid, dtype=torch.int32, device=dev)
+    live = sum(valid)
+    nbytes = (2 * q.numel() * 4 + bt.numel() * 4 + B * 4
+              + live * Hkv * D * 2 * 2)
+    flops = 4 * live * H * D
+    return (q, kp, vp, bt, lens), nbytes, flops, ("decode", valid,
+                                                  [1, 2, 3, 4, 6, 7])
+
+
+def prefill_case(dev, gen, H=9, Hkv=3, D=64, ps=16, N=128):
+    """K2 at the fused prefill shapes of the main path: 4 rows of a
+    64-token run (the default budget of 4 pages), starts 0, 64 and 1024,
+    and one padding row on the scratch page."""
+    import torch
+    starts = [0, 64, 1024, 0]
+    B, T = len(starts), 4 * ps
+    P = 1 + B * N
+    kp, vp = _pages(gen, P, ps, Hkv, D, dev)
+    q = torch.randn(B, T, H, D, generator=gen, device=dev)
+    bt = torch.zeros(B, N, dtype=torch.int32, device=dev)
+    for b, s in enumerate(starts[:3]):
+        n = (s + T) // ps
+        bt[b, :n] = 1 + b * N + torch.randperm(N, generator=gen,
+                                               device=dev)[:n].int()
+    sp = torch.tensor(starts, dtype=torch.int32, device=dev)
+    ctx = sum(s + T for s in starts)
+    nbytes = (2 * q.numel() * 4 + bt.numel() * 4 + B * 4
+              + ctx * Hkv * D * 2 * 2)
+    flops = 4 * H * D * sum(s + t + 1 for s in starts for t in range(T))
+    return (q, kp, vp, bt, sp), nbytes, flops, ("prefill", starts,
+                                                [0, 1, 2])
+
+
+def _sdpa_inputs(kind, args):
+    """Pre-gathered, head-expanded fp32 K/V and a boolean mask, so that
+    one ``scaled_dot_product_attention`` call computes the same function
+    (outside the timed region: the yardstick times SDPA alone)."""
+    import torch
+    q, kp, vp, bt, lens = args
+    Hkv = kp.shape[2]
+    H = q.shape[-2]
+    B, N = bt.shape
+    ps = kp.shape[1]
+    k = kp[bt.long()].reshape(B, N * ps, Hkv, -1).float()
+    v = vp[bt.long()].reshape(B, N * ps, Hkv, -1).float()
+    k = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
+    v = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).contiguous()
+    kpos = torch.arange(N * ps, device=q.device)
+    if kind == "decode":
+        qq = q[:, :, None, :]                               # (B, H, 1, D)
+        mask = (kpos[None, :] < lens[:, None].long())[:, None, None, :]
+    else:
+        T = q.shape[1]
+        qq = q.transpose(1, 2).contiguous()                 # (B, H, T, D)
+        qpos = lens[:, None].long() + torch.arange(T, device=q.device)
+        mask = (kpos[None, None, :] <= qpos[:, :, None])[:, None]
+    return qq, k, v, mask
+
+
+def kernel_phase(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    rows = {}
+    for name, wrapper, plain, case, src, replaces in (
+            ("paged_decode_attention", paged_decode_attention,
+             ref.paged_decode_attention, decode_case,
+             "src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:111"),
+            ("chunked_prefill_attention", chunked_prefill_attention,
+             ref.chunked_prefill_attention, prefill_case,
+             "src/repro_torch/csrc/chunked_prefill.cu",
+             "src/repro/kernels/chunked_prefill.py:123")):
+        args, nbytes, flops, (kind, fills, live) = case(dev, gen)
+        scale = args[0].shape[-1] ** -0.5
+        out = wrapper(*args)
+        torch.cuda.synchronize()
+        want = plain(*args, scale)
+        err = float((out.float() - want.float()).abs().max())
+        if not torch.isfinite(out).all() or err > KERNEL_TOL:
+            raise AssertionError(f"{name}: max abs error {err} > "
+                                 f"{KERNEL_TOL} against the plain version")
+        # table entries past a live row's fill or causal horizon point at
+        # the scratch page: poisoning it must leave every live row as it was
+        args[1][0] = 1e4
+        args[2][0] = -1e4
+        again = wrapper(*args)
+        if not torch.equal(again[live], out[live]):
+            raise AssertionError(f"{name}: scratch page leaked into a row")
+        copies = [tuple(a.clone() for a in args) for _ in range(NCOPY)]
+        kms = graph_ms([lambda c=c: wrapper(*c) for c in copies])
+        pms = graph_ms([lambda c=c: plain(*c, scale) for c in copies])
+        sdpa = [_sdpa_inputs(kind, c) for c in copies]
+        qq, k, v, mask = sdpa[0]
+        lib = F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
+        lib = lib.transpose(1, 2) if kind == "prefill" else lib[:, :, 0]
+        lib_err = float((lib.reshape(out.shape)[live] - again[live])
+                        .abs().max())
+        lms = graph_ms([lambda s=s: F.scaled_dot_product_attention(
+            s[0], s[1], s[2], attn_mask=s[3]) for s in sdpa])
+        del sdpa, copies
+        bound, by = _bound(nbytes, flops)
+        rows[name] = {"name": name, "route": "cuda", "source": src,
+                      "replaces": replaces, "launches": None,
+                      "max_abs_err": err, "ms": kms, "plain_ms": pms,
+                      "bound_ms": bound, "bound_by": by, "library_ms": lms}
+        emit({"phase": "kernel", **rows[name], "shape_q": list(
+            args[0].shape), "fills_or_starts": fills, "bytes": nbytes,
+            "flops": flops, "library_max_abs_err": lib_err,
+            "tolerance": KERNEL_TOL, "input_copies": NCOPY,
+            "wrapper_host_us": host_us(lambda: wrapper(*args))})
+    return rows
+
+
+# --------------------------------------------------------- main path phase
+
+def quickstart_stack(device):
+    from repro_torch.core.islands import (IslandRegistry, cloud_island,
+                                          edge_island, personal_island)
+    from repro_torch.core.lighthouse import Lighthouse
+    from repro_torch.core.mist import MIST
+    from repro_torch.core.tide import TIDE
+    from repro_torch.core.waves import WAVES, Policy
+    reg = IslandRegistry()
+    for isl in [
+        personal_island("laptop", latency_ms=120, capacity_units=3.0),
+        personal_island("phone", latency_ms=250, capacity_units=0.5),
+        edge_island("home-nas", privacy=0.9, latency_ms=300),
+        cloud_island("gpt4-api", privacy=0.4, cost=0.02, latency_ms=900),
+    ]:
+        reg.register(isl, reg.attestation_token(isl.island_id))
+    lh = Lighthouse(reg)
+    for i in reg.all():
+        lh.heartbeat(i.island_id)
+    return reg, WAVES(MIST(), TIDE(reg, buffer="moderate"), lh, Policy())
+
+
+def _watch_finite(b, flags):
+    """Fold ``isfinite(logits).all()`` of every forward pass of ``b``'s
+    model (fused prefill and fused decode) into a device flag, with no
+    host sync; ``flags`` collects one per batcher."""
+    import torch
+    flag = torch.ones((), dtype=torch.bool, device=b.device)
+    flags.append(flag)
+    forward = b.model.forward
+
+    def checked(*args, **kw):
+        logits, cache = forward(*args, **kw)
+        flag.logical_and_(torch.isfinite(logits).all())
+        return logits, cache
+
+    b.model.forward = checked
+
+
+def serving_stack(cfg, params, device, max_len):
+    """The quickstart mesh's orchestrator and batchers with every request
+    of the main path submitted; returns (orch, batchers, rids, flags)."""
+    from repro_torch.core.waves import Request
+    from repro_torch.serving.engine import (TickOrchestrator,
+                                            build_island_batchers)
+    reg, waves = quickstart_stack(device)
+    batchers = build_island_batchers(cfg, reg, params=params,
+                                     max_len=max_len, device=device)
+    slots = {k: b.num_slots for k, b in batchers.items()}
+    if slots != {"laptop": 6, "phone": 1, "home-nas": 8}:
+        raise AssertionError(f"quickstart mesh slots {slots}")
+    flags = []
+    for b in batchers.values():
+        _watch_finite(b, flags)
+    orch = TickOrchestrator(waves, reg, batchers, device=device)
+    reqs = [(Request(query=q, priority=p), 8) for q, p in QUICKSTART]
+    reqs += [(Request(query=q, priority=p), 16) for q, p in long_prompts()]
+    rids = [orch.submit(r, max_new_tokens=n) for r, n in reqs]
+    return orch, batchers, rids, flags
+
+
+def main_path(cfg, params, device, max_len=2048):
+    import torch
+
+    from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    orch, batchers, rids, flags = serving_stack(cfg, params, device, max_len)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    paged_decode_attention.launches = 0
+    chunked_prefill_attention.launches = 0
+    t0 = time.perf_counter()
+    orch.run_until_done(max_ticks=2000)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = paged_decode_attention.launches
+    k2 = chunked_prefill_attention.launches
+    if orch.busy():
+        raise AssertionError("main path did not drain within 2000 ticks")
+    missing = [r for r in rids if r not in orch.results]
+    rejected = [r for r in rids if orch.results.get(r) is None]
+    if missing or rejected:
+        raise AssertionError(f"unresolved {missing}, rejected {rejected}")
+    if not all(bool(f) for f in flags):
+        raise AssertionError("non-finite logits on the main path")
+    for iid, b in batchers.items():
+        for layer in b.pool.pages:
+            for t in layer.values():
+                if not torch.isfinite(t).all():
+                    raise AssertionError(f"non-finite K/V pages on {iid}")
+        bad = b._dev_gen[:b.num_slots]
+        if bool(((bad < 0) | (bad >= cfg.vocab_size)).any()):
+            raise AssertionError(f"token ids out of range on {iid}")
+    decode_disp = sum(b.stats["decode_steps"] for b in batchers.values())
+    prefill_disp = sum(sum(1 for s in b.dispatch_shapes if s[0] == "prefill")
+                       for b in batchers.values())
+    L = cfg.num_layers
+    if k1 != L * decode_disp or k2 != L * prefill_disp:
+        raise AssertionError(
+            f"launches K1 {k1} != {L} x {decode_disp} decode dispatches or "
+            f"K2 {k2} != {L} x {prefill_disp} prefill dispatches")
+    if k1 == 0 or k2 == 0:
+        raise AssertionError("a kernel never ran on the main path")
+    pools = {iid: b.pool.telemetry() for iid, b in batchers.items()}
+    shared = sum(t["share_hits"] for t in pools.values())
+    cows = sum(t["cow_copies"] for t in pools.values())
+    multi = max(s[2] for b in batchers.values()
+                for s in b.dispatch_shapes if s[0] == "prefill")
+    if shared == 0 or cows == 0 or multi < 2:
+        raise AssertionError(f"main path missed a feature: share hits "
+                             f"{shared}, COW copies {cows}, widest run "
+                             f"{multi} pages")
+    ttft = [rec["ttft_ticks"] for b in batchers.values()
+            for rec in b.request_log.values() if "ttft_ticks" in rec]
+    gen_tokens = sum(rec.get("generated_tokens", 0)
+                     for b in batchers.values()
+                     for rec in b.request_log.values())
+    result = {
+        "phase": "main_path", "model": cfg.name, "layers": L,
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size, "max_len": max_len,
+        "requests": len(rids),
+        "islands": {r.island_id: sum(1 for x in orch.log
+                                     if x.island_id == r.island_id)
+                    for r in orch.log},
+        "ticks": orch.tick_stats["ticks"],
+        "batcher_ticks": orch.tick_stats["decode_ticks"],
+        "decode_dispatches": decode_disp, "prefill_dispatches": prefill_disp,
+        "launches": {"paged_decode_attention": k1,
+                     "chunked_prefill_attention": k2},
+        "tick_dispatches_max": orch.tick_stats["tick_dispatches_max"],
+        "generated_tokens": gen_tokens, "wall_s": wall,
+        "tokens_per_s": gen_tokens / wall,
+        "ttft_ticks_p50": sorted(ttft)[len(ttft) // 2],
+        "ttft_ticks_max": max(ttft),
+        "share_hits": shared, "cow_copies": cows,
+        "prefix_tokens_skipped": sum(b.stats["prefix_tokens_skipped"]
+                                     for b in batchers.values()),
+    }
+    if device.type == "cuda":
+        result["max_memory_allocated_bytes"] = \
+            torch.cuda.max_memory_allocated()
+    emit(result)
+    return k1, k2, wall
+
+
+# ----------------------------------------------------------- profile phase
+
+def _kernel_family(name):
+    for key, fam in (("paged_decode_kernel", "paged_decode_attention"),
+                     ("chunked_prefill_kernel", "chunked_prefill_attention"),
+                     ("gemm", "matmul"), ("gemv", "matmul"),
+                     ("xmma", "matmul"), ("cutlass", "matmul"),
+                     ("Memcpy", "memcpy"), ("Memset", "memset")):
+        if key in name:
+            return fam
+    return "other (elementwise, reductions, indexing)"
+
+
+def profile_phase(cfg, params, device, wall_unprofiled, max_len=2048):
+    """The main path's workload once more, on fresh batchers, under
+    ``torch.profiler`` (device activity only): device busy time as the
+    union of kernel intervals, and device time by kernel family. The busy
+    time does not depend on the profiler's host overhead, so the idle
+    share is read against the unprofiled run's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    orch, _b, _r, _f = serving_stack(cfg, params, device, max_len)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        orch.run_until_done(max_ticks=2000)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy, end = 0.0, float("-inf")
+    fam: dict = {}
+    for s, e, name in spans:
+        busy += max(0.0, e - max(s, end))
+        end = max(end, e)
+        f = fam.setdefault(_kernel_family(name), [0.0, 0])
+        f[0] += (e - s) / 1e3
+        f[1] += 1
+    busy_s = busy / 1e6
+    emit({"phase": "profile", "device_busy_s": busy_s,
+          "wall_s_profiled": wall, "wall_s_unprofiled": wall_unprofiled,
+          "device_idle_share": 1.0 - busy_s / wall_unprofiled,
+          "device_ms_by_family": {k: round(v[0], 3) for k, v in
+                                  sorted(fam.items(), key=lambda x: -x[1][0])},
+          "launches_by_family": {k: v[1] for k, v in fam.items()}})
+
+
+# ------------------------------------------------------------ replay phase
+
+def _capture(b, store):
+    """Record on the host the logits row behind every token ``b``
+    generates, keyed by (request id, token index) (the chunk forward is
+    re-run for boundary tokens; its K/V writes are the same values the
+    fused step then writes again)."""
+    from repro_torch.models.steps import make_chunked_prefill_step
+    chunk = make_chunked_prefill_step(b.model)
+    prefill, decode = b._fused_prefill, b._fused_decode
+
+    def pre(params, pages, tok, start, bt, dst, emit_slot, emit_off,
+            gen_idx, last, gen):
+        lg, _ = chunk(params, pages, tok, start, bt, dst)
+        for r, si in enumerate(emit_slot.tolist()):
+            if si < b.num_slots:
+                store[(b.slots[si].request_id, int(gen_idx[r]))] = \
+                    lg[r, int(emit_off[r])].float().cpu()
+        return prefill(params, pages, tok, start, bt, dst, emit_slot,
+                       emit_off, gen_idx, last, gen)
+
+    def dec(params, pages, last, host_mask, host_tok, pos, bt, write_slot,
+            gen_idx, gen):
+        out = decode(params, pages, last, host_mask, host_tok, pos, bt,
+                     write_slot, gen_idx, gen)
+        for si, ws in enumerate(write_slot.tolist()):
+            if ws == si:
+                store[(b.slots[si].request_id, int(gen_idx[si]))] = \
+                    out[0][si].float().cpu()
+        return out
+
+    b._fused_prefill, b._fused_decode = pre, dec
+
+
+def _streams(b):
+    out = {}
+    finish = b._finish_slot
+
+    def record(si):
+        b._materialize_slot(si)
+        s = b.slots[si]
+        out[s.request_id] = list(s.generated)
+        finish(si)
+
+    b._finish_slot = record
+    return out
+
+
+def replay(cfg, runs_on, max_len=256):
+    """``runs_on`` is [(card device, params), (cpu device, params)]: the
+    same four queries through a fresh batcher on each, with the logits
+    behind every token. Up to and including the first token where two
+    streams part, both sides computed their logits from the same tokens:
+    those must agree within ``REPLAY_LOGIT_TOL``, and a parting token is
+    legitimate only where the CPU's top-2 margin is at most twice that
+    step's largest logit gap (no smaller gap can reorder the top two)."""
+    import torch
+
+    from repro_torch.serving.batcher import PagedContinuousBatcher
+    streams, logits = [], []
+    for dev, params in runs_on:
+        b = PagedContinuousBatcher(cfg, params=params, num_slots=4,
+                                   max_len=max_len, device=dev)
+        streams.append(_streams(b))
+        logits.append({})
+        _capture(b, logits[-1])
+        for q, _p in QUICKSTART:
+            b.submit(q, max_new_tokens=8, trust_tier=1)
+        b.run_until_done()
+    (card, cpu), (card_lg, cpu_lg) = streams, logits
+    if sorted(card) != sorted(cpu):
+        raise AssertionError(f"replay requests differ: {sorted(card)} "
+                             f"vs {sorted(cpu)}")
+    diverged, gaps, margins = 0, [], []
+    for rid, want in cpu.items():
+        if len(card[rid]) != len(want):
+            raise AssertionError(f"replay request {rid}: {len(card[rid])} "
+                                 f"tokens on the card, {len(want)} on cpu")
+        for k, (a, c) in enumerate(zip(card[rid], want)):
+            ref = cpu_lg[(rid, k)]
+            gap = float((card_lg[(rid, k)] - ref).abs().max())
+            top = torch.topk(ref, 2).values
+            margin = float(top[0] - top[1])
+            gaps.append(gap)
+            margins.append(margin)
+            if not gap <= REPLAY_LOGIT_TOL:
+                raise AssertionError(
+                    f"replay request {rid} token {k}: card vs cpu logits "
+                    f"differ by {gap} > {REPLAY_LOGIT_TOL}")
+            if a != c:
+                if margin > 2 * gap:
+                    raise AssertionError(
+                        f"replay request {rid} token {k}: card {a} != cpu "
+                        f"{c} at a cpu top-2 margin of {margin} > twice "
+                        f"the logit gap {gap}")
+                diverged += 1
+                break
+    emit({"phase": "replay", "requests": len(cpu), "tokens_per_request": 8,
+          "steps_compared": len(gaps), "max_logit_gap": max(gaps),
+          "logit_tol": REPLAY_LOGIT_TOL,
+          "diverged_at_near_tie": diverged,
+          "min_cpu_margin": min(margins),
+          "identical_streams": sum(card[r] == cpu[r] for r in cpu)})
+
+
+# -------------------------------------------------------------------- main
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs the port on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} is missing; run from a "
+              f"checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = gpu_line()
+    gpu = torch.device("cuda")
+    emit({"phase": "device", "nvidia_smi": card,
+          "torch_name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.model import get_model
+    t0 = time.perf_counter()
+    _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": {k: [ln.strip() for ln in v.splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for k, v in _build.BUILD_LOGS.items()}})
+
+    rows = kernel_phase(gpu)
+
+    cfg = get_config("smollm-135m")            # full width, not .reduced()
+    params = get_model(cfg).init(seed=0, device=gpu)
+    k1, k2, wall = main_path(cfg, params, gpu)
+    rows["paged_decode_attention"]["launches"] = k1
+    rows["chunked_prefill_attention"]["launches"] = k2
+    profile_phase(cfg, params, gpu, wall)
+
+    cpu = torch.device("cpu")
+    params_cpu = {k: (v.to(cpu) if isinstance(v, torch.Tensor) else
+                      [{a: {n: t.to(cpu) for n, t in d.items()}
+                        for a, d in layer.items()} for layer in v])
+                  for k, v in params.items()}
+    replay(cfg, [(gpu, params), (cpu, params_cpu)])
+
+    print(card)
+    emit({"kernels": list(rows.values())})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,32 @@
+"""IslandRun on PyTorch and CUDA: the port of the JAX package ``repro``.
+
+The port carries the quickstart serving path end to end on an NVIDIA H100:
+``serving.engine.TickOrchestrator`` routes the pending pool once per tick
+(``core.routing``) into per-island ``serving.batcher.PagedContinuousBatcher``
+instances (chunked prefill, fused two-dispatch tick, greedy sampling) over
+the trust-tiered paged KV pool (``serving.kvpool``); ``models`` runs
+attention-only decoders whose paged attention goes through hand-written
+CUDA C++ kernels for ``sm_90a`` (``kernels``, sources in ``csrc/``).
+Entry points (``TickOrchestrator``, ``build_island_batchers``,
+``PagedContinuousBatcher``, ``Model.init``) run on the card unless the
+caller passes ``device="cpu"``; asking for the card without one raises.
+
+The port imports ``torch`` and ``numpy``, never ``jax`` and nothing of
+``repro``. The JAX-free modules it needs are verbatim copies of the
+reference, with only their import paths changed (and, in
+``serving/degrade.py``, one docstring sentence that named the reference's
+change history):
+
+* ``configs/base.py`` and every ``configs/*.py`` data module;
+* ``data/tokenizer.py``;
+* ``core/trust.py``, ``core/islands.py``, ``core/placeholder.py``,
+  ``core/mist.py``, ``core/tide.py``, ``core/lighthouse.py`` and
+  ``core/waves.py``;
+* ``serving/degrade.py`` (``waves.py`` needs ``RejectReason``);
+* ``obs/metrics.py`` (``aggregate_stats`` needs ``latency_summary``).
+
+Ported modules keep the reference's paths and names
+(``repro_torch/models/attention.py`` <-> ``repro/models/attention.py``);
+``core/routing.py`` ports ``core/routing_jax.py`` and ``bridge.py`` moves
+the reference's weights across for the parity tests.
+"""

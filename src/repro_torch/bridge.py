@@ -1,0 +1,124 @@
+"""Move the reference package's parameters into the port's layout.
+
+The reference keeps a param pytree with the repeating layers stacked
+along a leading dim (``params["blocks"]["slot{s}"][...]`` of shape
+(n_groups, ...)) and any non-repeating layers as ``head_{i}`` /
+``tail_{j}``; the port keeps one dict per layer in depth order
+(``params["layers"][i]``). ``from_reference`` takes the reference's tree
+with every leaf already a numpy array (``jax.tree.map(np.asarray,
+params)`` on the caller's side — the port never imports JAX) and
+``to_reference`` inverts it, so a round trip is exact.
+
+numpy has no bfloat16: a bf16 leaf arrives as numpy's ml_dtypes
+``bfloat16`` (or as ``uint16`` raw bits) and travels bit-exactly as
+16-bit integers -> ``torch.Tensor.view(torch.bfloat16)``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import effective_pattern
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16"
+
+
+def to_torch(a, device="cpu") -> torch.Tensor:
+    """One numpy leaf -> tensor, bit-exact (bf16 through its uint16 bits)."""
+    a = np.ascontiguousarray(a)
+    if _is_bf16(a):
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a.copy()).to(device)
+
+
+def to_numpy(t: torch.Tensor, like: np.ndarray | None = None) -> np.ndarray:
+    """One tensor -> numpy, bit-exact; bf16 returns ``like``'s dtype (the
+    reference's ml_dtypes bfloat16) when given, else raw uint16 bits."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        bits = t.view(torch.int16).numpy().view(np.uint16)
+        return bits.view(like.dtype) if like is not None else bits
+    return t.numpy()
+
+
+def _map(tree, fn):
+    return {k: (_map(v, fn) if isinstance(v, dict) else fn(v))
+            for k, v in tree.items()}
+
+
+def _layer_order(cfg, ref_params):
+    """(key, group_index_or_None) for every layer in depth order."""
+    order = [(k, None) for k in sorted(
+        (k for k in ref_params if k.startswith("head_")),
+        key=lambda k: int(k.split("_")[1]))]
+    if "blocks" in ref_params:
+        pat = effective_pattern(cfg)
+        n_groups = next(iter(_leaves(ref_params["blocks"]))).shape[0]
+        for g in range(n_groups):
+            for s in range(len(pat)):
+                order.append((f"slot{s}", g))
+    order += [(k, None) for k in sorted(
+        (k for k in ref_params if k.startswith("tail_")),
+        key=lambda k: int(k.split("_")[1]))]
+    return order
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def from_reference(cfg, ref_params, device="cpu"):
+    """The reference's numpy param tree -> the port's param dict."""
+    out = {k: to_torch(v, device) for k, v in ref_params.items()
+           if not isinstance(v, dict)}
+    layers = []
+    for key, g in _layer_order(cfg, ref_params):
+        if g is None:
+            layers.append(_map(ref_params[key], lambda a: to_torch(a, device)))
+        else:
+            layers.append(_map(ref_params["blocks"][key],
+                               lambda a, g=g: to_torch(a[g], device)))
+    out["layers"] = layers
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"bridged {len(layers)} layers, config has "
+                         f"{cfg.num_layers}")
+    return out
+
+
+def to_reference(cfg, params, like):
+    """Invert ``from_reference``: the port's params -> a numpy tree in the
+    reference's layout. ``like`` is the reference's numpy tree (it fixes
+    the segment names and the bf16 dtype)."""
+    out = {k: to_numpy(params[k], like[k]) for k in like
+           if not isinstance(like[k], dict)}
+    order = _layer_order(cfg, like)
+    stacked: dict = {}
+    for (key, g), layer in zip(order, params["layers"]):
+        if g is None:
+            out[key] = _map_pair(layer, like[key], to_numpy)
+        else:
+            stacked.setdefault(key, []).append(
+                _map_pair(layer, like["blocks"][key],
+                          lambda t, ref: to_numpy(t, ref)))
+    if stacked:
+        out["blocks"] = {k: _stack(v) for k, v in stacked.items()}
+    return out
+
+
+def _map_pair(tree, like, fn):
+    return {k: (_map_pair(v, like[k], fn) if isinstance(v, dict)
+                else fn(v, like[k])) for k, v in tree.items()}
+
+
+def _stack(trees):
+    first = trees[0]
+    return {k: (_stack([t[k] for t in trees]) if isinstance(first[k], dict)
+                else np.stack([t[k] for t in trees]))
+            for k in first}

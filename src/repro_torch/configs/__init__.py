@@ -1,0 +1,1 @@
+"""configs of the PyTorch/CUDA port (see ``repro_torch``)."""

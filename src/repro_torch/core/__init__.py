@@ -1,0 +1,1 @@
+"""core of the PyTorch/CUDA port (see ``repro_torch``)."""

@@ -1,0 +1,1 @@
+"""data of the PyTorch/CUDA port (see ``repro_torch``)."""

@@ -1,0 +1,138 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, at first use, under
+``build/repro_torch/`` at the repository root. The file name carries a
+hash of the sources, so an edited kernel rebuilds and an unchanged one
+loads from disk. ``build_all`` starts one ``nvcc`` per source at once.
+Nothing here runs at import time: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+KERNELS = ("paged_attention", "chunked_prefill")
+# the kernels' compiled head_dim variants: those of the configs the port
+# runs (smollm-135m 64; qwen3, glm4 128; their .reduced() widths 32)
+HEAD_DIMS = (32, 64, 128)
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# name -> loaded ctypes library; name -> ptxas report of its build
+_LIBS: dict = {}
+BUILD_LOGS: dict = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on "
+                           "a machine with the CUDA toolkit")
+    return nvcc
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    """Start the build of one kernel; None when it is already on disk."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _wait(name: str, job) -> str | None:
+    """Wait for one build; returns nvcc's log if it failed."""
+    if job is None:
+        return None
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    BUILD_LOGS[name] = log
+    if proc.returncode != 0:
+        return log
+    os.replace(tmp, out)
+    return None
+
+
+def _finish(name: str, job):
+    log = _wait(name, job)
+    if log is not None:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+
+
+def build_all(names=KERNELS):
+    """Build every named kernel, one nvcc process each, all at once; every
+    build is waited for before a failure is raised."""
+    jobs = {n: _start(n) for n in names}
+    failed = {n: _wait(n, job) for n, job in jobs.items()}
+    logs = [f"nvcc failed for {n}.cu:\n{log}"
+            for n, log in failed.items() if log is not None]
+    if logs:
+        raise RuntimeError("\n".join(logs))
+
+
+def check_paged_args(q, k_pages, v_pages, block_table, lens, q_rank):
+    """Validate the tensors a paged attention kernel reads (raises
+    ValueError); returns (q dtype code, page dtype code)."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    ts = (q, k_pages, v_pages, block_table, lens)
+    if any(t.device != q.device for t in ts):
+        raise ValueError("paged attention: all tensors must share q's device")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError("paged attention: tensors must be contiguous")
+    if q.dtype not in codes or k_pages.dtype not in codes:
+        raise ValueError(f"paged attention: q {q.dtype} / pages "
+                         f"{k_pages.dtype} must be float32 or bfloat16")
+    if v_pages.dtype != k_pages.dtype or v_pages.shape != k_pages.shape:
+        raise ValueError("paged attention: k/v pages differ in dtype/shape")
+    if block_table.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise ValueError("paged attention: block_table and lengths must "
+                         "be int32")
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    if q.dim() != q_rank or k_pages.dim() != 4 or k_pages.shape[3] != D \
+            or H % k_pages.shape[2]:
+        raise ValueError(f"paged attention: bad shapes q {tuple(q.shape)}, "
+                         f"pages {tuple(k_pages.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"paged attention: head_dim {D} not in {HEAD_DIMS}")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged attention: pages must be 16-byte aligned")
+    if block_table.dim() != 2 or block_table.shape[0] != B \
+            or lens.shape != (B,):
+        raise ValueError(f"paged attention: block_table "
+                         f"{tuple(block_table.shape)} / lengths "
+                         f"{tuple(lens.shape)} do not match batch {B}")
+    return codes[q.dtype], codes[k_pages.dtype]
+
+
+def load_entry(name: str, entry: str, argtypes):
+    """The C entry ``entry`` of kernel ``name`` (built on first use), with
+    its ``argtypes`` declared and an ``int`` (cudaError_t) result."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        _finish(name, _start(name))
+        lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn

@@ -1,0 +1,66 @@
+"""Plain PyTorch versions of the paged attention kernels.
+
+Each function keeps the signature and the tensor layouts of the kernel it
+stands beside (``paged_attention.py``, ``chunked_prefill.py``); the math is
+fp32 throughout with the finite ``NEG_INF`` mask, so a fully masked
+position contributes an exact zero (``-inf - -inf`` would be NaN). The
+wrappers call these for CPU tensors, and ``chip_smoke.py`` holds each CUDA
+kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _gather_pages(pages, block_table):
+    """(P, ps, Hkv, D) pool + (B, N) table -> (B, N*ps, Hkv, D) fp32."""
+    B, N = block_table.shape
+    _, ps, Hkv, D = pages.shape
+    return pages[block_table.long()].reshape(B, N * ps, Hkv, D).float()
+
+
+def paged_decode_attention(q, k_pages, v_pages, block_table, valid_lens,
+                           scale):
+    """q (B, H, D); k_pages/v_pages (P, page_size, Hkv, D); block_table
+    (B, N) int32; valid_lens (B,) int32. Gathers each sequence's K/V
+    through its block table, masks positions >= valid_lens[b]."""
+    B, H, D = q.shape
+    Hkv = k_pages.shape[2]
+    G = H // Hkv
+    k = _gather_pages(k_pages, block_table)
+    v = _gather_pages(v_pages, block_table)
+    qg = q.reshape(B, Hkv, G, D).float()
+    s = torch.einsum("bhgd,bkhd->bhgk", qg, k) * scale
+    kpos = torch.arange(k.shape[1], device=q.device)
+    valid = valid_lens.to(torch.int64).reshape(B)
+    s = torch.where(kpos[None, None, None, :] < valid[:, None, None, None],
+                    s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v)
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def chunked_prefill_attention(q, k_pages, v_pages, block_table, start_pos,
+                              scale):
+    """q (B, T, H, D) — T fresh tokens, token t of sequence b at absolute
+    position ``start_pos[b] + t``; k_pages/v_pages (P, page_size, Hkv, D)
+    already holding the chunk's own K/V; block_table (B, N) int32;
+    start_pos (B,) int32. Causal over absolute positions."""
+    B, T, H, D = q.shape
+    Hkv = k_pages.shape[2]
+    G = H // Hkv
+    k = _gather_pages(k_pages, block_table)
+    v = _gather_pages(v_pages, block_table)
+    qg = q.reshape(B, T, Hkv, G, D).float()
+    s = torch.einsum("bthgd,bkhd->bthgk", qg, k) * scale
+    start = start_pos.to(torch.int64).reshape(B)
+    qpos = start[:, None] + torch.arange(T, device=q.device)[None]   # (B, T)
+    kpos = torch.arange(k.shape[1], device=q.device)                 # (K,)
+    mask = kpos[None, None, :] <= qpos[:, :, None]                   # (B,T,K)
+    s = torch.where(mask[:, :, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bthgk,bkhd->bthgd", p, v)
+    return o.reshape(B, T, H, D).to(q.dtype)

@@ -1,0 +1,1 @@
+"""models of the PyTorch/CUDA port (see ``repro_torch``)."""

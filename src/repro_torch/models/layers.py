@@ -1,0 +1,110 @@
+"""Shared layer primitives + parameter-table machinery.
+
+Port of ``repro/models/layers.py``. Every block defines a *parameter
+table*: a nested dict mapping name -> ``PSpec(shape, logical_axes,
+init)``; ``init_params`` draws real tensors from one table with an
+explicit ``torch.Generator``, following the reference's rules (normal
+scaled by fan_in^-1/2, zero-init norms, explicit scales such as the
+embedding's 0.02). The draws are the port's own: a ``torch.Generator``
+gives other numbers than ``jax.random`` for the same seed, so parity tests
+move the reference's weights across with ``repro_torch.bridge`` instead.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class PSpec:
+    shape: tuple
+    axes: tuple  # logical axis names (len == len(shape))
+    init: str = "normal"  # normal | zeros
+    scale: Optional[float] = None  # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def _walk(table, prefix=()):
+    """(path, PSpec) leaves of a nested table, keys sorted (the reference's
+    pytree flattening order)."""
+    for k in sorted(table):
+        v = table[k]
+        if isinstance(v, PSpec):
+            yield prefix + (k,), v
+        else:
+            yield from _walk(v, prefix + (k,))
+
+
+def init_params(table, generator: torch.Generator, dtype, device):
+    """Real tensors for every leaf of ``table``, drawn in flattening order
+    from ``generator`` (which must live on ``device``)."""
+    out: dict = {}
+    for path, spec in _walk(table):
+        if spec.init == "zeros":
+            w = torch.zeros(spec.shape, dtype=dtype, device=device)
+        elif spec.init == "normal":
+            scale = spec.scale
+            if scale is None:
+                fan_in = (spec.shape[-2] if len(spec.shape) >= 2
+                          else spec.shape[-1])
+                scale = fan_in ** -0.5
+            w = (torch.randn(spec.shape, generator=generator,
+                             dtype=torch.float32, device=device)
+                 * scale).to(dtype)
+        else:
+            raise ValueError(f"init {spec.init!r} belongs to a block family "
+                             f"the port does not carry yet")
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = w
+    return out
+
+
+# ---------------------------------------------------------------- primitives
+
+def rms_norm(x, w, eps=1e-6):
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def rope_freqs(head_dim, theta, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, D); positions: (..., S) int. Split-half rotation
+    (the first D/2 lanes pair with the last D/2), as the reference."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                       # (d/2,)
+    angles = positions[..., None].float() * freqs              # (..., S, d/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, d/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu_table(d_model, d_ff, ff_axis="ff"):
+    return {
+        "w_gate": PSpec((d_model, d_ff), (None, ff_axis)),
+        "w_up": PSpec((d_model, d_ff), (None, ff_axis)),
+        "w_down": PSpec((d_ff, d_model), (ff_axis, None)),
+    }
+
+
+def swiglu_apply(p, x):
+    """Weights are stored (d_in, d_out), as the reference: ``x @ W``."""
+    g = torch.matmul(x, p["w_gate"])
+    u = torch.matmul(x, p["w_up"])
+    h = F.silu(g.float()).to(x.dtype) * u
+    return torch.matmul(h, p["w_down"])

@@ -1,0 +1,108 @@
+"""Step functions of the paged serving path.
+
+Port of the paged builders of ``repro/models/steps.py``. The reference
+jits each step and donates the pool; here each step is a plain function
+that runs eagerly on the device of its tensors and updates the pool pages,
+``last_tok`` and ``gen_buf`` in place.
+
+Device-resident sampling state (``last_tok`` (num_slots + 1,),
+``gen_buf`` (num_slots + 1, max_len)) carries ONE extra row at index
+``num_slots``: rows the reference writes with ``mode="drop"`` (slot ==
+num_slots: padding, idle, stalled or host-sampled rows) land there and
+are never read, which drops them without a host sync or an out-of-range
+index.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.serving.sampling import sample
+
+
+def make_chunked_prefill_step(model):
+    """One page-aligned prefill chunk against the paged KV pool: token
+    (1, C*page_size) ids for C consecutive whole pages (zero-padded past
+    the prompt), ``start`` (1,) absolute position of the chunk's first
+    token, block_table (1, N) physical page ids covering every page the
+    sequence occupies through this chunk, ``dst_page`` (C,) page ids the
+    chunk's K/V lands on — an entry equal to the reserved scratch page
+    masks the write. Returns the chunk's full logits (1, C*page_size, V)
+    plus the pool cache."""
+    def chunked_prefill_step(params, cache, token, start, block_table,
+                             dst_page):
+        logits, cache = model.forward(
+            params, mode="chunk", tokens=token, cache=cache, pos=start,
+            block_table=block_table, dst_page=dst_page)
+        return logits, cache
+
+    return chunked_prefill_step
+
+
+def make_fused_prefill_step(model):
+    """One fused dispatch for EVERY prefill chunk run of a batcher tick,
+    with on-device first-token emission.
+
+    Rows are independent chunk runs, possibly from different requests:
+    token (R, C*page_size) zero-padded ids, ``start`` (R,) absolute
+    positions of each run's first token, block_table (R, W), dst_page
+    (R, C) pool page ids (scratch page == masked write). Runs whose request
+    completes its prompt emit their boundary argmax token straight into
+    the device-resident sampling state: ``emit_slot`` (R,) is the decode
+    slot to write (num_slots = no emission: the dump row), ``emit_off``
+    (R,) the boundary row inside the run, ``gen_idx`` (R,) the write index
+    into ``gen_buf``. Returns (last_tok, gen_buf, cache) — no logits leave
+    the device, so the host never syncs."""
+    def fused_prefill_step(params, cache, token, start, block_table,
+                           dst_page, emit_slot, emit_off, gen_idx,
+                           last_tok, gen_buf):
+        logits, cache = model.forward(
+            params, mode="chunk", tokens=token, cache=cache, pos=start,
+            block_table=block_table, dst_page=dst_page)
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        bound = sample(logits[rows, emit_off.long()])
+        slot = emit_slot.long()
+        last_tok[slot] = bound
+        gen_buf[slot, gen_idx.long()] = bound
+        return last_tok, gen_buf, cache
+
+    return fused_prefill_step
+
+
+def make_paged_serve_step(model):
+    """One decode step for ALL sequences of a paged KV pool: token (B,1),
+    pos (B,) per-sequence absolute positions, block_table (B,N) physical
+    page ids. ``cache`` is the pool's list of per-layer page dicts."""
+    def paged_serve_step(params, cache, token, pos, block_table):
+        logits, cache = model.forward(
+            params, mode="decode", tokens=token, cache=cache, pos=pos,
+            block_table=block_table)
+        return logits[:, 0, :], cache
+
+    return paged_serve_step
+
+
+def make_fused_decode_step(model):
+    """Paged decode over all slots against DEVICE-RESIDENT sampling state:
+    each row's input token comes from ``host_tok`` where ``host_mask`` is
+    set (admission-seeded or host-sampled tokens) and from ``last_tok``
+    otherwise (tokens the device produced in earlier dispatches and the
+    host never saw). Greedy next tokens are written back into ``last_tok``
+    and logged at ``gen_buf[write_slot, gen_idx]`` — rows with write_slot
+    == num_slots (idle or stalled slots) write the dump row. Returns
+    (logits, last_tok, gen_buf, cache); greedy callers ignore the logits,
+    so nothing forces a device sync."""
+    def fused_decode_step(params, cache, last_tok, host_mask, host_tok,
+                          pos, block_table, write_slot, gen_idx, gen_buf):
+        B = host_tok.shape[0]
+        tok = torch.where(host_mask, host_tok, last_tok[:B])[:, None]
+        logits, cache = model.forward(
+            params, mode="decode", tokens=tok, cache=cache, pos=pos,
+            block_table=block_table)
+        logits = logits[:, 0, :]
+        nxt = sample(logits)
+        slot = write_slot.long()
+        last_tok[slot] = nxt
+        gen_buf[slot, gen_idx.long()] = nxt
+        return logits, last_tok, gen_buf, cache
+
+    return fused_decode_step

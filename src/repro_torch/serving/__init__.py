@@ -1,0 +1,1 @@
+"""serving of the PyTorch/CUDA port (see ``repro_torch``)."""

@@ -1,0 +1,464 @@
+"""Tick-batched serving orchestrator: WAVES routing wired to island
+batchers.
+
+Port of the ``TickOrchestrator`` main path of ``repro/serving/engine.py``:
+``submit()`` only enqueues; each scheduling ``tick()`` routes the whole
+pending pool in ONE ``route_batch_tick`` pass on the orchestrator's device
+(capacity-aware within the tick), dispatches SHORE work into per-island
+``PagedContinuousBatcher``s and HORIZON work as virtual-time simulated
+completions, runs the batchers, feeds KV-pool pressure back into TIDE and
+the Lighthouse, and drains finished sequences through MIST
+desanitization. Time is virtual, so routing dynamics are deterministic.
+
+Not ported yet: the per-request ``InferenceEngine``/``LocalModelServer``,
+island drain and failure with migration, SLO expiry and classes, load
+shedding and backpressure, tenant fairness, and the tracer.
+"""
+from __future__ import annotations
+
+import math
+import random
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import routing as rt
+from repro_torch.core.islands import STATUS_FAILED
+from repro_torch.core.waves import Decision, Request
+from repro_torch.models.model import resolve_device
+from repro_torch.obs.metrics import latency_summary
+from repro_torch.serving.kvpool import trust_tier_for_sensitivity
+
+
+@dataclass
+class Response:
+    text: str
+    island_id: str
+    latency_ms: float
+    cost: float
+    sensitivity: float
+    sanitized: bool
+    decision: Decision
+    tokens: Optional[list] = None
+    # the serving island's declared privacy, snapshotted at completion
+    island_privacy: Optional[float] = None
+
+
+class CloudSimulator:
+    """HORIZON executor: canned echo responses (placeholder-aware) with a
+    latency/queueing model."""
+
+    def __init__(self, seed=0):
+        self.rng = random.Random(seed)
+
+    def complete(self, island, query: str) -> tuple:
+        words = [w for w in query.split() if w.startswith("[") or len(w) > 6]
+        ref = words[0] if words else "that"
+        text = (f"Regarding {ref}: here is a detailed answer from "
+                f"{island.island_id}.")
+        jitter = self.rng.uniform(0.8, 1.4)
+        return text, island.latency_ms * jitter
+
+
+def aggregate_stats(log, rejected, registry):
+    """Shared serving metrics: counts, cost, latency percentiles, privacy
+    accounting and the per-island distribution."""
+    n = len(log)
+    if n == 0:
+        return {"n": 0, "rejected": len(rejected)}
+    by_island = {}
+    for r in log:
+        by_island[r.island_id] = by_island.get(r.island_id, 0) + 1
+
+    def _privacy(r):
+        if r.island_privacy is not None:
+            return r.island_privacy
+        if r.island_id in registry:
+            return registry.get(r.island_id).privacy
+        return 0.0       # island gone, no snapshot: count it (fail closed)
+    viol = sum(1 for r in log if r.sensitivity > _privacy(r))
+    return {
+        "n": n,
+        "rejected": len(rejected),
+        "cost_total": sum(r.cost for r in log),
+        **latency_summary(r.latency_ms for r in log),
+        "privacy_violations": viol,
+        "sanitized": sum(1 for r in log if r.sanitized),
+        "by_island": by_island,
+    }
+
+
+@dataclass
+class PendingRequest:
+    rid: int
+    req: Request
+    max_new_tokens: int
+    submitted_at: float        # virtual clock at submission
+
+
+class TickOrchestrator:
+    """Batched scheduling-tick serving loop.
+
+    ``submit()`` enqueues; every ``tick()``:
+
+    1. packs the pending pool and routes it in ONE ``route_batch_tick``
+       pass — the greedy pass decrements bounded-island capacity per
+       assignment, so a single tick cannot oversubscribe an island — and
+       writes the final TIDE state back;
+    2. dispatches accepted SHORE requests into that island's batcher and
+       HORIZON requests as simulated async completions;
+    3. runs up to ``decode_ticks_per_tick`` batcher ticks per island,
+       completes finished sequences through MIST desanitization and
+       reports pool pressure and telemetry;
+    4. advances the virtual clocks by ``tick_interval_s`` and releases
+       simulated completions whose latency has elapsed.
+
+    Routing runs on ``device`` (None = the card); its results cross to
+    the host once per tick.
+    """
+
+    def __init__(self, waves, registry, batchers=None, seed=0,
+                 decode_ticks_per_tick=4, tick_interval_s=0.05,
+                 device=None):
+        self.waves = waves
+        self.registry = registry
+        self.batchers = batchers or {}
+        self.device = resolve_device(device)
+        self.cloud = CloudSimulator(seed)
+        self.decode_ticks_per_tick = decode_ticks_per_tick
+        self.tick_interval_s = tick_interval_s
+        self.pending: list[PendingRequest] = []
+        self.results: dict[int, Optional[Response]] = {}
+        self._local_inflight: dict[tuple, tuple] = {}
+        self._sim_inflight: list = []
+        self.log: list[Response] = []
+        self.rejected: list[Decision] = []
+        self._next_rid = 0
+        self._util_sum: dict[str, float] = {}
+        self._util_n: dict[str, int] = {}
+        self._work_seen: dict[str, int] = {}
+        self.tick_stats = {"ticks": 0, "route_calls": 0, "routed": 0,
+                           "decode_ticks": 0, "pool_peak": 0,
+                           "admissions": 0, "prefill_dispatches": 0,
+                           "device_dispatches": 0, "tick_dispatches_max": 0}
+
+    # --------------------------------------------------------- submission
+    def submit(self, req: Request, max_new_tokens=12) -> int:
+        """Enqueue; returns a request id resolved in ``results`` once the
+        request completes (None if rejected)."""
+        rid = self._next_rid
+        self._next_rid += 1
+        self.pending.append(PendingRequest(rid, req, max_new_tokens,
+                                           self.waves.tide.clock))
+        self.tick_stats["pool_peak"] = max(self.tick_stats["pool_peak"],
+                                           len(self.pending))
+        return rid
+
+    # ------------------------------------------------------------ routing
+    def route_pool(self, reqs: list) -> list:
+        """Route a list of Requests exactly as one scheduling tick would
+        (used directly by the parity tests); returns one Decision per
+        request, in order."""
+        pool = [PendingRequest(-1 - i, r, 0, self.waves.tide.clock)
+                for i, r in enumerate(reqs)]
+        return self._route_pool(pool)
+
+    def _route_pool(self, pool) -> list:
+        waves = self.waves
+        pol = waves.policy
+        if waves._extra_agents:
+            # extension agents are opaque Python callables — keep their
+            # semantics by delegating the whole pool to the scalar oracle
+            return [waves.route(p.req) for p in pool]
+        decisions: list = [None] * len(pool)
+        live = []                        # (pool index, sensitivity)
+        for idx, p in enumerate(pool):
+            if not waves._limiter.allow(p.req.user, waves.tide.clock):
+                decisions[idx] = Decision(None, False, "rate_limited", -1.0)
+                continue
+            s_r = (p.req.sensitivity_override
+                   if p.req.sensitivity_override is not None
+                   else waves.mist.analyze(p.req.query).score)
+            live.append((idx, s_r))
+        islands = waves.lighthouse.get_islands()
+        # a crashed LIGHTHOUSE serves its cached list unfiltered; drop
+        # draining/failed islands here so the batched router can never
+        # route onto them (the scalar path rejects them via TIDE.admits)
+        routable = getattr(self.registry, "is_routable", None)
+        if routable is not None:
+            islands = [i for i in islands if routable(i.island_id)]
+        # TIDE-flagged stragglers take no new work while flagged; if EVERY
+        # island is flagged, keep them all
+        ok = [i for i in islands
+              if not waves.tide.is_straggler(i.island_id)]
+        if ok:
+            islands = ok
+        if not live:
+            return decisions
+        if not islands:
+            for idx, s_r in live:
+                decisions[idx] = Decision(None, False, "infeasible", s_r)
+            return decisions
+
+        dev = self.device
+        ds_ids = sorted({pool[idx].req.dataset for idx, _ in live
+                         if pool[idx].req.dataset})
+        # pad the dataset columns to a power of two with names no island
+        # declares (all-False columns), as the reference does
+        if ds_ids:
+            ds_cols = 1 << (len(ds_ids) - 1).bit_length()
+            ds_ids_padded = ds_ids + [f"__pad{i}"
+                                      for i in range(ds_cols - len(ds_ids))]
+        else:
+            ds_ids_padded = []
+        tbl = rt.pack_islands(islands, ds_ids_padded, waves.tide,
+                              pol.trust_mode, device=dev)
+        # bucket the pool to the next power of two, as the reference does.
+        # Padding rows carry sensitivity 2.0: infeasible on every island
+        # (privacy <= 1), never queued, so they add no load and touch no
+        # hysteresis
+        m = len(live)
+        M = 1 << (m - 1).bit_length()
+        pad = M - m
+        reqs = rt.pack_requests(
+            [s for _, s in live] + [2.0] * pad,
+            [waves.tide.threshold(pool[idx].req.priority)
+             for idx, _ in live] + [0.0] * pad,
+            [pool[idx].req.deadline_ms for idx, _ in live]
+            + [math.inf] * pad,
+            [ds_ids.index(pool[idx].req.dataset)
+             if pool[idx].req.dataset else -1 for idx, _ in live]
+            + [-1] * pad,
+            [pool[idx].req.priority == "primary" for idx, _ in live]
+            + [False] * pad,
+            n_datasets=max(len(ds_ids), 1), device=dev)
+        # request×island constraints outside the packed tables
+        extra = np.ones((M, len(islands)), bool)
+        for row, (idx, _) in enumerate(live):
+            r = pool[idx].req
+            for col, isl in enumerate(islands):
+                if r.model and isl.models and r.model not in isl.models:
+                    extra[row, col] = False
+                if pol.allowed_jurisdictions is not None and \
+                        isl.jurisdiction not in pol.allowed_jurisdictions:
+                    extra[row, col] = False
+        state = rt.pack_tide_state(islands, waves.tide, device=dev)
+        budget = (pol.budget_per_request
+                  if pol.budget_per_request is not None else math.inf)
+        weights = torch.tensor([pol.w_cost, pol.w_latency, pol.w_privacy],
+                               dtype=torch.float32, device=dev)
+        assign, acc, que, score, ncand, new_state = rt.route_batch_tick(
+            tbl, reqs, weights, state, torch.from_numpy(extra).to(dev),
+            mode=pol.mode, on_infeasible=pol.on_infeasible, budget=budget,
+            min_trust=pol.min_trust, cost_scale=pol.cost_scale,
+            latency_scale=pol.latency_scale_ms)
+        # ONE device -> host transfer for the whole tick's results; every
+        # value is exact in float32 (small ints, bools, float32 state)
+        keys = ("cpu", "gpu", "mem", "inflight", "local_ok")
+        host = torch.cat([assign.float(), acc.float(), que.float(), score,
+                          ncand.float()]
+                         + [new_state[k].float() for k in keys]).cpu().numpy()
+        n = len(islands)
+        assign, acc, que, score, ncand = (host[k * M:(k + 1) * M]
+                                          for k in range(5))
+        fin = {k: host[5 * M + c * n:5 * M + (c + 1) * n]
+               for c, k in enumerate(keys)}
+        fin["local_ok"] = fin["local_ok"] > 0.5
+        rt.unpack_tide_state(fin, islands, waves.tide)
+        for row, (idx, s_r) in enumerate(live):
+            if not acc[row]:
+                decisions[idx] = Decision(None, False, "infeasible", s_r)
+                continue
+            island = islands[int(assign[row])]
+            reason = "queued_local" if que[row] else "routed"
+            # queued_local: the scalar path reports the _finish default
+            # (1), not the zero feasible islands the router counted
+            d = waves._finish(pool[idx].req, island, s_r, reason,
+                              n_candidates=1 if que[row]
+                              else int(ncand[row]),
+                              account_load=False)
+            d.score = float(score[row])
+            decisions[idx] = d
+        self.tick_stats["route_calls"] += 1
+        return decisions
+
+    # --------------------------------------------------------------- tick
+    def tick(self) -> list:
+        """One scheduling tick; returns the Responses completed in it."""
+        waves = self.waves
+        completed: list[Response] = []
+        pool, self.pending = self.pending, []
+        if pool:
+            for p, d in zip(pool, self._route_pool(pool)):
+                if not d.accepted:
+                    self.rejected.append(d)
+                    self.results[p.rid] = None
+                    continue
+                self.tick_stats["routed"] += 1
+                island = d.island
+                query = (d.sanitized_history[-1] if d.sanitize
+                         else p.req.query)
+                b = self.batchers.get(island.island_id)
+                if b is not None:
+                    # KV pages this request produces carry its MIST trust
+                    # tier; prefix sharing is only legal within a tier
+                    brid = b.submit(
+                        query, p.max_new_tokens,
+                        trust_tier=trust_tier_for_sensitivity(
+                            d.sensitivity))
+                    self._local_inflight[(island.island_id, brid)] = (p, d)
+                else:
+                    text, exec_ms = self.cloud.complete(island, query)
+                    ready = waves.tide.clock + \
+                        (island.latency_ms + exec_ms) / 1000.0
+                    self._sim_inflight.append((ready, p, d, text, exec_ms))
+        # SHORE: continuous-batching ticks
+        for iid, b in self.batchers.items():
+            blocked = 0            # accumulated: b.tick() resets its count
+            for _ in range(self.decode_ticks_per_tick):
+                if not b.busy():
+                    break
+                b.tick()
+                blocked += b.blocked_last_tick
+                self.tick_stats["decode_ticks"] += 1
+                self._util_sum[iid] = self._util_sum.get(iid, 0.0) \
+                    + b.utilization()
+                self._util_n[iid] = self._util_n.get(iid, 0) + 1
+            for brid in list(b.finished):
+                key = (iid, brid)
+                if key not in self._local_inflight:
+                    continue           # submitted outside the orchestrator
+                p, d = self._local_inflight.pop(key)
+                text = b.finished.pop(brid)
+                if text is None:       # executor-level rejection (e.g. the
+                    self.rejected.append(d)    # request can't fit the pool)
+                    self.results[p.rid] = None
+                    continue
+                completed.append(self._complete(p, d, text))
+            # KV-pool pressure feedback + telemetry
+            kv_pool = b.pool
+            if waves.tide.crashed:
+                # fail closed: no prefix sharing on a crashed-TIDE island
+                kv_pool.disable_sharing()
+            backlog = b.prefill_backlog_tokens()
+            waves.tide.report_pool_pressure(
+                iid, kv_pool.occupancy(), blocked=blocked,
+                prefill_backlog=backlog)
+            waves.lighthouse.report_pool(iid, dict(
+                kv_pool.telemetry(), prefill_backlog=backlog,
+                prefix_tokens_skipped=b.stats.get("prefix_tokens_skipped",
+                                                  0),
+                work_clock=b.work_clock, tiers=b.tier_telemetry()))
+        # per-island progress feedback for straggler detection
+        for iid, b in self.batchers.items():
+            waves.tide.report_progress(
+                iid, b.work_clock - self._work_seen.get(iid, 0), b.busy())
+            self._work_seen[iid] = b.work_clock
+        bs = self.batchers.values()
+        for k in ("admissions", "prefill_dispatches", "device_dispatches"):
+            self.tick_stats[k] = sum(b.stats.get(k, 0) for b in bs)
+        self.tick_stats["tick_dispatches_max"] = max(
+            [b.stats.get("tick_dispatches_max", 0) for b in bs] or [0])
+        # advance virtual time
+        waves.tide.advance(self.tick_interval_s)
+        waves.lighthouse.advance(self.tick_interval_s)
+        for isl in self.registry.all():
+            if self.registry.status(isl.island_id) != STATUS_FAILED:
+                waves.lighthouse.heartbeat(isl.island_id)
+        # HORIZON / simulated completions whose latency has elapsed
+        still = []
+        for ready, p, d, text, exec_ms in self._sim_inflight:
+            if ready <= waves.tide.clock:
+                # elapsed virtual time already contains the island's base
+                # latency (it set the ready time) — don't add it again
+                completed.append(self._complete(p, d, text, exec_ms,
+                                                include_base=False))
+            else:
+                still.append((ready, p, d, text, exec_ms))
+        self._sim_inflight = still
+        self.tick_stats["ticks"] += 1
+        return completed
+
+    def _complete(self, p, d, text, exec_ms=0.0,
+                  include_base=True) -> Response:
+        if d.sanitize and d.placeholder_store is not None:
+            text = self.waves.mist.desanitize(text, d.placeholder_store)
+        elapsed = (self.waves.tide.clock - p.submitted_at) * 1000.0
+        latency = max(elapsed, exec_ms)
+        if include_base:                 # local exec: add the network RTT
+            latency += d.island.latency_ms
+        resp = Response(text=text, island_id=d.island.island_id,
+                        latency_ms=latency,
+                        cost=d.island.cost_per_request,
+                        sensitivity=d.sensitivity, sanitized=d.sanitize,
+                        decision=d, island_privacy=d.island.privacy)
+        self.log.append(resp)
+        self.results[p.rid] = resp
+        return resp
+
+    # ------------------------------------------------------------ control
+    def busy(self) -> bool:
+        return bool(self.pending or self._local_inflight
+                    or self._sim_inflight)
+
+    def run_until_done(self, max_ticks=10_000) -> list:
+        """Tick until every submitted request has resolved; returns the
+        Responses completed during the run."""
+        out = []
+        while self.busy() and self.tick_stats["ticks"] < max_ticks:
+            out.extend(self.tick())
+        return out
+
+    # ----------------------------------------------------------- metrics
+    def stats(self):
+        s = aggregate_stats(self.log, self.rejected, self.registry)
+        s.update(self.tick_stats)
+        s["utilization"] = {iid: self._util_sum.get(iid, 0.0)
+                            / max(self._util_n.get(iid, 0), 1)
+                            for iid in self.batchers}
+        pools = self.waves.lighthouse.pool_telemetry()
+        if pools:
+            s["kv_pools"] = pools
+            s["prefill_backlog"] = \
+                self.waves.lighthouse.mesh_prefill_backlog()
+        s["island_status"] = {i.island_id: self.registry.status(i.island_id)
+                              for i in self.registry.all()}
+        return s
+
+
+def build_island_batchers(cfg, registry, cache="auto", params=None,
+                          slots_per_capacity_unit=2.0, max_len=96,
+                          page_size=16, pool_headroom=1.0, seed=0,
+                          temperature=0.0, prefill="chunked",
+                          prefill_token_budget=None, fused=True,
+                          device=None):
+    """Per-SHORE-island paged batchers with KV pools sized from each
+    island's declared ``capacity_units``.
+
+    Slot count scales linearly with capacity; the page pool is sized to
+    ``slots * pages_per_seq * pool_headroom`` — headroom 1.0 can hold
+    every slot fully private (never stalls). Model parameters are
+    initialized once (on ``device``, None = the card) and shared across
+    islands."""
+    from repro_torch.serving.batcher import make_batcher
+    pages_per_seq = -(-max_len // page_size)
+    out = {}
+    for isl in registry.all():
+        if isl.endpoint != "shore":
+            continue
+        slots = max(1, int(round(slots_per_capacity_unit
+                                 * isl.capacity_units)))
+        b = make_batcher(
+            cfg, cache=cache, params=params, num_slots=slots,
+            max_len=max_len, seed=seed, temperature=temperature,
+            page_size=page_size, prefill=prefill,
+            prefill_token_budget=prefill_token_budget, fused=fused,
+            num_pages=max(2, int(slots * pages_per_seq
+                                 * pool_headroom)) + 1,
+            device=device)
+        if params is None:
+            params = b.params        # share weights across islands
+        out[isl.island_id] = b
+    return out

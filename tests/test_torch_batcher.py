@@ -1,0 +1,144 @@
+"""The port's fused chunked paged batcher against the reference's, on
+the workloads of tests/test_fused_tick.py and tests/test_chunked_prefill.py
+with bridged weights.
+
+Every host integer is exactly equal: work clock, scheduling and sharing
+counters, launch counts, dispatch geometry, per-request lifecycle records
+and pool telemetry. Token streams are compared path for path (fused
+chunked against fused chunked) under the margin rule of
+``_torch_parity``: bf16 KV pages on a random-weight model make greedy
+argmax fragile at near-ties (ROADMAP R1).
+"""
+import jax
+import pytest
+
+from _torch_parity import (assert_streams_match, capture_port,
+                           capture_reference, reference_steps)
+from repro.configs.base import get_config as jget_config
+from repro.models.model import get_model as jget_model
+from repro.serving.batcher import PagedContinuousBatcher as JBatcher
+from repro_torch import bridge
+from repro_torch.configs.base import get_config as tget_config
+from repro_torch.serving.batcher import PagedContinuousBatcher as TBatcher
+from repro_torch.serving.batcher import make_batcher
+
+PREFIX = "shared clinical preamble for the cohort under review. "
+MIXED = [
+    (PREFIX + "alpha " * 12, 8, 0),
+    (PREFIX + "beta " * 16, 6, 0),
+    ("an unrelated billing request with no shared head", 8, 1),
+    (PREFIX + "gamma " * 4, 10, 0),
+    ("tiny", 5, None),
+    (PREFIX + "delta " * 20, 7, 0),
+]
+SHARED = [(PREFIX + f"variant {i} " * 3, 6, 2) for i in range(6)]
+MANY = [(f"request number {i} " + "filler " * (4 + 3 * i), 5, i % 3)
+        for i in range(8)]
+CHUNKED = [(p, 4, 2) for p in ["short",
+                               "a somewhat longer request that spans pages",
+                               "mid-size prompt here", "x" * 40]]
+COW = [("identical prompt shared by two live sequences", 5, 1)] * 2
+TIERS = [("the same sensitive prompt at every trust tier", 4, t)
+         for t in (1, 2, 3, None)]
+
+WORKLOADS = {
+    "mixed": (MIXED, dict(num_slots=3, max_len=96)),
+    "shared_prefix": (SHARED, dict(num_slots=3, max_len=96)),
+    "dispatch_bound": (MANY, dict(num_slots=4, max_len=96,
+                                  prefill_token_budget=96)),
+    "chunked_budget": (CHUNKED, dict(num_slots=2, max_len=64,
+                                     prefill_token_budget=16)),
+    "prefix_cow": (COW, dict(num_slots=2, max_len=64)),
+    "distinct_tiers": (TIERS, dict(num_slots=4, max_len=64)),
+}
+EXACT_STATS = ("ticks", "admissions", "prefill_dispatches",
+               "prefix_tokens_skipped", "device_dispatches",
+               "tick_dispatches_max", "decode_steps", "decode_tokens",
+               "share_hits", "cow_copies", "prefill_chunk_tokens",
+               "rejected_too_large", "queued_peak")
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg = jget_config("smollm-135m").reduced()
+    tcfg = tget_config("smollm-135m").reduced()
+    jmodel = jget_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0), "float32")
+    tparams = bridge.from_reference(tcfg, jax.device_get(jparams))
+    return jcfg, tcfg, jparams, tparams, reference_steps(jmodel)
+
+
+def _run(weights, workload, **kw):
+    jcfg, tcfg, jparams, tparams, steps = weights
+    kw.setdefault("page_size", 16)
+    jb = JBatcher(jcfg, params=jparams, fused=True, **kw)
+    tb = TBatcher(tcfg, params=tparams, device="cpu", **kw)
+    jtok, jmargin = capture_reference(jb, steps)
+    ttok = capture_port(tb)
+    for p, mn, tier in workload:
+        assert jb.submit(p, max_new_tokens=mn, trust_tier=tier) == \
+            tb.submit(p, max_new_tokens=mn, trust_tier=tier)
+    jdone, tdone = jb.run_until_done(), tb.run_until_done()
+    assert sorted(jdone) == sorted(tdone)
+    return jb, tb, (jtok, jmargin, ttok)
+
+
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_port_batcher_matches_reference(weights, name):
+    workload, kw = WORKLOADS[name]
+    jb, tb, (jtok, jmargin, ttok) = _run(weights, workload, **kw)
+    assert tb.work_clock == jb.work_clock
+    for key in EXACT_STATS:
+        assert tb.stats[key] == jb.stats[key], key
+    assert tb.dispatch_shapes == jb.dispatch_shapes
+    assert tb.request_log == jb.request_log
+    assert tb.tier_work == jb.tier_work
+    assert tb.pool.telemetry() == jb.pool.telemetry()
+    assert tb.pool.tier_telemetry() == jb.pool.tier_telemetry()
+    assert tb.pool.in_use() == 0 and tb.reserved == 0 and tb.pool.audit()
+    assert tb.stats["tick_dispatches_max"] <= 2
+    diverged = assert_streams_match(jtok, jmargin, ttok)
+    assert diverged <= len(jtok) // 2, "most streams must match in full"
+
+
+def test_backlog_and_telemetry_match_mid_run(weights):
+    """The orchestrator-facing signals agree tick by tick, not only at the
+    end: prefill backlog (total and per tier) and tier telemetry."""
+    jcfg, tcfg, jparams, tparams, steps = weights
+    jb = JBatcher(jcfg, params=jparams, num_slots=2, max_len=96,
+                  page_size=16, prefill_token_budget=16)
+    jb._fused_prefill, jb._fused_decode = steps["prefill"], steps["decode"]
+    tb = TBatcher(tcfg, params=tparams, num_slots=2, max_len=96,
+                  page_size=16, prefill_token_budget=16, device="cpu")
+    for p, mn, tier in MIXED:
+        jb.submit(p, max_new_tokens=mn, trust_tier=tier)
+        tb.submit(p, max_new_tokens=mn, trust_tier=tier)
+    while jb.busy():
+        assert tb.busy()
+        assert tb.prefill_backlog_tokens() == jb.prefill_backlog_tokens()
+        assert tb.tier_telemetry() == jb.tier_telemetry()
+        assert tb.utilization() == jb.utilization()
+        jb.tick()
+        tb.tick()
+        assert tb.blocked_last_tick == jb.blocked_last_tick
+    assert not tb.busy()
+
+
+def test_unported_paths_refuse_clearly(weights):
+    _, tcfg, _, tparams, _ = weights
+    with pytest.raises(NotImplementedError, match="fused chunked"):
+        TBatcher(tcfg, params=tparams, fused=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="fused chunked"):
+        TBatcher(tcfg, params=tparams, prefill="full", device="cpu")
+    with pytest.raises(NotImplementedError, match="greedy"):
+        TBatcher(tcfg, params=tparams, temperature=0.9, device="cpu")
+    with pytest.raises(NotImplementedError, match="stacked"):
+        make_batcher(tcfg, cache="stacked", params=tparams, device="cpu")
+    # a pool too small for every slot stalls all decoders: the port has no
+    # preemption yet and says so instead of spinning
+    b = TBatcher(tcfg, params=tparams, num_slots=4, max_len=96,
+                 num_pages=6, device="cpu")
+    for i in range(4):
+        b.submit(f"tiny seed {i}", max_new_tokens=40, trust_tier=i % 2)
+    with pytest.raises(RuntimeError, match="preemption"):
+        b.run_until_done()
