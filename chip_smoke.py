@@ -8,33 +8,42 @@ Phases (each raises on failure, and the script then exits non-zero):
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
    TF32 is switched off for matmuls and convolutions, so every fp32
    product runs in full fp32;
-2. build: both hand-written CUDA kernels (``src/repro_torch/csrc``), one
-   nvcc per source, in parallel;
+2. build: the four hand-written CUDA kernels (``src/repro_torch/csrc``),
+   one nvcc per source, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (smollm-135m heads: H 9, Hkv 3, D 64, page 16,
-   fp32 q, bf16 pages; ragged fills, scratch rows, a fill on a page
-   boundary), with device times (CUDA graphs over inputs that exceed the
-   L2) of the kernel, the plain version and one PyTorch library call
-   (SDPA on pre-gathered K/V, a yardstick the port never calls), and the
-   least time the card could take;
-4. main path: the quickstart mesh (laptop 6 slots, phone 1, home-nas 8)
-   serving smollm-135m at its full published widths with seeded random
-   weights through ``TickOrchestrator`` -> fused chunked paged batchers;
-   launch counters are zeroed just before and read just after, and each
-   kernel must have run once per layer of every fused dispatch;
-5. profile: the same workload under ``torch.profiler``: the device's
-   busy time and its split by kernel family;
+   the shapes its serving path gives it (smollm-135m heads: H 9, Hkv 3,
+   D 64), and K3/K4 also at qwen3-4b's head geometry (H 32, Hkv 8, D 128),
+   with device times (CUDA graphs over inputs that exceed the L2) of the
+   kernel, the plain version and one PyTorch library call (SDPA, a
+   yardstick the port never calls), and the least time the card could
+   take;
+4. serving paths, each on the quickstart mesh (laptop 6 slots, phone 1,
+   home-nas 8) serving smollm-135m at its full published widths with
+   seeded random weights through ``TickOrchestrator``, the launch counters
+   zeroed just before and read just after, every kernel of the path
+   required once per layer of every dispatch and no other kernel:
+   - main: fused chunked paged batchers (K2 + K1), then a profile;
+   - stacked: ``ContinuousBatcher``s over dense caches (K4 + K3), then a
+     profile;
+   - paged prefill="full" (K4 + K1) and paged fused=False (K2 + K1);
+   - an oversubscribed pool (pool_headroom 0.5) that must preempt;
+5. per-request: ``InferenceEngine`` over full-width ``LocalModelServer``s
+   on the serve launcher's mesh, a 12-request healthcare workload
+   (K4 + K3);
 6. replay: the quickstart's four queries on the card and on the CPU with
-   the same weights; their logits must agree within a stated tolerance,
+   the same weights, through the fused paged batcher and through the
+   stacked batcher; their logits must agree within a stated tolerance,
    and a token where the streams part must be a near-tie that the
    measured logit gap can reorder.
 
-It prints one JSON object per phase, then the card's name and power
-limit, the kernel table, and last ``{"ok": true, "device": {...}}``.
-It needs one card and the rest of the repository beside it.
+It prints one JSON object per phase (with its seconds), then the card's
+name and power limit, the kernel table, and last
+``{"ok": true, "device": {...}}``. It needs one card and the rest of the
+repository beside it.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -45,24 +54,32 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth, and
-# bf16 on the tensor cores. Both products of the attention read bf16 K/V
-# pages, so the least time for the function takes the bf16 rate, whatever
-# units a kernel does its math on (fp32 q split into bf16 pieces runs at
-# it too)
+# the tensor cores' rate for the operand type: bf16, and TF32 for fp32
+# operands. The least time for a function takes the rate of its operands
+# (the decode kernels read bf16 K/V, the prefill kernel at fp32 weights
+# fp32 q/k/v), whatever units a kernel does its math on
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 494e12
+L2_BYTES = 50e6
 # kernel vs its plain version on the same inputs: both accumulate in fp32
 # and differ only in summation order and exp's last bits (~1e-6 on outputs
 # that are convex combinations of unit-scale V rows)
 KERNEL_TOL = 1e-4
-# timed launches cycle through this many copies of a case's inputs: their
-# live K/V (~2.3 MB a copy) then exceeds the 50 MB L2
+# timed launches cycle through up to this many copies of a case's inputs,
+# enough for their bytes to exceed the 50 MB L2 three times over
 NCOPY = 32
 # card vs CPU logits in the replay at full width (the same weights and
 # tokens; 30 layers of fp32 matmuls summed in another order over bf16
 # pages): about 5x the largest gap this phase measured on an H100, 0.0020
 # (PERF.md); the tests' MARGIN rests on the same kind of reading
 REPLAY_LOGIT_TOL = 1e-2
+# the oversubscribed pool (pool_headroom 0.5): max_len 128 and 96 new
+# tokens for each long note (whose prompt then truncates to 31 tokens), so
+# that the sequences outgrow their half of the pool together and every
+# decode-ready slot of the laptop island stalls at once: it preempts 3
+# times (the schedule does not depend on the weights or the widths)
+OVERSUBSCRIBED = dict(max_len=128, long_new=96, pool_headroom=0.5)
 
 QUICKSTART = [
     ("Analyze treatment options for 45-year-old diabetic patient "
@@ -146,9 +163,9 @@ def host_us(fn, iters=200):
 
 # ------------------------------------------------------------ kernel phase
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, rate=BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -207,6 +224,35 @@ def prefill_case(dev, gen, H=9, Hkv=3, D=64, ps=16, N=128):
                                                 [0, 1, 2])
 
 
+def dense_decode_case(dev, gen, H=9, Hkv=3, D=64, S=2048):
+    """K3 at the stacked path's decode shapes: 8 slot rows of a
+    (8, 2048, Hkv, D) bf16 cache, per-row fills spread over 1-1600 (an idle
+    slot decodes at fill 1)."""
+    import torch
+    valid = [1, 16, 17, 300, 1024, 1, 1600, 32]
+    B = len(valid)
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn(B, H, D, generator=gen, device=dev)
+    lens = torch.tensor(valid, dtype=torch.int32, device=dev)
+    live = sum(valid)
+    nbytes = 2 * q.numel() * 4 + B * 4 + live * Hkv * D * 2 * 2
+    flops = 4 * live * H * D
+    return (q, k, v, lens), nbytes, flops, valid
+
+
+def dense_prefill_case(dev, gen, H=9, Hkv=3, D=64, S=1024):
+    """K4 at a full-prompt prefill: one prompt of S tokens, fp32 q/k/v
+    (fp32 weights), causal."""
+    import torch
+    q = torch.randn(1, S, H, D, generator=gen, device=dev)
+    k, v = (torch.randn(1, S, Hkv, D, generator=gen, device=dev)
+            for _ in range(2))
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4 * H * D * S * (S + 1) // 2          # the causal half
+    return (q, k, v), nbytes, flops, S
+
+
 def _sdpa_inputs(kind, args):
     """Pre-gathered, head-expanded fp32 K/V and a boolean mask, so that
     one ``scaled_dot_product_attention`` call computes the same function
@@ -233,12 +279,38 @@ def _sdpa_inputs(kind, args):
     return qq, k, v, mask
 
 
+def _time_case(wrapper, plain, args, scale, copies_bytes, lib_fn,
+               lib_inputs):
+    """Device ms of the kernel, its plain version and the library call,
+    each over enough input copies to exceed the L2."""
+    n = max(2, min(NCOPY, int(3 * L2_BYTES // copies_bytes) + 1))
+    copies = [tuple(a.clone() for a in args) for _ in range(n)]
+    kms = graph_ms([lambda c=c: wrapper(*c) for c in copies])
+    pms = graph_ms([lambda c=c: plain(*c, scale) for c in copies])
+    lib = [lib_inputs(c) for c in copies]
+    lms = graph_ms([lambda x=x: lib_fn(*x) for x in lib])
+    del lib, copies
+    return kms, pms, lms, n
+
+
+def _check(name, out, want):
+    import torch
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    if not torch.isfinite(out).all() or err > KERNEL_TOL:
+        raise AssertionError(f"{name}: max abs error {err} > "
+                             f"{KERNEL_TOL} against the plain version")
+    return err
+
+
 def kernel_phase(dev):
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -255,12 +327,7 @@ def kernel_phase(dev):
         args, nbytes, flops, (kind, fills, live) = case(dev, gen)
         scale = args[0].shape[-1] ** -0.5
         out = wrapper(*args)
-        torch.cuda.synchronize()
-        want = plain(*args, scale)
-        err = float((out.float() - want.float()).abs().max())
-        if not torch.isfinite(out).all() or err > KERNEL_TOL:
-            raise AssertionError(f"{name}: max abs error {err} > "
-                                 f"{KERNEL_TOL} against the plain version")
+        err = _check(name, out, plain(*args, scale))
         # table entries past a live row's fill or causal horizon point at
         # the scratch page: poisoning it must leave every live row as it was
         args[1][0] = 1e4
@@ -268,18 +335,17 @@ def kernel_phase(dev):
         again = wrapper(*args)
         if not torch.equal(again[live], out[live]):
             raise AssertionError(f"{name}: scratch page leaked into a row")
-        copies = [tuple(a.clone() for a in args) for _ in range(NCOPY)]
-        kms = graph_ms([lambda c=c: wrapper(*c) for c in copies])
-        pms = graph_ms([lambda c=c: plain(*c, scale) for c in copies])
-        sdpa = [_sdpa_inputs(kind, c) for c in copies]
-        qq, k, v, mask = sdpa[0]
+        qq, k, v, mask = _sdpa_inputs(kind, args)
         lib = F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
         lib = lib.transpose(1, 2) if kind == "prefill" else lib[:, :, 0]
         lib_err = float((lib.reshape(out.shape)[live] - again[live])
                         .abs().max())
-        lms = graph_ms([lambda s=s: F.scaled_dot_product_attention(
-            s[0], s[1], s[2], attn_mask=s[3]) for s in sdpa])
-        del sdpa, copies
+        del qq, k, v, mask, lib
+        kms, pms, lms, n = _time_case(
+            wrapper, plain, args, scale, nbytes,
+            lambda q, k, v, m: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=m),
+            lambda c, kind=kind: _sdpa_inputs(kind, c))
         bound, by = _bound(nbytes, flops)
         rows[name] = {"name": name, "route": "cuda", "source": src,
                       "replaces": replaces, "launches": None,
@@ -288,8 +354,75 @@ def kernel_phase(dev):
         emit({"phase": "kernel", **rows[name], "shape_q": list(
             args[0].shape), "fills_or_starts": fills, "bytes": nbytes,
             "flops": flops, "library_max_abs_err": lib_err,
-            "tolerance": KERNEL_TOL, "input_copies": NCOPY,
+            "tolerance": KERNEL_TOL, "input_copies": n,
             "wrapper_host_us": host_us(lambda: wrapper(*args))})
+
+    def sdpa_decode(q, k, v, lens):
+        """(B, H, 1, D) query against (B, Hkv, S, D) fp32 K/V, GQA and a
+        fill mask: SDPA's inputs, made outside the timed region."""
+        S = k.shape[1]
+        mask = (torch.arange(S, device=q.device)[None, :]
+                < lens[:, None].long())[:, None, None, :]
+        return (q[:, :, None, :], k.float().transpose(1, 2).contiguous(),
+                v.float().transpose(1, 2).contiguous(), mask)
+
+    def sdpa_prefill(q, k, v):
+        return tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    K3 = ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+          "src/repro/kernels/decode_attention.py:95")
+    K4 = ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+          "src/repro/kernels/flash_attention.py:82")
+    for (name, src, replaces), geom, case_kw in (
+            (K3, "smollm-135m stacked", dict()),
+            (K3, "qwen3-4b heads", dict(H=32, Hkv=8, D=128)),
+            (K4, "smollm-135m", dict()),
+            (K4, "qwen3-4b heads", dict(H=32, Hkv=8, D=128, S=2048))):
+        if name == "decode_attention":
+            args, nbytes, flops, fills = dense_decode_case(dev, gen,
+                                                           **case_kw)
+            wrapper, plain, rate = decode_attention, ref.decode_attention, \
+                BF16_FLOP_PER_S
+            lib_fn = (lambda q, k, v, m: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, enable_gqa=True))
+            lib_inputs = (lambda c: sdpa_decode(*c))
+            shape = {"fills": fills}
+        else:
+            args, nbytes, flops, S = dense_prefill_case(dev, gen, **case_kw)
+            wrapper, plain, rate = flash_attention, ref.flash_attention, \
+                TF32_FLOP_PER_S
+            lib_fn = (lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+            lib_inputs = (lambda c: sdpa_prefill(*c))
+            shape = {"S": S}
+        scale = args[0].shape[-1] ** -0.5
+        out = wrapper(*args)
+        err = _check(f"{name} ({geom})", out, plain(*args, scale))
+        lib = lib_fn(*lib_inputs(args))
+        lib = (lib[:, :, 0] if name == "decode_attention"
+               else lib.transpose(1, 2))
+        lib_err = float((lib - out).abs().max())
+        del lib
+        kms, pms, lms, n = _time_case(wrapper, plain, args, scale, nbytes,
+                                      lib_fn, lib_inputs)
+        bound, by = _bound(nbytes, flops, rate)
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": None, "max_abs_err": err,
+               "ms": kms, "plain_ms": pms, "bound_ms": bound,
+               "bound_by": by, "library_ms": lms}
+        if name not in rows:       # the serving path's own geometry
+            rows[name] = row
+        emit({"phase": "kernel", **row, "geometry": geom,
+              "shape_q": list(args[0].shape),
+              "shape_kv": list(args[1].shape), **shape, "bytes": nbytes,
+              "flops": flops, "library_max_abs_err": lib_err,
+              "tolerance": KERNEL_TOL, "input_copies": n,
+              "wrapper_host_us": host_us(lambda: wrapper(*args))})
+        del args, out
+    # free the timed graphs' pools now, so that they do not sit in the
+    # serving paths' memory readings
+    gc.collect()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -333,15 +466,18 @@ def _watch_finite(b, flags):
     b.model.forward = checked
 
 
-def serving_stack(cfg, params, device, max_len):
-    """The quickstart mesh's orchestrator and batchers with every request
-    of the main path submitted; returns (orch, batchers, rids, flags)."""
+def serving_stack(cfg, params, device, max_len, long_new=16, **bkw):
+    """The quickstart mesh's orchestrator and batchers (``bkw`` goes to
+    ``build_island_batchers``) with every request of the traffic
+    submitted: the quickstart's four queries (8 new tokens) and the long
+    notes (``long_new`` new tokens). Returns (orch, batchers, rids,
+    flags)."""
     from repro_torch.core.waves import Request
     from repro_torch.serving.engine import (TickOrchestrator,
                                             build_island_batchers)
     reg, waves = quickstart_stack(device)
     batchers = build_island_batchers(cfg, reg, params=params,
-                                     max_len=max_len, device=device)
+                                     max_len=max_len, device=device, **bkw)
     slots = {k: b.num_slots for k, b in batchers.items()}
     if slots != {"laptop": 6, "phone": 1, "home-nas": 8}:
         raise AssertionError(f"quickstart mesh slots {slots}")
@@ -350,103 +486,167 @@ def serving_stack(cfg, params, device, max_len):
         _watch_finite(b, flags)
     orch = TickOrchestrator(waves, reg, batchers, device=device)
     reqs = [(Request(query=q, priority=p), 8) for q, p in QUICKSTART]
-    reqs += [(Request(query=q, priority=p), 16) for q, p in long_prompts()]
+    reqs += [(Request(query=q, priority=p), long_new)
+             for q, p in long_prompts()]
     rids = [orch.submit(r, max_new_tokens=n) for r, n in reqs]
     return orch, batchers, rids, flags
 
 
-def main_path(cfg, params, device, max_len=2048):
-    import torch
-
+def kernel_fns():
     from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    orch, batchers, rids, flags = serving_stack(cfg, params, device, max_len)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    paged_decode_attention.launches = 0
-    chunked_prefill_attention.launches = 0
+    return {f.__name__: f for f in (paged_decode_attention,
+                                    chunked_prefill_attention,
+                                    decode_attention, flash_attention)}
+
+
+def zero_launches():
+    for f in kernel_fns().values():
+        f.launches = 0
+
+
+def read_launches():
+    return {n: f.launches for n, f in kernel_fns().items()}
+
+
+def expected_launches(batchers, layers):
+    """Launches each kernel must show after a run: one per layer of every
+    dispatch that reaches it, and none for a kernel off the path."""
+    want = dict.fromkeys(kernel_fns(), 0)
+    for b in batchers:
+        decode = layers * b.stats["decode_steps"]
+        if not hasattr(b, "pool"):                   # stacked
+            want["decode_attention"] += decode
+            want["flash_attention"] += layers * b.stats["prefill_dispatches"]
+            continue
+        want["paged_decode_attention"] += decode
+        if b.prefill_mode == "full":
+            want["flash_attention"] += layers * b.stats["prefill_dispatches"]
+        else:
+            want["chunked_prefill_attention"] += layers * sum(
+                1 for s in b.dispatch_shapes if s[0] == "prefill")
+    return want
+
+
+def serve_path(name, cfg, params, device, max_len=2048, long_new=16,
+               **bkw):
+    """One serving path over the quickstart traffic: drives it with the
+    launch counters zeroed just before and read just after, checks that
+    every request resolved with finite logits and caches and that the
+    path went through its kernels, and emits its end-to-end numbers.
+    Returns (launches, wall seconds, the emitted result)."""
+    import torch
+    orch, batchers, rids, flags = serving_stack(cfg, params, device,
+                                                max_len, long_new, **bkw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    zero_launches()
     t0 = time.perf_counter()
-    orch.run_until_done(max_ticks=2000)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    orch.run_until_done(max_ticks=4000)
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1 = paged_decode_attention.launches
-    k2 = chunked_prefill_attention.launches
+    launches = read_launches()
     if orch.busy():
-        raise AssertionError("main path did not drain within 2000 ticks")
+        raise AssertionError(f"{name}: did not drain within 4000 ticks")
     missing = [r for r in rids if r not in orch.results]
     rejected = [r for r in rids if orch.results.get(r) is None]
     if missing or rejected:
-        raise AssertionError(f"unresolved {missing}, rejected {rejected}")
+        raise AssertionError(f"{name}: unresolved {missing}, rejected "
+                             f"{rejected}")
     if not all(bool(f) for f in flags):
-        raise AssertionError("non-finite logits on the main path")
+        raise AssertionError(f"{name}: non-finite logits")
     for iid, b in batchers.items():
-        for layer in b.pool.pages:
+        cache = b.pool.pages if hasattr(b, "pool") else b._cache
+        for layer in cache:
             for t in layer.values():
                 if not torch.isfinite(t).all():
-                    raise AssertionError(f"non-finite K/V pages on {iid}")
-        bad = b._dev_gen[:b.num_slots]
-        if bool(((bad < 0) | (bad >= cfg.vocab_size)).any()):
-            raise AssertionError(f"token ids out of range on {iid}")
-    decode_disp = sum(b.stats["decode_steps"] for b in batchers.values())
-    prefill_disp = sum(sum(1 for s in b.dispatch_shapes if s[0] == "prefill")
-                       for b in batchers.values())
+                    raise AssertionError(f"{name}: non-finite K/V on {iid}")
+        if getattr(b, "fused", False):
+            gen = b._dev_gen[:b.num_slots]
+            if bool(((gen < 0) | (gen >= cfg.vocab_size)).any()):
+                raise AssertionError(f"{name}: token ids out of range on "
+                                     f"{iid}")
     L = cfg.num_layers
-    if k1 != L * decode_disp or k2 != L * prefill_disp:
-        raise AssertionError(
-            f"launches K1 {k1} != {L} x {decode_disp} decode dispatches or "
-            f"K2 {k2} != {L} x {prefill_disp} prefill dispatches")
-    if k1 == 0 or k2 == 0:
-        raise AssertionError("a kernel never ran on the main path")
-    pools = {iid: b.pool.telemetry() for iid, b in batchers.items()}
-    shared = sum(t["share_hits"] for t in pools.values())
-    cows = sum(t["cow_copies"] for t in pools.values())
-    multi = max(s[2] for b in batchers.values()
-                for s in b.dispatch_shapes if s[0] == "prefill")
-    if shared == 0 or cows == 0 or multi < 2:
-        raise AssertionError(f"main path missed a feature: share hits "
-                             f"{shared}, COW copies {cows}, widest run "
-                             f"{multi} pages")
-    ttft = [rec["ttft_ticks"] for b in batchers.values()
-            for rec in b.request_log.values() if "ttft_ticks" in rec]
-    gen_tokens = sum(rec.get("generated_tokens", 0)
-                     for b in batchers.values()
+    want = expected_launches(batchers.values(), L)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"{want} (one per layer of every dispatch)")
+    if not any(launches.values()):
+        raise AssertionError(f"{name}: no kernel ran")
+    bs = list(batchers.values())
+    ttft = sorted(rec["ttft_ticks"] for b in bs
+                  for rec in b.request_log.values() if "ttft_ticks" in rec)
+    gen_tokens = sum(rec.get("generated_tokens", 0) for b in bs
                      for rec in b.request_log.values())
     result = {
-        "phase": "main_path", "model": cfg.name, "layers": L,
+        "phase": name, "model": cfg.name, "layers": L,
         "d_model": cfg.d_model, "vocab": cfg.vocab_size, "max_len": max_len,
+        "batchers": {k: v for k, v in bkw.items()
+                     if isinstance(v, (str, int, float, bool))},
         "requests": len(rids),
         "islands": {r.island_id: sum(1 for x in orch.log
                                      if x.island_id == r.island_id)
                     for r in orch.log},
         "ticks": orch.tick_stats["ticks"],
         "batcher_ticks": orch.tick_stats["decode_ticks"],
-        "decode_dispatches": decode_disp, "prefill_dispatches": prefill_disp,
-        "launches": {"paged_decode_attention": k1,
-                     "chunked_prefill_attention": k2},
+        "device_dispatches": sum(b.stats["device_dispatches"] for b in bs),
+        "decode_dispatches": sum(b.stats["decode_steps"] for b in bs),
+        "admissions": sum(b.stats["admissions"] for b in bs),
+        "launches": {k: v for k, v in launches.items() if v},
         "tick_dispatches_max": orch.tick_stats["tick_dispatches_max"],
         "generated_tokens": gen_tokens, "wall_s": wall,
         "tokens_per_s": gen_tokens / wall,
-        "ttft_ticks_p50": sorted(ttft)[len(ttft) // 2],
-        "ttft_ticks_max": max(ttft),
-        "share_hits": shared, "cow_copies": cows,
-        "prefix_tokens_skipped": sum(b.stats["prefix_tokens_skipped"]
-                                     for b in batchers.values()),
+        "ttft_ticks_p50": ttft[len(ttft) // 2], "ttft_ticks_max": ttft[-1],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "memory_allocated_at_start_bytes": mem0,
     }
-    if device.type == "cuda":
-        result["max_memory_allocated_bytes"] = \
-            torch.cuda.max_memory_allocated()
+    if hasattr(bs[0], "pool"):
+        pools = [b.pool.telemetry() for b in bs]
+        result.update(
+            share_hits=sum(t["share_hits"] for t in pools),
+            cow_copies=sum(t["cow_copies"] for t in pools),
+            prefix_tokens_skipped=sum(b.stats["prefix_tokens_skipped"]
+                                      for b in bs),
+            widest_prefill_run_pages=max(
+                [sh[2] for b in bs for sh in b.dispatch_shapes
+                 if sh[0] == "prefill"] or [0]),
+            preemptions=sum(b.stats["preemptions"] for b in bs),
+            preempted_rids={k: b.preempted_rids
+                            for k, b in batchers.items()
+                            if b.preempted_rids})
     emit(result)
-    return k1, k2, wall
+    return launches, wall, result
+
+
+def main_path(cfg, params, device, max_len=2048):
+    """The quickstart path: fused chunked paged batchers. It must exercise
+    prefix sharing, a copy-on-write and multi-page prefill runs."""
+    launches, wall, result = serve_path("main_path", cfg, params, device,
+                                        max_len)
+    if result["share_hits"] == 0 or result["cow_copies"] == 0 \
+            or result["widest_prefill_run_pages"] < 2:
+        raise AssertionError(
+            f"main path missed a feature: share hits "
+            f"{result['share_hits']}, COW copies {result['cow_copies']}, "
+            f"widest run {result['widest_prefill_run_pages']} pages")
+    return launches, wall
 
 
 # ----------------------------------------------------------- profile phase
 
 def _kernel_family(name):
-    for key, fam in (("paged_decode_kernel", "paged_decode_attention"),
-                     ("chunked_prefill_kernel", "chunked_prefill_attention"),
-                     ("gemm", "matmul"), ("gemv", "matmul"),
+    walks = {("decode_walk_kernel", "PagedRows"): "paged_decode_attention",
+             ("decode_walk_kernel", "DenseRows"): "decode_attention",
+             ("prefill_walk_kernel", "PagedRows"):
+                 "chunked_prefill_attention",
+             ("prefill_walk_kernel", "DenseRows"): "flash_attention"}
+    for (kernel, rows), fam in walks.items():
+        if kernel in name and rows in name:
+            return fam
+    for key, fam in (("gemm", "matmul"), ("gemv", "matmul"),
                      ("xmma", "matmul"), ("cutlass", "matmul"),
                      ("Memcpy", "memcpy"), ("Memset", "memset")):
         if key in name:
@@ -454,8 +654,9 @@ def _kernel_family(name):
     return "other (elementwise, reductions, indexing)"
 
 
-def profile_phase(cfg, params, device, wall_unprofiled, max_len=2048):
-    """The main path's workload once more, on fresh batchers, under
+def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
+                  **bkw):
+    """A serving path's workload once more, on fresh batchers, under
     ``torch.profiler`` (device activity only): device busy time as the
     union of kernel intervals, and device time by kernel family. The busy
     time does not depend on the profiler's host overhead, so the idle
@@ -463,11 +664,11 @@ def profile_phase(cfg, params, device, wall_unprofiled, max_len=2048):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    orch, _b, _r, _f = serving_stack(cfg, params, device, max_len)
+    orch, _b, _r, _f = serving_stack(cfg, params, device, max_len, **bkw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        orch.run_until_done(max_ticks=2000)
+        orch.run_until_done(max_ticks=4000)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -476,14 +677,14 @@ def profile_phase(cfg, params, device, wall_unprofiled, max_len=2048):
         raise AssertionError("the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
     fam: dict = {}
-    for s, e, name in spans:
+    for s, e, kname in spans:
         busy += max(0.0, e - max(s, end))
         end = max(end, e)
-        f = fam.setdefault(_kernel_family(name), [0.0, 0])
+        f = fam.setdefault(_kernel_family(kname), [0.0, 0])
         f[0] += (e - s) / 1e3
         f[1] += 1
     busy_s = busy / 1e6
-    emit({"phase": "profile", "device_busy_s": busy_s,
+    emit({"phase": f"profile {name}", "device_busy_s": busy_s,
           "wall_s_profiled": wall, "wall_s_unprofiled": wall_unprofiled,
           "device_idle_share": 1.0 - busy_s / wall_unprofiled,
           "device_ms_by_family": {k: round(v[0], 3) for k, v in
@@ -491,13 +692,68 @@ def profile_phase(cfg, params, device, wall_unprofiled, max_len=2048):
           "launches_by_family": {k: v[1] for k, v in fam.items()}})
 
 
+# ------------------------------------------------------- per-request phase
+
+def per_request_phase(cfg, params, device, n=12, max_new=8):
+    """The serve launcher's default path at full width: its mesh and an
+    ``n``-request healthcare workload through ``InferenceEngine`` into
+    ``LocalModelServer``s on the card, one full-prompt prefill (K4) and
+    ``max_new - 1`` dense decode steps (K3) per local request."""
+    import torch
+
+    from repro_torch.core.workload import healthcare_workload
+    from repro_torch.launch.serve import build_mesh
+    from repro_torch.serving.engine import InferenceEngine, LocalModelServer
+    reg, waves = build_mesh()
+    calls = []
+    servers = {}
+    for iid in ("laptop", "home-nas"):
+        srv = LocalModelServer(cfg, params=params, max_len=512,
+                               device=device)
+        gen = srv.generate
+
+        def counted(prompts, max_new_tokens=16, gen=gen):
+            calls.append(len(prompts))
+            return gen(prompts, max_new_tokens)
+
+        srv.generate = counted
+        servers[iid] = srv
+    eng = InferenceEngine(waves, reg, servers, seed=0)
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    resps = [eng.submit(req, max_new_tokens=max_new)
+             for req, _kind in healthcare_workload(n, seed=0)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    served = [r for r in resps if r is not None]
+    if len(served) + len(eng.rejected) != n or not served:
+        raise AssertionError(f"per-request: {len(served)} served, "
+                             f"{len(eng.rejected)} rejected of {n}")
+    L = cfg.num_layers
+    want = dict.fromkeys(kernel_fns(), 0)
+    want["flash_attention"] = L * len(calls)
+    want["decode_attention"] = L * len(calls) * (max_new - 1)
+    if launches != want or not calls:
+        raise AssertionError(f"per-request: launches {launches}, expected "
+                             f"{want} for {len(calls)} local requests")
+    stats = eng.stats()
+    emit({"phase": "per_request", "model": cfg.name, "requests": n,
+          "served": len(served), "rejected": len(eng.rejected),
+          "local_generate_calls": len(calls),
+          "by_island": stats["by_island"],
+          "launches": {k: v for k, v in launches.items() if v},
+          "wall_s": wall, "local_tokens_per_s": len(calls) * max_new / wall})
+
+
 # ------------------------------------------------------------ replay phase
 
-def _capture(b, store):
-    """Record on the host the logits row behind every token ``b``
-    generates, keyed by (request id, token index) (the chunk forward is
-    re-run for boundary tokens; its K/V writes are the same values the
-    fused step then writes again)."""
+def _capture_fused(b, store):
+    """Record on the host the logits row behind every token the fused
+    paged batcher ``b`` generates, keyed by (request id, token index) (the
+    chunk forward is re-run for boundary tokens; its K/V writes are the
+    same values the fused step then writes again)."""
     from repro_torch.models.steps import make_chunked_prefill_step
     chunk = make_chunked_prefill_step(b.model)
     prefill, decode = b._fused_prefill, b._fused_decode
@@ -525,12 +781,40 @@ def _capture(b, store):
     b._fused_prefill, b._fused_decode = pre, dec
 
 
+def _capture_stacked(b, store):
+    """The same record for the stacked batcher, which takes its tokens on
+    the host: the prefill step's logits give each first token, the decode
+    step's row of each active slot the next one."""
+    prefill, decode, first = b._prefill, b._decode_all, b._note_first_token
+    last = {}
+
+    def pre(params, cache, tokens):
+        out = prefill(params, cache, tokens)
+        last["row"] = out[0][0].float().cpu()
+        return out
+
+    def note_first(rid):
+        store[(rid, 0)] = last.pop("row")
+        first(rid)
+
+    def dec(params, cache, toks, poss):
+        out = decode(params, cache, toks, poss)
+        for si, s in enumerate(b.slots):
+            if s.active:
+                store[(s.request_id, len(s.generated))] = \
+                    out[0][si].float().cpu()
+        return out
+
+    b._prefill, b._decode_all, b._note_first_token = pre, dec, note_first
+
+
 def _streams(b):
     out = {}
     finish = b._finish_slot
 
     def record(si):
-        b._materialize_slot(si)
+        if hasattr(b, "_materialize_slot"):
+            b._materialize_slot(si)
         s = b.slots[si]
         out[s.request_id] = list(s.generated)
         finish(si)
@@ -539,35 +823,33 @@ def _streams(b):
     return out
 
 
-def replay(cfg, runs_on, max_len=256):
+def replay(name, cfg, runs_on, make, capture):
     """``runs_on`` is [(card device, params), (cpu device, params)]: the
-    same four queries through a fresh batcher on each, with the logits
-    behind every token. Up to and including the first token where two
-    streams part, both sides computed their logits from the same tokens:
-    those must agree within ``REPLAY_LOGIT_TOL``, and a parting token is
-    legitimate only where the CPU's top-2 margin is at most twice that
-    step's largest logit gap (no smaller gap can reorder the top two)."""
+    same four queries through a fresh batcher (``make(device, params)``)
+    on each, with the logits behind every token (``capture``). Up to and
+    including the first token where two streams part, both sides computed
+    their logits from the same tokens: those must agree within
+    ``REPLAY_LOGIT_TOL``, and a parting token is legitimate only where the
+    CPU's top-2 margin is at most twice that step's largest logit gap (no
+    smaller gap can reorder the top two)."""
     import torch
-
-    from repro_torch.serving.batcher import PagedContinuousBatcher
     streams, logits = [], []
     for dev, params in runs_on:
-        b = PagedContinuousBatcher(cfg, params=params, num_slots=4,
-                                   max_len=max_len, device=dev)
+        b = make(dev, params)
         streams.append(_streams(b))
         logits.append({})
-        _capture(b, logits[-1])
+        capture(b, logits[-1])
         for q, _p in QUICKSTART:
             b.submit(q, max_new_tokens=8, trust_tier=1)
         b.run_until_done()
     (card, cpu), (card_lg, cpu_lg) = streams, logits
     if sorted(card) != sorted(cpu):
-        raise AssertionError(f"replay requests differ: {sorted(card)} "
+        raise AssertionError(f"{name}: requests differ: {sorted(card)} "
                              f"vs {sorted(cpu)}")
     diverged, gaps, margins = 0, [], []
     for rid, want in cpu.items():
         if len(card[rid]) != len(want):
-            raise AssertionError(f"replay request {rid}: {len(card[rid])} "
+            raise AssertionError(f"{name} request {rid}: {len(card[rid])} "
                                  f"tokens on the card, {len(want)} on cpu")
         for k, (a, c) in enumerate(zip(card[rid], want)):
             ref = cpu_lg[(rid, k)]
@@ -578,17 +860,17 @@ def replay(cfg, runs_on, max_len=256):
             margins.append(margin)
             if not gap <= REPLAY_LOGIT_TOL:
                 raise AssertionError(
-                    f"replay request {rid} token {k}: card vs cpu logits "
+                    f"{name} request {rid} token {k}: card vs cpu logits "
                     f"differ by {gap} > {REPLAY_LOGIT_TOL}")
             if a != c:
                 if margin > 2 * gap:
                     raise AssertionError(
-                        f"replay request {rid} token {k}: card {a} != cpu "
+                        f"{name} request {rid} token {k}: card {a} != cpu "
                         f"{c} at a cpu top-2 margin of {margin} > twice "
                         f"the logit gap {gap}")
                 diverged += 1
                 break
-    emit({"phase": "replay", "requests": len(cpu), "tokens_per_request": 8,
+    emit({"phase": name, "requests": len(cpu), "tokens_per_request": 8,
           "steps_compared": len(gaps), "max_logit_gap": max(gaps),
           "logit_tol": REPLAY_LOGIT_TOL,
           "diverged_at_near_tie": diverged,
@@ -618,32 +900,65 @@ def main() -> int:
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+    seconds = {}
+
+    def timed(phase, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[phase] = time.perf_counter() - t0
+        return out
 
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import _build
     from repro_torch.models.model import get_model
-    t0 = time.perf_counter()
-    _build.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    from repro_torch.serving.batcher import (ContinuousBatcher,
+                                             PagedContinuousBatcher)
+    timed("build", _build.build_all)
+    emit({"phase": "build", "seconds": seconds["build"],
           "ptxas": {k: [ln.strip() for ln in v.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for k, v in _build.BUILD_LOGS.items()}})
 
-    rows = kernel_phase(gpu)
+    rows = timed("kernels", kernel_phase, gpu)
 
     cfg = get_config("smollm-135m")            # full width, not .reduced()
     params = get_model(cfg).init(seed=0, device=gpu)
-    k1, k2, wall = main_path(cfg, params, gpu)
-    rows["paged_decode_attention"]["launches"] = k1
-    rows["chunked_prefill_attention"]["launches"] = k2
-    profile_phase(cfg, params, gpu, wall)
+    launches, wall = timed("main_path", main_path, cfg, params, gpu)
+    for k in ("paged_decode_attention", "chunked_prefill_attention"):
+        rows[k]["launches"] = launches[k]
+    timed("profile main_path", profile_phase, "main_path", cfg, params, gpu,
+          wall)
+    launches, wall, _ = timed("stacked", serve_path, "stacked", cfg, params,
+                              gpu, cache="stacked")
+    for k in ("decode_attention", "flash_attention"):
+        rows[k]["launches"] = launches[k]
+    timed("profile stacked", profile_phase, "stacked", cfg, params, gpu,
+          wall, cache="stacked")
+    timed("paged_prefill_full", serve_path, "paged_prefill_full", cfg,
+          params, gpu, prefill="full")
+    timed("paged_unfused", serve_path, "paged_unfused", cfg, params, gpu,
+          fused=False)
+    _, _, over = timed("oversubscribed", serve_path, "oversubscribed", cfg,
+                       params, gpu, **OVERSUBSCRIBED)
+    if over["preemptions"] == 0:
+        raise AssertionError("oversubscribed pool: no preemption")
+    timed("per_request", per_request_phase, cfg, params, gpu)
 
     cpu = torch.device("cpu")
     params_cpu = {k: (v.to(cpu) if isinstance(v, torch.Tensor) else
                       [{a: {n: t.to(cpu) for n, t in d.items()}
                         for a, d in layer.items()} for layer in v])
                   for k, v in params.items()}
-    replay(cfg, [(gpu, params), (cpu, params_cpu)])
+    runs_on = [(gpu, params), (cpu, params_cpu)]
+    timed("replay", replay, "replay", cfg, runs_on,
+          lambda dev, p: PagedContinuousBatcher(
+              cfg, params=p, num_slots=4, max_len=256, device=dev),
+          _capture_fused)
+    timed("replay stacked", replay, "replay stacked", cfg, runs_on,
+          lambda dev, p: ContinuousBatcher(
+              cfg, params=p, num_slots=4, max_len=256, device=dev),
+          _capture_stacked)
+    emit({"phase": "seconds", **seconds})
 
     print(card)
     emit({"kernels": list(rows.values())})

@@ -1,14 +1,24 @@
 """IslandRun on PyTorch and CUDA: the port of the JAX package ``repro``.
 
-The port carries the quickstart serving path end to end on an NVIDIA H100:
-``serving.engine.TickOrchestrator`` routes the pending pool once per tick
-(``core.routing``) into per-island ``serving.batcher.PagedContinuousBatcher``
-instances (chunked prefill, fused two-dispatch tick, greedy sampling) over
-the trust-tiered paged KV pool (``serving.kvpool``); ``models`` runs
-attention-only decoders whose paged attention goes through hand-written
-CUDA C++ kernels for ``sm_90a`` (``kernels``, sources in ``csrc/``).
-Entry points (``TickOrchestrator``, ``build_island_batchers``,
-``PagedContinuousBatcher``, ``Model.init``) run on the card unless the
+The port carries the serving paths of attention-only decoders end to end
+on an NVIDIA H100, with greedy sampling:
+
+* ``serving.engine.TickOrchestrator`` routes the pending pool once per
+  tick (``core.routing``) into per-island batchers
+  (``serving.batcher``): the ``PagedContinuousBatcher`` over the
+  trust-tiered paged KV pool (``serving.kvpool``; chunked prefill with the
+  fused two-dispatch tick or unfused, or full-prompt prefill; preemption
+  with resume tickets when the pool runs out) or the stacked
+  ``ContinuousBatcher`` over dense per-slot caches;
+* ``serving.engine.InferenceEngine`` routes one request at a time into a
+  ``LocalModelServer`` (``python -m repro_torch.launch.serve``);
+* ``models`` runs the decoders; their attention goes through four
+  hand-written CUDA C++ kernels for ``sm_90a`` (``kernels``, sources in
+  ``csrc/``): paged decode, chunked prefill, dense decode and full-prompt
+  prefill.
+
+Entry points (``TickOrchestrator``, ``build_island_batchers``, both
+batchers, ``LocalModelServer``, ``Model.init``) run on the card unless the
 caller passes ``device="cpu"``; asking for the card without one raises.
 
 The port imports ``torch`` and ``numpy``, never ``jax`` and nothing of
@@ -23,6 +33,9 @@ change history):
   ``core/mist.py``, ``core/tide.py``, ``core/lighthouse.py`` and
   ``core/waves.py``;
 * ``serving/degrade.py`` (``waves.py`` needs ``RejectReason``);
+* ``serving/migration.py`` (the preemption resume ticket);
+* ``core/tracegen.py`` and ``core/workload.py`` (the serve launcher's
+  workload);
 * ``obs/metrics.py`` (``aggregate_stats`` needs ``latency_summary``).
 
 Ported modules keep the reference's paths and names

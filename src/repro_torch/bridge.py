@@ -9,6 +9,11 @@ with every leaf already a numpy array (``jax.tree.map(np.asarray,
 params)`` on the caller's side — the port never imports JAX) and
 ``to_reference`` inverts it, so a round trip is exact.
 
+``dense_cache_from_reference``/``dense_cache_to_reference`` do the same
+for a dense decode cache (the reference's ``init_cache`` tree, whose
+attention leaves sit under ``mixer``; the port's per-layer ``{"k", "v"}``
+list), so that tests can compare caches.
+
 numpy has no bfloat16: a bf16 leaf arrives as numpy's ml_dtypes
 ``bfloat16`` (or as ``uint16`` raw bits) and travels bit-exactly as
 16-bit integers -> ``torch.Tensor.view(torch.bfloat16)``.
@@ -122,3 +127,17 @@ def _stack(trees):
     return {k: (_stack([t[k] for t in trees]) if isinstance(first[k], dict)
                 else np.stack([t[k] for t in trees]))
             for k in first}
+
+
+def dense_cache_from_reference(cfg, ref_cache, device="cpu"):
+    """The reference's dense cache tree (numpy leaves) -> the port's
+    per-layer list of ``{"k", "v"}`` tensors."""
+    layers = from_reference(cfg, ref_cache, device)["layers"]
+    return [layer["mixer"] for layer in layers]
+
+
+def dense_cache_to_reference(cfg, cache, like):
+    """Invert ``dense_cache_from_reference``; ``like`` is the reference's
+    numpy cache tree."""
+    return to_reference(cfg, {"layers": [{"mixer": c} for c in cache]},
+                        like)

@@ -18,7 +18,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("paged_attention", "chunked_prefill")
+KERNELS = ("paged_attention", "chunked_prefill", "decode_attention",
+           "flash_attention")
 # the kernels' compiled head_dim variants: those of the configs the port
 # runs (smollm-135m 64; qwen3, glm4 128; their .reduced() widths 32)
 HEAD_DIMS = (32, 64, 128)
@@ -123,6 +124,36 @@ def check_paged_args(q, k_pages, v_pages, block_table, lens, q_rank):
                          f"{tuple(block_table.shape)} / lengths "
                          f"{tuple(lens.shape)} do not match batch {B}")
     return codes[q.dtype], codes[k_pages.dtype]
+
+
+def check_dense_args(name, q, k, v, ints, q_rank):
+    """Validate the tensors a dense-cache attention kernel reads: q of
+    rank ``q_rank``, k/v (B, S, Hkv, D), and the int32 tensors ``ints``
+    (raises ValueError); returns (q dtype code, k/v dtype code)."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    ts = (q, k, v, *ints)
+    if any(t.device != q.device for t in ts):
+        raise ValueError(f"{name}: all tensors must share q's device")
+    if any(not t.is_contiguous() for t in ts):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if q.dtype not in codes or k.dtype not in codes:
+        raise ValueError(f"{name}: q {q.dtype} / k {k.dtype} must be "
+                         f"float32 or bfloat16")
+    if v.dtype != k.dtype or v.shape != k.shape:
+        raise ValueError(f"{name}: k and v differ in dtype or shape")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise ValueError(f"{name}: lengths must be int32")
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    if q.dim() != q_rank or k.dim() != 4 or k.shape[0] != B \
+            or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, k/v "
+                         f"{tuple(k.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError(f"{name}: k/v must be 16-byte aligned")
+    return codes[q.dtype], codes[k.dtype]
 
 
 def load_entry(name: str, entry: str, argtypes):

@@ -1,0 +1,58 @@
+"""Dense-cache GQA decode attention: ONE query token per row against a
+(B, S, Hkv, D) K/V cache, of which each row's first ``valid_len`` slots
+are filled.
+
+Port of ``repro/kernels/decode_attention.py``. The kernel is hand-written
+CUDA C++ for ``sm_90a`` (``csrc/decode_attention.cu``, whose head note
+says what bounds it and how the design answers); ``kernels/ref.py`` holds
+the plain version. A CUDA tensor launches the kernel or raises; a CPU
+tensor takes the plain version. ``decode_attention.launches`` counts the
+kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def decode_attention(q, k, v, valid_len, scale=None):
+    """q (B, H, D) one token per row; k/v (B, S, Hkv, D); valid_len a
+    scalar or a (B,) int32 tensor of filled slots per row (the stacked
+    batcher gives every slot its own). Returns (B, H, D) in q's dtype."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    if q.device.type == "cpu":
+        return ref.decode_attention(q, k, v, valid_len, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for device "
+                         f"{q.device}")
+    lens = torch.as_tensor(valid_len, device=q.device)
+    if lens.dim() == 0:
+        lens = lens.to(torch.int32).expand(B).contiguous()
+    qc, kc = _build.check_dense_args("decode_attention", q, k, v, (lens,),
+                                     q_rank=3)
+    if lens.shape != (B,):
+        raise ValueError(f"decode_attention: valid_len {tuple(lens.shape)} "
+                         f"does not match batch {B}")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    fn = _build.load_entry("decode_attention", "decode_attention_launch",
+                           _ARGTYPES)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+            out.data_ptr(), B, H, Hkv, D, S, float(scale), qc, kc,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"decode_attention launch failed: cudaError {rc}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

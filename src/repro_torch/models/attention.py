@@ -1,21 +1,28 @@
-"""GQA attention against the paged KV pool: chunked prefill and decode.
+"""GQA attention: full-prompt prefill, decode against a dense cache, and
+chunked prefill and decode against the paged KV pool.
 
-Port of the paged modes of ``repro/models/attention.py``: ``mode="chunk"``
-(page-aligned prefill chunk runs) and paged ``mode="decode"``. Attention
-itself goes through the hand-written kernels in ``repro_torch.kernels``,
-which launch on CUDA tensors and take their plain version on CPU tensors.
-The pool pages are updated IN PLACE (the reference returns new, donated
-arrays): each layer scatters its fresh K/V onto its pages before it
-gathers, exactly as the reference orders it.
+Port of ``repro/models/attention.py``: ``mode="full"`` (a whole prompt,
+optionally written into a dense ``{"k", "v"}`` cache), ``mode="chunk"``
+(page-aligned prefill chunk runs into the paged pool) and
+``mode="decode"`` against either cache. Attention itself goes through the
+hand-written kernels in ``repro_torch.kernels``, which launch on CUDA
+tensors and take their plain version on CPU tensors; ``mode="full"``
+always takes ``flash_attention``, which computes the function the
+reference's ``attend_naive``/``attend_blocked``/Pallas choice computes at
+every length. Caches and pool pages are updated IN PLACE (the reference
+returns new, donated arrays), each layer writing its fresh K/V before it
+attends, exactly as the reference orders it.
 
-Not ported yet: ``mode="full"``, dense decode caches, fp8 KV and windowed
-attention.
+Not ported yet: fp8 KV caches, windowed (ring-buffer) caches, the
+sequence-sharded decode and prefix-LM masking.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.models.layers import PSpec, apply_rope, rms_norm
 
@@ -37,6 +44,13 @@ def attend_chunk_paged(q, k_pages, v_pages, block_table, start_pos, scale):
                                      block_table, start_pos, scale)
 
 
+def attend_decode(q, k_cache, v_cache, valid_len, scale):
+    """One-token decode against a dense cache: q (B,1,H,D); caches
+    (B,S,Hkv,D); valid_len (B,) int32 filled slots per row."""
+    return decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                            valid_len, scale)[:, None]
+
+
 # ------------------------------------------------------------------- block
 
 def attn_table(cfg):
@@ -54,15 +68,26 @@ def attn_table(cfg):
     return t
 
 
-def attn_apply(cfg, p, x, positions, *, mode, cache, block_table,
+def attn_cache_spec(cfg, batch, max_len):
+    """{name: shape} of this block's dense decode cache."""
+    sh = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": sh, "v": sh}
+
+
+def attn_apply(cfg, p, x, positions, *, mode, cache=None, block_table=None,
                dst_page=None):
-    """mode 'chunk' (x (B, C*page_size, d), positions (B, T) absolute
-    positions of each row's tokens, ``dst_page`` (B, C) page ids the rows'
-    K/V lands on — the scratch page masks the write) or 'decode' (x
-    (B, 1, d), positions (B,) per-sequence positions). ``cache`` holds this
-    layer's ``k_pages``/``v_pages`` (P, page_size, Hkv, D), updated in
-    place; ``block_table`` (B, N) int32. Weights are (d_in, d_out), as the
-    reference stores them: ``h @ W``. Returns (x + attn_out, cache)."""
+    """mode 'full' (x (B, S, d), positions (S,) = 0..S-1; ``cache`` None
+    or this layer's dense ``{"k", "v"}`` (B, W, Hkv, D) with W >= S, whose
+    first S slots take the prompt's K/V), 'chunk' (x (B, C*page_size, d),
+    positions (B, T) absolute positions of each row's tokens, ``dst_page``
+    (B, C) page ids the rows' K/V lands on — the scratch page masks the
+    write) or 'decode' (x (B, 1, d), positions a scalar or (B,)
+    per-sequence positions). A decode ``cache`` is either dense
+    ``{"k", "v"}`` (the token lands in slot min(pos, W-1)) or this layer's
+    ``k_pages``/``v_pages`` (P, page_size, Hkv, D) with ``block_table``
+    (B, N) int32; caches are updated in place. Weights are (d_in, d_out),
+    as the reference stores them: ``h @ W``. Returns (x + attn_out,
+    cache)."""
     B = x.shape[0]
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = hd ** -0.5
@@ -73,9 +98,34 @@ def attn_apply(cfg, p, x, positions, *, mode, cache, block_table,
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
-    kp, vp = cache["k_pages"], cache["v_pages"]
-    ps = kp.shape[1]
-    if mode == "chunk":      # page-aligned prefill chunks into the paged pool
+    if mode == "full":       # a whole prompt, positions 0..S-1
+        S = x.shape[1]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        o = flash_attention(q, k, v, scale)
+        if cache is not None:
+            W = cache["k"].shape[1]
+            if W < S:
+                raise NotImplementedError(
+                    f"prompt of {S} tokens into a {W}-slot cache: windowed "
+                    f"(ring-buffer) caches are not ported yet")
+            cache["k"][:, :S] = k.to(cache["k"].dtype)
+            cache["v"][:, :S] = v.to(cache["v"].dtype)
+    elif mode == "decode" and "k" in cache:   # one token, dense cache
+        W = cache["k"].shape[1]
+        posb = (torch.zeros(B, dtype=torch.int32, device=x.device)
+                + positions).to(torch.int32)       # scalar or (B,)
+        q = apply_rope(q, posb[:, None], cfg.rope_theta)
+        k = apply_rope(k, posb[:, None], cfg.rope_theta)
+        rows = torch.arange(B, device=x.device)
+        slot = torch.clamp(posb, max=W - 1).long()
+        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        o = attend_decode(q, cache["k"], cache["v"],
+                          torch.clamp(posb + 1, max=W), scale)
+    elif mode == "chunk":    # page-aligned prefill chunks into the paged pool
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        ps = kp.shape[1]
         S = x.shape[1]
         assert S % ps == 0, (
             f"chunk mode is whole pool pages, got {S} tokens "
@@ -99,6 +149,8 @@ def attn_apply(cfg, p, x, positions, *, mode, cache, block_table,
         start = positions[:, 0].to(torch.int32).contiguous()
         o = attend_chunk_paged(q, kp, vp, block_table, start, scale)
     elif mode == "decode":   # one token per sequence against the paged pool
+        kp, vp = cache["k_pages"], cache["v_pages"]
+        ps = kp.shape[1]
         posb = (torch.zeros(B, dtype=torch.int32, device=x.device)
                 + positions).to(torch.int32)       # scalar or (B,)
         q = apply_rope(q, posb[:, None], cfg.rope_theta)
@@ -116,8 +168,6 @@ def attn_apply(cfg, p, x, positions, *, mode, cache, block_table,
         vp[pi, off] = v[:, 0].to(vp.dtype)
         o = attend_decode_paged(q, kp, vp, block_table, posb + 1, scale)
     else:
-        raise NotImplementedError(
-            f"attention mode {mode!r} is not ported yet (paged 'chunk' and "
-            f"'decode' only)")
+        raise ValueError(f"unknown attention mode {mode!r}")
     y = torch.matmul(o.reshape(B, o.shape[1], H * hd), p["wo"])
     return x + y, cache

@@ -1,8 +1,10 @@
 """Model assembly for attention-only decoders (attention + SwiGLU).
 
-Port of ``repro/models/model.py`` for the patterns the paged serving path
-runs. The reference stores layers stacked along a leading dim and runs
-them with ``lax.scan``; the port keeps one parameter dict per layer
+Port of ``repro/models/model.py`` for attention-only patterns, in every
+mode the serving paths run: ``full`` (a whole prompt, with or without a
+dense cache), ``chunk`` (paged prefill runs) and ``decode`` (against a
+dense cache or the paged pool). The reference stores layers stacked
+along a leading dim and runs them with ``lax.scan``; the port keeps one parameter dict per layer
 (``params["layers"][i]``) and runs them in a Python loop, in the same
 depth order (head layers, then every pattern cycle, then tail layers —
 ``repro_torch.bridge`` maps the reference's layout onto this one).
@@ -78,6 +80,21 @@ class Model:
     def layer_table(self):
         return _layer_table(self.cfg)
 
+    def cache_spec(self, batch, max_len):
+        """Per layer, {name: shape} of the dense decode cache."""
+        return [attention.attn_cache_spec(self.cfg, batch, max_len)
+                for _ in range(self.cfg.num_layers)]
+
+    def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
+        """A zeroed dense decode cache on ``device`` (None = the card): one
+        ``{"k", "v"}`` dict of (batch, max_len, Hkv, D) tensors per layer.
+        Zeros, not empty memory: a masked slot multiplies p = 0 by what it
+        holds, and uninitialised memory may hold NaN bits."""
+        dev = resolve_device(device)
+        return [{n: torch.zeros(sh, dtype=dtype, device=dev)
+                 for n, sh in layer.items()}
+                for layer in self.cache_spec(batch, max_len)]
+
     def init(self, seed=0, dtype=torch.float32, device=None):
         """Seeded random weights at the config's widths, drawn on
         ``device`` (None = the card) from one ``torch.Generator``."""
@@ -99,14 +116,18 @@ class Model:
             x = x + swiglu_apply(p["mlp"], rms_norm(x, p["mlp"]["ln"]))
         return x, cache
 
-    def forward(self, params, *, tokens, mode, cache, pos, block_table,
-                dst_page=None):
-        """Returns (logits, cache); ``cache`` is the list of per-layer page
-        dicts, updated in place (the reference also returns an MoE aux
-        loss, which attention-only models do not have).
+    def forward(self, params, *, tokens, mode="full", cache=None, pos=None,
+                block_table=None, dst_page=None):
+        """Returns (logits, cache); ``cache`` is the list of per-layer
+        cache dicts, updated in place, or None (the reference also returns
+        an MoE aux loss, which attention-only models do not have).
 
-        mode='decode': tokens (B, 1); ``pos`` (B,) per-sequence absolute
-        positions; block_table (B, N).
+        mode='full': tokens (B, S) at positions 0..S-1; ``cache`` None or
+        a dense cache from ``init_cache`` whose first S slots take the
+        prompt's K/V.
+        mode='decode': tokens (B, 1); ``pos`` a scalar or (B,)
+        per-sequence absolute positions; ``cache`` a dense cache, or the
+        pool's page dicts with block_table (B, N).
         mode='chunk': page-aligned prefill chunk runs — tokens
         (B, C*page_size) with one independent run per row, ``pos`` the (B,)
         absolute positions of each run's first token, ``block_table``
@@ -117,15 +138,20 @@ class Model:
         emb = params["embed"]
         x = emb[tokens.long()]
         S = x.shape[1]
-        if mode == "chunk":
+        if mode == "full":
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        elif mode == "chunk":
             starts = pos.reshape(-1).to(torch.int32)
             positions = starts[:, None] + torch.arange(
                 S, dtype=torch.int32, device=x.device)[None]
         else:
             positions = pos
         for i, lp in enumerate(params["layers"]):
-            x, cache[i] = self._apply_layer(lp, x, positions, mode, cache[i],
-                                            block_table, dst_page)
+            c = cache[i] if cache is not None else None
+            x, c = self._apply_layer(lp, x, positions, mode, c, block_table,
+                                     dst_page)
+            if cache is not None:
+                cache[i] = c
         x = rms_norm(x, params["final_norm"])
         if cfg.tie_embeddings:
             logits = torch.matmul(x, emb.t())

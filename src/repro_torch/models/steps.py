@@ -1,9 +1,9 @@
-"""Step functions of the paged serving path.
+"""Step functions of the serving paths.
 
-Port of the paged builders of ``repro/models/steps.py``. The reference
-jits each step and donates the pool; here each step is a plain function
-that runs eagerly on the device of its tensors and updates the pool pages,
-``last_tok`` and ``gen_buf`` in place.
+Port of the serving builders of ``repro/models/steps.py``. The reference
+jits each step and donates the cache; here each step is a plain function
+that runs eagerly on the device of its tensors and updates the cache (a
+dense cache or the pool pages), ``last_tok`` and ``gen_buf`` in place.
 
 Device-resident sampling state (``last_tok`` (num_slots + 1,),
 ``gen_buf`` (num_slots + 1, max_len)) carries ONE extra row at index
@@ -17,6 +17,30 @@ from __future__ import annotations
 import torch
 
 from repro_torch.serving.sampling import sample
+
+
+def make_prefill_step(model):
+    """Full-prompt prefill: tokens (B, S) at positions 0..S-1 into a dense
+    cache from ``model.init_cache``. Returns the last position's logits
+    (B, V) and the cache."""
+    def prefill_step(params, cache, tokens):
+        logits, cache = model.forward(params, mode="full", tokens=tokens,
+                                      cache=cache)
+        return logits[:, -1, :], cache
+
+    return prefill_step
+
+
+def make_serve_step(model):
+    """One decode token against a dense cache: token (B, 1), ``pos`` a
+    scalar or (B,) per-row absolute positions. Returns (logits (B, V),
+    cache)."""
+    def serve_step(params, cache, token, pos):
+        logits, cache = model.forward(params, mode="decode", tokens=token,
+                                      cache=cache, pos=pos)
+        return logits[:, 0, :], cache
+
+    return serve_step
 
 
 def make_chunked_prefill_step(model):

@@ -1,30 +1,48 @@
-"""Continuous batching over the trust-tiered paged KV pool.
+"""Continuous batching schedulers for a SHORE island.
 
-Port of ``repro/serving/batcher.py`` on its main path:
-``PagedContinuousBatcher(prefill="chunked", fused=True)`` with greedy
-sampling. Admission is **prefix-aware chunked prefill**: prompts split
-into page-size chunks, chunks whose pages already live in the pool at the
-request's exact trust tier are skipped, and every tick spends a bounded
-``prefill_token_budget`` on queued chunks, round-robin across slots,
-before decode (Sarathi-style mixed scheduling).
+Port of ``repro/serving/batcher.py``, greedy sampling. Two cache managers
+behind one interface (``make_batcher(cfg, cache=...)``):
 
-Each tick is a host-side PLAN (chunk resolution, page allocation, prefix
-registration — no model work) and at most two device dispatches: one
-batched chunk-prefill over every planned run across requests, one paged
-decode whose input tokens resolve on the device (``_dev_last`` /
-``_dev_gen`` hold the greedy sampling state). Dispatch shapes round up to
-power-of-two buckets persisted across ticks (``_bucket``); padding is
-exact-zero masked. Host arrays cross to the device through pinned buffers
-without a host sync, and token values cross back only when a request
-finishes (``_materialize_slot``), so the host plans tick t+1 while the
-device still runs tick t.
+* ``ContinuousBatcher`` (``cache="stacked"``): fixed decode slots over one
+  dense KV cache per layer with a leading (num_slots,) axis. Admission
+  prefills one request into a (1, max_len) cache and writes the whole row
+  into its slot; each tick runs ONE decode dispatch over every slot,
+  inactive ones included (they decode a dummy token at position 0 of their
+  row), as the reference's ``jax.vmap`` does. Attention goes through
+  ``flash_attention`` (prefill) and ``decode_attention`` (decode).
+* ``PagedContinuousBatcher`` (``cache="paged"``): the trust-tiered paged
+  KV pool (``serving.kvpool``). Admission is **prefix-aware chunked
+  prefill** by default: prompts split into page-size chunks, chunks whose
+  pages already live in the pool at the request's exact trust tier are
+  skipped, and every tick spends a bounded ``prefill_token_budget`` on
+  queued chunks, round-robin across slots, before decode (Sarathi-style
+  mixed scheduling). ``prefill="full"`` keeps the monolithic
+  one-dispatch-per-admission prefill (``flash_attention`` into a dense
+  row, scattered into the pool) as the A/B baseline.
 
-Not ported yet: the stacked ``ContinuousBatcher``, ``fused=False``,
-``prefill="full"``, stochastic sampling, page-exhaustion preemption with
-resume tickets (the port raises when every decode-ready slot stalls, which
-``build_island_batchers``' default ``pool_headroom=1.0`` rules out),
-migration (freeze/thaw), SLO expiry, tier quotas, class-aware scheduling,
-constant-shape dispatch, straggler injection, the tracer and the profiler.
+The chunked path runs **fused** by default: each tick is a host-side PLAN
+(chunk resolution, page allocation, prefix registration — no model work)
+and at most two device dispatches: one batched chunk-prefill over every
+planned run across requests, one paged decode whose input tokens resolve
+on the device (``_dev_last`` / ``_dev_gen`` hold the greedy sampling
+state). Dispatch shapes round up to power-of-two buckets persisted across
+ticks (``_bucket``); padding is exact-zero masked. Host arrays cross to
+the device through pinned buffers without a host sync, and token values
+cross back only when a request finishes or is preempted
+(``_materialize_slot``), so the host plans tick t+1 while the device still
+runs tick t. ``fused=False`` dispatches every chunk run on its own and
+samples each decode step on the host: the launch-count baseline, with the
+same token streams.
+
+When every decode-ready slot stalls on an exhausted pool, the
+least-invested slot is **preempted**: its pages return to the pool and it
+requeues at the head with a resume ticket (``serving.migration``) that
+keeps its generated tokens, so re-admission recomputes its context and
+its stream continues where it stopped.
+
+Not ported yet: stochastic sampling, migration (freeze/thaw and page
+import), SLO expiry, tier quotas, class-aware scheduling, constant-shape
+dispatch, straggler injection, the tracer and the profiler.
 """
 from __future__ import annotations
 
@@ -37,11 +55,15 @@ import torch
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models.model import (attention_only, effective_pattern,
                                       get_model, resolve_device)
-from repro_torch.models.steps import (make_fused_decode_step,
-                                      make_fused_prefill_step)
+from repro_torch.models.steps import (make_chunked_prefill_step,
+                                      make_fused_decode_step,
+                                      make_fused_prefill_step,
+                                      make_paged_serve_step,
+                                      make_prefill_step, make_serve_step)
 from repro_torch.serving.kvpool import (SCRATCH_PAGE, PagePool,
                                         prefix_chunk_hashes,
                                         resolve_chunk_page)
+from repro_torch.serving.migration import MigrationTicket, ticket_fits
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -61,7 +83,10 @@ class SlotState:
     prompt_ids: list = field(default_factory=list)  # prefill token sequence
     chunks: list = field(default_factory=list)  # pending (j, hash, fill)
     next_chunk: int = 0                         # first undispatched entry
-    carried: list = field(default_factory=list)  # resumed output (unused)
+    # resumed requests (preemption re-admission): output tokens folded
+    # into prompt_ids as recompute context — the full output stream is
+    # carried + generated
+    carried: list = field(default_factory=list)
     # trailing generated tokens whose VALUES still live only on the device
     # (the _dev_gen buffer); the full stream is carried + generated +
     # gen_dev device-resident tokens, materialized at finish
@@ -69,7 +94,7 @@ class SlotState:
 
 
 class _BatcherBase:
-    """Queue/slot lifecycle of a batcher."""
+    """Queue/slot lifecycle shared by both cache managers."""
 
     def __init__(self, cfg, params=None, num_slots=4, max_len=256,
                  seed=0, dtype="float32", temperature=0.0, device=None):
@@ -91,6 +116,13 @@ class _BatcherBase:
         # (request could never fit the page pool)
         self.finished: dict[int, Optional[str]] = {}
         self._next_id = 0
+        # rid -> resume ticket of a preempted request still in the queue
+        self._tickets: dict[int, MigrationTicket] = {}
+        self.migration_stats = {"exports": 0, "imports": 0,
+                                "imported_pages": 0, "import_attach_hits": 0,
+                                "recomputes": 0}
+        self.preempted_rids: list = []
+        self._prefill = make_prefill_step(self.model)
         # "admissions" counts requests entering a slot; "prefill_dispatches"
         # counts logical chunk-run dispatches; "device_dispatches" counts
         # model program launches (the fused tick collapses many
@@ -111,9 +143,10 @@ class _BatcherBase:
     # --------------------------------------------------------- submission
     def submit(self, prompt: str, max_new_tokens=16,
                trust_tier: Optional[int] = None, slo_rank: int = 0) -> int:
-        """Enqueue a request. ``trust_tier`` tags the KV pages it produces;
-        None = untiered, which shares nothing (fail closed). ``slo_rank``
-        is recorded only: class-aware scheduling is not ported yet."""
+        """Enqueue a request. ``trust_tier`` tags the KV pages it produces
+        (paged mode); None = untiered, which shares nothing (fail closed).
+        The stacked cache manager ignores the tier. ``slo_rank`` is
+        recorded only: class-aware scheduling is not ported yet."""
         rid = self._next_id
         self._next_id += 1
         self.queue.append((rid, prompt, max_new_tokens, trust_tier))
@@ -126,6 +159,19 @@ class _BatcherBase:
             rec["slo_rank"] = slo_rank
         self.request_log[rid] = rec
         return rid
+
+    def _resume_fields(self, s: SlotState) -> dict:
+        """Resume-ticket fields of slot ``s``: un-fold the recompute
+        context back into (original prompt, full output stream) so a
+        ticket never double-counts tokens a previous resume folded into
+        ``prompt_ids``."""
+        n_folded = len(s.carried)
+        orig = (s.prompt_ids[:len(s.prompt_ids) - n_folded] if n_folded
+                else list(s.prompt_ids))
+        return dict(rid=s.request_id, prompt=s.prompt, prompt_ids=orig,
+                    generated=list(s.carried) + list(s.generated),
+                    max_new=s.max_new, tier=s.tier,
+                    log=self.request_log.get(s.request_id))
 
     # ------------------------------------------------------ lifecycle notes
     def _note_admission(self, rid, prompt_tokens):
@@ -187,6 +233,27 @@ class _BatcherBase:
     def _encode(self, prompt, max_new):
         return self.tok.encode(prompt)[: self.max_len - max_new - 1]
 
+    def _to_device(self, arr):
+        """One host array onto the batcher's device. On the card the copy
+        goes through a pinned staging buffer with non_blocking=True, so the
+        host does not wait for the device (the caching host allocator keeps
+        the buffer alive until the copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type == "cpu":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _prefill_ids(self, ids):
+        """Prefill one token sequence into a fresh (1, max_len) dense cache
+        (one device dispatch); returns (greedy next token, cache). The
+        token crosses to the host: admission needs it to seed decode."""
+        cache = self.model.init_cache(1, self.max_len, dtype=torch.bfloat16,
+                                      device=self.device)
+        toks = self._to_device(np.asarray(ids, np.int32)[None])
+        logits, cache = self._prefill(self.params, cache, toks)
+        self.stats["device_dispatches"] += 1
+        return int(torch.argmax(logits[0])), cache
+
     def _finish_slot(self, si):
         s = self.slots[si]
         self.finished[s.request_id] = self.tok.decode(
@@ -196,12 +263,84 @@ class _BatcherBase:
         self.slots[si] = SlotState()
 
 
+def _write_slot(stacked, one, si):
+    """Write a (1, max_len, ...) dense cache into row ``si`` of the
+    stacked (num_slots, max_len, ...) cache, layer by layer, in place."""
+    for st, o in zip(stacked, one):
+        for name, t in st.items():
+            t[si] = o[name][0].to(t.dtype)
+
+
+class ContinuousBatcher(_BatcherBase):
+    """Dense stacked-slot cache manager."""
+
+    def __init__(self, cfg, params=None, num_slots=4, max_len=256,
+                 seed=0, dtype="float32", temperature=0.0, device=None):
+        super().__init__(cfg, params, num_slots, max_len, seed, dtype,
+                         temperature, device)
+        # stacked slot caches: leading axis = slot
+        self._cache = self.model.init_cache(num_slots, max_len,
+                                            dtype=torch.bfloat16,
+                                            device=self.device)
+        self._decode_all = make_serve_step(self.model)
+
+    def _admit(self):
+        for si, s in enumerate(self.slots):
+            if s.active or not self.queue:
+                continue
+            rid, prompt, max_new, tier = self.queue.pop(0)
+            ids = self._encode(prompt, max_new)
+            first, cache = self._prefill_ids(ids)
+            _write_slot(self._cache, cache, si)
+            self.slots[si] = SlotState(active=True, request_id=rid,
+                                       pos=len(ids), prompt_len=len(ids),
+                                       generated=[first], max_new=max_new,
+                                       tier=tier, prompt=prompt,
+                                       prompt_ids=list(ids))
+            self._note_admission(rid, len(ids))
+            self._note_prefill_dispatch(len(ids), tier)
+            self._note_first_token(rid)
+
+    # --------------------------------------------------------------- tick
+    def _tick_inner(self):
+        """Admit from queue, then ONE decode dispatch over all slots."""
+        self._admit()
+        self.stats["ticks"] += 1
+        active = [si for si, s in enumerate(self.slots) if s.active]
+        if not active:
+            return
+        toks = np.zeros((self.num_slots, 1), np.int32)
+        poss = np.zeros((self.num_slots,), np.int32)
+        for si in active:
+            s = self.slots[si]
+            toks[si, 0] = s.generated[-1]
+            poss[si] = s.pos
+        logits, self._cache = self._decode_all(
+            self.params, self._cache, self._to_device(toks),
+            self._to_device(poss))
+        self.stats["device_dispatches"] += 1
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.stats["decode_steps"] += 1
+        self._note_decode_work(active)
+        for si in active:
+            s = self.slots[si]
+            s.generated.append(int(nxt[si]))
+            s.pos += 1
+            self.stats["decode_tokens"] += 1
+            done = (len(s.carried) + len(s.generated) >= s.max_new
+                    or s.pos >= self.max_len - 1)
+            if done:
+                self._finish_slot(si)
+
+
 class PagedContinuousBatcher(_BatcherBase):
     """Paged-pool cache manager: page-granular allocation, trust-tiered
-    prefix sharing, copy-on-write appends, page free at completion, with
-    budgeted chunked prefill and the fused two-dispatch tick.
+    prefix sharing, copy-on-write appends, page free at completion.
 
-    Chunk pages materialize lazily at dispatch via a late-binding re-probe
+    ``prefill="chunked"`` (default) turns admission into a prefill QUEUE
+    spent by a per-tick token budget; ``prefill="full"`` keeps the
+    monolithic single-dispatch admission (the A/B baseline). Chunk pages
+    materialize lazily at dispatch via a late-binding re-probe
     (``kvpool.resolve_chunk_page``), so two same-tier requests admitted in
     the same tick still dedup their common head; pages a slot's
     undispatched chunks will need are counted in ``self.reserved`` and are
@@ -217,10 +356,8 @@ class PagedContinuousBatcher(_BatcherBase):
                 f"paged KV cache requires a full-history attention-only "
                 f"pattern, got {sorted(set(effective_pattern(cfg)))}"
                 f"{' with attn_window' if cfg.attn_window else ''}")
-        if prefill != "chunked" or not fused:
-            raise NotImplementedError(
-                "the port carries the fused chunked-prefill path only "
-                "(prefill='chunked', fused=True)")
+        if prefill not in ("chunked", "full"):
+            raise ValueError(f"unknown prefill mode {prefill!r}")
         super().__init__(cfg, params, num_slots, max_len, seed, dtype,
                          temperature, device)
         self.page_size = page_size
@@ -233,6 +370,11 @@ class PagedContinuousBatcher(_BatcherBase):
                              device=self.device)
         self.block_tables = np.zeros((num_slots, self.pages_per_seq),
                                      np.int32)
+        self._decode_all = make_paged_serve_step(self.model)
+        self._chunk_prefill = make_chunked_prefill_step(self.model)
+        self.prefill_mode = prefill
+        # the fused tick covers chunked prefill only
+        self.fused = fused and prefill == "chunked"
         self.prefill_token_budget = (prefill_token_budget
                                      if prefill_token_budget is not None
                                      else 4 * page_size)
@@ -267,16 +409,6 @@ class PagedContinuousBatcher(_BatcherBase):
                            "prefill_chunk_tokens": 0})
 
     # -------------------------------------------------------- fused-tick
-    def _to_device(self, arr):
-        """One host array onto the batcher's device. On the card the copy
-        goes through a pinned staging buffer with non_blocking=True, so the
-        host does not wait for the device (the caching host allocator keeps
-        the buffer alive until the copy has run)."""
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cpu":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def _bucket(self, kind, need, cap) -> int:
         """Dispatch-shape bucket for ``kind``: the pow2 ceiling of
         ``need`` (capped) — unless a LARGER bucket of this kind was already
@@ -295,7 +427,7 @@ class PagedContinuousBatcher(_BatcherBase):
 
     def _materialize_slot(self, si):
         """Pull slot ``si``'s device-resident generated tokens to the host
-        (the only device sync of the fused path)."""
+        (the only device sync of the fused path: finish and preemption)."""
         s = self.slots[si]
         if not s.gen_dev:
             return
@@ -310,18 +442,114 @@ class PagedContinuousBatcher(_BatcherBase):
 
     # ---------------------------------------------------------- admission
     def _admit(self):
-        """Plan-only admission: split the prompt into page-size chunks,
-        attach to every leading chunk already cached at this exact trust
-        tier, and queue the rest for budgeted dispatch by
-        ``_prefill_tick``. No model dispatch happens here."""
+        if self.prefill_mode == "full":
+            self._admit_full()
+        else:
+            self._admit_chunked()
+
+    def _admit_full(self):
+        """Monolithic admission (the pre-chunking baseline): one blocking
+        full-prompt prefill dispatch per admitted request, scattered into
+        the pool in one whole-admission write. A preempted request
+        re-admits through the SAME path as a recompute of its context: its
+        pending token survives, so its stream continues where it
+        stopped."""
         for si, s in enumerate(self.slots):
             if s.active:
                 continue
             if not self.queue:
                 break
             rid, prompt, max_new, tier = self.queue[0]
-            ids = self._encode(prompt, max_new)
-            status = self._admit_ids(si, rid, ids, max_new, tier, prompt)
+            ticket = self._tickets.get(rid)
+            if ticket is not None:
+                ids = ticket.context_ids()
+                carried, pending = ticket.progress()
+            else:
+                ids = self._encode(prompt, max_new)
+                carried, pending = [], []
+            chunks = prefix_chunk_hashes(ids, self.page_size)
+            counters0 = self.pool.snapshot_share_counters()
+            shared = []
+            for chash, fill in chunks:
+                pid = self.pool.lookup_prefix(tier, chash, fill)
+                if pid is None:
+                    break
+                shared.append(pid)
+            n_fresh = len(chunks) - len(shared)
+            # a sequence must be able to run ALONE (context + every decode
+            # token still owed) or preemption can never rescue it: reject
+            # just this request (a None result)
+            total = len(ids) + max_new - len(carried) - len(pending)
+            if total >= self.max_len \
+                    or -(-total // self.page_size) \
+                    > self.pool.num_pages - 1:
+                self.queue.pop(0)
+                self._tickets.pop(rid, None)
+                self.finished[rid] = None
+                self.stats["rejected_too_large"] += 1
+                self._note_terminal(rid, "rejected")
+                continue
+            if self.pool.free_count() < n_fresh:
+                # pool exhausted — leave the request queued (eviction
+                # pressure); the probe must not count toward the share-hit
+                # telemetry
+                self.pool.restore_share_counters(counters0)
+                self.pool.stats["blocked"] += 1
+                self.blocked_last_tick += 1
+                break
+            self.queue.pop(0)
+            self._tickets.pop(rid, None)
+            for pid in shared:
+                self.pool.incref(pid)
+            pages = list(shared)
+            for _ in range(n_fresh):
+                pages.append(self.pool.alloc(tier))
+            # full-context prefill; shared pages already hold identical
+            # K/V, so only fresh chunks are scattered into the pool
+            first, dense = self._prefill_ids(ids)
+            self.pool.write_prompt_pages(
+                dense, [SCRATCH_PAGE] * len(shared) + pages[len(shared):])
+            for j in range(len(shared), len(chunks)):
+                chash, fill = chunks[j]
+                self.pool.register_prefix(pages[j], tier, chash, fill)
+            row = np.zeros(self.pages_per_seq, np.int32)
+            row[:len(pages)] = pages
+            self.block_tables[si] = row
+            self.slots[si] = SlotState(active=True, request_id=rid,
+                                       pos=len(ids), prompt_len=len(ids),
+                                       generated=pending or [first],
+                                       carried=carried, max_new=max_new,
+                                       pages=pages, tier=tier,
+                                       shared_pages=len(shared),
+                                       prompt=prompt, prompt_ids=list(ids))
+            self.stats["share_hits"] += len(shared)
+            if ticket is not None and ticket.resumes_compute():
+                self.migration_stats["recomputes"] += 1
+            self._note_admission(rid, len(ids))
+            self._note_prefill_dispatch(len(ids), tier)
+            if not pending:
+                self._note_first_token(rid)
+
+    def _admit_chunked(self):
+        """Plan-only admission: split the prompt into page-size chunks,
+        attach to every leading chunk already cached at this exact trust
+        tier, and queue the rest for budgeted dispatch by
+        ``_prefill_tick``. No model dispatch happens here. A preempted
+        request's resume ticket re-admits as a recompute of its
+        context."""
+        for si, s in enumerate(self.slots):
+            if s.active:
+                continue
+            if not self.queue:
+                break
+            rid, prompt, max_new, tier = self.queue[0]
+            ticket = self._tickets.get(rid)
+            if ticket is not None:
+                status = self._admit_ticket(si, rid, ticket)
+            else:
+                ids = self._encode(prompt, max_new)
+                status = self._admit_ids(si, rid, ids, max_new, tier,
+                                         prompt)
             if status == "blocked":
                 # pool exhausted once other slots' pending chunks are
                 # counted — leave the request queued (eviction pressure)
@@ -329,11 +557,17 @@ class PagedContinuousBatcher(_BatcherBase):
                 self.blocked_last_tick += 1
                 break
             self.queue.pop(0)
+            self._tickets.pop(rid, None)
             self._enc_len.pop(rid, None)
 
-    def _admit_ids(self, si, rid, ids, max_new, tier, prompt):
-        """Plan-only admission of a token sequence into slot ``si``; the
-        first token comes from the final chunk's boundary logits. Returns
+    def _admit_ids(self, si, rid, ids, max_new, tier, prompt, carried=(),
+                   pending=()):
+        """Plan-only admission of a token sequence into slot ``si``, for
+        fresh requests and preemption re-admissions. ``carried``/
+        ``pending`` restore a resumed request's generation progress
+        (``pending`` holds the token already sampled but not yet fed
+        through the model); both empty means a fresh request whose first
+        token comes from the final chunk's boundary logits. Returns
         "ok" | "blocked" | "rejected"."""
         chunks = prefix_chunk_hashes(ids, self.page_size)
         # the admission probe's counter side effects are always rolled
@@ -346,9 +580,9 @@ class PagedContinuousBatcher(_BatcherBase):
                 break
             shared.append(pid)
         self.pool.restore_share_counters(counters0)
-        # alone-fit rejection: context plus every owed decode token must
-        # fit max_len and its worst-case pages must fit the pool alone
-        total = len(ids) + max_new
+        # alone-fit rejection: context plus every still-owed decode token
+        # must fit max_len and its worst-case pages must fit the pool alone
+        total = len(ids) + max_new - len(carried) - len(pending)
         if total >= self.max_len \
                 or -(-total // self.page_size) > self.pool.num_pages - 1:
             self.finished[rid] = None
@@ -356,13 +590,15 @@ class PagedContinuousBatcher(_BatcherBase):
             self._note_terminal(rid, "rejected")
             return "rejected"
         # the plan holds every chunk that must DISPATCH: fresh chunks, plus
-        # the last chunk even when shared (its boundary logits are the
-        # first token; it dispatches against the scratch page so the shared
-        # page is never rewritten)
+        # the last chunk even when shared IF the first token is still owed
+        # (its boundary logits are that token; it dispatches against the
+        # scratch page so the shared page is never rewritten); a resumed
+        # request already holds its next token, so a fully shared context
+        # skips everything
         plan = []
         skipped = 0
         for j, (chash, fill) in enumerate(chunks):
-            if j < len(shared) and j < len(chunks) - 1:
+            if j < len(shared) and (j < len(chunks) - 1 or pending):
                 skipped += fill
             else:
                 plan.append((j, chash, fill))
@@ -377,11 +613,15 @@ class PagedContinuousBatcher(_BatcherBase):
         row[:len(shared)] = shared
         self.block_tables[si] = row
         self.slots[si] = SlotState(active=True, request_id=rid, pos=0,
-                                   prompt_len=len(ids), max_new=max_new,
+                                   prompt_len=len(ids),
+                                   generated=list(pending),
+                                   carried=list(carried), max_new=max_new,
                                    pages=list(shared), tier=tier,
                                    shared_pages=len(shared), prompt=prompt,
                                    prompt_ids=list(ids), chunks=plan,
                                    next_chunk=0)
+        if not plan:                    # fully shared resumed context:
+            self.slots[si].pos = len(ids)    # decode-ready immediately
         self.stats["share_hits"] += len(shared)
         self.stats["prefix_tokens_skipped"] += skipped
         self._note_admission(rid, len(ids))
@@ -390,14 +630,33 @@ class PagedContinuousBatcher(_BatcherBase):
             rec["tokens_skipped"] = rec.get("tokens_skipped", 0) + skipped
         return "ok"
 
+    def _admit_ticket(self, si, rid, t: MigrationTicket):
+        """Re-admit a preempted request into slot ``si`` by recomputing its
+        context (prompt + every generated token but the last) from tokens;
+        it keeps its generation progress, so the continued stream is the
+        one it would have produced unpreempted."""
+        if not ticket_fits(t, self.max_len, self.page_size,
+                           self.pool.num_pages):
+            self.finished[rid] = None
+            self.stats["rejected_too_large"] += 1
+            self._note_terminal(rid, "rejected")
+            return "rejected"
+        carried, pending = t.progress()
+        status = self._admit_ids(si, rid, t.context_ids(), t.max_new, t.tier,
+                                 t.prompt, carried=carried, pending=pending)
+        if status == "ok" and t.resumes_compute():
+            self.migration_stats["recomputes"] += 1
+        return status
+
     # ------------------------------------------------------ chunked prefill
     def _prefill_tick(self):
         """Sarathi-style budgeted prefill: spend up to
         ``prefill_token_budget`` prompt tokens on queued chunks, round-
         robin across slots (prefix-skipped chunks are free). The pointer
         ROTATES, so even a budget of one chunk per tick cannot starve a
-        short prompt behind a long one. Every planned row fuses into ONE
-        device dispatch."""
+        short prompt behind a long one. Fused, every planned row goes into
+        ONE device dispatch; unfused, each run dispatches as it is
+        planned."""
         budget = self.prefill_token_budget
         n = self.num_slots
         start = self._prefill_rr
@@ -412,10 +671,13 @@ class PagedContinuousBatcher(_BatcherBase):
                 s = self.slots[si]
                 if not (s.active and s.next_chunk < len(s.chunks)):
                     continue
-                row, gtok = self._plan_prefill_row(si, budget)
-                if row is not None:
-                    rows.append(row)
-                budget -= gtok
+                if self.fused:
+                    row, gtok = self._plan_prefill_row(si, budget)
+                    if row is not None:
+                        rows.append(row)
+                    budget -= gtok
+                else:
+                    budget -= self._advance_prefill(si, budget)
                 self._prefill_rr = (si + 1) % n
                 progress = True
         if rows:
@@ -467,6 +729,61 @@ class PagedContinuousBatcher(_BatcherBase):
             if last or gtok >= budget:
                 break
         return group, gtok
+
+    def _advance_prefill(self, si, budget) -> int:
+        """Unfused prefill step: plan one chunk run for slot ``si`` and
+        dispatch it immediately. Completing the plan emits the first
+        token from the run's boundary logits (a host sync). Returns the
+        tokens dispatched."""
+        s = self.slots[si]
+        group, gtok = self._plan_group(si, budget)
+        if not group:                 # the last chunk always dispatches
+            return 0
+        logits = self._dispatch_chunks(si, group)
+        for j, chash, fill, dst in group:
+            if dst != SCRATCH_PAGE:
+                # register AFTER the write so an index hit is always
+                # readable (late attaches depend on this ordering)
+                self.pool.register_prefix(dst, s.tier, chash, fill)
+        if s.next_chunk == len(s.chunks):
+            s.pos = s.prompt_len
+            if not s.generated:
+                # prompt complete: the boundary logits are the first token
+                # (a resumed request already holds its pending token)
+                off = (s.prompt_len - 1) - group[0][0] * self.page_size
+                s.generated = [int(torch.argmax(logits[0, off]))]
+                self._note_first_token(s.request_id)
+        return gtok
+
+    def _dispatch_chunks(self, si, group):
+        """ONE model dispatch for a run of consecutive chunks of slot
+        ``si``: the run pads to the next power-of-two page count (capped by
+        the budget) and the block table trims to the next power-of-two
+        width covering the run's last page, as the reference buckets its
+        compiled shapes. Padding writes only the scratch page. Returns the
+        run's logits (1, pages * page_size, V)."""
+        s = self.slots[si]
+        ps = self.page_size
+        start = group[0][0] * ps
+        c = min(1 << (len(group) - 1).bit_length(), self._chunk_pages_canon)
+        w = min(1 << group[-1][0].bit_length(), self.pages_per_seq)
+        self.dispatch_shapes.append(("prefill", 1, c, w))
+        toks = np.zeros((1, c * ps), np.int32)
+        dst = np.zeros(c, np.int32)                         # pad -> scratch
+        fills = 0
+        for n, (j, _h, fill, d) in enumerate(group):
+            toks[0, n * ps:n * ps + fill] = s.prompt_ids[j * ps:j * ps + fill]
+            dst[n] = d
+            fills += fill
+        dev = self._to_device
+        logits, self.pool.pages = self._chunk_prefill(
+            self.params, self.pool.pages, dev(toks),
+            dev(np.asarray([start], np.int32)),
+            dev(self.block_tables[si:si + 1, :w]), dev(dst))
+        self.stats["device_dispatches"] += 1
+        self.stats["prefill_chunk_tokens"] += fills
+        self._note_prefill_dispatch(fills, s.tier)
+        return logits
 
     def _plan_prefill_row(self, si, budget):
         """Plan half of the fused prefill: resolve one chunk run for slot
@@ -626,31 +943,112 @@ class PagedContinuousBatcher(_BatcherBase):
     # --------------------------------------------------------------- tick
     def _tick_inner(self):
         """Admit from queue (attaching to cached same-tier prefixes),
-        spend the prefill token budget on queued chunks, then ONE fused
-        paged decode step for every slot whose prompt is fully prefilled."""
+        spend the prefill token budget on queued chunks, then ONE paged
+        decode step for every slot whose prompt is fully prefilled."""
         self.blocked_last_tick = 0
         self._admit()
         self.stats["ticks"] += 1
-        self._prefill_tick()
+        if self.prefill_mode == "chunked":
+            self._prefill_tick()
         active = [si for si, s in enumerate(self.slots)
                   if s.active and s.next_chunk >= len(s.chunks)]
         if not active:
             return
-        ready = []
+        ready, stalled = [], []
         for si in active:
             if self._prepare_write_page(si):
                 ready.append(si)
             else:
+                stalled.append(si)
                 self.stats["stalls"] += 1
                 self.blocked_last_tick += 1
+        while not ready and stalled:
+            self._preempt_one(stalled)
+            for si in list(stalled):
+                if self._prepare_write_page(si):
+                    ready.append(si)
+                    stalled.remove(si)
         if not ready:
-            raise RuntimeError(
-                f"every decode-ready slot stalled on page exhaustion "
-                f"({len(active)} slots, {self.pool.free_count()} free pages, "
-                f"{self.reserved} reserved): preemption with resume tickets "
-                f"is not ported yet; size the pool for every slot "
-                f"(pool_headroom=1.0)")
-        self._decode_fused(ready)
+            return
+        if self.fused:
+            self._decode_fused(ready)
+        else:
+            self._decode_unfused(ready)
+
+    def _preempt_one(self, stalled):
+        """EVERY decode-ready slot is blocked on page exhaustion: without
+        intervention no slot can decode, finish or free — a deadlock.
+        Preempt the least-invested sequence (fewest tokens to recompute)
+        among the stalled and the mid-prefill slots (whose reserved pages
+        can be what starves a lone decoder): release its pages and
+        requeue it at the head with a resume ticket that keeps its
+        generated tokens. The freed pages go to the survivors in this
+        tick."""
+        prefilling = [si for si, s in enumerate(self.slots)
+                      if s.active and s.next_chunk < len(s.chunks)]
+
+        def invested(si):
+            s = self.slots[si]
+            return (len(s.pages) * self.page_size + len(s.generated)
+                    + s.gen_dev)
+
+        victim = min(stalled + prefilling, key=invested)
+        if victim in stalled:
+            stalled.remove(victim)
+        # the resume ticket needs the victim's whole stream on the host
+        self._materialize_slot(victim)
+        s = self.slots[victim]
+        # release the reservations its undispatched fresh chunks hold
+        self.reserved -= sum(1 for (j, _h, _f) in s.chunks[s.next_chunk:]
+                             if j >= len(s.pages))
+        for pid in s.pages:
+            self.pool.decref(pid)
+        self.block_tables[victim] = 0
+        self.queue.insert(0, (s.request_id, s.prompt, s.max_new, s.tier))
+        if s.generated or s.carried:
+            self._tickets[s.request_id] = MigrationTicket(
+                **self._resume_fields(s), phase="queued")
+        self.preempted_rids.append(s.request_id)
+        self.slots[victim] = SlotState()
+        self.stats["preemptions"] += 1
+
+    def _decode_unfused(self, ready):
+        """Unfused decode: one paged dispatch over all slots whose logits
+        come back to the host, where the next tokens are taken. Stalled
+        and inactive rows keep all-zero tables, so their dummy token lands
+        on the scratch page; the table trims to the pages any sequence
+        occupies."""
+        toks = np.zeros((self.num_slots, 1), np.int32)
+        poss = np.zeros((self.num_slots,), np.int32)
+        bt = np.zeros_like(self.block_tables)
+        for si in ready:
+            s = self.slots[si]
+            toks[si, 0] = s.generated[-1]
+            poss[si] = s.pos
+            bt[si] = self.block_tables[si]
+        n_live = max(self.slots[si].pos // self.page_size + 1
+                     for si in ready)
+        self.dispatch_shapes.append(("decode", self.num_slots, n_live))
+        dev = self._to_device
+        logits, self.pool.pages = self._decode_all(
+            self.params, self.pool.pages, dev(toks), dev(poss),
+            dev(bt[:, :n_live]))
+        self.stats["device_dispatches"] += 1
+        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        self.stats["decode_steps"] += 1
+        self._note_decode_work(ready)
+        for si in ready:
+            s = self.slots[si]
+            s.generated.append(int(nxt[si]))
+            s.pos += 1
+            self.stats["decode_tokens"] += 1
+            done = (len(s.carried) + len(s.generated) >= s.max_new
+                    or s.pos >= self.max_len - 1)
+            if done:
+                for pid in s.pages:
+                    self.pool.decref(pid)
+                self.block_tables[si] = 0
+                self._finish_slot(si)
 
     def _decode_fused(self, ready):
         """Fused-tick decode: one dispatch whose input tokens resolve ON
@@ -708,13 +1106,15 @@ def paged_supported(cfg) -> bool:
 
 
 def make_batcher(cfg, cache: str = "auto", **kw):
-    """Factory: ``cache`` in {"auto", "paged"} — the stacked manager is not
-    ported yet, so "auto" resolves to the paged pool or raises."""
+    """Factory: ``cache`` in {"auto", "paged", "stacked"} — auto picks the
+    paged pool whenever the architecture supports it."""
     if cache == "auto":
         cache = "paged" if paged_supported(cfg) else "stacked"
     if cache == "paged":
         return PagedContinuousBatcher(cfg, **kw)
     if cache == "stacked":
-        raise NotImplementedError(
-            f"{cfg.name}: the stacked ContinuousBatcher is not ported yet")
+        for k in ("page_size", "num_pages", "sharing", "prefill",
+                  "prefill_token_budget", "fused"):
+            kw.pop(k, None)
+        return ContinuousBatcher(cfg, **kw)
     raise ValueError(f"unknown cache manager {cache!r}")

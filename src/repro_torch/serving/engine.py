@@ -1,23 +1,33 @@
-"""Tick-batched serving orchestrator: WAVES routing wired to island
-batchers.
+"""Inference engine: WAVES routing wired to island executors.
 
-Port of the ``TickOrchestrator`` main path of ``repro/serving/engine.py``:
-``submit()`` only enqueues; each scheduling ``tick()`` routes the whole
-pending pool in ONE ``route_batch_tick`` pass on the orchestrator's device
-(capacity-aware within the tick), dispatches SHORE work into per-island
-``PagedContinuousBatcher``s and HORIZON work as virtual-time simulated
-completions, runs the batchers, feeds KV-pool pressure back into TIDE and
-the Lighthouse, and drains finished sequences through MIST
-desanitization. Time is virtual, so routing dynamics are deterministic.
+Port of ``repro/serving/engine.py``. Two serving frontends share the
+executors and metrics:
 
-Not ported yet: the per-request ``InferenceEngine``/``LocalModelServer``,
-island drain and failure with migration, SLO expiry and classes, load
-shedding and backpressure, tenant fairness, and the tracer.
+* ``InferenceEngine`` — the per-request loop: each ``submit()`` routes one
+  request through scalar WAVES and runs a one-shot
+  ``LocalModelServer.generate()`` (full-prompt prefill into a dense cache,
+  then greedy decode) on a SHORE island.
+* ``TickOrchestrator`` — the throughput path: ``submit()`` only enqueues;
+  each scheduling ``tick()`` routes the whole pending pool in ONE
+  ``route_batch_tick`` pass on the orchestrator's device (capacity-aware
+  within the tick), dispatches SHORE work into per-island batchers
+  (stacked or paged) and HORIZON work as virtual-time simulated
+  completions, runs the batchers, feeds KV-pool pressure back into TIDE
+  and the Lighthouse, and drains finished sequences through MIST
+  desanitization.
+
+Time is virtual: the per-request engine advances the TIDE/Lighthouse
+clocks by each submit's service latency (network model plus measured
+execution time), the orchestrator by a fixed interval per tick.
+
+Not ported yet: island drain and failure with migration, SLO expiry and
+classes, load shedding and backpressure, tenant fairness, and the tracer.
 """
 from __future__ import annotations
 
 import math
 import random
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -27,9 +37,13 @@ import torch
 from repro_torch.core import routing as rt
 from repro_torch.core.islands import STATUS_FAILED
 from repro_torch.core.waves import Decision, Request
-from repro_torch.models.model import resolve_device
+from repro_torch.data.tokenizer import ByteTokenizer
+from repro_torch.models.model import get_model, resolve_device
+from repro_torch.models.steps import make_prefill_step, make_serve_step
 from repro_torch.obs.metrics import latency_summary
 from repro_torch.serving.kvpool import trust_tier_for_sensitivity
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass
@@ -46,6 +60,52 @@ class Response:
     island_privacy: Optional[float] = None
 
 
+class LocalModelServer:
+    """A small real model served on a SHORE island: batched full-prompt
+    prefill + greedy decode against a dense cache, on ``device`` (None =
+    the card).
+
+    A batch of prompts is padded AFTER its tokens with id 0, and every
+    prompt's first token comes from position L-1 of the longest one, so a
+    shorter prompt is conditioned on padding — as in the reference, whose
+    ``InferenceEngine`` always sends one prompt."""
+
+    def __init__(self, cfg, params=None, seed=0, max_len=256,
+                 dtype="float32", device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = get_model(cfg)
+        self.params = params if params is not None else self.model.init(
+            seed, _DTYPES[dtype], self.device)
+        self.max_len = max_len
+        self.tok = ByteTokenizer(cfg.vocab_size)
+        self._prefill = make_prefill_step(self.model)
+        self._decode = make_serve_step(self.model)
+
+    def generate(self, prompts, max_new_tokens=16):
+        """Returns (texts, tokens (B, max_new_tokens) int array); the
+        tokens cross to the host once, at the end."""
+        B = len(prompts)
+        enc = [self.tok.encode(p)[: self.max_len - max_new_tokens]
+               for p in prompts]
+        L = max(len(e) for e in enc)
+        toks = np.zeros((B, L), np.int32)
+        for i, e in enumerate(enc):
+            toks[i, :len(e)] = e  # left-aligned; pad id 0
+        cache = self.model.init_cache(B, self.max_len, dtype=torch.bfloat16,
+                                      device=self.device)
+        logits, cache = self._prefill(
+            self.params, cache, torch.from_numpy(toks).to(self.device))
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        outs = [tok[:, 0]]
+        for pos in range(L, L + max_new_tokens - 1):
+            logits, cache = self._decode(self.params, cache, tok, pos)
+            tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            outs.append(tok[:, 0])
+        gen = torch.stack(outs, 1).cpu().numpy()  # (B, T)
+        return [self.tok.decode(list(g)) for g in gen], gen
+
+
 class CloudSimulator:
     """HORIZON executor: canned echo responses (placeholder-aware) with a
     latency/queueing model."""
@@ -60,6 +120,54 @@ class CloudSimulator:
                 f"{island.island_id}.")
         jitter = self.rng.uniform(0.8, 1.4)
         return text, island.latency_ms * jitter
+
+
+class InferenceEngine:
+    def __init__(self, waves, registry, local_servers=None, seed=0):
+        """local_servers: {island_id: LocalModelServer} for SHORE islands."""
+        self.waves = waves
+        self.registry = registry
+        self.local = local_servers or {}
+        self.cloud = CloudSimulator(seed)
+        self.log: list[Response] = []
+        self.rejected: list[Decision] = []
+
+    def submit(self, req: Request, max_new_tokens=12) -> Optional[Response]:
+        d = self.waves.route(req)
+        if not d.accepted:
+            self.rejected.append(d)
+            return None
+        island = d.island
+        query = (d.sanitized_history[-1] if d.sanitize
+                 else req.query)
+        t0 = time.perf_counter()
+        if island.island_id in self.local:
+            texts, toks = self.local[island.island_id].generate(
+                [query], max_new_tokens)
+            text = texts[0]
+            exec_ms = (time.perf_counter() - t0) * 1000.0
+        else:
+            text, latency = self.cloud.complete(island, query)
+            exec_ms = latency
+        if d.sanitize and d.placeholder_store is not None:
+            text = self.waves.mist.desanitize(text, d.placeholder_store)
+        # advance virtual time by the simulated service latency
+        dt = (island.latency_ms + exec_ms) / 1000.0
+        self.waves.tide.advance(dt)
+        self.waves.lighthouse.advance(dt)
+        for isl in self.registry.all():
+            self.waves.lighthouse.heartbeat(isl.island_id)
+        resp = Response(text=text, island_id=island.island_id,
+                        latency_ms=island.latency_ms + exec_ms,
+                        cost=island.cost_per_request,
+                        sensitivity=d.sensitivity, sanitized=d.sanitize,
+                        decision=d, island_privacy=island.privacy)
+        self.log.append(resp)
+        return resp
+
+    # ----------------------------------------------------------- metrics
+    def stats(self):
+        return aggregate_stats(self.log, self.rejected, self.registry)
 
 
 def aggregate_stats(log, rejected, registry):
@@ -321,7 +429,7 @@ class TickOrchestrator:
                 if not b.busy():
                     break
                 b.tick()
-                blocked += b.blocked_last_tick
+                blocked += getattr(b, "blocked_last_tick", 0)
                 self.tick_stats["decode_ticks"] += 1
                 self._util_sum[iid] = self._util_sum.get(iid, 0.0) \
                     + b.utilization()
@@ -337,20 +445,24 @@ class TickOrchestrator:
                     self.results[p.rid] = None
                     continue
                 completed.append(self._complete(p, d, text))
-            # KV-pool pressure feedback + telemetry
-            kv_pool = b.pool
-            if waves.tide.crashed:
-                # fail closed: no prefix sharing on a crashed-TIDE island
-                kv_pool.disable_sharing()
-            backlog = b.prefill_backlog_tokens()
-            waves.tide.report_pool_pressure(
-                iid, kv_pool.occupancy(), blocked=blocked,
-                prefill_backlog=backlog)
-            waves.lighthouse.report_pool(iid, dict(
-                kv_pool.telemetry(), prefill_backlog=backlog,
-                prefix_tokens_skipped=b.stats.get("prefix_tokens_skipped",
-                                                  0),
-                work_clock=b.work_clock, tiers=b.tier_telemetry()))
+            # KV-pool pressure feedback + telemetry (paged batchers only)
+            kv_pool = getattr(b, "pool", None)
+            if kv_pool is not None:
+                if waves.tide.crashed:
+                    # fail closed: no prefix sharing on a crashed-TIDE
+                    # island
+                    kv_pool.disable_sharing()
+                backlog = b.prefill_backlog_tokens()
+                waves.tide.report_pool_pressure(
+                    iid, kv_pool.occupancy(), blocked=blocked,
+                    prefill_backlog=backlog)
+                waves.lighthouse.report_pool(iid, dict(
+                    kv_pool.telemetry(), prefill_backlog=backlog,
+                    prefix_tokens_skipped=b.stats.get(
+                        "prefix_tokens_skipped", 0),
+                    work_clock=b.work_clock, tiers=b.tier_telemetry()))
+            if any(b.migration_stats.values()):
+                waves.lighthouse.report_migration(iid, b.migration_stats)
         # per-island progress feedback for straggler detection
         for iid, b in self.batchers.items():
             waves.tide.report_progress(
@@ -434,15 +546,19 @@ def build_island_batchers(cfg, registry, cache="auto", params=None,
                           temperature=0.0, prefill="chunked",
                           prefill_token_budget=None, fused=True,
                           device=None):
-    """Per-SHORE-island paged batchers with KV pools sized from each
-    island's declared ``capacity_units``.
+    """Per-SHORE-island continuous batchers (``cache`` "auto", "stacked"
+    or "paged") with KV pools sized from each island's declared
+    ``capacity_units``.
 
-    Slot count scales linearly with capacity; the page pool is sized to
-    ``slots * pages_per_seq * pool_headroom`` — headroom 1.0 can hold
-    every slot fully private (never stalls). Model parameters are
-    initialized once (on ``device``, None = the card) and shared across
-    islands."""
-    from repro_torch.serving.batcher import make_batcher
+    Slot count scales linearly with capacity; in paged mode the page pool
+    is sized to ``slots * pages_per_seq * pool_headroom`` — headroom 1.0
+    can hold every slot fully private (never stalls), < 1.0 deliberately
+    oversubscribes so the pool only fits the workload when prefix sharing
+    pays, and otherwise preempts. Model parameters are initialized once
+    (on ``device``, None = the card) and shared across islands."""
+    from repro_torch.serving.batcher import make_batcher, paged_supported
+    if cache == "auto":                 # resolve once so sizing matches
+        cache = "paged" if paged_supported(cfg) else "stacked"
     pages_per_seq = -(-max_len // page_size)
     out = {}
     for isl in registry.all():
@@ -450,6 +566,8 @@ def build_island_batchers(cfg, registry, cache="auto", params=None,
             continue
         slots = max(1, int(round(slots_per_capacity_unit
                                  * isl.capacity_units)))
+        # page kwargs are computed unconditionally; make_batcher drops
+        # them for the stacked manager
         b = make_batcher(
             cfg, cache=cache, params=params, num_slots=slots,
             max_len=max_len, seed=seed, temperature=temperature,

@@ -25,8 +25,7 @@ and uninitialised memory may hold NaN bits) and updated IN PLACE: the
 model's steps scatter K/V into it and ``cow`` copies a page with a slice
 assignment, where the reference donated the pool to jitted ops.
 
-Not ported yet: ``write_prompt_pages`` (monolithic prefill) and the
-migration export/import of pages.
+Not ported yet: the migration export/import of pages.
 """
 from __future__ import annotations
 
@@ -140,6 +139,26 @@ class PagePool:
                            "v_pages": torch.zeros(shape, dtype=dtype,
                                                   device=dev)}
                           for _ in range(cfg.num_layers)]
+
+    # ----------------------------------------------------------- device I/O
+    def write_prompt_pages(self, dense_cache, page_ids):
+        """Scatter a whole admission's prompt chunks from the (1, max_len)
+        dense prefill cache (``Model.init_cache``'s per-layer list) into
+        the pool: chunk j of every layer lands on ``page_ids[j]``, one
+        scatter per layer and tensor. Chunks past ``page_ids`` and entries
+        equal to the scratch page (0) are skip markers for already-shared
+        pages and positions past the prompt; several may land on the
+        scratch page, whose content is never read."""
+        n = self.max_len // self.page_size
+        ids = np.zeros(n, np.int64)
+        ids[:len(page_ids)] = page_ids
+        dev = self.pages[0]["k_pages"].device
+        idx = torch.from_numpy(ids).to(dev)
+        for layer, dense in zip(self.pages, dense_cache):
+            for name in ("k", "v"):
+                pages = layer[name + "_pages"]
+                pages.index_copy_(0, idx, dense[name][0].reshape(
+                    n, self.page_size, *pages.shape[2:]).to(pages.dtype))
 
     # ------------------------------------------------------------ accounting
     def _tstat(self, tier) -> dict:

@@ -47,7 +47,8 @@ def reference_steps(model):
 def capture_reference(b, steps):
     """Wrap a reference ``PagedContinuousBatcher`` (fused, greedy) so it
     records, per request id, the full token stream and the top-2 margin of
-    the logits behind every generated token; ``steps`` comes from
+    the logits behind every generated token (keyed by the token's index in
+    the stream, which a preempted request continues); ``steps`` comes from
     ``reference_steps``. Returns (tokens, margins) dicts filled as the
     batcher runs."""
     tokens, margins = {}, {}
@@ -74,12 +75,71 @@ def capture_reference(b, steps):
         lg = np.asarray(out[0])
         for si, ws in enumerate(np.asarray(write_slot)):
             if ws == si:
-                rid = b.slots[si].request_id
-                margins.setdefault(rid, {})[int(gen_idx[si])] = \
-                    top2_margin(lg[si])
+                s = b.slots[si]        # a resumed slot's stream continues
+                margins.setdefault(s.request_id, {})[
+                    len(s.carried) + int(gen_idx[si])] = top2_margin(lg[si])
         return out
 
     b._fused_prefill, b._fused_decode = prefill, decode
+    _record_streams(b, tokens)
+    return tokens, margins
+
+
+def capture_reference_host(b):
+    """Wrap a reference batcher whose tokens are taken on the host — the
+    stacked ``ContinuousBatcher``, or a ``PagedContinuousBatcher`` with
+    ``prefill="full"`` or ``fused=False`` — so it records, per request id,
+    the full token stream and the top-2 margin of the logits behind every
+    generated token (keyed by the token's index in the stream). Returns
+    (tokens, margins) dicts filled as the batcher runs."""
+    tokens, margins = {}, {}
+    last = {}
+
+    def note(si, logits_row):
+        s = b.slots[si]
+        margins.setdefault(s.request_id, {})[
+            len(s.carried) + len(s.generated)] = top2_margin(logits_row)
+
+    prefill = b._prefill
+
+    def pre(params, cache, inputs):      # first token of a full prefill
+        out = prefill(params, cache, inputs)
+        last["first"] = np.asarray(out[0][0])
+        return out
+
+    first_token = b._note_first_token
+
+    def first(rid):
+        if "first" in last:
+            margins.setdefault(rid, {})[0] = top2_margin(last.pop("first"))
+        first_token(rid)
+
+    decode = b._decode_all
+    paged = hasattr(b, "pool")
+
+    def dec(params, cache, toks, poss, *bt):
+        out = decode(params, cache, toks, poss, *bt)
+        lg = np.asarray(out[0]).reshape(b.num_slots, -1)
+        rows = (np.asarray(bt[0])[:, 0] != 0 if paged
+                else [s.active for s in b.slots])
+        for si, live in enumerate(rows):
+            if live:
+                note(si, lg[si])
+        return out
+
+    b._prefill, b._note_first_token, b._decode_all = pre, first, dec
+    if paged and not b.fused:
+        dispatch = b._dispatch_chunks
+
+        def chunks(si, group):           # a boundary token of a chunk run
+            logits = dispatch(si, group)
+            s = b.slots[si]
+            if s.next_chunk == len(s.chunks) and not s.generated:
+                off = (s.prompt_len - 1) - group[0][0] * b.page_size
+                last["first"] = np.asarray(logits[0, off])
+            return logits
+
+        b._dispatch_chunks = chunks
     _record_streams(b, tokens)
     return tokens, margins
 
@@ -95,7 +155,8 @@ def _record_streams(b, tokens):
     finish = b._finish_slot
 
     def record(si):
-        b._materialize_slot(si)
+        if hasattr(b, "_materialize_slot"):
+            b._materialize_slot(si)
         s = b.slots[si]
         tokens[s.request_id] = list(s.carried) + list(s.generated)
         finish(si)

@@ -19,6 +19,7 @@ from repro.models.model import get_model as jget_model
 from repro.serving.batcher import PagedContinuousBatcher as JBatcher
 from repro_torch import bridge
 from repro_torch.configs.base import get_config as tget_config
+from repro_torch.models.model import get_model
 from repro_torch.serving.batcher import PagedContinuousBatcher as TBatcher
 from repro_torch.serving.batcher import make_batcher
 
@@ -125,20 +126,17 @@ def test_backlog_and_telemetry_match_mid_run(weights):
 
 
 def test_unported_paths_refuse_clearly(weights):
+    """What the port still does not carry says so: stochastic sampling,
+    and model families other than attention-only decoders (for every
+    cache manager, at ``Model``)."""
     _, tcfg, _, tparams, _ = weights
-    with pytest.raises(NotImplementedError, match="fused chunked"):
-        TBatcher(tcfg, params=tparams, fused=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="fused chunked"):
-        TBatcher(tcfg, params=tparams, prefill="full", device="cpu")
     with pytest.raises(NotImplementedError, match="greedy"):
         TBatcher(tcfg, params=tparams, temperature=0.9, device="cpu")
-    with pytest.raises(NotImplementedError, match="stacked"):
-        make_batcher(tcfg, cache="stacked", params=tparams, device="cpu")
-    # a pool too small for every slot stalls all decoders: the port has no
-    # preemption yet and says so instead of spinning
-    b = TBatcher(tcfg, params=tparams, num_slots=4, max_len=96,
-                 num_pages=6, device="cpu")
-    for i in range(4):
-        b.submit(f"tiny seed {i}", max_new_tokens=40, trust_tier=i % 2)
-    with pytest.raises(RuntimeError, match="preemption"):
-        b.run_until_done()
+    with pytest.raises(NotImplementedError, match="greedy"):
+        make_batcher(tcfg, cache="stacked", params=tparams, temperature=0.9,
+                     device="cpu")
+    mamba = tget_config("mamba2-370m").reduced()
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        get_model(mamba)
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        make_batcher(mamba, cache="auto", device="cpu")

@@ -24,8 +24,11 @@ def _port_modules():
 
 def test_import_pulls_in_no_jax_and_no_reference():
     names = _port_modules()
-    assert "repro_torch.kernels.paged_attention" in names
-    assert "repro_torch.serving.engine" in names
+    for mod in ("kernels.paged_attention", "kernels.chunked_prefill",
+                "kernels.decode_attention", "kernels.flash_attention",
+                "serving.engine", "serving.batcher", "serving.migration",
+                "core.tracegen", "core.workload", "launch.serve"):
+        assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"
@@ -49,6 +52,27 @@ def test_sources_name_no_jax_and_no_reference():
         text = f.read_text()
         hit = FORBIDDEN.search(text)
         assert hit is None, f"{f.relative_to(ROOT)}: {hit.group(0).strip()}"
+
+
+COPIES = ["data/tokenizer.py", "core/trust.py", "core/islands.py",
+          "core/placeholder.py", "core/mist.py", "core/tide.py",
+          "core/lighthouse.py", "core/waves.py", "core/tracegen.py",
+          "core/workload.py", "serving/migration.py", "obs/metrics.py"]
+
+
+def test_copied_modules_match_the_reference():
+    """The JAX-free modules the port copies are the reference's text with
+    only their import paths changed (``serving/degrade.py`` also drops one
+    docstring sentence and is left out here)."""
+    files = COPIES + sorted(
+        str(f.relative_to(SRC / "repro")) for f in
+        (SRC / "repro" / "configs").glob("*.py"))
+    for rel in files:
+        ref = (SRC / "repro" / rel).read_text()
+        want = re.sub(r"(^|\s)(from|import) repro\.", r"\1\2 repro_torch.",
+                      ref).replace('import_module(f"repro.',
+                                   'import_module(f"repro_torch.')
+        assert (SRC / "repro_torch" / rel).read_text() == want, rel
 
 
 def test_scan_catches_forbidden_imports():

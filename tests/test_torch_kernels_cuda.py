@@ -8,14 +8,19 @@ The sweeps cover the shapes of tests/test_kernels.py and the port's
 compiled variants: head_dim 32/64/128, GQA groups 1 to 16 (a group
 over 8 query heads spans two blocks), page sizes 8/16/32, ragged fills and
 starts, chunks that are not a whole q tile, and the four q/page dtype
-pairs. fp32 q and pages hold to 1e-4 (fp32 math in both, summed in
-another order); a bf16 output holds to 2e-2, one bf16 rounding.
+pairs; for the dense-cache kernels (decode_attention, flash_attention)
+fills of 1 and of the whole cache, per-row and scalar fills, and query
+lengths that leave a ragged q tile (1, 127, 2049). fp32 q and pages hold
+to 1e-4 (fp32 math in both, summed in another order); a bf16 output holds
+to 2e-2, one bf16 rounding.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
+from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 
 pytestmark = pytest.mark.cuda
@@ -97,6 +102,79 @@ def test_chunked_prefill_kernel_matches_plain(card, B, H, Hkv, P, ps, N, T,
            qdt, kvdt)
 
 
+@pytest.mark.parametrize("qdt,kvdt", DTYPES)
+@pytest.mark.parametrize("B,H,Hkv,S,D,valids", [
+    (2, 8, 2, 64, 64, (1, 64)),                  # fill 1 and fill S
+    (1, 4, 4, 40, 32, (17,)),                    # G 1
+    (3, 9, 3, 2048, 64, (1, 1600, 2048)),        # smollm-135m, stacked path
+    (4, 32, 8, 300, 128, (33, 300, 1, 128)),     # qwen3-4b, G 4
+    (2, 16, 2, 100, 128, (99, 7)),               # G 8
+    (2, 32, 2, 96, 32, (50, 96)),                # G 16: two blocks a head
+])
+def test_decode_kernel_matches_plain(card, B, H, Hkv, S, D, valids, qdt,
+                                     kvdt):
+    g = torch.Generator(device=card).manual_seed(B * 1000 + S)
+    q = torch.randn(B, H, D, generator=g, device=card).to(qdt)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=card).to(kvdt)
+            for _ in range(2))
+    lens = torch.tensor(valids, dtype=torch.int32, device=card)
+    n0 = decode_attention.launches
+    got = decode_attention(q, k, v, lens)
+    assert decode_attention.launches == n0 + 1
+    _close(got, ref.decode_attention(q, k, v, lens, D ** -0.5), qdt, kvdt)
+    # a scalar fill is every row's fill
+    _close(decode_attention(q, k, v, valids[0]),
+           ref.decode_attention(q, k, v, valids[0], D ** -0.5), qdt, kvdt)
+
+
+def test_decode_kernel_never_reads_past_the_fill(card):
+    g = torch.Generator(device=card).manual_seed(5)
+    q = torch.randn(2, 9, 64, generator=g, device=card)
+    k, v = (torch.randn(2, 96, 3, 64, generator=g, device=card)
+            .to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([40, 1], dtype=torch.int32, device=card)
+    o = decode_attention(q, k, v, lens)
+    k[0, 40:], v[0, 40:], k[1, 1:], v[1, 1:] = 1e4, -1e4, 1e4, -1e4
+    assert torch.equal(decode_attention(q, k, v, lens), o)
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal", [
+    (1, 1, 1, 4, 4, 32, True),                   # Sq 1, G 1
+    (2, 127, 127, 9, 3, 64, True),               # ragged tiles, smollm
+    (1, 2049, 2049, 8, 2, 32, True),             # one token past 2048
+    (1, 300, 300, 32, 8, 128, True),             # qwen3-4b, G 4
+    (2, 64, 64, 16, 2, 128, True),               # G 8
+    (1, 80, 80, 32, 2, 64, True),                # G 16
+    (2, 100, 37, 8, 2, 64, False),               # full, Sk != Sq
+    (1, 70, 200, 6, 3, 64, True),                # Sk > Sq
+    (1, 200, 70, 6, 3, 64, True),                # Sq > Sk
+])
+def test_flash_kernel_matches_plain(card, B, Sq, Sk, H, Hkv, D, causal, qdt,
+                                    kvdt):
+    g = torch.Generator(device=card).manual_seed(Sq * 7 + Sk)
+    q = torch.randn(B, Sq, H, D, generator=g, device=card).to(qdt)
+    k, v = (torch.randn(B, Sk, Hkv, D, generator=g, device=card).to(kvdt)
+            for _ in range(2))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == n0 + 1
+    _close(got, ref.flash_attention(q, k, v, D ** -0.5, causal), qdt, kvdt)
+
+
+def test_flash_kernel_never_reads_above_the_diagonal(card):
+    """Keys strictly in every query's future are never read: poisoning
+    them leaves the first 40 queries' outputs bit for bit as they were."""
+    g = torch.Generator(device=card).manual_seed(6)
+    q = torch.randn(1, 96, 9, 64, generator=g, device=card)
+    k, v = (torch.randn(1, 96, 3, 64, generator=g, device=card)
+            for _ in range(2))
+    o = flash_attention(q, k, v)
+    k[:, 48:], v[:, 48:] = 1e4, -1e4
+    assert torch.equal(flash_attention(q, k, v)[:, :40], o[:, :40])
+
+
 def test_scratch_page_never_reaches_a_row(card):
     """Table entries past the fill / causal horizon point at page 0;
     poisoning it leaves every output bit as it was."""
@@ -134,3 +212,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="contiguous"):
         paged_decode_attention(q, kp.transpose(0, 1), kp.transpose(0, 1),
                                bt, lens)
+    k = torch.zeros(1, 16, 2, 48, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(torch.zeros(1, 4, 48, device=card), k, k, 1)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(torch.zeros(1, 16, 4, 48, device=card), k, k)
+    k = torch.zeros(1, 16, 3, 64, device=card)
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention(torch.zeros(1, 16, 4, 64, device=card), k, k)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(torch.zeros(1, 6, 64, device=card), k, k,
+                         torch.ones(1, dtype=torch.int64, device=card))
