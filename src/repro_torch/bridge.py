@@ -11,8 +11,9 @@ params)`` on the caller's side — the port never imports JAX) and
 
 ``dense_cache_from_reference``/``dense_cache_to_reference`` do the same
 for a dense decode cache (the reference's ``init_cache`` tree, whose
-attention leaves sit under ``mixer``; the port's per-layer ``{"k", "v"}``
-list), so that tests can compare caches.
+leaves sit under ``mixer``; the port's per-layer list of ``{"k", "v"}``
+attention dicts and ``{"conv", "h"}`` SSM dicts, bf16 ``conv`` and fp32
+``h`` as the reference keeps them), so that tests can compare caches.
 
 numpy has no bfloat16: a bf16 leaf arrives as numpy's ml_dtypes
 ``bfloat16`` (or as ``uint16`` raw bits) and travels bit-exactly as
@@ -131,7 +132,7 @@ def _stack(trees):
 
 def dense_cache_from_reference(cfg, ref_cache, device="cpu"):
     """The reference's dense cache tree (numpy leaves) -> the port's
-    per-layer list of ``{"k", "v"}`` tensors."""
+    per-layer list of ``{"k", "v"}`` or ``{"conv", "h"}`` tensors."""
     layers = from_reference(cfg, ref_cache, device)["layers"]
     return [layer["mixer"] for layer in layers]
 

@@ -19,7 +19,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("paged_attention", "chunked_prefill", "decode_attention",
-           "flash_attention")
+           "flash_attention", "ssd_chunk")
 # the kernels' compiled head_dim variants: those of the configs the port
 # runs (smollm-135m 64; qwen3, glm4 128; their .reduced() widths 32)
 HEAD_DIMS = (32, 64, 128)

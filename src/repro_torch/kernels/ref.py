@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Each function keeps the signature and the tensor layouts of the kernel it
 stands beside (``paged_attention.py``, ``chunked_prefill.py``,
-``decode_attention.py``, ``flash_attention.py``); the math is
-fp32 throughout with the finite ``NEG_INF`` mask, so a fully masked
-position contributes an exact zero (``-inf - -inf`` would be NaN). The
+``decode_attention.py``, ``flash_attention.py``, ``ssd.py``); the math is
+fp32 throughout. Attention masks with the finite ``NEG_INF``, so a fully
+masked position contributes an exact zero (``-inf - -inf`` would be NaN);
+the SSD decay masks with ``-inf`` before its exp, whose exact zero is what
+keeps the overflowing upper triangle out. ``ssd_full`` and ``ssd_carry``
+add the inter-chunk recurrence (``models/ssm.py`` runs it). The
 wrappers call these for CPU tensors, and ``chip_smoke.py`` holds each CUDA
 kernel against them on the card.
 """
@@ -100,3 +103,57 @@ def chunked_prefill_attention(q, k_pages, v_pages, block_table, start_pos,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bthgk,bkhd->bthgd", p, v)
     return o.reshape(B, T, H, D).to(q.dtype)
+
+
+def ssd_chunk(x, dt, a, B_, C_):
+    """Per-chunk Mamba-2 SSD pieces (no inter-chunk recurrence).
+
+    x (B, nc, Q, H, P), dt (B, nc, Q, H) fp32 post-softplus, a (H,) fp32
+    negative, B_/C_ (B, nc, Q, N) fp32. Returns y_intra (B, nc, Q, H, P),
+    state (B, nc, H, P, N), decay_total (B, nc, H) and cum (B, nc, Q, H),
+    all fp32. ``cum`` is the inclusive prefix sum of dt * a along Q; the
+    decay matrix is masked BEFORE exp, so its upper triangle is an exact
+    zero (exp of the positive upper triangle overflows)."""
+    Q = x.shape[2]
+    dA = dt * a                                          # (B, nc, Q, H)
+    cum = torch.cumsum(dA, dim=2)
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Qt,Qs,H)
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    L = torch.exp(torch.where(tri[None, None, :, :, None], dec,
+                              torch.full_like(dec, float("-inf"))))
+    sc = torch.einsum("bcqn,bckn->bcqk", C_, B_)
+    att = sc[..., None] * L * dt[:, :, None, :, :]
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", att, x.float())
+    total = cum[:, :, -1, :]
+    w_s = torch.exp(total[:, :, None, :] - cum) * dt
+    state = torch.einsum("bcqh,bcqn,bcqhp->bchpn", w_s, B_, x.float())
+    return y_intra, state, torch.exp(total), cum
+
+
+def ssd_full(x, dt, a, B_, C_, chunk):
+    """Full SSD = chunk pieces + inter-chunk scan: x (B, S, H, P) with S a
+    multiple of min(chunk, S). Returns y (B, S, H, P) fp32."""
+    Bsz, S, H, P = x.shape
+    Q = min(chunk, S)
+    assert S % Q == 0
+    nc = S // Q
+    y_intra, state, decay, cum = ssd_chunk(
+        x.reshape(Bsz, nc, Q, H, P), dt.reshape(Bsz, nc, Q, H), a,
+        B_.reshape(Bsz, nc, Q, -1), C_.reshape(Bsz, nc, Q, -1))
+    h_prev, _ = ssd_carry(state, decay)
+    y_inter = torch.einsum("bcqn,bchpn,bcqh->bcqhp",
+                           C_.reshape(Bsz, nc, Q, -1), h_prev,
+                           torch.exp(cum))
+    return (y_intra + y_inter).reshape(Bsz, S, H, P)
+
+
+def ssd_carry(state, decay):
+    """The inter-chunk recurrence h_c = decay_c * h_{c-1} + state_c from
+    h = 0: returns (h_prev (B, nc, H, P, N), the state entering each
+    chunk, and h_final (B, H, P, N), the carry after the last chunk)."""
+    h = torch.zeros_like(state[:, 0])
+    prev = []
+    for c in range(state.shape[1]):
+        prev.append(h)
+        h = decay[:, c, :, None, None] * h + state[:, c]
+    return torch.stack(prev, dim=1), h

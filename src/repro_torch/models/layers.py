@@ -5,12 +5,13 @@ table*: a nested dict mapping name -> ``PSpec(shape, logical_axes,
 init)``; ``init_params`` draws real tensors from one table with an
 explicit ``torch.Generator``, following the reference's rules (normal
 scaled by fan_in^-1/2, zero-init norms, explicit scales such as the
-embedding's 0.02). The draws are the port's own: a ``torch.Generator``
+embedding's 0.02, Mamba-2's ``dt_bias``/``a_log``/``ones``). The draws are the port's own: a ``torch.Generator``
 gives other numbers than ``jax.random`` for the same seed, so parity tests
 move the reference's weights across with ``repro_torch.bridge`` instead.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional
 
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 class PSpec:
     shape: tuple
     axes: tuple  # logical axis names (len == len(shape))
-    init: str = "normal"  # normal | zeros
+    init: str = "normal"  # normal | zeros | ones | dt_bias | a_log
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in)
 
     def __post_init__(self):
@@ -47,6 +48,20 @@ def init_params(table, generator: torch.Generator, dtype, device):
     for path, spec in _walk(table):
         if spec.init == "zeros":
             w = torch.zeros(spec.shape, dtype=dtype, device=device)
+        elif spec.init == "ones":
+            w = torch.ones(spec.shape, dtype=dtype, device=device)
+        elif spec.init == "dt_bias":
+            # Mamba-2 dt bias: softplus^-1 of dt ~ U[1e-3, 1e-1]
+            u = (torch.rand(spec.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+                 * (1e-1 - 1e-3) + 1e-3)
+            w = torch.log(torch.expm1(u)).to(dtype)
+        elif spec.init == "a_log":
+            # Mamba-2 A = -(1..n): A_log = log(1..n)
+            w = torch.log(torch.arange(1, math.prod(spec.shape) + 1,
+                                       dtype=torch.float32,
+                                       device=device)
+                          ).reshape(spec.shape).to(dtype)
         elif spec.init == "normal":
             scale = spec.scale
             if scale is None:

@@ -1,25 +1,30 @@
-"""Model assembly for attention-only decoders (attention + SwiGLU).
+"""Model assembly: a decoder of attention and Mamba-2 (SSM) mixer blocks,
+with a SwiGLU MLP after each mixer when ``d_ff`` is set.
 
-Port of ``repro/models/model.py`` for attention-only patterns, in every
-mode the serving paths run: ``full`` (a whole prompt, with or without a
-dense cache), ``chunk`` (paged prefill runs) and ``decode`` (against a
-dense cache or the paged pool). The reference stores layers stacked
-along a leading dim and runs them with ``lax.scan``; the port keeps one parameter dict per layer
+Port of ``repro/models/model.py`` for patterns drawn from {``attn``,
+``ssm``} without MoE or a frontend, in every mode the serving paths run:
+``full`` (a whole prompt, with or without a dense cache), ``chunk`` (paged
+prefill runs, attention only) and ``decode`` (against a dense cache or
+the paged pool). Each layer's mixer is dispatched by its block type
+(``BLOCK_TABLE``/``BLOCK_APPLY``/``BLOCK_CACHE``, as the reference). The
+reference stores layers stacked along a leading dim and runs them with
+``lax.scan``; the port keeps one parameter dict per layer
 (``params["layers"][i]``) and runs them in a Python loop, in the same
 depth order (head layers, then every pattern cycle, then tail layers —
 ``repro_torch.bridge`` maps the reference's layout onto this one).
 
 Parameters are a nested dict of tensors (the reference's pytree, per
 layer): ``embed`` (V, d), ``final_norm`` (d,), ``lm_head`` (d, V) unless
-embeddings are tied, and per layer ``mixer`` (attention) and ``mlp``
-(SwiGLU) dicts. Every projection is a plain ``torch.matmul``; attention
-goes through ``repro_torch.kernels``.
+embeddings are tied, and per layer a ``mixer`` dict (attention or SSM)
+and, when ``d_ff`` is set, an ``mlp`` (SwiGLU) dict. Every projection is
+a plain ``torch.matmul``; attention and the SSD chunk go through
+``repro_torch.kernels``.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention
+from repro_torch.models import attention, ssm
 from repro_torch.models.layers import (PSpec, init_params, rms_norm,
                                        swiglu_apply, swiglu_table)
 
@@ -30,10 +35,31 @@ def effective_pattern(cfg):
     return cfg.pattern
 
 
-def attention_only(cfg) -> bool:
-    """The configs this port runs: every layer attention + dense MLP."""
-    return (set(effective_pattern(cfg)) == {"attn"} and not cfg.num_experts
-            and cfg.frontend is None)
+BLOCK_TABLE = {"attn": attention.attn_table, "ssm": ssm.ssm_table}
+BLOCK_APPLY = {"attn": attention.attn_apply, "ssm": ssm.ssm_apply}
+BLOCK_CACHE = {"attn": attention.attn_cache_spec,
+               "ssm": ssm.ssm_cache_spec}
+
+# what the port does not run yet, and the ROADMAP item that ports it
+_NOT_PORTED = {"mla": "ROADMAP Queue 1, P12 (MLA)",
+               "rglru": "ROADMAP Queue 1, item 0: the recurrentgemma-9b "
+                        "slice"}
+
+
+def unported_reason(cfg):
+    """None when the port runs ``cfg`` (a pattern drawn from {attn, ssm},
+    no MoE, no frontend), else what is missing and where ROADMAP queues
+    it."""
+    for bt in effective_pattern(cfg):
+        if bt not in BLOCK_TABLE:
+            return (f"{bt!r} layers "
+                    f"({_NOT_PORTED.get(bt, 'ROADMAP Queue 1, P12')})")
+    if cfg.num_experts:
+        return "MoE layers (ROADMAP Queue 1, P12 (MoE))"
+    if cfg.frontend is not None:
+        return (f"the {cfg.frontend!r} frontend (ROADMAP Queue 1, P12 "
+                f"(frontends))")
+    return None
 
 
 def resolve_device(device) -> torch.device:
@@ -47,8 +73,18 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _layer_table(cfg):
-    t = {"mixer": attention.attn_table(cfg)}
+def _layer_block_type(cfg, idx):
+    """The mixer of layer ``idx``: head layers take the base mixer, the
+    rest cycle through the pattern (``repro/models/model.py:82-87``)."""
+    pat = effective_pattern(cfg)
+    n0 = cfg.first_dense_layers
+    if idx < n0:
+        return pat[0]
+    return pat[(idx - n0) % len(pat)]
+
+
+def _layer_table(cfg, block_type):
+    t = {"mixer": BLOCK_TABLE[block_type](cfg)}
     if cfg.d_ff:
         t["mlp"] = {"ln": PSpec((cfg.d_model,), (None,), "zeros"),
                     **swiglu_table(cfg.d_model, cfg.d_ff)}
@@ -57,17 +93,20 @@ def _layer_table(cfg):
 
 class Model:
     def __init__(self, cfg):
-        if not attention_only(cfg):
+        why = unported_reason(cfg)
+        if why is not None:
             raise NotImplementedError(
-                f"{cfg.name}: the port runs attention-only decoders so far, "
-                f"got pattern {effective_pattern(cfg)}"
-                f"{' with MoE' if cfg.num_experts else ''}")
+                f"{cfg.name}: the port does not run {why} yet; it runs "
+                f"patterns of attn and ssm layers, got pattern "
+                f"{effective_pattern(cfg)}")
         self.cfg = cfg
         self.pattern = effective_pattern(cfg)
+        self.block_types = [_layer_block_type(cfg, i)
+                            for i in range(cfg.num_layers)]
 
     # ------------------------------------------------------------- tables
     def param_table(self):
-        """Top-level table; every layer adds ``layer_table()``."""
+        """Top-level table; layer ``i`` adds ``layer_table(i)``."""
         cfg = self.cfg
         t = {"embed": PSpec((cfg.vocab_size, cfg.d_model), ("vocab", None),
                             scale=0.02),
@@ -77,21 +116,24 @@ class Model:
                                  (None, "vocab"))
         return t
 
-    def layer_table(self):
-        return _layer_table(self.cfg)
+    def layer_table(self, idx):
+        return _layer_table(self.cfg, self.block_types[idx])
 
     def cache_spec(self, batch, max_len):
         """Per layer, {name: shape} of the dense decode cache."""
-        return [attention.attn_cache_spec(self.cfg, batch, max_len)
-                for _ in range(self.cfg.num_layers)]
+        return [BLOCK_CACHE[bt](self.cfg, batch, max_len)
+                for bt in self.block_types]
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
-        """A zeroed dense decode cache on ``device`` (None = the card): one
-        ``{"k", "v"}`` dict of (batch, max_len, Hkv, D) tensors per layer.
-        Zeros, not empty memory: a masked slot multiplies p = 0 by what it
-        holds, and uninitialised memory may hold NaN bits."""
+        """A zeroed dense decode cache on ``device`` (None = the card): per
+        layer an attention ``{"k", "v"}`` dict of (batch, max_len, Hkv, D)
+        tensors or an SSM ``{"conv", "h"}`` dict. ``h``, the SSM state, is
+        fp32 and every other leaf ``dtype``, as the reference. Zeros, not
+        empty memory: a masked slot multiplies p = 0 by what it holds, and
+        uninitialised memory may hold NaN bits."""
         dev = resolve_device(device)
-        return [{n: torch.zeros(sh, dtype=dtype, device=dev)
+        return [{n: torch.zeros(sh, dtype=torch.float32 if n == "h"
+                                else dtype, device=dev)
                  for n, sh in layer.items()}
                 for layer in self.cache_spec(batch, max_len)]
 
@@ -102,16 +144,18 @@ class Model:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = init_params(self.param_table(), gen, dtype, dev)
-        params["layers"] = [init_params(self.layer_table(), gen, dtype, dev)
-                            for _ in range(self.cfg.num_layers)]
+        params["layers"] = [init_params(self.layer_table(i), gen, dtype, dev)
+                            for i in range(self.cfg.num_layers)]
         return params
 
     # ------------------------------------------------------------ forward
-    def _apply_layer(self, p, x, positions, mode, cache, block_table,
+    def _apply_layer(self, bt, p, x, positions, mode, cache, block_table,
                      dst_page):
-        x, cache = attention.attn_apply(
-            self.cfg, p["mixer"], x, positions, mode=mode, cache=cache,
-            block_table=block_table, dst_page=dst_page)
+        # only attention reads the paged pool's block table and targets
+        paged = (dict(block_table=block_table, dst_page=dst_page)
+                 if bt == "attn" else {})
+        x, cache = BLOCK_APPLY[bt](self.cfg, p["mixer"], x, positions,
+                                   mode=mode, cache=cache, **paged)
         if "mlp" in p:
             x = x + swiglu_apply(p["mlp"], rms_norm(x, p["mlp"]["ln"]))
         return x, cache
@@ -120,7 +164,7 @@ class Model:
                 block_table=None, dst_page=None):
         """Returns (logits, cache); ``cache`` is the list of per-layer
         cache dicts, updated in place, or None (the reference also returns
-        an MoE aux loss, which attention-only models do not have).
+        an MoE aux loss, which the port's models do not have).
 
         mode='full': tokens (B, S) at positions 0..S-1; ``cache`` None or
         a dense cache from ``init_cache`` whose first S slots take the
@@ -148,8 +192,8 @@ class Model:
             positions = pos
         for i, lp in enumerate(params["layers"]):
             c = cache[i] if cache is not None else None
-            x, c = self._apply_layer(lp, x, positions, mode, c, block_table,
-                                     dst_page)
+            x, c = self._apply_layer(self.block_types[i], lp, x, positions,
+                                     mode, c, block_table, dst_page)
             if cache is not None:
                 cache[i] = c
         x = rms_norm(x, params["final_norm"])

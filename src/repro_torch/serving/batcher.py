@@ -9,7 +9,10 @@ behind one interface (``make_batcher(cfg, cache=...)``):
   into its slot; each tick runs ONE decode dispatch over every slot,
   inactive ones included (they decode a dummy token at position 0 of their
   row), as the reference's ``jax.vmap`` does. Attention goes through
-  ``flash_attention`` (prefill) and ``decode_attention`` (decode).
+  ``flash_attention`` (prefill) and ``decode_attention`` (decode). An SSM
+  layer's row is its ``{"conv", "h"}`` state (bf16 conv tail, fp32 SSM
+  state), prefilled through ``ssd_chunk`` (K5) and decoded as the O(1)
+  state update; mamba2 serves only through this manager.
 * ``PagedContinuousBatcher`` (``cache="paged"``): the trust-tiered paged
   KV pool (``serving.kvpool``). Admission is **prefix-aware chunked
   prefill** by default: prompts split into page-size chunks, chunks whose
@@ -53,8 +56,8 @@ import numpy as np
 import torch
 
 from repro_torch.data.tokenizer import ByteTokenizer
-from repro_torch.models.model import (attention_only, effective_pattern,
-                                      get_model, resolve_device)
+from repro_torch.models.model import (effective_pattern, get_model,
+                                      resolve_device)
 from repro_torch.models.steps import (make_chunked_prefill_step,
                                       make_fused_decode_step,
                                       make_fused_prefill_step,
@@ -264,8 +267,9 @@ class _BatcherBase:
 
 
 def _write_slot(stacked, one, si):
-    """Write a (1, max_len, ...) dense cache into row ``si`` of the
-    stacked (num_slots, max_len, ...) cache, layer by layer, in place."""
+    """Write a (1, ...) dense cache into row ``si`` of the stacked
+    (num_slots, ...) cache, layer by layer and leaf by leaf (attention
+    ``k``/``v``, SSM ``conv``/``h``), in place."""
     for st, o in zip(stacked, one):
         for name, t in st.items():
             t[si] = o[name][0].to(t.dtype)
@@ -355,7 +359,8 @@ class PagedContinuousBatcher(_BatcherBase):
             raise ValueError(
                 f"paged KV cache requires a full-history attention-only "
                 f"pattern, got {sorted(set(effective_pattern(cfg)))}"
-                f"{' with attn_window' if cfg.attn_window else ''}")
+                f"{' with attn_window' if cfg.attn_window else ''} — use "
+                f"cache='stacked' for this config")
         if prefill not in ("chunked", "full"):
             raise ValueError(f"unknown prefill mode {prefill!r}")
         super().__init__(cfg, params, num_slots, max_len, seed, dtype,
@@ -1101,8 +1106,9 @@ class PagedContinuousBatcher(_BatcherBase):
 
 
 def paged_supported(cfg) -> bool:
-    """Paged decode handles full-history attention-only patterns."""
-    return attention_only(cfg) and not cfg.attn_window
+    """Paged decode handles full-history attention-only patterns; windowed
+    attention (ring-buffer slots) and ssm/rglru/mla state stay stacked."""
+    return set(effective_pattern(cfg)) == {"attn"} and not cfg.attn_window
 
 
 def make_batcher(cfg, cache: str = "auto", **kw):

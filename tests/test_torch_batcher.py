@@ -127,16 +127,16 @@ def test_backlog_and_telemetry_match_mid_run(weights):
 
 def test_unported_paths_refuse_clearly(weights):
     """What the port still does not carry says so: stochastic sampling,
-    and model families other than attention-only decoders (for every
-    cache manager, at ``Model``)."""
+    and model families other than attention and Mamba-2 decoders (for
+    every cache manager, at ``Model``, naming the ROADMAP item)."""
     _, tcfg, _, tparams, _ = weights
     with pytest.raises(NotImplementedError, match="greedy"):
         TBatcher(tcfg, params=tparams, temperature=0.9, device="cpu")
     with pytest.raises(NotImplementedError, match="greedy"):
         make_batcher(tcfg, cache="stacked", params=tparams, temperature=0.9,
                      device="cpu")
-    mamba = tget_config("mamba2-370m").reduced()
-    with pytest.raises(NotImplementedError, match="attention-only"):
-        get_model(mamba)
-    with pytest.raises(NotImplementedError, match="attention-only"):
-        make_batcher(mamba, cache="auto", device="cpu")
+    rg = tget_config("recurrentgemma-9b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*recurrentgemma"):
+        get_model(rg)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*recurrentgemma"):
+        make_batcher(rg, cache="auto", device="cpu")

@@ -1,7 +1,9 @@
 """The port's model against the reference's on bridged weights.
 
 * The bridge round trip is bit-exact (fp32 and bf16), including the split
-  of the reference's stacked layer dim into per-layer dicts.
+  of the reference's stacked layer dim into per-layer dicts, for
+  attention layers and for mamba2's SSM layers, and so is the round trip
+  of a filled mamba2 dense cache (bf16 ``conv``, fp32 ``h``).
 * The port's own seeded init follows the reference's parameter tables.
 * Logits of paged ``mode="chunk"`` prefill and paged decode match the
   reference step for step, with the same tokens, positions, block tables
@@ -78,6 +80,56 @@ def test_bridge_round_trip_is_bit_exact(dtype):
                               _bits(ref_wq))
     back = bridge.to_reference(tcfg, port, ref)
     flat_ref, tree_ref = jax.tree.flatten(ref)
+    flat_back, tree_back = jax.tree.flatten(back)
+    assert tree_ref == tree_back
+    for a, b in zip(flat_ref, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bridge_round_trip_is_bit_exact_for_ssm_layers(dtype):
+    jcfg = jget_config("mamba2-370m").reduced()
+    tcfg = tget_config("mamba2-370m").reduced()
+    ref = _np_tree(jget_model(jcfg).init(jax.random.PRNGKey(2), dtype))
+    port = bridge.from_reference(tcfg, ref)
+    for i, layer in enumerate(port["layers"]):
+        assert set(layer) == {"mixer"}                  # no MLP
+        for name in ("A_log", "dt_bias", "conv_x", "wdt"):
+            want = ref["blocks"]["slot0"]["mixer"][name][i]
+            assert np.array_equal(
+                _bits(bridge.to_numpy(layer["mixer"][name], want)),
+                _bits(want))
+    back = bridge.to_reference(tcfg, port, ref)
+    flat_ref, tree_ref = jax.tree.flatten(ref)
+    flat_back, tree_back = jax.tree.flatten(back)
+    assert tree_ref == tree_back
+    for a, b in zip(flat_ref, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(_bits(a), _bits(b))
+
+
+def test_ssm_dense_cache_round_trip_is_bit_exact():
+    """A mamba2 cache the reference filled with a prefill: its bf16
+    ``conv`` and fp32 ``h`` leaves cross to the port's per-layer
+    ``{"conv", "h"}`` dicts and back bit for bit."""
+    jcfg = jget_config("mamba2-370m").reduced()
+    tcfg = tget_config("mamba2-370m").reduced()
+    jmodel = jget_model(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(4), "float32")
+    toks = np.random.default_rng(4).integers(1, jcfg.vocab_size, (2, 21))
+    cache = jmodel.init_cache(2, 32, dtype=jnp.bfloat16)
+    _, cache, _ = jmodel.forward(params, tokens=jnp.asarray(toks),
+                                 mode="full", cache=cache)
+    like = _np_tree(cache)
+    port = bridge.dense_cache_from_reference(tcfg, like)
+    assert len(port) == tcfg.num_layers
+    for layer in port:
+        assert layer["conv"].dtype == torch.bfloat16
+        assert layer["h"].dtype == torch.float32
+        assert layer["conv"].any() and layer["h"].any()
+    back = bridge.dense_cache_to_reference(tcfg, port, like)
+    flat_ref, tree_ref = jax.tree.flatten(like)
     flat_back, tree_back = jax.tree.flatten(back)
     assert tree_ref == tree_back
     for a, b in zip(flat_ref, flat_back):

@@ -13,6 +13,17 @@ fills of 1 and of the whole cache, per-row and scalar fills, and query
 lengths that leave a ragged q tile (1, 127, 2049). fp32 q and pages hold
 to 1e-4 (fp32 math in both, summed in another order); a bf16 output holds
 to 2e-2, one bf16 rounding.
+
+The SSD chunk kernel (``ssd_chunk``, K5) runs chunk lengths Q of 1, 37,
+64 and 256, 1 and 6 chunks, 2 and 32 heads, head_dim 16 and 64, state 16
+and 128, at mamba2-370m's init (a = -1..-H, dt = softplus(N(0,1) +
+dt_bias)) and with a strongly decaying head (a = -32, dt ~ 1, so |cum|
+reaches ~8,000 by row 256). Each output holds to
+``kernels.ssd.error_bound``: 1e-4 of the sum of its terms' magnitudes
+(fp32 rounding of two products on both sides) widened by the relative
+change e^(2 dc) - 1 that a gap dc between the two sides' ``cum`` makes in
+every decay factor; that gap itself holds to the worst case of a Q-term
+prefix sum in another order, 2 (Q - 1) 2^-24 |cum|.
 """
 import pytest
 import torch
@@ -22,6 +33,7 @@ from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.ssd import error_bound, ssd_chunk
 
 pytestmark = pytest.mark.cuda
 
@@ -223,3 +235,86 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="int32"):
         decode_attention(torch.zeros(1, 6, 64, device=card), k, k,
                          torch.ones(1, dtype=torch.int64, device=card))
+
+
+def _ssd_inputs(card, seed, Bsz, nc, Q, H, P, N, strong=False):
+    """Mamba-2's post-conv, post-softplus chunk inputs at its init: x, B
+    and C are silu of unit normals, dt = softplus(N(0,1) + dt_bias) with
+    dt_bias = softplus^-1(U[1e-3, 1e-1]) and a = -(1..H). ``strong``: the
+    last head decays at a = -32 with dt ~ U[0.9, 1.1]."""
+    g = torch.Generator(device=card).manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=card)
+
+    x = torch.nn.functional.silu(rn(Bsz, nc, Q, H, P))
+    B_ = torch.nn.functional.silu(rn(Bsz, nc, Q, N))
+    C_ = torch.nn.functional.silu(rn(Bsz, nc, Q, N))
+    u = torch.rand(H, generator=g, device=card) * 0.099 + 1e-3
+    dt = torch.nn.functional.softplus(rn(Bsz, nc, Q, H)
+                                      + torch.log(torch.expm1(u)))
+    a = -torch.arange(1, H + 1, dtype=torch.float32, device=card)
+    if strong:
+        a[-1] = -32.0
+        dt[..., -1] = 0.9 + 0.2 * torch.rand(Bsz, nc, Q, generator=g,
+                                             device=card)
+    return x, dt, a, B_, C_
+
+
+def _ssd_close(got, want, inputs):
+    torch.cuda.synchronize()
+    bounds, dc = error_bound(*inputs, got[3], want[3])
+    for name, g, w, b in zip(("y_intra", "state", "decay", "cum"), got,
+                             want, bounds):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert torch.isfinite(g).all(), name
+        excess = ((g - w).abs() - b).max().item()
+        assert excess <= 0, (name, excess, dc.max().item())
+
+
+@pytest.mark.parametrize("Bsz,nc,Q,H,P,N,strong", [
+    (1, 1, 1, 2, 16, 16, False),          # one row
+    (1, 1, 37, 32, 64, 128, False),       # a ragged single chunk, full width
+    (2, 6, 64, 2, 16, 128, True),         # one whole tile, strong decay
+    (1, 6, 256, 32, 64, 128, False),      # mamba2-370m's prefill shape
+    (1, 6, 256, 32, 64, 128, True),       # ... with a = -32, dt ~ 1
+    (2, 2, 256, 2, 64, 16, True),
+    (1, 3, 16, 32, 16, 16, False),        # mamba2-370m .reduced()
+    (2, 1, 100, 32, 16, 128, False),      # two tiles, the second ragged
+])
+def test_ssd_chunk_kernel_matches_plain(card, Bsz, nc, Q, H, P, N, strong):
+    inputs = _ssd_inputs(card, Q * 10 + H + nc, Bsz, nc, Q, H, P, N,
+                         strong)
+    n0 = ssd_chunk.launches
+    got = ssd_chunk(*inputs)
+    assert ssd_chunk.launches == n0 + 1
+    _ssd_close(got, ref.ssd_chunk(*inputs), inputs)
+
+
+def test_ssd_chunk_padding_steps_change_nothing(card):
+    """dt = 0 rows with zero x, B and C (the padding ``ssd_chunked`` adds)
+    leave the state, the decay and the real rows' y and cum bit for bit
+    as the unpadded chunk gives them."""
+    x, dt, a, B_, C_ = _ssd_inputs(card, 3, 1, 2, 200, 32, 64, 128, True)
+    padded = [torch.nn.functional.pad(t, (0, 0) * (t.dim() - 3) + (0, 56))
+              for t in (x, dt, B_, C_)]
+    got = ssd_chunk(x, dt, a, B_, C_)
+    pad = ssd_chunk(padded[0], padded[1], a, padded[2], padded[3])
+    assert torch.equal(pad[0][:, :, :200], got[0])
+    assert torch.equal(pad[1], got[1]) and torch.equal(pad[2], got[2])
+    assert torch.equal(pad[3][:, :, :200], got[3])
+    assert (pad[0][:, :, 200:] == 0).all()
+
+
+def test_ssd_chunk_wrapper_refuses_what_the_kernel_does_not_take(card):
+    x, dt, a, B_, C_ = _ssd_inputs(card, 4, 1, 1, 8, 2, 16, 16)
+    with pytest.raises(ValueError, match="float32"):
+        ssd_chunk(x.double(), dt, a, B_, C_)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd_chunk(torch.zeros(1, 1, 8, 2, 24, device=card), dt, a, B_, C_)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_chunk(x, dt, a, B_.transpose(2, 3).contiguous().transpose(2, 3),
+                  C_)
+    with pytest.raises(ValueError, match="rows"):
+        big = _ssd_inputs(card, 5, 1, 1, 1025, 2, 16, 16)
+        ssd_chunk(*big)
