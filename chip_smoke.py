@@ -8,7 +8,7 @@ Phases (each raises on failure, and the script then exits non-zero):
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
    TF32 is switched off for matmuls and convolutions, so every fp32
    product runs in full fp32;
-2. build: the five hand-written CUDA kernels (``src/repro_torch/csrc``),
+2. build: the six hand-written CUDA kernels (``src/repro_torch/csrc``),
    one nvcc per source, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its serving path gives it (smollm-135m heads: H 9, Hkv 3,
@@ -18,7 +18,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    yardstick the port never calls), and the least time the card could
    take; K5 (``ssd_chunk``) at mamba2-370m's prefill shapes (6 chunks of
    256, and one ragged chunk of 37), held to ``kernels.ssd.error_bound``
-   (no single library call computes it);
+   (no single library call computes it); K6 (``rglru_scan``) at
+   recurrentgemma-9b's prefill widths (a ~1,500-token note and a 37-token
+   query with a seeded state, C 4096), and K3/K4 at its heads (H 16,
+   Hkv 1, D 256; K4 with its window of 2048, which the wrapper drops at
+   S 2048 so that the causal walk runs, with one that bites, 512, and
+   with 2047, the windowed walk over nearly the causal pairs);
 4. serving paths, each on the quickstart mesh (laptop 6 slots, phone 1,
    home-nas 8) serving smollm-135m at its full published widths with
    seeded random weights through ``TickOrchestrator``, the launch counters
@@ -44,7 +49,21 @@ Phases (each raises on failure, and the script then exits non-zero):
    (stacked batchers: K5 on all 48 layers of every prefill dispatch, no
    attention kernel), a profile of it, the per-request path, and the
    card-vs-CPU replay on the stacked batcher, once as served (bf16 conv
-   tail) and once with an fp32 conv tail, held tighter.
+   tail) and once with an fp32 conv tail, held tighter;
+8. recurrentgemma: recurrentgemma-9b at its full published widths and
+   depth (38 layers: 26 RG-LRU and 12 local-attention layers, d_model
+   4096, lru_width 4096 in 16 gate blocks, 16 heads of 256 on one kv
+   head, window 2048, d_ff 12288, vocab 256000; 8.6 B parameters) with
+   seeded random fp32 weights, bf16 K/V and conv tail, fp32 state, after
+   the earlier models are freed: the quickstart traffic through
+   ``build_island_batchers(cache="auto")`` (stacked batchers: K6 on the
+   26 RG-LRU layers and K4 on the 12 attention layers of every prefill
+   dispatch, K3 on the 12 attention layers of every decode step), a
+   profile of it (with the matmul time and rate split by prefill and
+   decode dispatch), the per-request path, and the card-vs-CPU replay on
+   the stacked batcher, cut to one pattern cycle (3 layers at full
+   width: 34 GB of fp32 weights and 26 TFLOP prefills do not replay on
+   a CPU), once as served and once with every cache leaf in fp32.
 
 It prints one JSON object per phase (with its seconds), then the card's
 name and power limit, the kernel table, and last
@@ -53,6 +72,7 @@ repository beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -98,6 +118,18 @@ REPLAY_LOGIT_TOL = 1e-2
 # conv tail, which holds every step to that 1e-3
 MAMBA2_REPLAY_LOGIT_TOL = 5e-2
 MAMBA2_PREFILL_LOGIT_TOL = 1e-3
+# the same replay on recurrentgemma-9b cut to one (rglru, rglru, attn)
+# cycle at full width (bf16 conv tails and K/V): its gap grew to 7.4e-4
+# by the 8th token on an H100, and stayed under 2.0e-5 at every step with
+# every cache leaf in fp32, first tokens included (PERF.md). 4e-3 is ~5x
+# the former; 2e-4, ~10x the latter, holds each first token (the
+# prefill) and every step of the fp32-cache replay
+RG_REPLAY_LOGIT_TOL = 4e-3
+RG_PREFILL_LOGIT_TOL = 2e-4
+# K6 against its plain version: the kernel rounds each step's multiply
+# and add as the plain version does, so any gap would be a contraction
+# into an FMA; 1e-5 on states of magnitude ~1-10
+RGLRU_TOL = 1e-5
 # the oversubscribed pool (pool_headroom 0.5): max_len 128 and 96 new
 # tokens for each long note (whose prompt then truncates to 31 tokens), so
 # that the sequences outgrow their half of the pool together and every
@@ -265,15 +297,17 @@ def dense_decode_case(dev, gen, H=9, Hkv=3, D=64, S=2048):
     return (q, k, v, lens), nbytes, flops, valid
 
 
-def dense_prefill_case(dev, gen, H=9, Hkv=3, D=64, S=1024):
+def dense_prefill_case(dev, gen, H=9, Hkv=3, D=64, S=1024, window=None):
     """K4 at a full-prompt prefill: one prompt of S tokens, fp32 q/k/v
-    (fp32 weights), causal."""
+    (fp32 weights), causal, with a local-attention window or none. The
+    flops count the pairs the mask allows: the causal half, or a band."""
     import torch
     q = torch.randn(1, S, H, D, generator=gen, device=dev)
     k, v = (torch.randn(1, S, Hkv, D, generator=gen, device=dev)
             for _ in range(2))
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4 * H * D * S * (S + 1) // 2          # the causal half
+    pairs = sum(min(t + 1, window or S) for t in range(S))
+    flops = 4 * H * D * pairs
     return (q, k, v), nbytes, flops, S
 
 
@@ -409,6 +443,69 @@ def ssd_kernel_rows(dev, gen):
     return row
 
 
+def rglru_case(dev, gen, S, C=4096, with_h0=False):
+    """K6 at a recurrentgemma-9b prefill: one prompt of S tokens at
+    lru_width C, the gates' values at the model's init: a =
+    exp(-8 softplus(Lambda) r) with Lambda = softplus^-1 of -log(u)/8, u ~
+    U[0.9, 0.999] (lambda_init) and r = sigmoid of a unit normal; b a unit
+    normal; all fp32. Bytes: a and b read once, h written once (and h0
+    read). Flops: a multiply and an add a step, at the fp32 rate of the
+    CUDA cores (no tensor-core operation applies)."""
+    import torch
+    import torch.nn.functional as F
+    u = torch.rand(C, generator=gen, device=dev) * 0.099 + 0.9
+    lam = torch.log(torch.expm1(-torch.log(u) / 8.0))
+    r = torch.sigmoid(torch.randn(1, S, C, generator=gen, device=dev))
+    a = torch.exp(-8.0 * F.softplus(lam) * r)
+    b = torch.randn(1, S, C, generator=gen, device=dev)
+    h0 = torch.randn(1, C, generator=gen, device=dev) if with_h0 else None
+    nbytes = 4 * (3 * a.numel() + (h0.numel() if with_h0 else 0))
+    return (a, b, h0), nbytes, 2 * a.numel()
+
+
+def rglru_kernel_rows(dev, gen):
+    """K6 against its plain version at recurrentgemma-9b's prefill
+    widths: a ~1,500-token note without a state, and a 37-token query
+    seeded with one. Returns the note's row."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru import rglru_scan
+    row = None
+    for S, with_h0 in ((1500, False), (37, True)):
+        args, nbytes, flops = rglru_case(dev, gen, S, with_h0=with_h0)
+        got = rglru_scan(*args)
+        want = ref.rglru_scan(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not torch.isfinite(got).all() or err > RGLRU_TOL:
+            raise AssertionError(f"rglru_scan (S {S}): max abs error {err} "
+                                 f"> {RGLRU_TOL} against the plain version")
+        exact = bool(torch.equal(got, want))
+        del got, want
+        n = max(2, min(NCOPY, int(3 * L2_BYTES // nbytes) + 1))
+        copies = [tuple(t.clone() if t is not None else None for t in args)
+                  for _ in range(n)]
+        kms = graph_ms([lambda c=c: rglru_scan(*c) for c in copies])
+        pms = graph_ms([lambda c=c: ref.rglru_scan(*c) for c in copies],
+                       reps=2)
+        del copies
+        bound, by = _bound(nbytes, flops, FP32_FLOP_PER_S)
+        r = {"name": "rglru_scan", "route": "cuda",
+             "source": "src/repro_torch/csrc/rglru_scan.cu",
+             "replaces": "src/repro/kernels/rglru.py:52", "launches": None,
+             "max_abs_err": err, "ms": kms, "plain_ms": pms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None}
+        emit({"phase": "kernel", **r, "shape": list(args[0].shape),
+              "h0": with_h0, "bytes": nbytes, "flops": flops,
+              "bit_exact_with_plain": exact, "tolerance": RGLRU_TOL,
+              "input_copies": n, "achieved_bytes_per_s": nbytes / kms * 1e3,
+              "wrapper_host_us": host_us(lambda: rglru_scan(*args))})
+        row = row or r
+        del args
+    return row
+
+
 def kernel_phase(dev):
     import torch
     import torch.nn.functional as F
@@ -472,18 +569,45 @@ def kernel_phase(dev):
         return (q[:, :, None, :], k.float().transpose(1, 2).contiguous(),
                 v.float().transpose(1, 2).contiguous(), mask)
 
-    def sdpa_prefill(q, k, v):
-        return tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+    def sdpa_prefill(q, k, v, window=None):
+        """(B, H, S, D) inputs, and a band mask where a window bites."""
+        qkv = tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+        S = q.shape[1]
+        if not window or window >= S:
+            return qkv
+        pos = torch.arange(S, device=q.device)
+        band = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        return qkv + (band,)
+
+    def sdpa_prefill_call(q, k, v, band=None):
+        if band is None:
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                              enable_gqa=True)
 
     K3 = ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
           "src/repro/kernels/decode_attention.py:95")
     K4 = ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
           "src/repro/kernels/flash_attention.py:82")
-    for (name, src, replaces), geom, case_kw in (
-            (K3, "smollm-135m stacked", dict()),
-            (K3, "qwen3-4b heads", dict(H=32, Hkv=8, D=128)),
-            (K4, "smollm-135m", dict()),
-            (K4, "qwen3-4b heads", dict(H=32, Hkv=8, D=128, S=2048))):
+    RG = dict(H=16, Hkv=1, D=256)
+    # the kernels line carries K3/K4 at the geometry of the newest path
+    # that runs them (recurrentgemma-9b; K4 at its window of 2048, with
+    # the biting window's numbers beside); the others are phase lines
+    for (name, src, replaces), geom, case_kw, role in (
+            (K3, "smollm-135m stacked", dict(), None),
+            (K3, "qwen3-4b heads", dict(H=32, Hkv=8, D=128), None),
+            (K3, "recurrentgemma-9b heads", RG, "row"),
+            (K4, "smollm-135m", dict(), None),
+            (K4, "qwen3-4b heads", dict(H=32, Hkv=8, D=128, S=2048), None),
+            (K4, "recurrentgemma-9b heads, window 2048",
+             dict(RG, S=2048, window=2048), "row"),
+            (K4, "recurrentgemma-9b heads, window 512",
+             dict(RG, S=2048, window=512), "biting_window"),
+            (K4, "recurrentgemma-9b heads, window 2047 (the windowed walk "
+                 "over all but one causal pair)",
+             dict(RG, S=2048, window=2047), None)):
         if name == "decode_attention":
             args, nbytes, flops, fills = dense_decode_case(dev, gen,
                                                            **case_kw)
@@ -494,13 +618,18 @@ def kernel_phase(dev):
             lib_inputs = (lambda c: sdpa_decode(*c))
             shape = {"fills": fills}
         else:
+            w = case_kw.get("window")
             args, nbytes, flops, S = dense_prefill_case(dev, gen, **case_kw)
-            wrapper, plain, rate = flash_attention, ref.flash_attention, \
-                TF32_FLOP_PER_S
-            lib_fn = (lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
-            lib_inputs = (lambda c: sdpa_prefill(*c))
-            shape = {"S": S}
+            wrapper = (lambda q, k, v, w=w: flash_attention(q, k, v,
+                                                            window=w))
+            plain = (lambda q, k, v, scale, w=w: ref.flash_attention(
+                q, k, v, scale, True, w))
+            rate = TF32_FLOP_PER_S
+            lib_fn = sdpa_prefill_call
+            lib_inputs = (lambda c, w=w: sdpa_prefill(*c, w))
+            # the wrapper drops a window of at least S: the causal walk
+            shape = {"S": S, "window": w,
+                     "walk": "windowed" if w and w < S else "causal"}
         scale = args[0].shape[-1] ** -0.5
         out = wrapper(*args)
         err = _check(f"{name} ({geom})", out, plain(*args, scale))
@@ -516,8 +645,13 @@ def kernel_phase(dev):
                "replaces": replaces, "launches": None, "max_abs_err": err,
                "ms": kms, "plain_ms": pms, "bound_ms": bound,
                "bound_by": by, "library_ms": lms}
-        if name not in rows:       # the serving path's own geometry
-            rows[name] = row
+        if role == "row":
+            rows[name] = dict(row, geometry=geom, **shape)
+        elif role is not None:
+            rows[name][role] = dict(
+                {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms")},
+                **shape)
         emit({"phase": "kernel", **row, "geometry": geom,
               "shape_q": list(args[0].shape),
               "shape_kv": list(args[1].shape), **shape, "bytes": nbytes,
@@ -526,6 +660,7 @@ def kernel_phase(dev):
               "wrapper_host_us": host_us(lambda: wrapper(*args))})
         del args, out
     rows["ssd_chunk"] = ssd_kernel_rows(dev, gen)
+    rows["rglru_scan"] = rglru_kernel_rows(dev, gen)
     # free the timed graphs' pools and the cuBLAS workspaces of the timing
     # streams (one per stream that ran a matmul) now, so that they do not
     # sit in the serving paths' memory readings
@@ -562,9 +697,14 @@ def quickstart_stack(device):
 
 
 def _watch_finite(b, flags):
-    """Fold ``isfinite(logits).all()`` of every forward pass of ``b``'s
+    """Fold the finiteness of the logits of every forward pass of ``b``'s
     model (fused prefill and fused decode) into a device flag, with no
-    host sync; ``flags`` collects one per batcher."""
+    host sync; ``flags`` collects one per batcher. The check is
+    ``isfinite(logits.sum())``: a NaN or an inf anywhere makes the sum
+    non-finite, and it allocates nothing the size of the logits, where
+    ``isfinite(logits)`` would allocate an fp32 ``abs`` copy and three
+    bool tensors of them (2.2 GB above a recurrentgemma note's 1.5 GB of
+    prompt logits) inside the paths' peak memory readings."""
     import torch
     flag = torch.ones((), dtype=torch.bool, device=b.device)
     flags.append(flag)
@@ -572,7 +712,7 @@ def _watch_finite(b, flags):
 
     def checked(*args, **kw):
         logits, cache = forward(*args, **kw)
-        flag.logical_and_(torch.isfinite(logits).all())
+        flag.logical_and_(torch.isfinite(logits.sum()))
         return logits, cache
 
     b.model.forward = checked
@@ -609,11 +749,12 @@ def kernel_fns():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.rglru import rglru_scan
     from repro_torch.kernels.ssd import ssd_chunk
     return {f.__name__: f for f in (paged_decode_attention,
                                     chunked_prefill_attention,
                                     decode_attention, flash_attention,
-                                    ssd_chunk)}
+                                    ssd_chunk, rglru_scan)}
 
 
 def zero_launches():
@@ -626,22 +767,26 @@ def read_launches():
 
 
 def layer_counts(model):
-    """(attention layers, SSM layers) of a model."""
-    return (model.block_types.count("attn"), model.block_types.count("ssm"))
+    """(attention layers, SSM layers, RG-LRU layers) of a model."""
+    return tuple(model.block_types.count(bt)
+                 for bt in ("attn", "ssm", "rglru"))
 
 
 def expected_launches(batchers):
     """Launches each kernel must show after a run: one per layer of every
     dispatch that reaches it (attention kernels on attention layers, K5 on
-    SSM layers), and none for a kernel off the path."""
+    SSM layers, K6 on RG-LRU layers, each only at prefill), and none for a
+    kernel off the path."""
     want = dict.fromkeys(kernel_fns(), 0)
     for b in batchers:
-        layers, ssm_layers = layer_counts(b.model)
+        layers, ssm_layers, rg_layers = layer_counts(b.model)
         decode = layers * b.stats["decode_steps"]
         if not hasattr(b, "pool"):                   # stacked
+            prefills = b.stats["prefill_dispatches"]
             want["decode_attention"] += decode
-            want["flash_attention"] += layers * b.stats["prefill_dispatches"]
-            want["ssd_chunk"] += ssm_layers * b.stats["prefill_dispatches"]
+            want["flash_attention"] += layers * prefills
+            want["ssd_chunk"] += ssm_layers * prefills
+            want["rglru_scan"] += rg_layers * prefills
             continue
         want["paged_decode_attention"] += decode
         if b.prefill_mode == "full":
@@ -670,6 +815,7 @@ def serve_path(name, cfg, params, device, max_len=2048, long_new=16,
     orch.run_until_done(max_ticks=4000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()   # before the checks below
     launches = read_launches()
     if orch.busy():
         raise AssertionError(f"{name}: did not drain within 4000 ticks")
@@ -722,7 +868,7 @@ def serve_path(name, cfg, params, device, max_len=2048, long_new=16,
         "generated_tokens": gen_tokens, "wall_s": wall,
         "tokens_per_s": gen_tokens / wall,
         "ttft_ticks_p50": ttft[len(ttft) // 2], "ttft_ticks_max": ttft[-1],
-        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "max_memory_allocated_bytes": peak,
         "memory_allocated_at_start_bytes": mem0,
         "weight_bytes": tensor_bytes(params),
         "cache_bytes": sum(tensor_bytes(b.pool.pages if hasattr(b, "pool")
@@ -773,6 +919,8 @@ def _kernel_family(name):
             return fam
     if "ssd_chunk_kernel" in name:
         return "ssd_chunk"
+    if "rglru_scan_kernel" in name:
+        return "rglru_scan"
     for key, fam in (("gemm", "matmul"), ("gemv", "matmul"),
                      ("xmma", "matmul"), ("cutlass", "matmul"),
                      ("Memcpy", "memcpy"), ("Memset", "memset")):
@@ -781,25 +929,111 @@ def _kernel_family(name):
     return "other (elementwise, reductions, indexing)"
 
 
+DISPATCH_RANGES = {"_prefill": "prefill dispatch",
+                   "_decode_all": "decode dispatch"}
+
+
+def _label_dispatches(batchers):
+    """Wrap each stacked batcher's prefill and decode dispatch in a
+    ``record_function`` range, so that a profile can tell which dispatch
+    launched a kernel."""
+    from torch.profiler import record_function
+    for b in batchers.values():
+        for attr, label in DISPATCH_RANGES.items():
+            fn = getattr(b, attr)
+
+            def ranged(*args, fn=fn, label=label, **kw):
+                with record_function(label):
+                    return fn(*args, **kw)
+
+            setattr(b, attr, ranged)
+
+
+def _gemm_flops(op, shapes):
+    """2·M·N·K (times the batch) of a matmul op from its recorded input
+    shapes, or None for an op this does not know."""
+    try:
+        if op == "aten::mm":
+            (m, k), (_, n) = shapes[0], shapes[1]
+            return 2 * m * k * n
+        if op == "aten::addmm":
+            (m, k), (_, n) = shapes[1], shapes[2]
+            return 2 * m * k * n
+        if op in ("aten::bmm", "aten::baddbmm"):
+            a, bb = shapes[-2:] if op == "aten::baddbmm" else shapes[:2]
+            return 2 * a[0] * a[1] * a[2] * bb[2]
+    except (IndexError, TypeError, ValueError):
+        return None
+    return None
+
+
+def _dispatch_matmuls(events):
+    """Device time and flops of the matmul kernels by the dispatch that
+    launched them: each kernel belongs to the aten op that launched it,
+    and that op to its innermost enclosing dispatch range. Flops come from
+    the ops' recorded input shapes, so the rate is this trace's."""
+    from torch.autograd import DeviceType
+    kinds = set(DISPATCH_RANGES.values())
+    out: dict = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        us = sum(k.duration for k in e.kernels
+                 if _kernel_family(k.name) == "matmul")
+        if not us:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name not in kinds:
+            p = p.cpu_parent
+        kind = p.name if p is not None else "outside a dispatch"
+        r = out.setdefault(kind, {"matmul_device_s": 0.0, "gemm_flops": 0,
+                                  "ops": {}, "ops_without_flops_s": 0.0})
+        r["matmul_device_s"] += us / 1e6
+        r["ops"][e.name] = r["ops"].get(e.name, 0.0) + us / 1e6
+        f = _gemm_flops(e.name, e.input_shapes)
+        if f is None:
+            r["ops_without_flops_s"] += us / 1e6
+        else:
+            r["gemm_flops"] += f
+    for r in out.values():
+        timed = r["matmul_device_s"] - r["ops_without_flops_s"]
+        r["tflop_per_s"] = (r["gemm_flops"] / timed / 1e12 if timed > 0
+                            else None)
+    return out
+
+
 def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
-                  **bkw):
+                  split_dispatches=False, **bkw):
     """A serving path's workload once more, on fresh batchers, under
-    ``torch.profiler`` (device activity only): device busy time as the
-    union of kernel intervals, and device time by kernel family. The busy
-    time does not depend on the profiler's host overhead, so the idle
-    share is read against the unprofiled run's wall time."""
+    ``torch.profiler``: device busy time as the union of kernel
+    intervals, and device time by kernel family. The busy time does not
+    depend on the profiler's host overhead, so the idle share is read
+    against the unprofiled run's wall time. With ``split_dispatches``
+    (stacked batchers) the host ops are recorded too, with their input
+    shapes, and the matmul time and rate are split by prefill and decode
+    dispatch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    orch, _b, _r, _f = serving_stack(cfg, params, device, max_len, **bkw)
+    orch, batchers, _r, _f = serving_stack(cfg, params, device, max_len,
+                                           **bkw)
+    acts = [ProfilerActivity.CUDA]
+    if split_dispatches:
+        _label_dispatches(batchers)
+        acts.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts, record_shapes=split_dispatches) as prof:
         orch.run_until_done(max_ticks=4000)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    events = prof.events()
+    labels = set(DISPATCH_RANGES.values())
+    # the dispatch ranges' device-side annotations are not kernels
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+                   for e in events if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.name not in labels)
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
     busy, end = 0.0, float("-inf")
@@ -816,7 +1050,9 @@ def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
           "device_idle_share": 1.0 - busy_s / wall_unprofiled,
           "device_ms_by_family": {k: round(v[0], 3) for k, v in
                                   sorted(fam.items(), key=lambda x: -x[1][0])},
-          "launches_by_family": {k: v[1] for k, v in fam.items()}})
+          "launches_by_family": {k: v[1] for k, v in fam.items()},
+          **({"matmul_by_dispatch": _dispatch_matmuls(events)}
+             if split_dispatches else {})})
 
 
 # ------------------------------------------------------- per-request phase
@@ -826,8 +1062,9 @@ def per_request_phase(cfg, params, device, n=12, max_new=8,
     """The serve launcher's default path at full width: its mesh and an
     ``n``-request healthcare workload through ``InferenceEngine`` into
     ``LocalModelServer``s on the card, one full-prompt prefill (K4 on
-    attention layers, K5 on SSM layers) and ``max_new - 1`` dense decode
-    steps (K3 on attention layers) per local request."""
+    attention layers, K5 on SSM layers, K6 on RG-LRU layers) and
+    ``max_new - 1`` dense decode steps (K3 on attention layers) per local
+    request."""
     import torch
 
     from repro_torch.core.workload import healthcare_workload
@@ -860,11 +1097,12 @@ def per_request_phase(cfg, params, device, n=12, max_new=8,
     if len(served) + len(eng.rejected) != n or not served:
         raise AssertionError(f"per-request: {len(served)} served, "
                              f"{len(eng.rejected)} rejected of {n}")
-    layers, ssm_layers = layer_counts(servers["laptop"].model)
+    layers, ssm_layers, rg_layers = layer_counts(servers["laptop"].model)
     want = dict.fromkeys(kernel_fns(), 0)
     want["flash_attention"] = layers * len(calls)
     want["decode_attention"] = layers * len(calls) * (max_new - 1)
     want["ssd_chunk"] = ssm_layers * len(calls)
+    want["rglru_scan"] = rg_layers * len(calls)
     if launches != want or not calls:
         raise AssertionError(f"per-request: launches {launches}, expected "
                              f"{want} for {len(calls)} local requests")
@@ -1019,9 +1257,9 @@ def replay(name, cfg, runs_on, make, capture, tol=REPLAY_LOGIT_TOL,
 
 def fp32_tail(b):
     """Make stacked batcher ``b`` keep every cache leaf in fp32 (the
-    serving paths keep the SSM conv tail in bf16): its slot rows now, and
-    each admission's prefill cache. A diagnostic that takes the stored
-    bf16 roundings out of the card-vs-CPU replay."""
+    serving paths keep the conv tails and the K/V in bf16): its slot rows
+    now, and each admission's prefill cache. A diagnostic that takes the
+    stored bf16 roundings out of the card-vs-CPU replay."""
     import torch
     init = b.model.init_cache
     b.model.init_cache = (lambda batch, max_len, dtype=None, device=None:
@@ -1097,10 +1335,8 @@ def main() -> int:
         rows[k]["launches"] = launches[k]
     timed("profile main_path", profile_phase, "main_path", cfg, params, gpu,
           wall)
-    launches, wall, _ = timed("stacked", serve_path, "stacked", cfg, params,
-                              gpu, cache="stacked")
-    for k in ("decode_attention", "flash_attention"):
-        rows[k]["launches"] = launches[k]
+    _, wall, _ = timed("stacked", serve_path, "stacked", cfg, params, gpu,
+                       cache="stacked")
     timed("profile stacked", profile_phase, "stacked", cfg, params, gpu,
           wall, cache="stacked")
     timed("paged_prefill_full", serve_path, "paged_prefill_full", cfg,
@@ -1149,6 +1385,45 @@ def main() -> int:
           mcfg, mruns, lambda dev, p: fp32_tail(ContinuousBatcher(
               mcfg, params=p, num_slots=4, max_len=256, device=dev)),
           _capture_stacked, tol=MAMBA2_PREFILL_LOGIT_TOL)
+    del mruns, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "memory before recurrentgemma",
+          "memory_allocated_bytes": torch.cuda.memory_allocated()})
+
+    # recurrentgemma-9b at full width and depth: stacked batchers
+    # (cache="auto"): K6 and K4 at prefill, K3 at decode
+    rcfg = get_config("recurrentgemma-9b")
+    rparams = timed("init recurrentgemma", get_model(rcfg).init, seed=0,
+                    device=gpu)
+    launches, wall, _ = timed("recurrentgemma", serve_path,
+                              "recurrentgemma", rcfg, rparams, gpu)
+    for k in ("decode_attention", "flash_attention", "rglru_scan"):
+        rows[k]["launches"] = launches[k]
+    timed("profile recurrentgemma", profile_phase, "recurrentgemma", rcfg,
+          rparams, gpu, wall, split_dispatches=True)
+    timed("per_request recurrentgemma", per_request_phase, rcfg, rparams,
+          gpu, name="per_request recurrentgemma")
+    # the replay at full width, cut to one pattern cycle: its weights are
+    # the first three layers of the served model's
+    ccfg = dataclasses.replace(rcfg, num_layers=len(rcfg.pattern))
+    cut = {"embed": rparams["embed"], "final_norm": rparams["final_norm"],
+           "layers": rparams["layers"][:ccfg.num_layers]}
+    emit({"phase": "replay cut", "model": rcfg.name,
+          "layers": ccfg.num_layers, "of": rcfg.num_layers,
+          "pattern": list(rcfg.pattern), "d_model": ccfg.d_model,
+          "vocab": ccfg.vocab_size, "weight_bytes": tensor_bytes(cut)})
+    rruns = [(gpu, cut), (cpu, params_to(cut, cpu))]
+    timed("replay recurrentgemma", replay, "replay recurrentgemma", ccfg,
+          rruns, lambda dev, p: ContinuousBatcher(
+              ccfg, params=p, num_slots=4, max_len=256, device=dev),
+          _capture_stacked, tol=RG_REPLAY_LOGIT_TOL,
+          first_tol=RG_PREFILL_LOGIT_TOL)
+    timed("replay recurrentgemma fp32 cache", replay,
+          "replay recurrentgemma fp32 cache", ccfg, rruns,
+          lambda dev, p: fp32_tail(ContinuousBatcher(
+              ccfg, params=p, num_slots=4, max_len=256, device=dev)),
+          _capture_stacked, tol=RG_PREFILL_LOGIT_TOL)
     emit({"phase": "seconds", **seconds})
 
     print(card)

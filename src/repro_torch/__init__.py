@@ -1,8 +1,9 @@
 """IslandRun on PyTorch and CUDA: the port of the JAX package ``repro``.
 
 The port carries the serving paths of attention-only decoders, and of
-the Mamba-2 family (mamba2-370m: the stacked batcher and the per-request
-path), end to end on an NVIDIA H100, with greedy sampling:
+the Mamba-2 (mamba2-370m) and RG-LRU (recurrentgemma-9b, with windowed
+local attention) families on the stacked batcher and the per-request
+path, end to end on an NVIDIA H100, with greedy sampling:
 
 * ``serving.engine.TickOrchestrator`` routes the pending pool once per
   tick (``core.routing``) into per-island batchers
@@ -14,17 +15,21 @@ path), end to end on an NVIDIA H100, with greedy sampling:
 * ``serving.engine.InferenceEngine`` routes one request at a time into a
   ``LocalModelServer`` (``python -m repro_torch.launch.serve``);
 * ``models`` runs the decoders, each layer's mixer by its block type
-  (attention or SSM); their attention goes through four hand-written
-  CUDA C++ kernels for ``sm_90a`` (``kernels``, sources in ``csrc/``):
-  paged decode, chunked prefill, dense decode and full-prompt prefill,
-  and Mamba-2's prefill through a fifth, the SSD chunk pieces
-  (``kernels.ssd``).
+  (attention, SSM or RG-LRU); their attention goes through four
+  hand-written CUDA C++ kernels for ``sm_90a`` (``kernels``, sources in
+  ``csrc/``): paged decode, chunked prefill, dense decode and full-prompt
+  prefill (the last two also at head_dim 256 and with a local-attention
+  window), Mamba-2's prefill through a fifth, the SSD chunk pieces
+  (``kernels.ssd``), and the RG-LRU recurrence through a sixth
+  (``kernels.rglru``).
 
-Run mamba2 on the CPU with ``python -m repro_torch.launch.serve --device
-cpu --arch mamba2-370m`` (add ``--batched`` for the stacked batcher) and
-its parity tests with ``pytest tests/test_torch_ssd.py
-tests/test_torch_ssm_model.py tests/test_torch_ssm_serving.py``; on the
-card, ``python3 chip_smoke.py`` serves it at full width.
+Run mamba2 or recurrentgemma on the CPU with ``python -m
+repro_torch.launch.serve --device cpu --arch mamba2-370m`` (or ``--arch
+recurrentgemma-9b``; add ``--batched`` for the stacked batcher) and their
+parity tests with ``pytest tests/test_torch_ssd.py
+tests/test_torch_ssm_model.py tests/test_torch_ssm_serving.py`` and
+``pytest tests/test_torch_rglru_*.py``; on the card, ``python3
+chip_smoke.py`` serves both at full width.
 
 Entry points (``TickOrchestrator``, ``build_island_batchers``, both
 batchers, ``LocalModelServer``, ``Model.init``) run on the card unless the

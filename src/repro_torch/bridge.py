@@ -12,8 +12,11 @@ params)`` on the caller's side — the port never imports JAX) and
 ``dense_cache_from_reference``/``dense_cache_to_reference`` do the same
 for a dense decode cache (the reference's ``init_cache`` tree, whose
 leaves sit under ``mixer``; the port's per-layer list of ``{"k", "v"}``
-attention dicts and ``{"conv", "h"}`` SSM dicts, bf16 ``conv`` and fp32
-``h`` as the reference keeps them), so that tests can compare caches.
+attention dicts, windowed rings included, and ``{"conv", "h"}`` SSM and
+RG-LRU dicts, bf16 ``conv`` and fp32 ``h`` as the reference keeps them),
+so that tests can compare caches. Layers outside the repeating cycles
+(recurrentgemma-9b's ``tail_0``/``tail_1``) take their places in depth
+order.
 
 numpy has no bfloat16: a bf16 leaf arrives as numpy's ml_dtypes
 ``bfloat16`` (or as ``uint16`` raw bits) and travels bit-exactly as

@@ -33,8 +33,8 @@ static cudaError_t launch(const void* q, const void* kp, const void* vp,
                           int T, int H, int Hkv, int ps, int N, float scale,
                           cudaStream_t stream) {
     const PagedRows rows{(const int32_t*)bt, N, ps, (int64_t)Hkv * 32 * DPL};
-    return launch_prefill_walk<TQ, TKV, DPL, PagedRows, true>(
-        q, kp, vp, rows, start, out, B, T, H, Hkv, N * ps, scale, stream);
+    return launch_prefill_walk<TQ, TKV, DPL, PagedRows, true, false>(
+        q, kp, vp, rows, start, out, B, T, H, Hkv, N * ps, 0, scale, stream);
 }
 
 // q (B, T, H, D); k/v pages (P, ps, Hkv, D); block_table (B, N) int32;

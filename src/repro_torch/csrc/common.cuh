@@ -126,18 +126,25 @@ static cudaError_t launch_with_smem(void (*kernel)(KArgs...), dim3 grid,
 
 // Return `LAUNCH<TQ, TKV, DPL>(...)` for the dtype pair and head_dim
 // (D = 32 * DPL, D in {32, 64, 128}); anything else is refused.
+// REPRO_DISPATCH_WIDE also takes D = 256 (recurrentgemma's heads): only
+// the dense-cache kernels K3/K4 use it, so the paged kernels compile no
+// D 256 variant that no path runs.
 #define REPRO_DISPATCH(LAUNCH, q_dtype, kv_dtype, D, ...)                   \
+    REPRO_DISPATCH_T(REPRO_DISPATCH_D, LAUNCH, q_dtype, kv_dtype, D,         \
+                     __VA_ARGS__)
+#define REPRO_DISPATCH_WIDE(LAUNCH, q_dtype, kv_dtype, D, ...)              \
+    REPRO_DISPATCH_T(REPRO_DISPATCH_D_WIDE, LAUNCH, q_dtype, kv_dtype, D,    \
+                     __VA_ARGS__)
+
+#define REPRO_DISPATCH_T(BY_D, LAUNCH, q_dtype, kv_dtype, D, ...)           \
     if (q_dtype == DT_FLOAT32 && kv_dtype == DT_BFLOAT16)                    \
-        return REPRO_DISPATCH_D(LAUNCH, float, __nv_bfloat16, D,             \
-                                __VA_ARGS__);                                \
+        return BY_D(LAUNCH, float, __nv_bfloat16, D, __VA_ARGS__);           \
     if (q_dtype == DT_FLOAT32 && kv_dtype == DT_FLOAT32)                     \
-        return REPRO_DISPATCH_D(LAUNCH, float, float, D, __VA_ARGS__);       \
+        return BY_D(LAUNCH, float, float, D, __VA_ARGS__);                   \
     if (q_dtype == DT_BFLOAT16 && kv_dtype == DT_BFLOAT16)                   \
-        return REPRO_DISPATCH_D(LAUNCH, __nv_bfloat16, __nv_bfloat16, D,     \
-                                __VA_ARGS__);                                \
+        return BY_D(LAUNCH, __nv_bfloat16, __nv_bfloat16, D, __VA_ARGS__);   \
     if (q_dtype == DT_BFLOAT16 && kv_dtype == DT_FLOAT32)                    \
-        return REPRO_DISPATCH_D(LAUNCH, __nv_bfloat16, float, D,             \
-                                __VA_ARGS__);                                \
+        return BY_D(LAUNCH, __nv_bfloat16, float, D, __VA_ARGS__);           \
     return (int)cudaErrorInvalidValue
 
 #define REPRO_DISPATCH_D(LAUNCH, TQ, TKV, D, ...)                            \
@@ -145,3 +152,6 @@ static cudaError_t launch_with_smem(void (*kernel)(KArgs...), dim3 grid,
      : D == 64  ? (int)LAUNCH<TQ, TKV, 2>(__VA_ARGS__)                       \
      : D == 128 ? (int)LAUNCH<TQ, TKV, 4>(__VA_ARGS__)                       \
                 : (int)cudaErrorInvalidValue)
+#define REPRO_DISPATCH_D_WIDE(LAUNCH, TQ, TKV, D, ...)                       \
+    (D == 256 ? (int)LAUNCH<TQ, TKV, 8>(__VA_ARGS__)                         \
+              : REPRO_DISPATCH_D(LAUNCH, TQ, TKV, D, __VA_ARGS__))

@@ -19,8 +19,12 @@
 // predicated off) becomes the walk K1 uses (decode_walk.cuh): one block per
 // (row, kv head) serves the head's G query heads, 8 warps walk 32-slot
 // tiles with private online softmaxes in registers and merge (m, l, acc)
-// in shared memory. Slots at or past valid_len[b] are never read, so
-// decode cost tracks the fill and not the cache's capacity. A row is not
+// in shared memory. A windowed ring-buffer cache (recurrentgemma's local
+// attention) is read the same way: the model passes min(pos + 1, W) as
+// the fill, and attention does not depend on the order of the slots.
+// At head_dim 256, 16 query heads on one kv head are two blocks of 8.
+// Slots at or past valid_len[b] are never read, so decode cost tracks the
+// fill and not the cache's capacity. A row is not
 // yet split across blocks (flash-decoding), so a decode batch of B rows
 // keeps only B * Hkv SMs busy; that, TMA and wgmma are later work.
 
@@ -36,7 +40,8 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 // q (B, H, D); k/v (B, S, Hkv, D); valid_lens (B,) int32; out (B, H, D)
-// in q's dtype. All contiguous and 16-byte aligned, D in {32, 64, 128}.
+// in q's dtype. All contiguous and 16-byte aligned, D in {32, 64, 128,
+// 256}.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* valid_lens,
@@ -44,6 +49,6 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        int D, int S, float scale,
                                        int q_dtype, int kv_dtype,
                                        void* stream) {
-    REPRO_DISPATCH(launch, q_dtype, kv_dtype, D, q, k, v, valid_lens, out, B,
-                   H, Hkv, S, scale, (cudaStream_t)stream);
+    REPRO_DISPATCH_WIDE(launch, q_dtype, kv_dtype, D, q, k, v, valid_lens,
+                        out, B, H, Hkv, S, scale, (cudaStream_t)stream);
 }

@@ -2,8 +2,9 @@
 // functor: the body of K1 (paged_attention.cu, rows through a block table)
 // and K3 (decode_attention.cu, rows of a dense cache).
 //
-// One block per (sequence, kv head): each of the block's 8 warps walks its
-// own 32-token tiles of the live context with a private online softmax,
+// One block per (sequence, kv head): each of the block's 8 warps (4 where
+// 8 warps' staged fp32 V rows of head_dim 256 would not fit the shared
+// memory) walks its own 32-token tiles of the live context with a private online softmax,
 // and the warps' partial (m, l, acc) merge in shared memory at the end. A
 // lane owns one token of a tile: it issues its K row and its V row as
 // 16-byte loads at once, so a warp keeps a whole tile's bytes in flight,
@@ -17,7 +18,16 @@
 
 #include "common.cuh"
 
-constexpr int DEC_WARPS = 8;   // warps per block, each walking its own tiles
+// warps per block, each walking its own tiles: 8, or 4 where 8 warps'
+// staged V rows would take more than 200 KB of shared memory (fp32 K/V
+// at head_dim 256)
+template <typename TKV, int DPL>
+__host__ __device__ constexpr int dec_warps() {
+    return 8 * 32 * (32 * DPL + 16 / (int)sizeof(TKV)) * (int)sizeof(TKV) >
+                   200 * 1024
+               ? 4
+               : 8;
+}
 
 // Element offset of token `tok` of sequence `b` in a (.., Hkv, D) K/V
 // store, before the kv head's h * D.
@@ -43,14 +53,14 @@ struct DenseRows {             // (B, S, Hkv, D) cache
 // q (B, H, D); out (B, H, D) in q's dtype; row b attends its first
 // min(valid_lens[b], cap) tokens.
 template <typename TQ, typename TKV, int DPL, typename Rows>
-__global__ void __launch_bounds__(DEC_WARPS * 32)
+__global__ void __launch_bounds__(dec_warps<TKV, DPL>() * 32)
 decode_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                    const TKV* __restrict__ v, Rows rows,
                    const int32_t* __restrict__ valid_lens,
                    TQ* __restrict__ out, int H, int Hkv, int cap,
                    float scale) {
     constexpr int D = 32 * DPL;
-    constexpr int W = DEC_WARPS;
+    constexpr int W = dec_warps<TKV, DPL>();
     constexpr int VS = D + 16 / (int)sizeof(TKV);  // padded staged V row
     const int b = blockIdx.x;
     const int G = H / Hkv;
@@ -206,7 +216,7 @@ static cudaError_t launch_decode_walk(const void* q, const void* k,
                                       int H, int Hkv, int cap, float scale,
                                       cudaStream_t stream) {
     constexpr int D = 32 * DPL;
-    constexpr int W = DEC_WARPS;
+    constexpr int W = dec_warps<TKV, DPL>();
     constexpr int VS = D + 16 / (int)sizeof(TKV);
     const int n_gc = (H / Hkv + GMAX - 1) / GMAX;
     const size_t staged = sizeof(TKV) * W * 32 * VS;

@@ -5,11 +5,16 @@
 //
 // Query token t of row b sits at absolute position start[b] + t (start is
 // 0 without a start vector); with CAUSAL it attends keys at positions
-// <= its own, otherwise every key below `cap`. CAUSAL is a template
-// parameter, not a runtime flag: with a flag, K2 ran 6% slower on the
-// card than before K4 shared its walk.
+// <= its own, otherwise every key below `cap`. WINDOWED (local attention,
+// K4 only) also drops keys at or below its position minus `window`, and
+// the block's walk begins at the first key tile some row of its q tile
+// can attend. CAUSAL and WINDOWED are template parameters, not runtime
+// flags: with a causal flag, K2 ran 6% slower on the card than before K4
+// shared its walk.
 //
-// One block per (row, kv head, 16-token q tile). The block's 8 warps load
+// One block per (row, kv head, q tile of 16 tokens; 4 at head_dim 256,
+// where 16 tokens' rows would need 128 fp32 accumulators a thread and
+// ~214 KB of shared memory). The block's 8 warps load
 // each 32-key tile into shared memory together (16-byte loads, converted
 // to fp32 once), so one read of a K/V row serves every query head of the
 // kv head and every token of the q tile; the next tile's loads are in
@@ -27,20 +32,28 @@
 
 constexpr int PF_WARPS = 8;                 // warps per block
 constexpr int PF_THREADS = PF_WARPS * 32;
-constexpr int BQ = 16;                      // query tokens per block
 constexpr int KT = 32;                      // keys per shared-memory tile
-constexpr int RPW = BQ * GMAX / PF_WARPS;   // query rows per warp, at most
+
+// query tokens per block at head_dim 32 * DPL
+template <int DPL>
+__host__ __device__ constexpr int pf_bq() {
+    return DPL >= 8 ? 4 : 16;
+}
 
 // q (B, T, H, D); out (B, T, H, D) in q's dtype; start_pos (B,) int32 or
-// null (all 0); keys [0, cap) exist.
-template <typename TQ, typename TKV, int DPL, typename Rows, bool CAUSAL>
+// null (all 0); keys [0, cap) exist; with WINDOWED, a query at position p
+// attends keys in (p - window, p], window >= 1.
+template <typename TQ, typename TKV, int DPL, typename Rows, bool CAUSAL,
+          bool WINDOWED>
 __global__ void __launch_bounds__(PF_THREADS)
 prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v, Rows rows,
                     const int32_t* __restrict__ start_pos,
                     TQ* __restrict__ out, int T, int H, int Hkv, int cap,
-                    float scale) {
+                    int window, float scale) {
     constexpr int D = 32 * DPL;
+    constexpr int BQ = pf_bq<DPL>();
+    constexpr int RPW = BQ * GMAX / PF_WARPS;  // query rows per warp, at most
     constexpr int KS = D + 4;   // padded fp32 K/V row: conflict-free lanes
     constexpr int CH = D / 8;   // 16-byte chunks per key row
     constexpr int CPT = (KT * CH + PF_THREADS - 1) / PF_THREADS;
@@ -82,8 +95,10 @@ prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < DPL; ++e) acc[i][e] = 0.f;
     }
-    // keys [0, kend) can be attended by some row of the tile
+    // keys [kbeg, kend) can be attended by some row of the tile; with a
+    // window the walk begins at the tile holding the first row's first key
     const int kend = CAUSAL ? min(start + t0 + tn, cap) : cap;
+    const int kbeg = WINDOWED ? max(0, start + t0 - window + 1) / KT * KT : 0;
 
     // this thread's 16-byte chunks of a key tile, fetched into registers
     // one tile ahead; keys past kend read as zeros
@@ -104,8 +119,8 @@ prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
             }
         }
     };
-    fetch(0);
-    for (int k0 = 0; k0 < kend; k0 += KT) {
+    fetch(kbeg);
+    for (int k0 = kbeg; k0 < kend; k0 += KT) {
         __syncthreads();  // queries loaded / previous tile consumed
 #pragma unroll
         for (int c = 0; c < CPT; ++c) {
@@ -144,18 +159,22 @@ prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                 }
             }
         }
-        // online softmax per row. Tile 0 holds key 0, which every row
-        // attends, so m is a real score from then on and a row whose keys
-        // in this tile are all in its future adds p == 0 exactly
+        // online softmax per row. Without a window tile 0 holds key 0,
+        // which every row attends, so m is a real score from then on and
+        // a row whose keys in this tile are all in its future adds p == 0
+        // exactly. With a window a row may see a first tile wholly below
+        // its window, where m would still be NEG_INF and exp(sv - m) 1:
+        // there a masked key's p is set to 0 outright
         const bool exists = key < kend;
 #pragma unroll
         for (int i = 0; i < RPW; ++i) {
             const int r = warp + PF_WARPS * i;
             if (r < R) {
-                const float sv = exists && (!CAUSAL || key <= qpos[i])
-                                     ? s[i] * scale : REPRO_NEG_INF;
+                const bool ok = exists && (!CAUSAL || key <= qpos[i]) &&
+                                (!WINDOWED || key > qpos[i] - window);
+                const float sv = ok ? s[i] * scale : REPRO_NEG_INF;
                 const float mn = fmaxf(m[i], warp_max(sv));
-                const float p = expf(sv - mn);
+                const float p = WINDOWED && !ok ? 0.f : expf(sv - mn);
                 const float c = expf(m[i] - mn);
                 m[i] = mn;
                 l[i] = l[i] * c + p;
@@ -208,21 +227,24 @@ prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     }
 }
 
-template <typename TQ, typename TKV, int DPL, typename Rows, bool CAUSAL>
+template <typename TQ, typename TKV, int DPL, typename Rows, bool CAUSAL,
+          bool WINDOWED>
 static cudaError_t launch_prefill_walk(const void* q, const void* k,
                                        const void* v, Rows rows,
                                        const void* start, void* out, int B,
                                        int T, int H, int Hkv, int cap,
-                                       float scale, cudaStream_t stream) {
+                                       int window, float scale,
+                                       cudaStream_t stream) {
     constexpr int D = 32 * DPL;
+    constexpr int BQ = pf_bq<DPL>();
     const int G = H / Hkv;
     const int n_gc = (G + GMAX - 1) / GMAX;
     const int rows_q = BQ * (G < GMAX ? G : GMAX);
     const size_t smem = sizeof(float) * (2 * KT * (D + 4) + rows_q * (KT + D));
     const dim3 grid(B, Hkv * n_gc, (T + BQ - 1) / BQ);
     return launch_with_smem(
-        prefill_walk_kernel<TQ, TKV, DPL, Rows, CAUSAL>, grid,
+        prefill_walk_kernel<TQ, TKV, DPL, Rows, CAUSAL, WINDOWED>, grid,
         dim3(PF_THREADS), smem, stream, (const TQ*)q, (const TKV*)k,
         (const TKV*)v, rows, (const int32_t*)start, (TQ*)out, T, H, Hkv, cap,
-        scale);
+        window, scale);
 }

@@ -1,5 +1,6 @@
 """Causal (or full) GQA prefill attention: every query token of a row
-attends that row's keys, causal masking aligned at the top left.
+attends that row's keys, causal masking aligned at the top left, with an
+optional local-attention window (recurrentgemma-9b's attention layers).
 
 Port of ``repro/kernels/flash_attention.py`` at the shapes of its
 wrapper ``repro/kernels/ops.py::flash_attention``: q (B, Sq, H, D), k/v
@@ -18,18 +19,26 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
-def flash_attention(q, k, v, scale=None, causal=True):
-    """q (B, Sq, H, D); k/v (B, Sk, Hkv, D), H a multiple of Hkv.
-    Returns (B, Sq, H, D) in q's dtype."""
+def flash_attention(q, k, v, scale=None, causal=True, window=None):
+    """q (B, Sq, H, D); k/v (B, Sk, Hkv, D), H a multiple of Hkv;
+    ``window`` None or a positive int: query t attends keys
+    t-window+1..t (causal only). A window of at least Sq masks no key
+    that the causal mask allows, so it is dropped and the causal walk
+    runs. Returns (B, Sq, H, D) in q's dtype."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
+    if window is not None and (window < 1 or not causal):
+        raise ValueError(f"flash_attention: window {window} must be >= 1 "
+                         f"and causal")
+    if window is not None and window >= Sq:
+        window = None
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, scale, causal)
+        return ref.flash_attention(q, k, v, scale, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     qc, kc = _build.check_dense_args("flash_attention", q, k, v, (),
@@ -40,8 +49,8 @@ def flash_attention(q, k, v, scale=None, causal=True):
     fn = _build.load_entry("flash_attention", "flash_attention_launch",
                            _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Sk, H, Hkv, D, int(bool(causal)), float(scale), qc, kc,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            Sk, H, Hkv, D, int(bool(causal)), int(window or 0), float(scale),
+            qc, kc, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
     flash_attention.launches += 1

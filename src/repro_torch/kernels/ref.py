@@ -2,14 +2,14 @@
 
 Each function keeps the signature and the tensor layouts of the kernel it
 stands beside (``paged_attention.py``, ``chunked_prefill.py``,
-``decode_attention.py``, ``flash_attention.py``, ``ssd.py``); the math is
-fp32 throughout. Attention masks with the finite ``NEG_INF``, so a fully
-masked position contributes an exact zero (``-inf - -inf`` would be NaN);
-the SSD decay masks with ``-inf`` before its exp, whose exact zero is what
-keeps the overflowing upper triangle out. ``ssd_full`` and ``ssd_carry``
-add the inter-chunk recurrence (``models/ssm.py`` runs it). The
-wrappers call these for CPU tensors, and ``chip_smoke.py`` holds each CUDA
-kernel against them on the card.
+``decode_attention.py``, ``flash_attention.py``, ``ssd.py``,
+``rglru.py``); the math is fp32 throughout. Attention masks with the
+finite ``NEG_INF``, so a fully masked position contributes an exact zero
+(``-inf - -inf`` would be NaN); the SSD decay masks with ``-inf`` before
+its exp, whose exact zero is what keeps the overflowing upper triangle
+out. ``ssd_full`` and ``ssd_carry`` add the inter-chunk recurrence
+(``models/ssm.py`` runs it). The wrappers call these for CPU tensors, and
+``chip_smoke.py`` holds each CUDA kernel against them on the card.
 """
 from __future__ import annotations
 
@@ -18,17 +18,22 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def flash_attention(q, k, v, scale, causal=True):
+def flash_attention(q, k, v, scale, causal=True, window=None):
     """q (B, Sq, H, D); k/v (B, Sk, Hkv, D), H a multiple of Hkv. Causal
-    masking is aligned at the top left: query t attends keys 0..t."""
+    masking is aligned at the top left: query t attends keys 0..t, and
+    with a local-attention ``window`` only keys t-window+1..t (the
+    reference's ``allowed_mask``)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     if causal:
-        mask = (torch.arange(Sk, device=q.device)[None, :]
-                <= torch.arange(Sq, device=q.device)[:, None])
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        qpos = torch.arange(Sq, device=q.device)[:, None]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
@@ -157,3 +162,18 @@ def ssd_carry(state, decay):
         prev.append(h)
         h = decay[:, c, :, None, None] * h + state[:, c]
     return torch.stack(prev, dim=1), h
+
+
+def rglru_scan(a, b, h0=None):
+    """The RG-LRU linear recurrence h_t = a_t * h_{t-1} + b_t along axis 1,
+    from h0 (B, C) or zeros: a, b (B, S, C) fp32 or bf16. Returns h
+    (B, S, C) fp32. One step at a time, each a rounded multiply then a
+    rounded add, as the kernel takes them."""
+    a, b = a.float(), b.float()
+    h = (h0.float() if h0 is not None
+         else torch.zeros_like(a[:, 0]))
+    out = torch.empty_like(a)
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        out[:, t] = h
+    return out

@@ -1,0 +1,68 @@
+"""The RG-LRU linear recurrence h_t = a_t * h_{t-1} + b_t along the
+sequence, from an optional h0.
+
+Port of ``repro/kernels/rglru.py::rglru_scan`` (wrapper
+``repro/kernels/ops.py:83``) with its signature and layouts: a, b
+(B, S, C) fp32 or bf16, h0 (B, C) or None, h (B, S, C) fp32; every S and
+every C (the Pallas kernel's ``S % 256`` and ``C % 512`` asserts are its
+tiling). The kernel is hand-written CUDA C++ for ``sm_90a``
+(``csrc/rglru_scan.cu``, whose head note says what bounds it and how the
+design answers); ``kernels/ref.py`` holds the plain version, which the
+kernel matches bit for bit. A CUDA tensor launches the kernel or raises;
+a CPU tensor takes the plain version. ``rglru_scan.launches`` counts the
+kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_args(a, b, h0):
+    ts = (a, b) if h0 is None else (a, b, h0)
+    if any(t.device != a.device for t in ts):
+        raise ValueError("rglru_scan: all tensors must share a's device")
+    if a.dtype not in _CODES or b.dtype != a.dtype:
+        raise ValueError(f"rglru_scan: a {a.dtype} / b {b.dtype} must both "
+                         f"be float32 or bfloat16")
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError(f"rglru_scan: bad shapes a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}")
+    if h0 is not None and h0.shape != (a.shape[0], a.shape[2]):
+        raise ValueError(f"rglru_scan: h0 {tuple(h0.shape)} is not (B, C) "
+                         f"of a {tuple(a.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("rglru_scan: a and b must be contiguous")
+
+
+def rglru_scan(a, b, h0=None):
+    """a, b (B, S, C); h0 (B, C) or None (zeros). Returns h (B, S, C)
+    fp32."""
+    if a.device.type == "cpu":
+        return ref.rglru_scan(a, b, h0)
+    if a.device.type != "cuda":
+        raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    _check_args(a, b, h0)
+    if h0 is not None:
+        h0 = h0.float().contiguous()
+    Bsz, S, C = a.shape
+    h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    if h.numel() == 0:
+        return h
+    fn = _build.load_entry("rglru_scan", "rglru_scan_launch", _ARGTYPES)
+    rc = fn(a.data_ptr(), b.data_ptr(),
+            h0.data_ptr() if h0 is not None else None, h.data_ptr(), Bsz, S,
+            C, _CODES[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru_scan launch failed: cudaError {rc}")
+    rglru_scan.launches += 1
+    return h
+
+
+rglru_scan.launches = 0

@@ -14,8 +14,9 @@ through per-island continuous batchers (``--cache stacked|paged``,
 ``--prefill chunked|full``, ``--slots``).
 
 ``--arch`` picks the model (its ``.reduced()`` width); ``mamba2-370m``
-serves on both paths, through the stacked batcher when ``--batched``
-(``--cache auto`` resolves to it; an SSM config has no paged cache).
+and ``recurrentgemma-9b`` serve on both paths, through the stacked
+batcher when ``--batched`` (``--cache auto`` resolves to it: an SSM or
+RG-LRU config, or a windowed one, has no paged cache).
 ``--device`` picks where the models run: the card by default, ``cpu`` for
 the plain versions of the kernels. Not offered yet: the reference's
 ``--train-classifier`` (MIST's JAX stage-2 classifier) and ``--trace``

@@ -13,8 +13,17 @@ every length. Caches and pool pages are updated IN PLACE (the reference
 returns new, donated arrays), each layer writing its fresh K/V before it
 attends, exactly as the reference orders it.
 
-Not ported yet: fp8 KV caches, windowed (ring-buffer) caches, the
-sequence-sharded decode and prefix-LM masking.
+A local-attention ``window`` (recurrentgemma-9b) masks the prefill to keys
+``t-window+1..t`` and gives the dense cache ``min(window, max_len)`` slots,
+a ring buffer that decode writes at ``pos % W``. A prompt longer than the
+ring keeps its last ``W`` tokens in order, slot ``j`` holding token
+``S-W+j``, as the reference does; the reference's first decode after such
+a prompt then overwrites slot ``S % W``, not the oldest token's slot 0,
+and the port reproduces that too (ROADMAP R6). The paged modes take no
+window, as in the reference.
+
+Not ported yet: fp8 KV caches, the sequence-sharded decode and prefix-LM
+masking.
 """
 from __future__ import annotations
 
@@ -68,22 +77,26 @@ def attn_table(cfg):
     return t
 
 
-def attn_cache_spec(cfg, batch, max_len):
-    """{name: shape} of this block's dense decode cache."""
-    sh = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+def attn_cache_spec(cfg, batch, max_len, window=None):
+    """{name: shape} of this block's dense decode cache: ``max_len``
+    slots, or ``min(window, max_len)`` for a windowed layer."""
+    S = min(window, max_len) if window else max_len
+    sh = (batch, S, cfg.num_kv_heads, cfg.head_dim)
     return {"k": sh, "v": sh}
 
 
-def attn_apply(cfg, p, x, positions, *, mode, cache=None, block_table=None,
-               dst_page=None):
+def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
+               block_table=None, dst_page=None):
     """mode 'full' (x (B, S, d), positions (S,) = 0..S-1; ``cache`` None
-    or this layer's dense ``{"k", "v"}`` (B, W, Hkv, D) with W >= S, whose
-    first S slots take the prompt's K/V), 'chunk' (x (B, C*page_size, d),
+    or this layer's dense ``{"k", "v"}`` (B, W, Hkv, D), whose first S
+    slots take the prompt's K/V, or, when W < S (a windowed ring), the
+    last W tokens' K/V), 'chunk' (x (B, C*page_size, d),
     positions (B, T) absolute positions of each row's tokens, ``dst_page``
     (B, C) page ids the rows' K/V lands on — the scratch page masks the
     write) or 'decode' (x (B, 1, d), positions a scalar or (B,)
     per-sequence positions). A decode ``cache`` is either dense
-    ``{"k", "v"}`` (the token lands in slot min(pos, W-1)) or this layer's
+    ``{"k", "v"}`` (the token lands in slot min(pos, W-1), or pos % W with
+    a ``window``) or this layer's
     ``k_pages``/``v_pages`` (P, page_size, Hkv, D) with ``block_table``
     (B, N) int32; caches are updated in place. Weights are (d_in, d_out),
     as the reference stores them: ``h @ W``. Returns (x + attn_out,
@@ -102,15 +115,15 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, block_table=None,
         S = x.shape[1]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        o = flash_attention(q, k, v, scale)
+        o = flash_attention(q, k, v, scale, window=window)
         if cache is not None:
             W = cache["k"].shape[1]
-            if W < S:
-                raise NotImplementedError(
-                    f"prompt of {S} tokens into a {W}-slot cache: windowed "
-                    f"(ring-buffer) caches are not ported yet")
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
+            if W >= S:
+                cache["k"][:, :S] = k.to(cache["k"].dtype)
+                cache["v"][:, :S] = v.to(cache["v"].dtype)
+            else:            # windowed ring: keep the last W tokens
+                cache["k"].copy_(k[:, -W:])
+                cache["v"].copy_(v[:, -W:])
     elif mode == "decode" and "k" in cache:   # one token, dense cache
         W = cache["k"].shape[1]
         posb = (torch.zeros(B, dtype=torch.int32, device=x.device)
@@ -118,7 +131,7 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, block_table=None,
         q = apply_rope(q, posb[:, None], cfg.rope_theta)
         k = apply_rope(k, posb[:, None], cfg.rope_theta)
         rows = torch.arange(B, device=x.device)
-        slot = torch.clamp(posb, max=W - 1).long()
+        slot = (posb % W if window else torch.clamp(posb, max=W - 1)).long()
         cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
         o = attend_decode(q, cache["k"], cache["v"],

@@ -5,7 +5,8 @@ table*: a nested dict mapping name -> ``PSpec(shape, logical_axes,
 init)``; ``init_params`` draws real tensors from one table with an
 explicit ``torch.Generator``, following the reference's rules (normal
 scaled by fan_in^-1/2, zero-init norms, explicit scales such as the
-embedding's 0.02, Mamba-2's ``dt_bias``/``a_log``/``ones``). The draws are the port's own: a ``torch.Generator``
+embedding's 0.02, Mamba-2's ``dt_bias``/``a_log``/``ones``, the RG-LRU's
+``lambda_init``). The draws are the port's own: a ``torch.Generator``
 gives other numbers than ``jax.random`` for the same seed, so parity tests
 move the reference's weights across with ``repro_torch.bridge`` instead.
 """
@@ -23,7 +24,7 @@ import torch.nn.functional as F
 class PSpec:
     shape: tuple
     axes: tuple  # logical axis names (len == len(shape))
-    init: str = "normal"  # normal | zeros | ones | dt_bias | a_log
+    init: str = "normal"  # normal|zeros|ones|dt_bias|a_log|lambda_init
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in)
 
     def __post_init__(self):
@@ -50,6 +51,13 @@ def init_params(table, generator: torch.Generator, dtype, device):
             w = torch.zeros(spec.shape, dtype=dtype, device=device)
         elif spec.init == "ones":
             w = torch.ones(spec.shape, dtype=dtype, device=device)
+        elif spec.init == "lambda_init":
+            # RG-LRU Lambda: a ~ U[0.9, 0.999] -> its softplus inverse at
+            # c = 8, so that a = exp(-8 softplus(Lambda))
+            u = (torch.rand(spec.shape, generator=generator,
+                            dtype=torch.float32, device=device)
+                 * (0.999 - 0.9) + 0.9)
+            w = torch.log(torch.expm1(-torch.log(u) / 8.0)).to(dtype)
         elif spec.init == "dt_bias":
             # Mamba-2 dt bias: softplus^-1 of dt ~ U[1e-3, 1e-1]
             u = (torch.rand(spec.shape, generator=generator,

@@ -1,8 +1,9 @@
-"""Model assembly: a decoder of attention and Mamba-2 (SSM) mixer blocks,
-with a SwiGLU MLP after each mixer when ``d_ff`` is set.
+"""Model assembly: a decoder of attention, Mamba-2 (SSM) and RG-LRU mixer
+blocks, with a SwiGLU MLP after each mixer when ``d_ff`` is set.
 
 Port of ``repro/models/model.py`` for patterns drawn from {``attn``,
-``ssm``} without MoE or a frontend, in every mode the serving paths run:
+``ssm``, ``rglru``} without MoE or a frontend, in every mode the serving
+paths run:
 ``full`` (a whole prompt, with or without a dense cache), ``chunk`` (paged
 prefill runs, attention only) and ``decode`` (against a dense cache or
 the paged pool). Each layer's mixer is dispatched by its block type
@@ -15,16 +16,18 @@ depth order (head layers, then every pattern cycle, then tail layers —
 
 Parameters are a nested dict of tensors (the reference's pytree, per
 layer): ``embed`` (V, d), ``final_norm`` (d,), ``lm_head`` (d, V) unless
-embeddings are tied, and per layer a ``mixer`` dict (attention or SSM)
-and, when ``d_ff`` is set, an ``mlp`` (SwiGLU) dict. Every projection is
-a plain ``torch.matmul``; attention and the SSD chunk go through
-``repro_torch.kernels``.
+embeddings are tied, and per layer a ``mixer`` dict (attention, SSM or
+RG-LRU) and, when ``d_ff`` is set, an ``mlp`` (SwiGLU) dict. Every
+projection is a plain ``torch.matmul``; attention, the SSD chunk and the
+RG-LRU recurrence go through ``repro_torch.kernels``. Attention layers
+take ``cfg.attn_window`` as their local-attention window:
+recurrentgemma-9b's are windowed.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, ssm
+from repro_torch.models import attention, rglru, ssm
 from repro_torch.models.layers import (PSpec, init_params, rms_norm,
                                        swiglu_apply, swiglu_table)
 
@@ -35,21 +38,22 @@ def effective_pattern(cfg):
     return cfg.pattern
 
 
-BLOCK_TABLE = {"attn": attention.attn_table, "ssm": ssm.ssm_table}
-BLOCK_APPLY = {"attn": attention.attn_apply, "ssm": ssm.ssm_apply}
+BLOCK_TABLE = {"attn": attention.attn_table, "ssm": ssm.ssm_table,
+               "rglru": rglru.rglru_table}
+BLOCK_APPLY = {"attn": attention.attn_apply, "ssm": ssm.ssm_apply,
+               "rglru": rglru.rglru_apply}
 BLOCK_CACHE = {"attn": attention.attn_cache_spec,
-               "ssm": ssm.ssm_cache_spec}
+               "ssm": ssm.ssm_cache_spec,
+               "rglru": rglru.rglru_cache_spec}
 
 # what the port does not run yet, and the ROADMAP item that ports it
-_NOT_PORTED = {"mla": "ROADMAP Queue 1, P12 (MLA)",
-               "rglru": "ROADMAP Queue 1, item 0: the recurrentgemma-9b "
-                        "slice"}
+_NOT_PORTED = {"mla": "ROADMAP Queue 1, P12 (MLA)"}
 
 
 def unported_reason(cfg):
-    """None when the port runs ``cfg`` (a pattern drawn from {attn, ssm},
-    no MoE, no frontend), else what is missing and where ROADMAP queues
-    it."""
+    """None when the port runs ``cfg`` (a pattern drawn from {attn, ssm,
+    rglru}, no MoE, no frontend), else what is missing and where ROADMAP
+    queues it."""
     for bt in effective_pattern(cfg):
         if bt not in BLOCK_TABLE:
             return (f"{bt!r} layers "
@@ -97,7 +101,7 @@ class Model:
         if why is not None:
             raise NotImplementedError(
                 f"{cfg.name}: the port does not run {why} yet; it runs "
-                f"patterns of attn and ssm layers, got pattern "
+                f"patterns of attn, ssm and rglru layers, got pattern "
                 f"{effective_pattern(cfg)}")
         self.cfg = cfg
         self.pattern = effective_pattern(cfg)
@@ -120,16 +124,21 @@ class Model:
         return _layer_table(self.cfg, self.block_types[idx])
 
     def cache_spec(self, batch, max_len):
-        """Per layer, {name: shape} of the dense decode cache."""
-        return [BLOCK_CACHE[bt](self.cfg, batch, max_len)
+        """Per layer, {name: shape} of the dense decode cache; attention
+        layers hold ``min(cfg.attn_window, max_len)`` slots when
+        windowed."""
+        w = self.cfg.attn_window
+        return [BLOCK_CACHE[bt](self.cfg, batch, max_len, w) if bt == "attn"
+                else BLOCK_CACHE[bt](self.cfg, batch, max_len)
                 for bt in self.block_types]
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
         """A zeroed dense decode cache on ``device`` (None = the card): per
-        layer an attention ``{"k", "v"}`` dict of (batch, max_len, Hkv, D)
-        tensors or an SSM ``{"conv", "h"}`` dict. ``h``, the SSM state, is
-        fp32 and every other leaf ``dtype``, as the reference. Zeros, not
-        empty memory: a masked slot multiplies p = 0 by what it holds, and
+        layer an attention ``{"k", "v"}`` dict of (batch, W, Hkv, D)
+        tensors (W = max_len, or the window's ring) or an SSM / RG-LRU
+        ``{"conv", "h"}`` dict. ``h``, the recurrent state, is fp32 and
+        every other leaf ``dtype``, as the reference. Zeros, not empty
+        memory: a masked slot multiplies p = 0 by what it holds, and
         uninitialised memory may hold NaN bits."""
         dev = resolve_device(device)
         return [{n: torch.zeros(sh, dtype=torch.float32 if n == "h"
@@ -151,11 +160,12 @@ class Model:
     # ------------------------------------------------------------ forward
     def _apply_layer(self, bt, p, x, positions, mode, cache, block_table,
                      dst_page):
-        # only attention reads the paged pool's block table and targets
-        paged = (dict(block_table=block_table, dst_page=dst_page)
-                 if bt == "attn" else {})
+        # only attention reads the window and the paged pool's block table
+        # and targets
+        kw = (dict(window=self.cfg.attn_window, block_table=block_table,
+                   dst_page=dst_page) if bt == "attn" else {})
         x, cache = BLOCK_APPLY[bt](self.cfg, p["mixer"], x, positions,
-                                   mode=mode, cache=cache, **paged)
+                                   mode=mode, cache=cache, **kw)
         if "mlp" in p:
             x = x + swiglu_apply(p["mlp"], rms_norm(x, p["mlp"]["ln"]))
         return x, cache
@@ -168,7 +178,8 @@ class Model:
 
         mode='full': tokens (B, S) at positions 0..S-1; ``cache`` None or
         a dense cache from ``init_cache`` whose first S slots take the
-        prompt's K/V.
+        prompt's K/V (a windowed ring shorter than S takes the last
+        tokens').
         mode='decode': tokens (B, 1); ``pos`` a scalar or (B,)
         per-sequence absolute positions; ``cache`` a dense cache, or the
         pool's page dicts with block_table (B, N).

@@ -127,16 +127,16 @@ def test_backlog_and_telemetry_match_mid_run(weights):
 
 def test_unported_paths_refuse_clearly(weights):
     """What the port still does not carry says so: stochastic sampling,
-    and model families other than attention and Mamba-2 decoders (for
-    every cache manager, at ``Model``, naming the ROADMAP item)."""
+    and model families other than attention, Mamba-2 and RG-LRU decoders
+    (for every cache manager, at ``Model``, naming the ROADMAP item)."""
     _, tcfg, _, tparams, _ = weights
     with pytest.raises(NotImplementedError, match="greedy"):
         TBatcher(tcfg, params=tparams, temperature=0.9, device="cpu")
     with pytest.raises(NotImplementedError, match="greedy"):
         make_batcher(tcfg, cache="stacked", params=tparams, temperature=0.9,
                      device="cpu")
-    rg = tget_config("recurrentgemma-9b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*recurrentgemma"):
-        get_model(rg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*recurrentgemma"):
-        make_batcher(rg, cache="auto", device="cpu")
+    moe = tget_config("kimi-k2-1t-a32b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*MoE"):
+        get_model(moe)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*MoE"):
+        make_batcher(moe, cache="auto", device="cpu")

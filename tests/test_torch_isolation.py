@@ -26,8 +26,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
     names = _port_modules()
     for mod in ("kernels.paged_attention", "kernels.chunked_prefill",
                 "kernels.decode_attention", "kernels.flash_attention",
-                "kernels.ssd", "models.ssm", "serving.engine", "serving.batcher", "serving.migration",
-                "core.tracegen", "core.workload", "launch.serve"):
+                "kernels.ssd", "kernels.rglru", "models.ssm",
+                "models.rglru", "serving.engine", "serving.batcher",
+                "serving.migration", "core.tracegen", "core.workload",
+                "launch.serve"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

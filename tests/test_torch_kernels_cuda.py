@@ -12,7 +12,17 @@ pairs; for the dense-cache kernels (decode_attention, flash_attention)
 fills of 1 and of the whole cache, per-row and scalar fills, and query
 lengths that leave a ragged q tile (1, 127, 2049). fp32 q and pages hold
 to 1e-4 (fp32 math in both, summed in another order); a bf16 output holds
-to 2e-2, one bf16 rounding.
+to 2e-2, one bf16 rounding. K3 and K4 also run at recurrentgemma-9b's
+heads (head_dim 256, 16 query heads on one kv head), and K4 with a
+local-attention window: windows of 1, smaller than a key tile, ragged
+against the q tiles, the model's 2048 (which the wrapper drops, as it
+masks nothing: the causal walk runs) and 2047 (the windowed walk).
+
+The RG-LRU scan (``rglru_scan``, K6) runs ragged S and C, with and
+without h0, fp32 and bf16 inputs, at recurrentgemma-9b's prefill width
+(C 4096). It holds to 1e-5 (a few fp32 ulps of its states), and one case
+checks the stronger claim of its source note: the kernel's explicit
+multiply-then-add matches the plain version's two rounded ops bit for bit.
 
 The SSD chunk kernel (``ssd_chunk``, K5) runs chunk lengths Q of 1, 37,
 64 and 256, 1 and 6 chunks, 2 and 32 heads, head_dim 16 and 64, state 16
@@ -33,6 +43,7 @@ from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.kernels.ssd import error_bound, ssd_chunk
 
 pytestmark = pytest.mark.cuda
@@ -122,6 +133,9 @@ def test_chunked_prefill_kernel_matches_plain(card, B, H, Hkv, P, ps, N, T,
     (4, 32, 8, 300, 128, (33, 300, 1, 128)),     # qwen3-4b, G 4
     (2, 16, 2, 100, 128, (99, 7)),               # G 8
     (2, 32, 2, 96, 32, (50, 96)),                # G 16: two blocks a head
+    (8, 16, 1, 2048, 256, (1, 16, 17, 300, 1024, 1, 1600, 2048)),
+    # ^ recurrentgemma-9b: D 256, G 16 over one kv head, its 2048 ring
+    (3, 16, 1, 64, 256, (64, 5, 33)),            # its .reduced() ring of 64
 ])
 def test_decode_kernel_matches_plain(card, B, H, Hkv, S, D, valids, qdt,
                                      kvdt):
@@ -152,6 +166,47 @@ def test_decode_kernel_never_reads_past_the_fill(card):
 
 @pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
                                       (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B,S,H,Hkv,D,window", [
+    (1, 2048, 16, 1, 256, 2048),                 # recurrentgemma-9b prefill
+    (1, 2048, 16, 1, 256, 2047),                 # the windowed walk, bitten once
+    (1, 2048, 16, 1, 256, 512),                  # a window that bites
+    (2, 301, 16, 1, 256, 64),                    # ragged last tiles
+    (1, 200, 16, 1, 256, 5),                     # window < a key tile
+    (1, 130, 16, 1, 256, 1),                     # a token attends itself
+    (1, 127, 9, 3, 64, 31),                      # other head dims too
+    (2, 100, 4, 1, 32, 64),                      # .reduced() heads
+    (1, 300, 32, 8, 128, 100),
+])
+def test_windowed_flash_kernel_matches_plain(card, B, S, H, Hkv, D, window,
+                                             qdt, kvdt):
+    g = torch.Generator(device=card).manual_seed(S * 3 + window)
+    q = torch.randn(B, S, H, D, generator=g, device=card).to(qdt)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=card).to(kvdt)
+            for _ in range(2))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, window=window)
+    assert flash_attention.launches == n0 + 1
+    _close(got, ref.flash_attention(q, k, v, D ** -0.5, True, window), qdt,
+           kvdt)
+
+
+def test_windowed_flash_kernel_never_uses_keys_below_the_window(card):
+    """Keys below every query's window contribute nothing: poisoning them
+    leaves the last 64 queries' outputs bit for bit as they were (the key
+    tiles the walk reads below a row's window give p = 0 exactly)."""
+    g = torch.Generator(device=card).manual_seed(8)
+    S, W = 400, 100
+    q = torch.randn(1, S, 16, 256, generator=g, device=card)
+    k, v = (torch.randn(1, S, 1, 256, generator=g, device=card)
+            for _ in range(2))
+    o = flash_attention(q, k, v, window=W)
+    k[:, :S - 64 - W + 1], v[:, :S - 64 - W + 1] = 1e4, -1e4
+    assert torch.equal(flash_attention(q, k, v, window=W)[:, -64:],
+                       o[:, -64:])
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal", [
     (1, 1, 1, 4, 4, 32, True),                   # Sq 1, G 1
     (2, 127, 127, 9, 3, 64, True),               # ragged tiles, smollm
@@ -162,6 +217,8 @@ def test_decode_kernel_never_reads_past_the_fill(card):
     (2, 100, 37, 8, 2, 64, False),               # full, Sk != Sq
     (1, 70, 200, 6, 3, 64, True),                # Sk > Sq
     (1, 200, 70, 6, 3, 64, True),                # Sq > Sk
+    (1, 1025, 1025, 16, 1, 256, True),           # D 256: 4-token q tiles
+    (2, 37, 90, 16, 1, 256, False),              # D 256, full
 ])
 def test_flash_kernel_matches_plain(card, B, Sq, Sk, H, Hkv, D, causal, qdt,
                                     kvdt):
@@ -213,7 +270,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     lens = torch.ones(1, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         paged_decode_attention(q, kp, kp, bt, lens)
-    q = torch.zeros(1, 4, 256, device=card)       # no config the port runs
+    q = torch.zeros(1, 4, 256, device=card)   # no paged config has D 256
     kp = torch.zeros(2, 16, 2, 256, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         paged_decode_attention(q, kp, kp, bt, lens)
@@ -235,6 +292,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="int32"):
         decode_attention(torch.zeros(1, 6, 64, device=card), k, k,
                          torch.ones(1, dtype=torch.int64, device=card))
+    k = torch.zeros(1, 16, 2, 64, device=card)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(torch.zeros(1, 16, 4, 64, device=card), k, k,
+                        causal=False, window=8)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(torch.zeros(1, 16, 4, 64, device=card), k, k,
+                        window=0)
 
 
 def _ssd_inputs(card, seed, Bsz, nc, Q, H, P, N, strong=False):
@@ -318,3 +382,48 @@ def test_ssd_chunk_wrapper_refuses_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="rows"):
         big = _ssd_inputs(card, 5, 1, 1, 1025, 2, 16, 16)
         ssd_chunk(*big)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,C,with_h0", [
+    (1, 1500, 4096, False),               # recurrentgemma-9b's prefill
+    (1, 37, 4096, True),                  # a short query, seeded state
+    (3, 1, 100, True),                    # one step, ragged channels
+    (2, 33, 31, False),                   # S and C both ragged
+    (2, 300, 256, True),                  # .reduced() width
+])
+def test_rglru_scan_kernel_matches_plain(card, B, S, C, with_h0, dt):
+    """a = sigmoid of normals (as the gates make it, < 1), b normal."""
+    g = torch.Generator(device=card).manual_seed(S + C)
+    a = torch.sigmoid(torch.randn(B, S, C, generator=g, device=card)).to(dt)
+    b = torch.randn(B, S, C, generator=g, device=card).to(dt)
+    h0 = (torch.randn(B, C, generator=g, device=card) if with_h0 else None)
+    n0 = rglru_scan.launches
+    got = rglru_scan(a, b, h0)
+    assert rglru_scan.launches == n0 + 1
+    want = ref.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (B, S, C)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+def test_rglru_scan_kernel_is_bit_exact_with_plain(card):
+    g = torch.Generator(device=card).manual_seed(9)
+    a = torch.rand(2, 257, 4096, generator=g, device=card)
+    b = torch.randn(2, 257, 4096, generator=g, device=card)
+    h0 = torch.randn(2, 4096, generator=g, device=card)
+    assert torch.equal(rglru_scan(a, b, h0), ref.rglru_scan(a, b, h0))
+
+
+def test_rglru_scan_wrapper_refuses_what_the_kernel_does_not_take(card):
+    a = torch.rand(1, 8, 64, device=card)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rglru_scan(a, a.bfloat16())
+    with pytest.raises(ValueError, match="shapes"):
+        rglru_scan(a, a[:, :4])
+    with pytest.raises(ValueError, match="h0"):
+        rglru_scan(a, a, torch.zeros(1, 8, device=card))
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), a)
+    assert rglru_scan(a[:, :0].contiguous(), a[:, :0].contiguous()).shape \
+        == (1, 0, 64)

@@ -240,7 +240,7 @@ def test_port_init_follows_reference_tables(arch):
 
 
 @pytest.mark.parametrize("arch_id,names", [
-    ("recurrentgemma-9b", "recurrentgemma-9b slice"),
+    ("kimi-k2-1t-a32b", "MoE"),
     ("deepseek-v2-lite-16b", "MLA"),
     ("qwen3-32b", None),
 ])
