@@ -23,7 +23,12 @@ Phases (each raises on failure, and the script then exits non-zero):
    query with a seeded state, C 4096), and K3/K4 at its heads (H 16,
    Hkv 1, D 256; K4 with its window of 2048, which the wrapper drops at
    S 2048 so that the causal walk runs, with one that bites, 512, and
-   with 2047, the windowed walk over nearly the causal pairs);
+   with 2047, the windowed walk over nearly the causal pairs); the K2/K4
+   rows also carry their walk's registers, shared memory, local bytes,
+   resident blocks an SM, key tile and the key-walk split the wrapper
+   launched, and their phase lines ``ceiling_ms``, the flops over the
+   TF32 rate times the passes of the split products (3 for fp32 x fp32,
+   2 with a bf16 side), beside ``bound_ms``;
 4. serving paths, each on the quickstart mesh (laptop 6 slots, phone 1,
    home-nas 8) serving smollm-135m at its full published widths with
    seeded random weights through ``TickOrchestrator``, the launch counters
@@ -351,6 +356,49 @@ def _time_case(wrapper, plain, args, scale, copies_bytes, lib_fn,
     return kms, pms, lms, n
 
 
+def walk_info(name, args, n_split, window=None):
+    """The prefill walk (K2, K4) instantiation a case runs: registers,
+    dynamic shared memory, local bytes and resident blocks an SM (from the
+    CUDA runtime), its key tile, and ``n_split``, the key ranges the
+    wrapper launched (its ``last_split``)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+    q, kv = args[0], args[1]
+    D = q.shape[-1]
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    buf = (ctypes.c_int * 5)()
+    ptr = ctypes.POINTER(ctypes.c_int)
+    if name == "flash_attention":
+        fn = _build.load_entry("flash_attention", "flash_attention_attrs",
+                               [ctypes.c_int] * 5 + [ptr])
+        rc = fn(codes[q.dtype], codes[kv.dtype], D, 1, int(window or 0),
+                buf)
+    else:
+        fn = _build.load_entry("chunked_prefill",
+                               "chunked_prefill_attention_attrs",
+                               [ctypes.c_int] * 3 + [ptr])
+        rc = fn(codes[q.dtype], codes[kv.dtype], D, buf)
+    if rc != 0:
+        raise RuntimeError(f"{name}: attributes failed: cudaError {rc}")
+    return {"registers": buf[0], "smem_bytes": buf[1],
+            "local_bytes": buf[2], "blocks_per_sm": buf[3],
+            "key_tile": buf[4], "n_split": n_split}
+
+
+def split_ceiling(args, flops):
+    """The ceiling of the walk's split products, derived from its flops:
+    TF32 passes per product (1, plus one for each fp32 side; P is always
+    fp32) over the TF32 rate. For the phase lines, beside ``bound_ms``."""
+    import torch
+    fp32 = (args[0].dtype == torch.float32, args[1].dtype == torch.float32)
+    passes = ((1 + fp32[0] + fp32[1]) + (2 + fp32[1])) / 2
+    return {"tf32_passes": passes,
+            "ceiling_ms": flops * passes / TF32_FLOP_PER_S * 1e3}
+
+
 def _check(name, out, want):
     import torch
     torch.cuda.synchronize()
@@ -530,6 +578,7 @@ def kernel_phase(dev):
         args, nbytes, flops, (kind, fills, live) = case(dev, gen)
         scale = args[0].shape[-1] ** -0.5
         out = wrapper(*args)
+        n_split = getattr(wrapper, "last_split", None)
         err = _check(name, out, plain(*args, scale))
         # table entries past a live row's fill or causal horizon point at
         # the scratch page: poisoning it must leave every live row as it was
@@ -554,7 +603,11 @@ def kernel_phase(dev):
                       "replaces": replaces, "launches": None,
                       "max_abs_err": err, "ms": kms, "plain_ms": pms,
                       "bound_ms": bound, "bound_by": by, "library_ms": lms}
-        emit({"phase": "kernel", **rows[name], "shape_q": list(
+        extra = {}
+        if kind == "prefill":
+            rows[name]["walk_attrs"] = walk_info(name, args, n_split)
+            extra = split_ceiling(args, flops)
+        emit({"phase": "kernel", **rows[name], **extra, "shape_q": list(
             args[0].shape), "fills_or_starts": fills, "bytes": nbytes,
             "flops": flops, "library_max_abs_err": lib_err,
             "tolerance": KERNEL_TOL, "input_copies": n,
@@ -632,6 +685,7 @@ def kernel_phase(dev):
                      "walk": "windowed" if w and w < S else "causal"}
         scale = args[0].shape[-1] ** -0.5
         out = wrapper(*args)
+        n_split = flash_attention.last_split
         err = _check(f"{name} ({geom})", out, plain(*args, scale))
         lib = lib_fn(*lib_inputs(args))
         lib = (lib[:, :, 0] if name == "decode_attention"
@@ -645,14 +699,21 @@ def kernel_phase(dev):
                "replaces": replaces, "launches": None, "max_abs_err": err,
                "ms": kms, "plain_ms": pms, "bound_ms": bound,
                "bound_by": by, "library_ms": lms}
+        extra = {}
+        if name == "flash_attention":
+            row["walk_attrs"] = walk_info(
+                name, args, n_split,
+                shape["window"] if shape["walk"] == "windowed" else None)
+            extra = split_ceiling(args, flops)
         if role == "row":
             rows[name] = dict(row, geometry=geom, **shape)
         elif role is not None:
             rows[name][role] = dict(
                 {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                     "bound_ms", "bound_by", "library_ms")},
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "walk_attrs")},
                 **shape)
-        emit({"phase": "kernel", **row, "geometry": geom,
+        emit({"phase": "kernel", **row, **extra, "geometry": geom,
               "shape_q": list(args[0].shape),
               "shape_kv": list(args[1].shape), **shape, "bytes": nbytes,
               "flops": flops, "library_max_abs_err": lib_err,
@@ -913,7 +974,11 @@ def _kernel_family(name):
              ("decode_walk_kernel", "DenseRows"): "decode_attention",
              ("prefill_walk_kernel", "PagedRows"):
                  "chunked_prefill_attention",
-             ("prefill_walk_kernel", "DenseRows"): "flash_attention"}
+             ("prefill_walk_kernel", "DenseRows"): "flash_attention",
+             # the split walk's merge, named by the walk it merges
+             ("prefill_merge_kernel", "PagedRows"):
+                 "chunked_prefill_attention",
+             ("prefill_merge_kernel", "DenseRows"): "flash_attention"}
     for (kernel, rows), fam in walks.items():
         if kernel in name and rows in name:
             return fam

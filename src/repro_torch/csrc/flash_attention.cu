@@ -15,32 +15,33 @@
 // What bounds it on this card: at prompt lengths the serving paths reach
 // (S ~ 1000-2000) it does about 2 * H * D * S flops for every K/V row it
 // reads and about S/2 flops per q byte, some 200-400 flops a byte, at or
-// above the tensor-core ridge: operations at the prompt lengths that
-// matter. The least time is the larger of the causal half's 4 * H * D *
-// S^2 / 2 flops over the tensor-core rate of the operand type (989 TFLOP/s
-// bf16, 494 TF32 for fp32) and the q, k, v and output bytes over 3.35
-// TB/s. This version does its math in fp32 on CUDA cores (67 TFLOP/s) so
-// that it matches the plain version to 1e-4: a ceiling of this design,
-// which wgmma tiles remove.
+// above the tensor-core ridge: operations. The least time is the causal
+// half's 4 * H * D * S^2 / 2 flops over the TF32 rate of its fp32
+// operands (494 TFLOP/s) or bf16's 989. Held to 1e-4 of its fp32 plain
+// version, the walk cannot take single-pass TF32 (~1e-3 on a score): it
+// splits each fp32 operand into two TF32 halves and takes three products
+// (3xTF32), an effective ceiling of ~165 TFLOP/s for fp32 q/k/v.
 //
-// What this simple design does about it: the Pallas grid's sequential key
-// axis (m/l/acc carried in VMEM, blocks above the diagonal predicated off)
-// becomes the walk K2 uses (prefill_walk.cuh): one block per (batch row,
-// kv head, 16-token q tile) walks 32-key tiles from key 0 up to the tile's
-// causal diagonal, staging each tile in shared memory once for every query
-// head of the kv head and every token of the q tile, with the online
-// softmax in registers and fp32 accumulation. Key tiles above the diagonal
-// are never read, so the work is the causal half; with a window the walk
-// also begins at the first key tile of the q tile's window, so the work
-// is a band of width W. At head_dim 256 a block takes 4 query tokens, not
-// 16, to keep its accumulators in registers (16 query heads on one kv
-// head are two blocks of 8 heads).
+// What the design does about it: the Pallas grid's sequential key axis
+// (m/l/acc carried in VMEM, blocks above the diagonal predicated off)
+// becomes the walk K2 uses (prefill_walk.cuh, whose note gives the
+// details): a warpgroup block of 64 query rows (q tokens x the query
+// heads of one kv head; 4 tokens x 16 heads at recurrentgemma's heads)
+// walks 64-key tiles (32 at D 256 and fp32 D 128) from key 0 up to its
+// q tile's diagonal, both products on mma.sync TF32 tensor cores with the
+// scores in registers, fed by a two-stage cp.async ring. Key tiles above
+// the diagonal are never read, so the work is the causal half; with a
+// window the walk begins at the first key tile of the q tile's window (a
+// band of width W). The q tiles with the longest walks launch first, and
+// a grid too small for the card splits each walk into ranges merged in
+// a fixed order (short prompts).
 
 #include "prefill_walk.cuh"
 
 template <typename TQ, typename TKV, int DPL>
 static cudaError_t launch(const void* q, const void* k, const void* v,
-                          void* out, int B, int Sq, int Sk, int H, int Hkv,
+                          void* out, void* part_o, void* part_ml,
+                          int n_split, int B, int Sq, int Sk, int H, int Hkv,
                           int causal, int window, float scale,
                           cudaStream_t stream) {
     const DenseRows rows{Sk, (int64_t)Hkv * 32 * DPL};
@@ -48,28 +49,47 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
         return window > 0 ? cudaErrorInvalidValue
                           : launch_prefill_walk<TQ, TKV, DPL, DenseRows,
                                                 false, false>(
-                                q, k, v, rows, nullptr, out, B, Sq, H, Hkv,
-                                Sk, 0, scale, stream);
+                                q, k, v, rows, nullptr, out, part_o,
+                                part_ml, n_split, B, Sq, H, Hkv, Sk, 0,
+                                scale, stream);
     return window > 0
         ? launch_prefill_walk<TQ, TKV, DPL, DenseRows, true, true>(
-              q, k, v, rows, nullptr, out, B, Sq, H, Hkv, Sk, window, scale,
-              stream)
+              q, k, v, rows, nullptr, out, part_o, part_ml, n_split, B, Sq,
+              H, Hkv, Sk, window, scale, stream)
         : launch_prefill_walk<TQ, TKV, DPL, DenseRows, true, false>(
-              q, k, v, rows, nullptr, out, B, Sq, H, Hkv, Sk, 0, scale,
-              stream);
+              q, k, v, rows, nullptr, out, part_o, part_ml, n_split, B, Sq,
+              H, Hkv, Sk, 0, scale, stream);
+}
+
+template <typename TQ, typename TKV, int DPL>
+static cudaError_t attrs(int causal, int window, int* out) {
+    if (!causal)
+        return prefill_walk_attrs<TQ, TKV, DPL, DenseRows, false, false>(out);
+    return window > 0
+        ? prefill_walk_attrs<TQ, TKV, DPL, DenseRows, true, true>(out)
+        : prefill_walk_attrs<TQ, TKV, DPL, DenseRows, true, false>(out);
 }
 
 // q (B, Sq, H, D); k/v (B, Sk, Hkv, D); out (B, Sq, H, D) in q's dtype.
 // All contiguous and 16-byte aligned, D in {32, 64, 128, 256}; window 0
-// for none, else >= 1 and causal. Returns the cudaError_t of the launch
-// (0 = launched).
+// for none, else >= 1 and causal. n_split >= 1 key ranges; with more than
+// one, part_o (n_split, B, Sq, H, D) and part_ml (n_split, B, Sq, H, 2)
+// fp32 scratch. Returns the cudaError_t of the launches (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B,
-                                      int Sq, int Sk, int H, int Hkv, int D,
-                                      int causal, int window, float scale,
-                                      int q_dtype, int kv_dtype,
-                                      void* stream) {
-    REPRO_DISPATCH_WIDE(launch, q_dtype, kv_dtype, D, q, k, v, out, B, Sq,
-                        Sk, H, Hkv, causal, window, scale,
-                        (cudaStream_t)stream);
+                                      const void* v, void* out,
+                                      void* part_o, void* part_ml,
+                                      int n_split, int B, int Sq, int Sk,
+                                      int H, int Hkv, int D, int causal,
+                                      int window, float scale, int q_dtype,
+                                      int kv_dtype, void* stream) {
+    REPRO_DISPATCH_WIDE(launch, q_dtype, kv_dtype, D, q, k, v, out, part_o,
+                        part_ml, n_split, B, Sq, Sk, H, Hkv, causal, window,
+                        scale, (cudaStream_t)stream);
+}
+
+// The walk instantiation's registers, dynamic shared memory bytes, local
+// bytes, resident blocks an SM and key tile, into out[0..4].
+extern "C" int flash_attention_attrs(int q_dtype, int kv_dtype, int D,
+                                     int causal, int window, int* out) {
+    REPRO_DISPATCH_WIDE(attrs, q_dtype, kv_dtype, D, causal, window, out);
 }

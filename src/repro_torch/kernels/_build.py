@@ -10,6 +10,7 @@ Nothing here runs at import time: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -159,6 +160,51 @@ def check_dense_args(name, q, k, v, ints, q_rank):
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{name}: k/v must be 16-byte aligned")
     return codes[q.dtype], codes[k.dtype]
+
+
+@functools.lru_cache(maxsize=256)
+def prefill_grid(name, B, T, H, Hkv):
+    """(blocks of one key range, query tokens a block) of the prefill walk
+    (K2, K4) that library ``name`` launches at these shapes, from its
+    launcher's own grid (``prefill_walk_grid`` in csrc/prefill_walk.cuh)."""
+    out = (ctypes.c_int * 2)()
+    load_entry(name, "prefill_walk_grid",
+               [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])(
+        B, T, H, Hkv, out)
+    return out[0], out[1]
+
+
+def prefill_split(blocks, walk, sms):
+    """Key ranges each q tile's walk of the prefill kernels (K2, K4) is
+    split into, for a grid of ``blocks`` a range: 1 where that already
+    gives two blocks an SM, else enough ranges for that, at most one per
+    64 keys of the longest walk (``walk`` keys, from the shapes: no device
+    read) and at most 16. A range past a q tile's walk is empty: it costs
+    a block and adds exactly nothing."""
+    target = 2 * sms
+    if blocks >= target:
+        return 1
+    return max(1, min(-(-target // blocks), -(-walk // 64), 16))
+
+
+def prefill_scratch(n_split, q):
+    """The split walk's fp32 scratch for q (B, T, H, D): the ranges'
+    unnormalised outputs and their (m, l); null pointers for one range."""
+    import torch
+    if n_split == 1:
+        return None, None
+    B, T, H, D = q.shape
+    part_o = torch.empty(n_split, B, T, H, D, device=q.device,
+                         dtype=torch.float32)
+    part_ml = torch.empty(n_split, B, T, H, 2, device=q.device,
+                          dtype=torch.float32)
+    return part_o, part_ml
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def load_entry(name: str, entry: str, argtypes):

@@ -7,9 +7,13 @@ wrapper ``repro/kernels/ops.py::flash_attention``: q (B, Sq, H, D), k/v
 (B, Sk, Hkv, D), read in place with no transposes. The kernel is
 hand-written CUDA C++ for ``sm_90a`` (``csrc/flash_attention.cu``, whose
 head note says what bounds it and how the design answers) and runs every
-``Sq``/``Sk``; ``kernels/ref.py`` holds the plain version. A CUDA tensor
-launches the kernel or raises; a CPU tensor takes the plain version.
-``flash_attention.launches`` counts the kernel launches.
+``Sq``/``Sk``, on tensor cores; where a prompt is short, the walk of each
+q tile is split across blocks and merged in a fixed order (scratch from
+``torch.empty``). ``kernels/ref.py`` holds the plain version. A CUDA
+tensor launches the kernel or raises; a CPU tensor takes the plain
+version. ``flash_attention.launches`` counts the calls that launched it
+(the split walk's merge kernel included in its call), and
+``flash_attention.last_split`` is the key ranges of the latest launch.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -43,18 +47,34 @@ def flash_attention(q, k, v, scale=None, causal=True, window=None):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     qc, kc = _build.check_dense_args("flash_attention", q, k, v, (),
                                      q_rank=4)
+    if q.data_ptr() % 16:
+        raise ValueError("flash_attention: q must be 16-byte aligned")
     out = torch.empty_like(q)
     if B == 0 or Sq == 0:
         return out
+    # the longest walk: a causal q tile reaches min(Sq, Sk) keys, a
+    # windowed one its window and its own tile's tokens
+    blocks, tokens = _build.prefill_grid("flash_attention", B, Sq, H, Hkv)
+    walk = min(Sq, Sk) if causal else Sk
+    if window:
+        walk = min(walk, window + tokens)
+    n_split = _build.prefill_split(blocks, walk,
+                                   _build.sm_count(q.device.index or 0))
+    part_o, part_ml = _build.prefill_scratch(n_split, q)
     fn = _build.load_entry("flash_attention", "flash_attention_launch",
                            _ARGTYPES)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Sk, H, Hkv, D, int(bool(causal)), int(window or 0), float(scale),
-            qc, kc, torch.cuda.current_stream(q.device).cuda_stream)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            part_o.data_ptr() if part_o is not None else None,
+            part_ml.data_ptr() if part_ml is not None else None, n_split,
+            B, Sq, Sk, H, Hkv, D, int(bool(causal)), int(window or 0),
+            float(scale), qc, kc,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: cudaError {rc}")
     flash_attention.launches += 1
+    flash_attention.last_split = n_split
     return out
 
 
 flash_attention.launches = 0
+flash_attention.last_split = None

@@ -6,9 +6,9 @@ machine with one (and no JAX) run
 
 The sweeps cover the shapes of tests/test_kernels.py and the port's
 compiled variants: head_dim 32/64/128, GQA groups 1 to 16 (a group
-over 8 query heads spans two blocks), page sizes 8/16/32, ragged fills and
-starts, chunks that are not a whole q tile, and the four q/page dtype
-pairs; for the dense-cache kernels (decode_attention, flash_attention)
+over 8 query heads spans two blocks of a decode kernel), page sizes
+8/16/32, ragged fills and starts, chunks that are not a whole q tile,
+and the four q/page dtype pairs; for the dense-cache kernels (decode_attention, flash_attention)
 fills of 1 and of the whole cache, per-row and scalar fills, and query
 lengths that leave a ragged q tile (1, 127, 2049). fp32 q and pages hold
 to 1e-4 (fp32 math in both, summed in another order); a bf16 output holds
@@ -17,6 +17,14 @@ heads (head_dim 256, 16 query heads on one kv head), and K4 with a
 local-attention window: windows of 1, smaller than a key tile, ragged
 against the q tiles, the model's 2048 (which the wrapper drops, as it
 masks nothing: the causal walk runs) and 2047 (the windowed walk).
+The prefill kernels (K2, K4) share one tensor-core walk that packs q
+tokens x the query heads of a kv head into 64-row tiles and splits a
+short grid's key walks across blocks: further cases cover split ranges
+that end mid-page (pages of 24 and 128 tokens) or lie wholly past a row's
+causal horizon, a grid large enough that no split is taken, G 3's ragged
+last packed tile, G 16 in one tile at head_dim 256 (causal, a window
+under one key tile, 2047), and bit-equal repeated launches, the split
+walk's fixed-order merge included.
 
 The RG-LRU scan (``rglru_scan``, K6) runs ragged S and C, with and
 without h0, fp32 and bf16 inputs, at recurrentgemma-9b's prefill width
@@ -38,7 +46,7 @@ prefix sum in another order, 2 (Q - 1) 2^-24 |cum|.
 import pytest
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
@@ -299,6 +307,107 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="window"):
         flash_attention(torch.zeros(1, 16, 4, 64, device=card), k, k,
                         window=0)
+    # q one element into a buffer: contiguous, but not 16-byte aligned
+    q = torch.zeros(1 + 16 * 4 * 64, device=card)[1:].view(1, 16, 4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, k, k)
+    kp = torch.zeros(2, 16, 2, 64, device=card)
+    bt = torch.ones(1, 1, dtype=torch.int32, device=card)
+    sp = torch.zeros(1, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        chunked_prefill_attention(q, kp, kp, bt, sp)
+
+
+@pytest.mark.parametrize("name,B,T,H,Hkv,want", [
+    ("chunked_prefill", 4, 64, 9, 3, (48, 21)),    # the main path's tick
+    ("flash_attention", 1, 1024, 9, 3, (147, 21)),  # smollm-135m
+    ("flash_attention", 1, 2048, 16, 1, (512, 4)),  # recurrentgemma-9b
+    ("flash_attention", 2, 16, 4, 4, (8, 64)),      # G 1: 64 tokens a tile
+])
+def test_prefill_grid_is_the_launched_grid(card, name, B, T, H, Hkv, want):
+    """The blocks of one key range and the tokens a block that the
+    wrappers plan the split from: the launcher's grid."""
+    assert _build.prefill_grid(name, B, T, H, Hkv) == want
+
+
+def _paged_context(card, seed, starts, T, H, Hkv, D, ps, qdt, kvdt):
+    """Rows of T fresh tokens at ``starts`` over private shuffled pages of
+    a pool whose page 0 is the scratch page; a table as wide as the
+    longest context plus one page."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    B = len(starts)
+    N = -(-(max(starts) + T) // ps) + 1
+    P = 1 + B * N
+    kp, vp = (torch.randn(P, ps, Hkv, D, generator=g, device=card).to(kvdt)
+              for _ in range(2))
+    bt = torch.zeros(B, N, dtype=torch.int32, device=card)
+    for b, s in enumerate(starts):
+        n = -(-(s + T) // ps)
+        bt[b, :n] = 1 + b * N + torch.randperm(N, generator=g,
+                                               device=card)[:n].int()
+    q = torch.randn(B, T, H, D, generator=g, device=card).to(qdt)
+    sp = torch.tensor(starts, dtype=torch.int32, device=card)
+    return q, kp, vp, bt, sp
+
+
+@pytest.mark.parametrize("qdt,kvdt", DTYPES)
+@pytest.mark.parametrize("starts,T,H,Hkv,D,ps,split", [
+    ((0, 64, 1024, 0), 64, 9, 3, 64, 16, True),   # the main path's tick
+    ((0, 1500), 16, 9, 3, 64, 16, True),      # row 0: ranges past its horizon
+    ((37, 700), 24, 9, 3, 64, 24, True),      # 64-key ranges end mid-page
+    ((100, 900, 5), 32, 8, 2, 64, 128, True),  # pages of 128: mid-page too
+    ((10, 400), 20, 16, 4, 128, 16, True),    # 32-key tiles at fp32 D 128
+    ((0, 1, 100, 300, 513, 64, 7, 1000), 256, 9, 3, 64, 16, False),
+    # ^ 8 rows of 256 tokens: enough blocks, no split
+])
+def test_chunked_prefill_split_walk_matches_plain(card, starts, T, H, Hkv, D,
+                                                  ps, split, qdt, kvdt):
+    q, kp, vp, bt, sp = _paged_context(card, T + len(starts), starts, T, H,
+                                       Hkv, D, ps, qdt, kvdt)
+    got = chunked_prefill_attention(q, kp, vp, bt, sp)
+    assert (chunked_prefill_attention.last_split > 1) == split
+    _close(got, ref.chunked_prefill_attention(q, kp, vp, bt, sp, D ** -0.5),
+           qdt, kvdt)
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B,S,H,Hkv,D,window", [
+    (1, 100, 9, 3, 64, None),       # G 3: 21-token tiles, ragged last one
+    (2, 43, 9, 3, 64, None),        # one full tile, a ragged one, split
+    (1, 1024, 9, 3, 64, None),      # smollm-135m's prefill, split in two
+    (1, 333, 16, 1, 256, None),     # G 16 in one tile: 4 tokens x 16 heads
+    (1, 333, 16, 1, 256, 20),       # ... windowed, window < a key tile
+    (1, 2048, 16, 1, 256, 2047),    # ... the model's window less one
+    (3, 50, 32, 2, 128, None),      # G 16 at fp32 D 128 (32-key tiles)
+])
+def test_flash_kernel_packed_rows_match_plain(card, B, S, H, Hkv, D, window,
+                                              qdt, kvdt):
+    g = torch.Generator(device=card).manual_seed(S + H + D)
+    q = torch.randn(B, S, H, D, generator=g, device=card).to(qdt)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=card).to(kvdt)
+            for _ in range(2))
+    got = flash_attention(q, k, v, window=window)
+    _close(got, ref.flash_attention(q, k, v, D ** -0.5, True, window), qdt,
+           kvdt)
+
+
+def test_prefill_kernels_are_deterministic(card):
+    """Two launches on the same inputs give the same bits, the split walk
+    (merged in range order, no atomics) included."""
+    q, kp, vp, bt, sp = _paged_context(card, 11, (0, 64, 1024, 0), 64, 9, 3,
+                                       64, 16, torch.float32, torch.bfloat16)
+    first = chunked_prefill_attention(q, kp, vp, bt, sp)
+    assert chunked_prefill_attention.last_split > 1
+    assert torch.equal(first, chunked_prefill_attention(q, kp, vp, bt, sp))
+    g = torch.Generator(device=card).manual_seed(12)
+    for S, H, Hkv, D in ((1024, 9, 3, 64), (2048, 16, 1, 256)):
+        q = torch.randn(1, S, H, D, generator=g, device=card)
+        k, v = (torch.randn(1, S, Hkv, D, generator=g, device=card)
+                for _ in range(2))
+        first = flash_attention(q, k, v)
+        assert (flash_attention.last_split > 1) == (D == 64)
+        assert torch.equal(first, flash_attention(q, k, v))
 
 
 def _ssd_inputs(card, seed, Bsz, nc, Q, H, P, N, strong=False):
