@@ -23,12 +23,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    query with a seeded state, C 4096), and K3/K4 at its heads (H 16,
    Hkv 1, D 256; K4 with its window of 2048, which the wrapper drops at
    S 2048 so that the causal walk runs, with one that bites, 512, and
-   with 2047, the windowed walk over nearly the causal pairs); the K2/K4
-   rows also carry their walk's registers, shared memory, local bytes,
-   resident blocks an SM, key tile and the key-walk split the wrapper
-   launched, and their phase lines ``ceiling_ms``, the flops over the
-   TF32 rate times the passes of the split products (3 for fp32 x fp32,
-   2 with a bf16 side), beside ``bound_ms``;
+   with 2047, the windowed walk over nearly the causal pairs), and K1
+   once more at the phone island's decode (one slot of 1,600 tokens, a
+   phase line of its own and a ``phone_island`` entry in K1's row); the
+   K1-K4 rows carry their walk's registers, shared memory, local bytes,
+   resident blocks an SM, key tile (K1/K3: and blocks of one key range)
+   and the key-walk split the wrapper launched, and the K2/K4 phase
+   lines ``ceiling_ms``, the flops over the TF32 rate times the passes of
+   the split products (3 for fp32 x fp32, 2 with a bf16 side), beside
+   ``bound_ms``;
 4. serving paths, each on the quickstart mesh (laptop 6 slots, phone 1,
    home-nas 8) serving smollm-135m at its full published widths with
    seeded random weights through ``TickOrchestrator``, the launch counters
@@ -236,19 +239,21 @@ def _pages(gen, P, ps, Hkv, D, dev):
              .to(torch.bfloat16)) for _ in range(2)]
 
 
-def decode_case(dev, gen, H=9, Hkv=3, D=64, ps=16, N=128):
+def decode_case(dev, gen, H=9, Hkv=3, D=64, ps=16, N=128,
+                valid=(1, 16, 17, 300, 1024, 1, 1600, 32), idle=(0, 5)):
     """K1 at the decode shapes of the main path's largest island: 8 slots,
     a table width of 128 pages (max_len 2048), ragged fills, two idle
-    scratch rows (all-zero table, fill 1) and fills on page boundaries."""
+    scratch rows (all-zero table, fill 1: rows ``idle``) and fills on page
+    boundaries; or at other fills (the phone island: one slot of 1,600)."""
     import torch
-    valid = [1, 16, 17, 300, 1024, 1, 1600, 32]
+    valid = list(valid)
     B = len(valid)
     P = 1 + B * N
     kp, vp = _pages(gen, P, ps, Hkv, D, dev)
     q = torch.randn(B, H, D, generator=gen, device=dev)
     bt = torch.zeros(B, N, dtype=torch.int32, device=dev)
     for b, v in enumerate(valid):
-        if b not in (0, 5):                     # rows 0 and 5 stay idle
+        if b not in idle:
             n = -(-v // ps)
             bt[b, :n] = 1 + b * N + torch.randperm(N, generator=gen,
                                                    device=dev)[:n].int()
@@ -257,8 +262,8 @@ def decode_case(dev, gen, H=9, Hkv=3, D=64, ps=16, N=128):
     nbytes = (2 * q.numel() * 4 + bt.numel() * 4 + B * 4
               + live * Hkv * D * 2 * 2)
     flops = 4 * live * H * D
-    return (q, kp, vp, bt, lens), nbytes, flops, ("decode", valid,
-                                                  [1, 2, 3, 4, 6, 7])
+    return (q, kp, vp, bt, lens), nbytes, flops, (
+        "decode", valid, [b for b in range(B) if b not in idle])
 
 
 def prefill_case(dev, gen, H=9, Hkv=3, D=64, ps=16, N=128):
@@ -357,10 +362,12 @@ def _time_case(wrapper, plain, args, scale, copies_bytes, lib_fn,
 
 
 def walk_info(name, args, n_split, window=None):
-    """The prefill walk (K2, K4) instantiation a case runs: registers,
-    dynamic shared memory, local bytes and resident blocks an SM (from the
-    CUDA runtime), its key tile, and ``n_split``, the key ranges the
-    wrapper launched (its ``last_split``)."""
+    """The attention walk instantiation a case runs (the prefill walk of
+    K2/K4, the decode walk of K1/K3): registers, dynamic shared memory,
+    local bytes and resident blocks an SM (from the CUDA runtime), its key
+    tile, the decode walk's blocks of one key range (from its launcher's
+    grid), and ``n_split``, the key ranges the wrapper launched (its
+    ``last_split``)."""
     import ctypes
 
     import torch
@@ -369,6 +376,18 @@ def walk_info(name, args, n_split, window=None):
     q, kv = args[0], args[1]
     D = q.shape[-1]
     codes = {torch.float32: 0, torch.bfloat16: 1}
+    if name in DECODE_ATTRS:
+        lib, entry = DECODE_ATTRS[name]
+        got = _build.decode_attrs(lib, entry, codes[q.dtype],
+                                  codes[kv.dtype], D, q.shape[0],
+                                  q.shape[1], kv.shape[2])
+        # blocks of one key range: rows x kv heads x groups of 16 query
+        # heads (B x Hkv where G <= 16: one block reads a K/V tile for
+        # all of a kv head's query heads)
+        return {"registers": got[0], "smem_bytes": got[1],
+                "local_bytes": got[2], "blocks_per_sm": got[3],
+                "key_tile": got[4], "blocks_per_range": got[5],
+                "n_split": n_split}
     buf = (ctypes.c_int * 5)()
     ptr = ctypes.POINTER(ctypes.c_int)
     if name == "flash_attention":
@@ -386,6 +405,13 @@ def walk_info(name, args, n_split, window=None):
     return {"registers": buf[0], "smem_bytes": buf[1],
             "local_bytes": buf[2], "blocks_per_sm": buf[3],
             "key_tile": buf[4], "n_split": n_split}
+
+
+# the decode walk's (K1, K3) library and attributes entry, by wrapper
+DECODE_ATTRS = {
+    "paged_decode_attention": ("paged_attention",
+                               "paged_decode_attention_attrs"),
+    "decode_attention": ("decode_attention", "decode_attention_attrs")}
 
 
 def split_ceiling(args, flops):
@@ -566,19 +592,26 @@ def kernel_phase(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
     rows = {}
-    for name, wrapper, plain, case, src, replaces in (
-            ("paged_decode_attention", paged_decode_attention,
-             ref.paged_decode_attention, decode_case,
-             "src/repro_torch/csrc/paged_attention.cu",
-             "src/repro/kernels/paged_attention.py:111"),
-            ("chunked_prefill_attention", chunked_prefill_attention,
-             ref.chunked_prefill_attention, prefill_case,
-             "src/repro_torch/csrc/chunked_prefill.cu",
-             "src/repro/kernels/chunked_prefill.py:123")):
+    K1 = ("paged_decode_attention", paged_decode_attention,
+          ref.paged_decode_attention,
+          "src/repro_torch/csrc/paged_attention.cu",
+          "src/repro/kernels/paged_attention.py:111")
+    # the kernels line carries K1 at the main path's largest island, with
+    # the phone island's one slot beside it (a phase line of its own too)
+    for (name, wrapper, plain, src, replaces), case, geom, role in (
+            (K1, decode_case, "8 slots, fills 1-1600", "row"),
+            (K1, lambda dev, gen: decode_case(dev, gen, valid=(1600,),
+                                              idle=()),
+             "the phone island: 1 slot, fill 1600", "phone_island"),
+            (("chunked_prefill_attention", chunked_prefill_attention,
+              ref.chunked_prefill_attention,
+              "src/repro_torch/csrc/chunked_prefill.cu",
+              "src/repro/kernels/chunked_prefill.py:123"), prefill_case,
+             "4 rows of 64 tokens", "row")):
         args, nbytes, flops, (kind, fills, live) = case(dev, gen)
         scale = args[0].shape[-1] ** -0.5
         out = wrapper(*args)
-        n_split = getattr(wrapper, "last_split", None)
+        n_split = wrapper.last_split
         err = _check(name, out, plain(*args, scale))
         # table entries past a live row's fill or causal horizon point at
         # the scratch page: poisoning it must leave every live row as it was
@@ -599,19 +632,23 @@ def kernel_phase(dev):
                 q, k, v, attn_mask=m),
             lambda c, kind=kind: _sdpa_inputs(kind, c))
         bound, by = _bound(nbytes, flops)
-        rows[name] = {"name": name, "route": "cuda", "source": src,
-                      "replaces": replaces, "launches": None,
-                      "max_abs_err": err, "ms": kms, "plain_ms": pms,
-                      "bound_ms": bound, "bound_by": by, "library_ms": lms}
-        extra = {}
-        if kind == "prefill":
-            rows[name]["walk_attrs"] = walk_info(name, args, n_split)
-            extra = split_ceiling(args, flops)
-        emit({"phase": "kernel", **rows[name], **extra, "shape_q": list(
-            args[0].shape), "fills_or_starts": fills, "bytes": nbytes,
-            "flops": flops, "library_max_abs_err": lib_err,
-            "tolerance": KERNEL_TOL, "input_copies": n,
-            "wrapper_host_us": host_us(lambda: wrapper(*args))})
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": None, "max_abs_err": err,
+               "ms": kms, "plain_ms": pms, "bound_ms": bound,
+               "bound_by": by, "library_ms": lms,
+               "walk_attrs": walk_info(name, args, n_split)}
+        extra = split_ceiling(args, flops) if kind == "prefill" else {}
+        if role == "row":
+            rows[name] = row
+        else:
+            rows[name][role] = {k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "walk_attrs")}
+        emit({"phase": "kernel", **row, **extra, "geometry": geom,
+              "shape_q": list(args[0].shape), "fills_or_starts": fills,
+              "bytes": nbytes, "flops": flops, "library_max_abs_err": lib_err,
+              "tolerance": KERNEL_TOL, "input_copies": n,
+              "wrapper_host_us": host_us(lambda: wrapper(*args))})
 
     def sdpa_decode(q, k, v, lens):
         """(B, H, 1, D) query against (B, Hkv, S, D) fp32 K/V, GQA and a
@@ -685,7 +722,8 @@ def kernel_phase(dev):
                      "walk": "windowed" if w and w < S else "causal"}
         scale = args[0].shape[-1] ** -0.5
         out = wrapper(*args)
-        n_split = flash_attention.last_split
+        n_split = (decode_attention if name == "decode_attention"
+                   else flash_attention).last_split
         err = _check(f"{name} ({geom})", out, plain(*args, scale))
         lib = lib_fn(*lib_inputs(args))
         lib = (lib[:, :, 0] if name == "decode_attention"
@@ -705,6 +743,8 @@ def kernel_phase(dev):
                 name, args, n_split,
                 shape["window"] if shape["walk"] == "windowed" else None)
             extra = split_ceiling(args, flops)
+        else:
+            row["walk_attrs"] = walk_info(name, args, n_split)
         if role == "row":
             rows[name] = dict(row, geometry=geom, **shape)
         elif role is not None:
@@ -972,6 +1012,8 @@ def main_path(cfg, params, device, max_len=2048):
 def _kernel_family(name):
     walks = {("decode_walk_kernel", "PagedRows"): "paged_decode_attention",
              ("decode_walk_kernel", "DenseRows"): "decode_attention",
+             ("decode_merge_kernel", "PagedRows"): "paged_decode_attention",
+             ("decode_merge_kernel", "DenseRows"): "decode_attention",
              ("prefill_walk_kernel", "PagedRows"):
                  "chunked_prefill_attention",
              ("prefill_walk_kernel", "DenseRows"): "flash_attention",

@@ -1,6 +1,8 @@
-// Shared helpers for the paged attention kernels: element conversion and
-// vector copies for the two supported storage types, warp reductions, the
-// finite mask value, and a launch helper that lifts the 48 KB dynamic
+// Shared helpers for the attention kernels' two walks (decode_walk.cuh,
+// prefill_walk.cuh): element conversion for the two supported storage
+// types, warp reductions, the finite mask value, the split TF32 tensor-core
+// product (3xTF32) both walks run, pair loads and stores, the cp.async copy
+// ring's primitives, and a launch helper that lifts the 48 KB dynamic
 // shared memory default when needed.
 #pragma once
 
@@ -15,9 +17,6 @@ enum DtypeCode { DT_FLOAT32 = 0, DT_BFLOAT16 = 1 };
 // exp(NEG_INF - m) == 0 exactly, never the NaN of -inf - -inf
 #define REPRO_NEG_INF (-0.7f * 3.4028234663852886e38f)
 
-// query heads one block serves; the group of a kv head with more query
-// heads (G > GMAX) is split over several blocks along grid.y
-constexpr int GMAX = 8;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
@@ -38,63 +37,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
     return __float2bfloat16(x);
 }
 
-// 8 consecutive elements at a 16-byte aligned address -> 8 floats
-__device__ __forceinline__ void load8(const float* p, float* o) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* o) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        o[2 * i] = f.x;
-        o[2 * i + 1] = f.y;
-    }
-}
-
-// 8 consecutive elements, 16-byte aligned at both ends, copied raw
-template <typename T>
-__device__ __forceinline__ void copy8(const T* src, T* dst) {
-#pragma unroll
-    for (int i = 0; i < (int)(8 * sizeof(T) / 16); ++i)
-        reinterpret_cast<uint4*>(dst)[i] =
-            reinterpret_cast<const uint4*>(src)[i];
-}
-
-// 8 consecutive elements, 16-byte aligned, set to zero
-template <typename T>
-__device__ __forceinline__ void zero8(T* dst) {
-#pragma unroll
-    for (int i = 0; i < (int)(8 * sizeof(T) / 16); ++i)
-        reinterpret_cast<uint4*>(dst)[i] = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// N consecutive elements (aligned to N elements) -> N floats
-template <int N>
-__device__ __forceinline__ void load_n(const float* p, float* o) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i] = p[i];
-}
-template <int N>
-__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float* o) {
-    if constexpr (N % 2 == 0) {
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(p);
-#pragma unroll
-        for (int i = 0; i < N / 2; ++i) {
-            const float2 f = __bfloat1622float2(h[i]);
-            o[2 * i] = f.x;
-            o[2 * i + 1] = f.y;
-        }
-    } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) o[i] = __bfloat162float(p[i]);
-    }
-}
-
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
@@ -106,6 +48,84 @@ __device__ __forceinline__ float warp_sum(float x) {
     for (int o = 16; o > 0; o >>= 1)
         x += __shfl_xor_sync(FULL_MASK, x, o);
     return x;
+}
+
+// x -> (hi, lo) TF32 operands; an EXACT x (a widened bf16) is its own hi.
+// hi is cvt.rna.tf32.f32 done as integer ops (round the magnitude half
+// away at bit 13, then clear the 13 bits: two instructions where the
+// conversion takes more), lo the remainder x - hi (exact in fp32) with its
+// 13 low bits cleared: x = hi + lo to ~2^-22 of |x|
+constexpr uint32_t TF32_MASK = 0xFFFFE000u;
+template <bool EXACT>
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+    if constexpr (EXACT) {
+        hi = __float_as_uint(x);
+        lo = 0u;
+    } else {
+        hi = (__float_as_uint(x) + 0x1000u) & TF32_MASK;
+        lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_MASK;
+    }
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a.b from split operands, the small terms (none for an exact side)
+// into ds: a second accumulator halves the chain of dependent products
+// where registers allow it, else ds is d and they go first
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma_split(float (&d)[4], float (&ds)[4],
+                                          const uint32_t (&ahi)[4],
+                                          const uint32_t (&alo)[4],
+                                          const uint32_t (&bhi)[2],
+                                          const uint32_t (&blo)[2]) {
+    if constexpr (!AX) mma_tf32(ds, alo, bhi[0], bhi[1]);
+    if constexpr (!BX) mma_tf32(ds, ahi, blo[0], blo[1]);
+    mma_tf32(d, ahi, bhi[0], bhi[1]);
+}
+
+// two consecutive elements (8 / 4 aligned bytes) -> two floats
+__device__ __forceinline__ float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !live (the source
+// is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(live ? 16 : 0));
+}
+// 4 bytes global -> shared, asynchronously (through L1); zeros where !live
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(live ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`

@@ -5,45 +5,69 @@
 // Replaces the TPU kernel src/repro/kernels/paged_attention.py
 // (paged_decode_attention, the pl.pallas_call at line 111).
 //
-// What bounds it on this card: bytes. Each (sequence, kv head) reads its
-// live K and V once, valid_len * D * 2 tensors * 2 B in bf16, and does
-// about G flops per byte it reads (3 at smollm-135m's widths) -- far under
-// the ~295 flop/byte the H100 needs before its tensor cores, not HBM, are
-// the limit. The least time is the live KV bytes (sum over b of
-// valid_len[b] * Hkv * D * 2 * 2 B) over 3.35 TB/s.
+// What bounds it on this card: bytes, and at decode batch sizes the latency
+// of getting them. Each (sequence, kv head) reads its live K and V once,
+// valid_len * D * 2 tensors * 2 B in bf16, and does about G flops per byte
+// it reads (3 at smollm-135m's widths) -- far under the ~295 flop/byte the
+// H100 needs before its tensor cores, not HBM, are the limit. The least
+// time is the live KV bytes (sum over b of valid_len[b] * Hkv * D * 2 * 2
+// B) over 3.35 TB/s, about a microsecond at the main path's tick, so what
+// the card takes beyond it is latency: the page-id load before each K/V
+// load, and how many blocks are in flight.
 //
-// What this simple design does about it: the Pallas grid's sequential page
-// axis (which carried m/l/acc in VMEM across grid steps) becomes a walk
-// inside one block per (sequence, kv head), shared with K3 in
-// decode_walk.cuh (whose note gives the details): 8 warps walk 32-token
-// tiles with private online softmaxes and merge in shared memory; each
-// live K/V byte is read from HBM once and serves all G query heads;
-// nothing past valid_len is read. It does not yet split a sequence across
-// blocks (flash-decoding), so at small decode batches only B * Hkv SMs
-// are busy; that, TMA and wgmma are later work.
+// What the design does about it (decode_walk.cuh, shared with K3, whose
+// note gives the details): the Pallas grid's sequential page axis (m/l/acc
+// carried in VMEM across grid steps) becomes a walk inside a block, and a
+// row's walk is split across blocks (flash-decoding) where the grid of
+// sequences x kv heads is short of two blocks an SM: the main path's
+// phone island decodes one sequence on 3 kv heads, 3 blocks without the
+// split. A block copies a tile's page ids (four 16-token pages a 64-token
+// tile at page size 16) with one warp, in the cp.async group of an earlier
+// tile, so they wait in shared memory before the tile's own copies are
+// issued; those fly in a 4-stage cp.async ring at D 64. All G query heads
+// of a kv head are one tensor-core tile, so each live K/V byte is read
+// once.
+// Table entries past valid_len (the scratch page) are never read.
 
 #include "decode_walk.cuh"
 
 template <typename TQ, typename TKV, int DPL>
 static cudaError_t launch(const void* q, const void* kp, const void* vp,
-                          const void* bt, const void* valid, void* out, int B,
+                          const void* bt, const void* valid, void* out,
+                          void* part_o, void* part_ml, int n_split, int B,
                           int H, int Hkv, int ps, int N, float scale,
                           cudaStream_t stream) {
     const PagedRows rows{(const int32_t*)bt, N, ps, (int64_t)Hkv * 32 * DPL};
-    return launch_decode_walk<TQ, TKV, DPL>(q, kp, vp, rows, valid, out, B,
-                                            H, Hkv, N * ps, scale, stream);
+    return launch_decode_walk<TQ, TKV, DPL>(q, kp, vp, rows, valid, out,
+                                            part_o, part_ml, n_split, B, H,
+                                            Hkv, N * ps, scale, stream);
+}
+
+template <typename TQ, typename TKV, int DPL>
+static cudaError_t attrs(int B, int H, int Hkv, int* out) {
+    return decode_walk_attrs<TQ, TKV, DPL, PagedRows>(B, H, Hkv, out);
 }
 
 // q (B, H, D); k/v pages (P, ps, Hkv, D); block_table (B, N) int32;
 // valid_lens (B,) int32; out (B, H, D) in q's dtype. All contiguous and
-// 16-byte aligned, D in {32, 64, 128}. Returns the cudaError_t of the
-// launch (0 = launched).
+// 16-byte aligned, D in {32, 64, 128}. With n_split > 1, part_o (n_split,
+// B, H, D) and part_ml (n_split, B, H, 2) are fp32 scratch. Returns the
+// cudaError_t of the launches (0 = launched).
 extern "C" int paged_decode_attention_launch(
         const void* q, const void* k_pages, const void* v_pages,
-        const void* block_table, const void* valid_lens, void* out, int B,
-        int H, int Hkv, int D, int ps, int N, float scale, int q_dtype,
-        int kv_dtype, void* stream) {
+        const void* block_table, const void* valid_lens, void* out,
+        void* part_o, void* part_ml, int n_split, int B, int H, int Hkv,
+        int D, int ps, int N, float scale, int q_dtype, int kv_dtype,
+        void* stream) {
     REPRO_DISPATCH(launch, q_dtype, kv_dtype, D, q, k_pages, v_pages,
-                   block_table, valid_lens, out, B, H, Hkv, ps, N, scale,
-                   (cudaStream_t)stream);
+                   block_table, valid_lens, out, part_o, part_ml, n_split, B,
+                   H, Hkv, ps, N, scale, (cudaStream_t)stream);
+}
+
+// The walk's registers, shared memory, local bytes, blocks an SM, key tile
+// and blocks of one key range at (B, H, Hkv) (decode_walk_attrs).
+extern "C" int paged_decode_attention_attrs(int q_dtype, int kv_dtype,
+                                            int D, int B, int H, int Hkv,
+                                            int* out) {
+    REPRO_DISPATCH(attrs, q_dtype, kv_dtype, D, B, H, Hkv, out);
 }

@@ -101,51 +101,6 @@ __host__ __device__ constexpr size_t pf_smem() {
            2 * sizeof(TKV) * KT * (pf_ks<D>() + pf_vs<TKV, D>());
 }
 
-// x -> (hi, lo) TF32 operands; an EXACT x (a widened bf16) is its own hi.
-// hi is cvt.rna.tf32.f32 done as integer ops (round the magnitude half
-// away at bit 13, then clear the 13 bits: two instructions where the
-// conversion takes more), lo the remainder x - hi (exact in fp32) with its
-// 13 low bits cleared: x = hi + lo to ~2^-22 of |x|
-constexpr uint32_t TF32_MASK = 0xFFFFE000u;
-template <bool EXACT>
-__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-    if constexpr (EXACT) {
-        hi = __float_as_uint(x);
-        lo = 0u;
-    } else {
-        hi = (__float_as_uint(x) + 0x1000u) & TF32_MASK;
-        lo = __float_as_uint(x - __uint_as_float(hi)) & TF32_MASK;
-    }
-}
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// d += a.b from split operands, the small terms (none for an exact side)
-// into ds: a second accumulator halves the chain of dependent products
-// where registers allow it, else ds is d and they go first
-template <bool AX, bool BX>
-__device__ __forceinline__ void mma_split(float (&d)[4], float (&ds)[4],
-                                          const uint32_t (&ahi)[4],
-                                          const uint32_t (&alo)[4],
-                                          const uint32_t (&bhi)[2],
-                                          const uint32_t (&blo)[2]) {
-    if constexpr (!AX) mma_tf32(ds, alo, bhi[0], bhi[1]);
-    if constexpr (!BX) mma_tf32(ds, ahi, blo[0], blo[1]);
-    mma_tf32(d, ahi, bhi[0], bhi[1]);
-}
-
-// two consecutive elements (8 / 4 aligned bytes) -> two floats
-__device__ __forceinline__ float2 load2(const float* p) {
-    return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 // four consecutive elements (16 / 8 aligned bytes) -> four floats
 __device__ __forceinline__ float4 load4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
@@ -157,27 +112,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
     const float2 b = __bfloat1622float2(
         *reinterpret_cast<const __nv_bfloat162*>(&u.y));
     return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// 16 bytes global -> shared, asynchronously; zeros where !live (the source
-// is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool live) {
-    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(live ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait1() {
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 // q (B, T, H, D); out (B, T, H, D) in q's dtype; start_pos (B,) int32 or

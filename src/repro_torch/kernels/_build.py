@@ -174,29 +174,46 @@ def prefill_grid(name, B, T, H, Hkv):
     return out[0], out[1]
 
 
-def prefill_split(blocks, walk, sms):
-    """Key ranges each q tile's walk of the prefill kernels (K2, K4) is
-    split into, for a grid of ``blocks`` a range: 1 where that already
-    gives two blocks an SM, else enough ranges for that, at most one per
-    64 keys of the longest walk (``walk`` keys, from the shapes: no device
-    read) and at most 16. A range past a q tile's walk is empty: it costs
-    a block and adds exactly nothing."""
+@functools.lru_cache(maxsize=256)
+def decode_attrs(name, entry, q_code, kv_code, D, B, H, Hkv):
+    """The decode walk (K1, K3) instantiation that library ``name`` runs at
+    these dtypes and shapes, from its C entry ``entry``
+    (``decode_walk_attrs`` in csrc/decode_walk.cuh): (registers, dynamic
+    shared memory, local bytes, resident blocks an SM, key tile, blocks of
+    one key range). The wrappers plan the split from the last two."""
+    out = (ctypes.c_int * 6)()
+    rc = load_entry(name, entry,
+                    [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])(
+        q_code, kv_code, D, B, H, Hkv, out)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {rc}")
+    return tuple(out)
+
+
+def prefill_split(blocks, walk, sms, tile=64):
+    """Key ranges each walk of the attention kernels is split into (a q
+    tile's for the prefill walk, K2 and K4; a row's for the decode walk,
+    K1 and K3, at its 32-key ``tile``), for a grid of ``blocks`` a range:
+    1 where that already gives two blocks an SM, else enough ranges for
+    that, at most one per ``tile`` keys of the longest walk (``walk`` keys,
+    from the shapes: no device read) and at most 16. A range past a walk's
+    end is empty: it costs a block and adds exactly nothing."""
     target = 2 * sms
     if blocks >= target:
         return 1
-    return max(1, min(-(-target // blocks), -(-walk // 64), 16))
+    return max(1, min(-(-target // blocks), -(-walk // tile), 16))
 
 
-def prefill_scratch(n_split, q):
-    """The split walk's fp32 scratch for q (B, T, H, D): the ranges'
-    unnormalised outputs and their (m, l); null pointers for one range."""
+def split_scratch(n_split, q):
+    """A split walk's fp32 scratch for q (..., H, D): the ranges'
+    unnormalised outputs (n_split, ..., H, D) and their (m, l) (n_split,
+    ..., H, 2); null pointers for one range."""
     import torch
     if n_split == 1:
         return None, None
-    B, T, H, D = q.shape
-    part_o = torch.empty(n_split, B, T, H, D, device=q.device,
+    part_o = torch.empty(n_split, *q.shape, device=q.device,
                          dtype=torch.float32)
-    part_ml = torch.empty(n_split, B, T, H, 2, device=q.device,
+    part_ml = torch.empty(n_split, *q.shape[:-1], 2, device=q.device,
                           dtype=torch.float32)
     return part_o, part_ml
 

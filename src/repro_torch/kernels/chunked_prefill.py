@@ -58,7 +58,7 @@ def chunked_prefill_attention(q, k_pages, v_pages, block_table, start_pos,
     blocks, _ = _build.prefill_grid("chunked_prefill", B, T, H, Hkv)
     n_split = _build.prefill_split(blocks, N * ps,
                                    _build.sm_count(q.device.index or 0))
-    part_o, part_ml = _build.prefill_scratch(n_split, q)
+    part_o, part_ml = _build.split_scratch(n_split, q)
     fn = _build.load_entry("chunked_prefill",
                            "chunked_prefill_attention_launch", _ARGTYPES)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

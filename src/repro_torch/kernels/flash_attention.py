@@ -60,7 +60,7 @@ def flash_attention(q, k, v, scale=None, causal=True, window=None):
         walk = min(walk, window + tokens)
     n_split = _build.prefill_split(blocks, walk,
                                    _build.sm_count(q.device.index or 0))
-    part_o, part_ml = _build.prefill_scratch(n_split, q)
+    part_o, part_ml = _build.split_scratch(n_split, q)
     fn = _build.load_entry("flash_attention", "flash_attention_launch",
                            _ARGTYPES)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -3,10 +3,15 @@ through a per-sequence block table over a shared page pool.
 
 Port of ``repro/kernels/paged_attention.py``. The kernel is hand-written
 CUDA C++ for ``sm_90a`` (``csrc/paged_attention.cu``, whose head note says
-what bounds it and how the design answers); ``kernels/ref.py`` holds the
-plain version. A CUDA tensor launches the kernel or raises; a CPU tensor
-takes the plain version. ``paged_decode_attention.launches`` counts the
-kernel launches.
+what bounds it and how the design answers) on tensor cores; where the
+decode batch gives the card too few blocks, each sequence's key walk is
+split across blocks and merged in a fixed order (scratch from
+``torch.empty``). ``kernels/ref.py`` holds the plain version. A CUDA
+tensor launches the kernel or raises; a CPU tensor takes the plain
+version. ``paged_decode_attention.launches`` counts the calls that
+launched it (the split walk's merge kernel included in its call), and
+``paged_decode_attention.last_split`` is the key ranges of the latest
+launch.
 """
 from __future__ import annotations
 
@@ -16,7 +21,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
@@ -41,17 +46,30 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, valid_lens,
     out = torch.empty_like(q)
     if B == 0:
         return out
+    # the split comes from the shapes: the fills stay on the device, and
+    # the longest walk is at most the table's N pages
+    *_, tile, blocks = _build.decode_attrs(
+        "paged_attention", "paged_decode_attention_attrs", qc, kc, D, B, H,
+        Hkv)
+    n_split = _build.prefill_split(blocks, N * ps,
+                                   _build.sm_count(q.device.index or 0),
+                                   tile)
+    part_o, part_ml = _build.split_scratch(n_split, q)
     fn = _build.load_entry("paged_attention", "paged_decode_attention_launch",
                            _ARGTYPES)
     rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_table.data_ptr(), valid_lens.data_ptr(), out.data_ptr(),
+            part_o.data_ptr() if part_o is not None else None,
+            part_ml.data_ptr() if part_ml is not None else None, n_split,
             B, H, Hkv, D, ps, N, float(scale), qc, kc,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"paged_decode_attention launch failed: "
                            f"cudaError {rc}")
     paged_decode_attention.launches += 1
+    paged_decode_attention.last_split = n_split
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.last_split = None

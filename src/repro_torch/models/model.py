@@ -2,12 +2,12 @@
 blocks, with a SwiGLU MLP after each mixer when ``d_ff`` is set.
 
 Port of ``repro/models/model.py`` for patterns drawn from {``attn``,
-``ssm``, ``rglru``} without MoE or a frontend, in every mode the serving
-paths run:
-``full`` (a whole prompt, with or without a dense cache), ``chunk`` (paged
-prefill runs, attention only) and ``decode`` (against a dense cache or
-the paged pool). Each layer's mixer is dispatched by its block type
-(``BLOCK_TABLE``/``BLOCK_APPLY``/``BLOCK_CACHE``, as the reference). The
+``ssm``, ``rglru``} without MoE, a prefix-LM mask or a frontend, in every
+mode the serving paths run: ``full`` (a whole prompt, with or without a
+dense cache), ``chunk`` (paged prefill runs, attention only) and
+``decode`` (against a dense cache or the paged pool). Each layer's mixer
+is dispatched by its block type (``BLOCK_TABLE``/``BLOCK_APPLY``/
+``BLOCK_CACHE``, as the reference). The
 reference stores layers stacked along a leading dim and runs them with
 ``lax.scan``; the port keeps one parameter dict per layer
 (``params["layers"][i]``) and runs them in a Python loop, in the same
@@ -52,14 +52,20 @@ _NOT_PORTED = {"mla": "ROADMAP Queue 1, P12 (MLA)"}
 
 def unported_reason(cfg):
     """None when the port runs ``cfg`` (a pattern drawn from {attn, ssm,
-    rglru}, no MoE, no frontend), else what is missing and where ROADMAP
-    queues it."""
+    rglru}, no MoE, no prefix-LM mask, no frontend), else what is missing
+    and where ROADMAP queues it. A prefix-LM config is refused with or
+    without its frontend: the reference attends its prefix both ways
+    whatever the frontend, and the port's attention is causal."""
     for bt in effective_pattern(cfg):
         if bt not in BLOCK_TABLE:
             return (f"{bt!r} layers "
                     f"({_NOT_PORTED.get(bt, 'ROADMAP Queue 1, P12')})")
     if cfg.num_experts:
         return "MoE layers (ROADMAP Queue 1, P12 (MoE))"
+    if cfg.prefix_lm:
+        return ("the prefix-LM mask over the first "
+                f"{cfg.num_prefix_tokens} tokens (ROADMAP Queue 1, P12 "
+                "(prefix-LM))")
     if cfg.frontend is not None:
         return (f"the {cfg.frontend!r} frontend (ROADMAP Queue 1, P12 "
                 f"(frontends))")

@@ -9,6 +9,8 @@ chunked against fused chunked) under the margin rule of
 ``_torch_parity``: bf16 KV pages on a random-weight model make greedy
 argmax fragile at near-ties (ROADMAP R1).
 """
+import dataclasses
+
 import jax
 import pytest
 
@@ -19,7 +21,7 @@ from repro.models.model import get_model as jget_model
 from repro.serving.batcher import PagedContinuousBatcher as JBatcher
 from repro_torch import bridge
 from repro_torch.configs.base import get_config as tget_config
-from repro_torch.models.model import get_model
+from repro_torch.models.model import get_model, unported_reason
 from repro_torch.serving.batcher import PagedContinuousBatcher as TBatcher
 from repro_torch.serving.batcher import make_batcher
 
@@ -140,3 +142,19 @@ def test_unported_paths_refuse_clearly(weights):
         get_model(moe)
     with pytest.raises(NotImplementedError, match="ROADMAP.*MoE"):
         make_batcher(moe, cache="auto", device="cpu")
+    # a prefix-LM config without its frontend: the reference attends the
+    # prefix both ways, the port's attention is causal
+    plm = dataclasses.replace(tget_config("paligemma-3b").reduced(),
+                              frontend=None)
+    assert plm.prefix_lm and plm.num_prefix_tokens
+    with pytest.raises(NotImplementedError, match="ROADMAP.*prefix-LM"):
+        get_model(plm)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*prefix-LM"):
+        make_batcher(plm, cache="auto", device="cpu")
+
+
+def test_prefix_lm_is_named_with_its_frontend():
+    """The reference applies the prefix-LM mask whatever the frontend, so
+    the refusal names it while the frontend is still set too."""
+    why = unported_reason(tget_config("paligemma-3b").reduced())
+    assert "ROADMAP Queue 1, P12 (prefix-LM)" in why

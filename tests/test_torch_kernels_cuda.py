@@ -5,9 +5,9 @@ machine with one (and no JAX) run
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
 The sweeps cover the shapes of tests/test_kernels.py and the port's
-compiled variants: head_dim 32/64/128, GQA groups 1 to 16 (a group
-over 8 query heads spans two blocks of a decode kernel), page sizes
-8/16/32, ragged fills and starts, chunks that are not a whole q tile,
+compiled variants: head_dim 32/64/128, GQA groups 1 to 16 (all of a
+kv head's query heads are one tensor-core tile of a decode kernel), page
+sizes 8/16/32, ragged fills and starts, chunks that are not a whole q tile,
 and the four q/page dtype pairs; for the dense-cache kernels (decode_attention, flash_attention)
 fills of 1 and of the whole cache, per-row and scalar fills, and query
 lengths that leave a ragged q tile (1, 127, 2049). fp32 q and pages hold
@@ -24,7 +24,14 @@ that end mid-page (pages of 24 and 128 tokens) or lie wholly past a row's
 causal horizon, a grid large enough that no split is taken, G 3's ragged
 last packed tile, G 16 in one tile at head_dim 256 (causal, a window
 under one key tile, 2047), and bit-equal repeated launches, the split
-walk's fixed-order merge included.
+walk's fixed-order merge included. The decode kernels (K1, K3) share one
+tensor-core walk too, split across blocks where rows x kv heads give the
+card under two blocks an SM: further cases cover fills of 1, fills on a
+range boundary, fills that leave ranges empty, G 1/3/4/16 at head_dim
+32-256, one sequence of 1,600 tokens through K1 (the phone island's
+decode), recurrentgemma-9b's heads at fills 1-2048, bit-equal repeated
+launches, poison past every row's fill under the split, and the split
+the wrappers plan from the walk's own grid (its ``*_attrs`` entry).
 
 The RG-LRU scan (``rglru_scan``, K6) runs ragged S and C, with and
 without h0, fp32 and bf16 inputs, at recurrentgemma-9b's prefill width
@@ -140,7 +147,7 @@ def test_chunked_prefill_kernel_matches_plain(card, B, H, Hkv, P, ps, N, T,
     (3, 9, 3, 2048, 64, (1, 1600, 2048)),        # smollm-135m, stacked path
     (4, 32, 8, 300, 128, (33, 300, 1, 128)),     # qwen3-4b, G 4
     (2, 16, 2, 100, 128, (99, 7)),               # G 8
-    (2, 32, 2, 96, 32, (50, 96)),                # G 16: two blocks a head
+    (2, 32, 2, 96, 32, (50, 96)),                # G 16: one tile a kv head
     (8, 16, 1, 2048, 256, (1, 16, 17, 300, 1024, 1, 1600, 2048)),
     # ^ recurrentgemma-9b: D 256, G 16 over one kv head, its 2048 ring
     (3, 16, 1, 64, 256, (64, 5, 33)),            # its .reduced() ring of 64
@@ -408,6 +415,138 @@ def test_prefill_kernels_are_deterministic(card):
         first = flash_attention(q, k, v)
         assert (flash_attention.last_split > 1) == (D == 64)
         assert torch.equal(first, flash_attention(q, k, v))
+
+
+def _decode_split(card, kernel, seed, fills, H, Hkv, D, qdt, kvdt, cap,
+                  ps=16):
+    """K1 (``kernel`` "paged") over private shuffled pages of a pool whose
+    page 0 is the scratch page, or K3 ("dense") over a (B, cap) cache:
+    returns (wrapper, its inputs, the plain version's output)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    B = len(fills)
+    q = torch.randn(B, H, D, generator=g, device=card).to(qdt)
+    lens = torch.tensor(fills, dtype=torch.int32, device=card)
+    if kernel == "dense":
+        k, v = (torch.randn(B, cap, Hkv, D, generator=g, device=card)
+                .to(kvdt) for _ in range(2))
+        args = (q, k, v, lens)
+        return decode_attention, args, ref.decode_attention(*args,
+                                                            D ** -0.5)
+    N = cap // ps
+    P = 1 + B * N
+    kp, vp = (torch.randn(P, ps, Hkv, D, generator=g, device=card).to(kvdt)
+              for _ in range(2))
+    bt = torch.zeros(B, N, dtype=torch.int32, device=card)
+    for b, f in enumerate(fills):
+        n = -(-f // ps)
+        bt[b, :n] = 1 + b * N + torch.randperm(N, generator=g,
+                                               device=card)[:n].int()
+    args = (q, kp, vp, bt, lens)
+    return paged_decode_attention, args, ref.paged_decode_attention(
+        *args, D ** -0.5)
+
+
+DECODE_SPLIT_CASES = [
+    # kernel, fills, H, Hkv, D, cap
+    ("paged", (1, 16, 17, 300, 1024, 1, 1600, 32), 9, 3, 64, 2048),
+    ("paged", (1600,), 9, 3, 64, 2048),          # the phone island: B 1
+    ("paged", (1, 1), 4, 4, 32, 256),             # fills of 1, G 1
+    ("paged", (64, 128, 192), 12, 4, 128, 512),   # fills on tile edges, G 3
+    ("paged", (33, 5), 32, 2, 128, 1024),         # ranges left empty, G 16
+    ("dense", (1, 16, 17, 300, 1024, 1, 1600, 32), 9, 3, 64, 2048),
+    ("dense", (1, 16, 17, 300, 1024, 1, 1600, 2048), 16, 1, 256, 2048),
+    # ^ recurrentgemma-9b: G 16 at D 256, fills 1-2048
+    ("dense", (33, 300, 1, 128), 32, 8, 128, 300),   # qwen3-4b, G 4
+    ("dense", (200, 31, 129), 16, 1, 256, 256),   # a 256-slot ring
+    ("dense", (7,), 8, 8, 32, 4096),              # one short row, G 1
+]
+
+
+@pytest.mark.parametrize("qdt,kvdt", DTYPES)
+@pytest.mark.parametrize("kernel,fills,H,Hkv,D,cap", DECODE_SPLIT_CASES)
+def test_decode_split_walk_matches_plain(card, kernel, fills, H, Hkv, D,
+                                         cap, qdt, kvdt):
+    """Every case's grid is short of two blocks an SM, so the walk is
+    split; the split walk holds to the plain version."""
+    wrapper, args, want = _decode_split(card, kernel, len(fills) + D, fills,
+                                        H, Hkv, D, qdt, kvdt, cap)
+    n0 = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == n0 + 1
+    assert wrapper.last_split > 1
+    _close(got, want, qdt, kvdt)
+
+
+@pytest.mark.parametrize("kernel,fills,H,Hkv,D,cap", DECODE_SPLIT_CASES)
+def test_decode_split_never_reads_past_the_fill(card, kernel, fills, H, Hkv,
+                                                D, cap):
+    """Poison past every row's fill (and the scratch page) under the
+    split: every output bit stays as it was, and two launches on the same
+    inputs give the same bits (the ranges merge in order, no atomics)."""
+    wrapper, args, _ = _decode_split(card, kernel, 3 + D, fills, H, Hkv, D,
+                                     torch.float32, torch.bfloat16, cap)
+    first = wrapper(*args)
+    assert wrapper.last_split > 1
+    assert torch.equal(wrapper(*args), first)
+    k, v = args[1], args[2]
+    if kernel == "dense":
+        for b, f in enumerate(fills):
+            k[b, f:], v[b, f:] = 1e4, -1e4
+    else:
+        ps = k.shape[1]
+        k[0], v[0] = 1e4, -1e4
+        for b, f in enumerate(fills):
+            if f % ps:
+                page = args[3][b, f // ps].long()
+                k[page, f % ps:], v[page, f % ps:] = 1e4, -1e4
+    assert torch.equal(wrapper(*args), first)
+
+
+def test_decode_kernels_are_deterministic(card):
+    """Repeated launches of the split walk at the serving paths' shapes
+    give the same bits."""
+    for kernel, fills, H, Hkv, D, cap in DECODE_SPLIT_CASES[:2] + \
+            DECODE_SPLIT_CASES[5:7]:
+        wrapper, args, _ = _decode_split(card, kernel, 17, fills, H, Hkv, D,
+                                         torch.float32, torch.bfloat16, cap)
+        first = wrapper(*args)
+        assert wrapper.last_split > 1
+        for _ in range(3):
+            assert torch.equal(wrapper(*args), first)
+
+
+@pytest.mark.parametrize("kernel,B,H,Hkv,D,cap,want", [
+    ("paged", 8, 9, 3, 64, 2048, 11),      # the main path's largest island
+    ("paged", 1, 9, 3, 64, 2048, 16),      # the phone island
+    ("dense", 8, 16, 1, 256, 2048, 16),    # recurrentgemma-9b, G 16
+    ("dense", 8, 32, 8, 128, 2048, 5),     # qwen3-4b heads
+    ("dense", 64, 9, 3, 64, 2048, 2),
+    ("dense", 96, 9, 3, 64, 2048, 1),      # 288 blocks: no split
+])
+def test_decode_split_plan_is_the_launched_split(card, kernel, B, H, Hkv, D,
+                                                 cap, want):
+    """The walk's ``*_attrs`` entry gives the blocks of one key range and
+    the key tile; the split planned from them (132 SMs) is the one the
+    wrapper launched, and one block reads each K/V tile for all of a kv
+    head's query heads (G 16 is one block a range)."""
+    import ctypes
+    fills = [min(cap, 100 * (b + 1)) for b in range(B)]
+    wrapper, args, _ = _decode_split(card, kernel, 5, fills, H, Hkv, D,
+                                     torch.float32, torch.bfloat16, cap)
+    wrapper(*args)
+    lib, entry = (("paged_attention", "paged_decode_attention_attrs")
+                  if kernel == "paged" else
+                  ("decode_attention", "decode_attention_attrs"))
+    out = (ctypes.c_int * 6)()
+    fn = _build.load_entry(lib, entry, [ctypes.c_int] * 6
+                           + [ctypes.POINTER(ctypes.c_int)])
+    assert fn(0, 1, D, B, H, Hkv, out) == 0
+    regs, smem, local, per_sm, tile, blocks = out
+    assert blocks == B * Hkv and tile == 64    # bf16 K/V: 64-key tiles
+    assert regs > 0 and smem > 0 and per_sm >= 1
+    assert _build.prefill_split(blocks, cap, 132, tile) == want
+    assert wrapper.last_split == _build.prefill_split(
+        blocks, cap, _build.sm_count(0), tile)
 
 
 def _ssd_inputs(card, seed, Bsz, nc, Q, H, P, N, strong=False):
