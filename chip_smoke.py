@@ -18,9 +18,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    yardstick the port never calls), and the least time the card could
    take; K5 (``ssd_chunk``) at mamba2-370m's prefill shapes (6 chunks of
    256, and one ragged chunk of 37), held to ``kernels.ssd.error_bound``
-   (no single library call computes it); K6 (``rglru_scan``) at
-   recurrentgemma-9b's prefill widths (a ~1,500-token note and a 37-token
-   query with a seeded state, C 4096), and K3/K4 at its heads (H 16,
+   with ``cum`` bit-equal to the plain version's (no single library call
+   computes it); K6 (``rglru_scan``) at recurrentgemma-9b's prefill
+   widths (a ~1,500-token note and a 37-token query with a seeded state,
+   C 4096), bit-equal to its plain version, and K3/K4 at its heads (H 16,
    Hkv 1, D 256; K4 with its window of 2048, which the wrapper drops at
    S 2048 so that the causal walk runs, with one that bites, 512, and
    with 2047, the windowed walk over nearly the causal pairs), and K1
@@ -31,7 +32,9 @@ Phases (each raises on failure, and the script then exits non-zero):
    and the key-walk split the wrapper launched, and the K2/K4 phase
    lines ``ceiling_ms``, the flops over the TF32 rate times the passes of
    the split products (3 for fp32 x fp32, 2 with a bf16 side), beside
-   ``bound_ms``;
+   ``bound_ms``; the K5/K6 rows carry each kernel's registers, shared
+   memory, local bytes, resident blocks an SM and grid (K5: of its score
+   and head passes), and the K5 phase lines each pass's device time;
 4. serving paths, each on the quickstart mesh (laptop 6 slots, phone 1,
    home-nas 8) serving smollm-135m at its full published widths with
    seeded random weights through ``TickOrchestrator``, the launch counters
@@ -99,8 +102,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 TF32_FLOP_PER_S = 494e12
-# fp32 outside the tensor cores, where K5 does its math (reported beside
-# its bound, which takes the TF32 rate of its fp32 operands)
+# fp32 outside the tensor cores: K6's rate (a multiply and an add a step),
+# and beside K5's bound the time its flops would take there
 FP32_FLOP_PER_S = 67e12
 L2_BYTES = 50e6
 # kernel vs its plain version on the same inputs: both accumulate in fp32
@@ -134,10 +137,6 @@ MAMBA2_PREFILL_LOGIT_TOL = 1e-3
 # prefill) and every step of the fp32-cache replay
 RG_REPLAY_LOGIT_TOL = 4e-3
 RG_PREFILL_LOGIT_TOL = 2e-4
-# K6 against its plain version: the kernel rounds each step's multiply
-# and add as the plain version does, so any gap would be a contraction
-# into an FMA; 1e-5 on states of magnitude ~1-10
-RGLRU_TOL = 1e-5
 # the oversubscribed pool (pool_headroom 0.5): max_len 128 and 96 new
 # tokens for each long note (whose prompt then truncates to 31 tokens), so
 # that the sequences outgrow their half of the pool together and every
@@ -462,6 +461,26 @@ def ssd_case(dev, gen, nc, Q, H=32, P=64, N=128):
     return (x, dt, a, B_, C_), 4 * (n_in + n_out), flops
 
 
+def pass_ms(fn, kernels, reps=20):
+    """Device ms a call of ``fn`` spends in each of the named ``kernels``
+    (substrings of the kernel names), from torch.profiler over ``reps``
+    calls on the same inputs (a warm L2)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {k: 0.0 for k in kernels}
+    for e in prof.key_averages():
+        for k in kernels:
+            if k in e.key:
+                out[k] += e.device_time_total / reps / 1e3
+    return out
+
+
 def ssd_kernel_rows(dev, gen):
     """K5 against its plain version at mamba2-370m's prefill shapes: six
     chunks of 256 (a ~1,500-token note) and one ragged chunk of 37 (a
@@ -472,7 +491,7 @@ def ssd_kernel_rows(dev, gen):
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd import error_bound, ssd_chunk
+    from repro_torch.kernels.ssd import error_bound, kernel_attrs, ssd_chunk
     row = None
     for nc, Q in ((6, 256), (1, 37)):
         args, nbytes, flops = ssd_case(dev, gen, nc, Q)
@@ -491,6 +510,11 @@ def ssd_kernel_rows(dev, gen):
                     f"(max gap/bound {float((gap / b).max())})")
             err = max(err, float(gap.max()))
             ratio = max(ratio, float((gap / b).max()))
+        # both sides sum cum in order in fp32 (torch.cumsum along a
+        # non-innermost dimension is a serial loop on the card)
+        if not torch.equal(got[3], want[3]):
+            raise AssertionError(f"ssd_chunk cum (nc {nc}, Q {Q}) is not "
+                                 f"bit-equal to the plain version's")
         del got, want, bounds
         n = max(2, min(NCOPY, int(3 * L2_BYTES // nbytes) + 1))
         copies = [tuple(t.clone() for t in args) for _ in range(n)]
@@ -502,7 +526,8 @@ def ssd_kernel_rows(dev, gen):
              "source": "src/repro_torch/csrc/ssd_chunk.cu",
              "replaces": "src/repro/kernels/ssd.py:60", "launches": None,
              "max_abs_err": err, "ms": kms, "plain_ms": pms,
-             "bound_ms": bound, "bound_by": by, "library_ms": None}
+             "bound_ms": bound, "bound_by": by, "library_ms": None,
+             "kernel_attrs": kernel_attrs(args[0], args[3])}
         emit({"phase": "kernel", **r, "shape_x": list(args[0].shape),
               "shape_B": list(args[3].shape), "bytes": nbytes,
               "flops": flops,
@@ -511,6 +536,9 @@ def ssd_kernel_rows(dev, gen):
               "max_abs_cum": float(args[1].mul(args[2]).cumsum(2)
                                    .abs().max()),
               "tolerance": "kernels.ssd.error_bound", "input_copies": n,
+              "pass_ms_warm_l2": pass_ms(lambda: ssd_chunk(*args),
+                                         ("ssd_chunk_score_kernel",
+                                          "ssd_chunk_head_kernel")),
               "wrapper_host_us": host_us(lambda: ssd_chunk(*args))})
         row = row or r
         del args
@@ -544,18 +572,19 @@ def rglru_kernel_rows(dev, gen):
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rglru import rglru_scan
+    from repro_torch.kernels.rglru import kernel_attrs, rglru_scan
     row = None
     for S, with_h0 in ((1500, False), (37, True)):
         args, nbytes, flops = rglru_case(dev, gen, S, with_h0=with_h0)
         got = rglru_scan(*args)
         want = ref.rglru_scan(*args)
         torch.cuda.synchronize()
+        # the kernel rounds each step's multiply and add as the plain
+        # version does: any gap would be a contraction into an FMA
         err = float((got - want).abs().max())
-        if not torch.isfinite(got).all() or err > RGLRU_TOL:
-            raise AssertionError(f"rglru_scan (S {S}): max abs error {err} "
-                                 f"> {RGLRU_TOL} against the plain version")
-        exact = bool(torch.equal(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"rglru_scan (S {S}): not bit-equal to the "
+                                 f"plain version (max abs error {err})")
         del got, want
         n = max(2, min(NCOPY, int(3 * L2_BYTES // nbytes) + 1))
         copies = [tuple(t.clone() if t is not None else None for t in args)
@@ -569,10 +598,11 @@ def rglru_kernel_rows(dev, gen):
              "source": "src/repro_torch/csrc/rglru_scan.cu",
              "replaces": "src/repro/kernels/rglru.py:52", "launches": None,
              "max_abs_err": err, "ms": kms, "plain_ms": pms,
-             "bound_ms": bound, "bound_by": by, "library_ms": None}
+             "bound_ms": bound, "bound_by": by, "library_ms": None,
+             "kernel_attrs": kernel_attrs(args[0], args[1])}
         emit({"phase": "kernel", **r, "shape": list(args[0].shape),
               "h0": with_h0, "bytes": nbytes, "flops": flops,
-              "bit_exact_with_plain": exact, "tolerance": RGLRU_TOL,
+              "bit_exact_with_plain": True, "tolerance": "bit-equal",
               "input_copies": n, "achieved_bytes_per_s": nbytes / kms * 1e3,
               "wrapper_host_us": host_us(lambda: rglru_scan(*args))})
         row = row or r
@@ -1024,7 +1054,9 @@ def _kernel_family(name):
     for (kernel, rows), fam in walks.items():
         if kernel in name and rows in name:
             return fam
-    if "ssd_chunk_kernel" in name:
+    # K5's score and head passes, as a split walk's merge counts with its
+    # walk
+    if "ssd_chunk_score_kernel" in name or "ssd_chunk_head_kernel" in name:
         return "ssd_chunk"
     if "rglru_scan_kernel" in name:
         return "rglru_scan"

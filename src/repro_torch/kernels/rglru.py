@@ -7,7 +7,8 @@ Port of ``repro/kernels/rglru.py::rglru_scan`` (wrapper
 every C (the Pallas kernel's ``S % 256`` and ``C % 512`` asserts are its
 tiling). The kernel is hand-written CUDA C++ for ``sm_90a``
 (``csrc/rglru_scan.cu``, whose head note says what bounds it and how the
-design answers); ``kernels/ref.py`` holds the plain version, which the
+design answers: a lane a channel, fed from a deep cp.async ring);
+``kernels/ref.py`` holds the plain version, which the
 kernel matches bit for bit. A CUDA tensor launches the kernel or raises;
 a CPU tensor takes the plain version. ``rglru_scan.launches`` counts the
 kernel launches.
@@ -66,3 +67,21 @@ def rglru_scan(a, b, h0=None):
 
 
 rglru_scan.launches = 0
+
+
+def kernel_attrs(a, b):
+    """The kernel variant a launch on a, b (B, S, C) runs, from the CUDA
+    runtime: its registers, dynamic shared memory, local bytes, resident
+    blocks an SM, grid, and whether it copies 16-byte chunks."""
+    out = (ctypes.c_int * 7)()
+    rc = _build.load_entry(
+        "rglru_scan", "rglru_scan_attrs",
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+        + [ctypes.POINTER(ctypes.c_int)])(
+        a.data_ptr(), b.data_ptr(), a.shape[0], a.shape[2], _CODES[a.dtype],
+        out)
+    if rc != 0:
+        raise RuntimeError(f"rglru_scan_attrs failed: cudaError {rc}")
+    return {"registers": out[0], "smem_bytes": out[1], "local_bytes": out[2],
+            "blocks_per_sm": out[3], "grid": [out[4], out[5]],
+            "chunks_16_bytes": bool(out[6])}

@@ -6,9 +6,12 @@ layouts: x (B, nc, Q, H, P), dt (B, nc, Q, H) post-softplus, a (H,)
 negative, B_/C_ (B, nc, Q, N), all fp32. The kernel is hand-written CUDA
 C++ for ``sm_90a`` (``csrc/ssd_chunk.cu``, whose head note says what
 bounds it and how the design answers) and runs every chunk length Q from
-1 to 1024; ``kernels/ref.py`` holds the plain version. A CUDA tensor
-launches the kernel or raises; a CPU tensor takes the plain version.
-``ssd_chunk.launches`` counts the kernel launches.
+1 to 1024, in two passes: the head-free scores C.B^T once per chunk into
+a scratch the wrapper allocates (``scratch_shape``), then every head's y
+and state from them. ``kernels/ref.py`` holds the plain version. A CUDA
+tensor launches the kernel or raises; a CPU tensor takes the plain
+version. ``ssd_chunk.launches`` counts the wrapper's launches (one a
+call, both passes).
 
 ``error_bound`` gives the tolerance a kernel result is held to against
 the plain version on the same inputs (the tests and ``chip_smoke.py``
@@ -22,11 +25,13 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # element sizes the kernel is compiled for (ssm_head_dim and ssm_state of
 # mamba2-370m: 64 and 128; of its .reduced() width: 16)
 WIDTHS = (16, 32, 64, 128)
 QMAX = 1024
+# rows of a query or key tile of the kernel's score pass
+TILE = 64
 # fp32 rounding of the two products and the exp, on both sides: the
 # score sums N <= 128 terms and y sums Q <= 256 more, so each side is
 # within (N + Q + 4) * 2^-24 < 2.5e-5 of the exact value, relative to the
@@ -60,6 +65,18 @@ def _check_args(x, dt, a, B_, C_):
         raise ValueError("ssd_chunk: x, B and C must be 16-byte aligned")
 
 
+def scratch_shape(BC, Q):
+    """The score pass's fp32 scratch for BC = batch * chunks chunks of Q
+    rows: the lower-triangle pairs of 64-row query and key tiles, diagonal
+    included, each a packed (64, 64) tile of C.B^T."""
+    T = -(-Q // TILE)
+    return (BC, T * (T + 1) // 2, TILE, TILE)
+
+
+def _scratch(shape, device):
+    return torch.empty(shape, dtype=torch.float32, device=device)
+
+
 def ssd_chunk(x, dt, a, B_, C_):
     """x (B, nc, Q, H, P); dt (B, nc, Q, H); a (H,); B_/C_ (B, nc, Q, N).
     Returns (y_intra (B, nc, Q, H, P), state (B, nc, H, P, N), decay
@@ -77,10 +94,11 @@ def ssd_chunk(x, dt, a, B_, C_):
     cum = torch.empty_like(dt)
     if Bsz * nc * Q * H == 0:
         return y, state, decay, cum
+    scratch = _scratch(scratch_shape(Bsz * nc, Q), x.device)
     fn = _build.load_entry("ssd_chunk", "ssd_chunk_launch", _ARGTYPES)
     rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), B_.data_ptr(),
             C_.data_ptr(), y.data_ptr(), state.data_ptr(), decay.data_ptr(),
-            cum.data_ptr(), Bsz * nc, Q, H, P, N,
+            cum.data_ptr(), scratch.data_ptr(), Bsz * nc, Q, H, P, N,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_chunk launch failed: cudaError {rc}")
@@ -89,6 +107,25 @@ def ssd_chunk(x, dt, a, B_, C_):
 
 
 ssd_chunk.launches = 0
+
+
+def kernel_attrs(x, B_):
+    """The two passes the kernel launches for x (B, nc, Q, H, P) and B_
+    (B, nc, Q, N), from the CUDA runtime: {"score": ..., "head": ...},
+    each its registers, dynamic shared memory, local bytes, resident
+    blocks an SM and grid."""
+    Bsz, nc, Q, H, P = x.shape
+    out = (ctypes.c_int * 14)()
+    rc = _build.load_entry(
+        "ssd_chunk", "ssd_chunk_attrs",
+        [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)])(
+        Bsz * nc, Q, H, P, B_.shape[-1], out)
+    if rc != 0:
+        raise RuntimeError(f"ssd_chunk_attrs failed: cudaError {rc}")
+    keys = ("registers", "smem_bytes", "local_bytes", "blocks_per_sm")
+    return {name: {**dict(zip(keys, out[7 * i:7 * i + 4])),
+                   "grid": list(out[7 * i + 4:7 * i + 7])}
+            for i, name in enumerate(("score", "head"))}
 
 
 def error_bound(x, dt, a, B_, C_, cum_got, cum_want):

@@ -35,25 +35,30 @@ the wrappers plan from the walk's own grid (its ``*_attrs`` entry).
 
 The RG-LRU scan (``rglru_scan``, K6) runs ragged S and C, with and
 without h0, fp32 and bf16 inputs, at recurrentgemma-9b's prefill width
-(C 4096). It holds to 1e-5 (a few fp32 ulps of its states), and one case
-checks the stronger claim of its source note: the kernel's explicit
-multiply-then-add matches the plain version's two rounded ops bit for bit.
+(C 4096), through both of its copy paths (16-byte chunks where C and the
+pointers allow, a lane's own 4-byte word otherwise: odd C, C 100 in
+bf16, an input that starts 2 bytes into its storage). Every case holds
+to the claim of its source note: the kernel's explicit multiply-then-add
+matches the plain version's two rounded ops bit for bit.
 
 The SSD chunk kernel (``ssd_chunk``, K5) runs chunk lengths Q of 1, 37,
-64 and 256, 1 and 6 chunks, 2 and 32 heads, head_dim 16 and 64, state 16
-and 128, at mamba2-370m's init (a = -1..-H, dt = softplus(N(0,1) +
-dt_bias)) and with a strongly decaying head (a = -32, dt ~ 1, so |cum|
-reaches ~8,000 by row 256). Each output holds to
+64, 65, 100, 130, 256 and 1024 (its longest), 1 to 6 chunks, 2 to 37
+heads (33 and 37 are not a multiple of the 32 heads a cum block takes),
+head_dim 16 to 128, state 16 to 128, at mamba2-370m's init (a = -1..-H,
+dt = softplus(N(0,1) + dt_bias)) and with a strongly decaying head (a =
+-32, dt ~ 1, so |cum| reaches ~8,000 by row 256). Each output holds to
 ``kernels.ssd.error_bound``: 1e-4 of the sum of its terms' magnitudes
 (fp32 rounding of two products on both sides) widened by the relative
 change e^(2 dc) - 1 that a gap dc between the two sides' ``cum`` makes in
-every decay factor; that gap itself holds to the worst case of a Q-term
-prefix sum in another order, 2 (Q - 1) 2^-24 |cum|.
+every decay factor; ``cum`` itself is bit-equal to the plain version's
+(both sum in order in fp32 on the card). A score scratch poisoned with
+NaN changes no output bit, and repeated launches give the same bits.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
@@ -575,6 +580,9 @@ def _ssd_inputs(card, seed, Bsz, nc, Q, H, P, N, strong=False):
 
 def _ssd_close(got, want, inputs):
     torch.cuda.synchronize()
+    # both sides sum cum in order in fp32: torch.cumsum along a
+    # non-innermost dimension of more than one row is a serial loop there
+    assert torch.equal(got[3], want[3])
     bounds, dc = error_bound(*inputs, got[3], want[3])
     for name, g, w, b in zip(("y_intra", "state", "decay", "cum"), got,
                              want, bounds):
@@ -593,6 +601,10 @@ def _ssd_close(got, want, inputs):
     (2, 2, 256, 2, 64, 16, True),
     (1, 3, 16, 32, 16, 16, False),        # mamba2-370m .reduced()
     (2, 1, 100, 32, 16, 128, False),      # two tiles, the second ragged
+    (1, 2, 65, 32, 64, 128, False),       # one row past a whole tile
+    (1, 1, 1024, 4, 64, 128, True),       # QMAX: 136 score tiles a chunk
+    (1, 2, 130, 33, 128, 32, True),       # H 33: a cum block of one head
+    (2, 1, 200, 37, 32, 64, False),       # H 37, head_dim 32, state 64
 ])
 def test_ssd_chunk_kernel_matches_plain(card, Bsz, nc, Q, H, P, N, strong):
     inputs = _ssd_inputs(card, Q * 10 + H + nc, Bsz, nc, Q, H, P, N,
@@ -601,6 +613,28 @@ def test_ssd_chunk_kernel_matches_plain(card, Bsz, nc, Q, H, P, N, strong):
     got = ssd_chunk(*inputs)
     assert ssd_chunk.launches == n0 + 1
     _ssd_close(got, ref.ssd_chunk(*inputs), inputs)
+
+
+def test_ssd_chunk_poisoned_scratch_changes_nothing(card, monkeypatch):
+    """The score pass writes every entry of every tile the head pass
+    reads, and the head pass masks a pair before it uses the score: a
+    scratch full of NaN gives the same bits as a fresh one."""
+    inputs = _ssd_inputs(card, 11, 1, 3, 200, 32, 64, 128, True)
+    clean = ssd_chunk(*inputs)
+    monkeypatch.setattr(ssd_mod, "_scratch", lambda shape, device: torch.full(
+        shape, float("nan"), device=device))
+    poisoned = ssd_chunk(*inputs)
+    torch.cuda.synchronize()
+    for g, w in zip(poisoned, clean):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+def test_ssd_chunk_repeated_launches_are_bit_equal(card):
+    inputs = _ssd_inputs(card, 12, 1, 6, 256, 32, 64, 128, True)
+    first = ssd_chunk(*inputs)
+    for _ in range(3):
+        for g, w in zip(ssd_chunk(*inputs), first):
+            assert torch.equal(g, w)
 
 
 def test_ssd_chunk_padding_steps_change_nothing(card):
@@ -639,9 +673,11 @@ def test_ssd_chunk_wrapper_refuses_what_the_kernel_does_not_take(card):
     (3, 1, 100, True),                    # one step, ragged channels
     (2, 33, 31, False),                   # S and C both ragged
     (2, 300, 256, True),                  # .reduced() width
+    (2, 257, 4096, True),                 # a ring stage past a whole one
 ])
 def test_rglru_scan_kernel_matches_plain(card, B, S, C, with_h0, dt):
-    """a = sigmoid of normals (as the gates make it, < 1), b normal."""
+    """a = sigmoid of normals (as the gates make it, < 1), b normal; the
+    kernel's h equals the plain version's bit for bit."""
     g = torch.Generator(device=card).manual_seed(S + C)
     a = torch.sigmoid(torch.randn(B, S, C, generator=g, device=card)).to(dt)
     b = torch.randn(B, S, C, generator=g, device=card).to(dt)
@@ -652,13 +688,18 @@ def test_rglru_scan_kernel_matches_plain(card, B, S, C, with_h0, dt):
     want = ref.rglru_scan(a, b, h0)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (B, S, C)
-    assert (got - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, want)
 
 
-def test_rglru_scan_kernel_is_bit_exact_with_plain(card):
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_rglru_scan_kernel_is_bit_exact_with_plain(card, dt):
+    """Inputs that start one element into their storage: for bf16 the
+    pointers are not 4-byte aligned, so every lane copies the word that
+    holds its element, and odd rows start in a word's upper half."""
     g = torch.Generator(device=card).manual_seed(9)
-    a = torch.rand(2, 257, 4096, generator=g, device=card)
-    b = torch.randn(2, 257, 4096, generator=g, device=card)
+    a = torch.rand(2 * 257 * 4096 + 1, generator=g, device=card).to(dt)
+    b = torch.randn(2 * 257 * 4096 + 1, generator=g, device=card).to(dt)
+    a, b = (t[1:].view(2, 257, 4096) for t in (a, b))
     h0 = torch.randn(2, 4096, generator=g, device=card)
     assert torch.equal(rglru_scan(a, b, h0), ref.rglru_scan(a, b, h0))
 
