@@ -53,6 +53,25 @@ Phases (each raises on failure, and the script then exits non-zero):
    stacked batcher; their logits must agree within a stated tolerance,
    and a token where the streams part must be a near-tie that the
    measured logit gap can reorder;
+   - churn: the reference's ``churn_ab`` at full width on three personal
+     islands (fused chunked paged batchers, ``migration_token_budget``
+     256): ``churn_prompts(10)`` and the long notes at sensitivities
+     0.9/0.6/0.2, once undisturbed and once with the laptop drained after
+     tick 2 and the nas failed after tick 5; nothing stranded, streams
+     held to the undisturbed run's under the near-tie rule, a migration
+     that ships pages and a failover, no cross-tier import, every
+     surviving pool audited empty, the work clock within 1-3x, every
+     imported page read back bit-equal to its record, K2/K1 once per
+     layer of every dispatch; then one move of the longest note (its
+     pages, bytes and the export and import times);
+   - churn downhill: tier-1 KV drained toward a tier-2 edge island
+     arrives with no page import and a recompute;
+   - churn stacked: the same drain on stacked batchers (dense-row
+     thaws, K4 + K3);
+   - stochastic: the quickstart traffic at temperature 0.8, seed 7: two
+     runs give identical streams, a run with the laptop drained after
+     tick 2 holds its keyed streams under the near-tie rule (on the
+     perturbed scores), and the card and the CPU replay agree under it;
 7. mamba2: mamba2-370m at its full published widths (48 layers, d_model
    1024, 32 SSM heads of 64, state 128, chunk 256, vocab 50280) with
    seeded random fp32 weights, a bf16 conv tail and an fp32 SSM state:
@@ -1356,14 +1375,41 @@ def replay(name, cfg, runs_on, make, capture, tol=REPLAY_LOGIT_TOL,
     if sorted(card) != sorted(cpu):
         raise AssertionError(f"{name}: requests differ: {sorted(card)} "
                              f"vs {sorted(cpu)}")
+    faults, stats = hold_streams(cpu, cpu_lg, card, card_lg, tol, first_tol,
+                                 what=("card", "cpu"))
+    emit({"phase": name, "requests": len(cpu), "tokens_per_request": 8,
+          "steps_compared": len(stats["gaps"]),
+          "max_logit_gap": max(stats["gaps"]),
+          "logit_tol": tol, "first_token_logit_tol": first_tol,
+          "max_abs_cpu_logit": stats["scale"],
+          "diverged_at_near_tie": stats["diverged"],
+          "min_cpu_margin": min(stats["margins"]),
+          "identical_streams": sum(card[r] == cpu[r] for r in cpu),
+          "logit_gaps": stats["gaps"]})
+    if faults:
+        raise AssertionError(f"{name}: " + "; ".join(faults))
+
+
+def hold_streams(want, want_lg, got, got_lg, tol, first_tol=None,
+                 what=("got", "want")):
+    """Hold the streams ``got`` (rid -> tokens) to ``want`` with the rows
+    behind their tokens (``*_lg``, keyed by (rid, token index)): up to and
+    including the first token where two streams part, both sides computed
+    their rows from the same tokens, so those must agree within ``tol``
+    (``first_tol`` for token 0, when given); a parting token is legitimate
+    only where ``want``'s top-2 margin is at most twice that step's
+    largest gap. Returns (faults, {"gaps", "margins", "diverged",
+    "scale"})."""
+    import torch
     diverged, gaps, margins, faults, scale = 0, [], [], [], 0.0
-    for rid, want in cpu.items():
-        if len(card[rid]) != len(want):
-            raise AssertionError(f"{name} request {rid}: {len(card[rid])} "
-                                 f"tokens on the card, {len(want)} on cpu")
-        for k, (a, c) in enumerate(zip(card[rid], want)):
-            ref = cpu_lg[(rid, k)]
-            gap = float((card_lg[(rid, k)] - ref).abs().max())
+    for rid, ref_toks in want.items():
+        if len(got[rid]) != len(ref_toks):
+            faults.append(f"request {rid}: {len(got[rid])} tokens on the "
+                          f"{what[0]}, {len(ref_toks)} on the {what[1]}")
+            continue
+        for k, (a, c) in enumerate(zip(got[rid], ref_toks)):
+            ref = want_lg[(rid, k)]
+            gap = float((got_lg[(rid, k)] - ref).abs().max())
             top = torch.topk(ref, 2).values
             margin = float(top[0] - top[1])
             scale = max(scale, float(ref.abs().max()))
@@ -1371,25 +1417,690 @@ def replay(name, cfg, runs_on, make, capture, tol=REPLAY_LOGIT_TOL,
             margins.append(margin)
             limit = first_tol if k == 0 and first_tol is not None else tol
             if not gap <= limit:
-                faults.append(f"request {rid} token {k}: card vs cpu "
-                              f"logits differ by {gap} > {limit}")
+                faults.append(f"request {rid} token {k}: {what[0]} vs "
+                              f"{what[1]} rows differ by {gap} > {limit}")
             if a != c:
                 if margin > 2 * gap:
-                    faults.append(f"request {rid} token {k}: card {a} != "
-                                  f"cpu {c} at a cpu top-2 margin of "
-                                  f"{margin} > twice the logit gap {gap}")
+                    faults.append(f"request {rid} token {k}: {what[0]} {a}"
+                                  f" != {what[1]} {c} at a top-2 margin of "
+                                  f"{margin} > twice the gap {gap}")
                 diverged += 1
                 break
-    emit({"phase": name, "requests": len(cpu), "tokens_per_request": 8,
-          "steps_compared": len(gaps), "max_logit_gap": max(gaps),
-          "logit_tol": tol, "first_token_logit_tol": first_tol,
-          "max_abs_cpu_logit": scale,
-          "diverged_at_near_tie": diverged,
-          "min_cpu_margin": min(margins),
-          "identical_streams": sum(card[r] == cpu[r] for r in cpu),
-          "logit_gaps": gaps})
+    return faults, {"gaps": gaps or [0.0], "margins": margins or [0.0],
+                    "diverged": diverged, "scale": scale}
+
+
+# ----------------------------------------------- churn and sampling phases
+
+# a churned stream against the undisturbed run's on the same card: a
+# recompute thaw or a failover rebuilds a context's K/V with the prefill
+# kernel (K2) where the undisturbed run wrote it by decode steps (K1), and
+# a destination's other batch changes the key-walk split and cuBLAS's
+# algorithm, so a K/V element can land on the other side of a bf16
+# rounding: the same kind of gap as the card-vs-CPU replay, held to the
+# same tolerance
+CHURN_LOGIT_TOL = REPLAY_LOGIT_TOL
+# the churn traffic's sensitivities (KV tiers 1/2/3), cycled as
+# churn_prompts cycles them
+CHURN_SENSITIVITY = (0.9, 0.6, 0.2)
+# the stochastic phase: the reference's test temperature and seed
+TEMPERATURE, SAMPLE_SEED = 0.8, 7
+
+
+def churn_traffic():
+    """``churn_prompts(10)`` and the eight long notes, each with its
+    sensitivity."""
+    from repro_torch.core.workload import churn_prompts
+    notes = [(q, CHURN_SENSITIVITY[i % 3])
+             for i, (q, _p) in enumerate(long_prompts())]
+    return churn_prompts(10) + notes
+
+
+def churn_islands(downhill=False):
+    from repro_torch.core.islands import edge_island, personal_island
+    if downhill:
+        return [personal_island("laptop", latency_ms=120,
+                                capacity_units=2.0),
+                edge_island("edge", privacy=0.9, latency_ms=200,
+                            capacity_units=4.0)]
+    return [personal_island("laptop", latency_ms=120, capacity_units=2.0),
+            personal_island("desktop", latency_ms=150, capacity_units=2.0),
+            personal_island("nas", latency_ms=200, capacity_units=2.0)]
+
+
+def churn_stack(cfg, params, device, islands, cache="paged"):
+    """The reference's churn mesh (``benchmarks/serving.py`` ``churn_ab``)
+    on the port: SHORE islands only, batchers at max_len 2048,
+    ``decode_ticks_per_tick=1``, ``migration_token_budget=256``. Returns
+    (orch, every batcher by island, finiteness flags)."""
+    from repro_torch.core.islands import IslandRegistry
+    from repro_torch.core.lighthouse import Lighthouse
+    from repro_torch.core.mist import MIST
+    from repro_torch.core.tide import TIDE
+    from repro_torch.core.waves import WAVES, Policy
+    from repro_torch.serving.engine import (TickOrchestrator,
+                                            build_island_batchers)
+    reg = IslandRegistry()
+    for isl in islands:
+        reg.register(isl, reg.attestation_token(isl.island_id))
+    mist, tide, lh = MIST(), TIDE(reg), Lighthouse(reg)
+    for i in reg.all():
+        lh.heartbeat(i.island_id)
+    waves = WAVES(mist, tide, lh, Policy())
+    bats = build_island_batchers(cfg, reg, cache=cache, max_len=2048,
+                                 slots_per_capacity_unit=2.0, params=params,
+                                 device=device)
+    flags = []
+    for b in bats.values():
+        _watch_finite(b, flags)
+    orch = TickOrchestrator(waves, reg, bats, decode_ticks_per_tick=1,
+                            migration_token_budget=256, device=device)
+    return orch, dict(bats), flags
+
+
+def _capture_orch(orch, batchers):
+    """Record, per orchestrator request id, the stream a request finished
+    with (its prompt text, the stream seed of its sampling key, the
+    migrations its record counts, and its tokens), and the row behind
+    every token keyed by (rid, token index): the logits, or at temperature
+    > 0 the perturbed scores whose argmax the sampler takes. The rows are
+    those the dispatches computed (a forward pass's logits are kept as it
+    returns): nothing is re-run, so no kernel launch is added. Also the
+    freezes: ``queued`` holds the rids frozen while still queued (such a
+    ticket carries no sampling key), ``seed`` the stream seed of each
+    rid's last ticket that carried one."""
+    streams, rows = {}, {}
+    frozen = {"queued": set(), "seed": {}}
+    for iid, b in batchers.items():
+        def orid(brid, iid=iid):
+            return orch._local_inflight[(iid, brid)][0].rid
+
+        last = {}
+        forward = b.model.forward
+
+        def kept(*args, forward=forward, last=last, **kw):
+            out = forward(*args, **kw)
+            last["logits"] = out[0]
+            return out
+
+        b.model.forward = kept
+
+
+        if getattr(b, "fused", False):
+            def pre(*args, b=b, last=last, orid=orid,
+                    prefill=b._fused_prefill):
+                out = prefill(*args)
+                emit_slot, emit_off, gen_idx = args[6:9]
+                lg = last["logits"]
+                for r, si in enumerate(emit_slot.tolist()):
+                    if si < b.num_slots:
+                        s = b.slots[si]
+                        rows[(orid(s.request_id), len(s.carried)
+                              + int(gen_idx[r]))] = \
+                            lg[r, int(emit_off[r])].float().cpu()
+                return out
+
+            def dec(*args, b=b, orid=orid, decode=b._fused_decode):
+                out = decode(*args)
+                write_slot, gen_idx = args[7], args[8]
+                for si, ws in enumerate(write_slot.tolist()):
+                    if ws == si:
+                        s = b.slots[si]
+                        rows[(orid(s.request_id), len(s.carried)
+                              + int(gen_idx[si]))] = out[0][si].float().cpu()
+                return out
+
+            b._fused_prefill, b._fused_decode = pre, dec
+        else:
+            def note_first(rid, b=b, last=last, orid=orid,
+                           first=b._note_first_token):
+                rows[(orid(rid), 0)] = last["logits"][0, -1].float().cpu()
+                first(rid)
+
+            b._note_first_token = note_first
+
+        _wrap_sample_ready(b, rows, orid)
+
+        def freeze(brid, b=b, orid=orid, freeze_request=b.freeze_request):
+            rid = orid(brid)
+            t = freeze_request(brid)
+            if t is not None and t.phase == "queued":
+                frozen["queued"].add(rid)
+            elif t is not None and t.sample_key is not None:
+                frozen["seed"][rid] = t.sample_key[0]
+            return t
+
+        b.freeze_request = freeze
+
+        def record(si, b=b, orid=orid, finish=b._finish_slot):
+            if hasattr(b, "_materialize_slot"):
+                b._materialize_slot(si)
+            s = b.slots[si]
+            streams[orid(s.request_id)] = {
+                "prompt": s.prompt,
+                "seed": s.sample_key[0] if s.sample_key else None,
+                "migrations": b.request_log.get(s.request_id,
+                                                {}).get("migrations", 0),
+                "tokens": list(s.carried) + list(s.generated)}
+            finish(si)
+
+        b._finish_slot = record
+    return streams, rows, frozen
+
+
+def _checked_pool_io(batchers, log):
+    """Time every export gather (``read_pages``) and import scatter
+    (``write_pages``) of the batchers' pools, with CUDA events on a
+    drained stream (``device_ms``) and on the host's clock (``host_ms``),
+    and read each page an import copied back against its record's bits. Returns a
+    function that undoes the import check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.serving import batcher as bmod
+    from repro_torch.serving.kvpool import PagePool
+    for b in batchers.values():
+        pool = getattr(b, "pool", None)
+        if pool is None:
+            continue
+        for name in ("read_pages", "write_pages"):
+            def timed_io(pids, *rest, fn=getattr(pool, name), name=name):
+                # the stream is drained first, so that the events bracket
+                # this call's work alone (host work between them included)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = fn(pids, *rest)
+                end.record()
+                end.synchronize()
+                log["events"].append((name, len(pids), start, end,
+                                      time.perf_counter() - t0))
+                return out
+
+            setattr(pool, name, timed_io)
+    original = bmod.import_request
+
+    def checked(pool, records, tier):
+        live = {p for p in range(1, pool.num_pages) if pool.refcount[p] > 0}
+        got = original(pool, records, tier)
+        if got is not None:
+            copies = [(pid, rec) for pid, rec in zip(got[0], records)
+                      if pid not in live]
+            back = PagePool.read_pages(pool, [pid for pid, _ in copies])
+            for (pid, rec), data in zip(copies, back):
+                log["pages_checked"] += 1
+                if not all(np.array_equal(a, b)
+                           for a, b in zip(data, rec.data)):
+                    log["pages_unequal"] += 1
+        return got
+
+    bmod.import_request = checked
+
+    def undo():
+        bmod.import_request = original
+
+    return undo
+
+
+def _io_ms(log):
+    import torch
+    torch.cuda.synchronize()
+    out = {}
+    for name, n, start, end, wall in log["events"]:
+        r = out.setdefault(name, {"calls": 0, "pages": 0, "device_ms": 0.0,
+                                  "host_ms": 0.0})
+        r["calls"] += 1
+        r["pages"] += n
+        r["device_ms"] += start.elapsed_time(end)
+        r["host_ms"] += wall * 1e3
+    return out
+
+
+def churn_run(name, cfg, params, device, traffic, events=(), islands=None,
+              cache="paged", request=None, trigger=None):
+    """One run of the churn mesh: the traffic submitted, ``events`` (tick
+    -> fn(orch)) fired after their tick, ``trigger(orch)`` called after
+    every tick until it returns a record of what it did, the launch
+    counters zeroed just before and read just after, and every check that
+    does not need a second run: each request resolved, finite logits and
+    caches, K/V import bits, pool audits, kernel launches. Returns the
+    run's record."""
+    import torch
+
+    from repro_torch.core.waves import Request
+    orch, bats, flags = churn_stack(cfg, params, device,
+                                    islands or churn_islands(), cache)
+    streams, rows, frozen = _capture_orch(orch, bats)
+    log = {"events": [], "pages_checked": 0, "pages_unequal": 0}
+    undo = _checked_pool_io(bats, log)
+    reqs = ([request] if request is not None else
+            [(Request(query=q, priority="primary", sensitivity_override=s),
+              8) for q, s in traffic])
+    rids = [orch.submit(r, max_new_tokens=n) for r, n in reqs]
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    ev, k, fired = dict(events), 0, None
+    try:
+        while orch.busy() and orch.tick_stats["ticks"] < 4000:
+            orch.tick()
+            k += 1
+            if k in ev:
+                ev.pop(k)(orch)
+            if trigger is not None and fired is None:
+                fired = trigger(orch)
+                if fired is not None:
+                    fired["tick"] = k
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    io = _io_ms(log)
+    faults = []
+    if orch.busy():
+        faults.append("did not drain within 4000 ticks")
+    stranded = [r for r in rids if orch.results.get(r) is None]
+    if stranded:
+        faults.append(f"stranded or rejected {stranded}")
+    if not all(bool(f) for f in flags):
+        faults.append("non-finite logits")
+    want = expected_launches(bats.values())
+    if launches != want:
+        faults.append(f"launches {launches}, expected {want}")
+    if trigger is not None and fired is None:
+        faults.append("the trigger never fired")
+    if log["pages_unequal"]:
+        faults.append(f"{log['pages_unequal']} of {log['pages_checked']} "
+                      f"imported pages differ from their records")
+    for iid, b in orch.batchers.items():
+        pool = getattr(b, "pool", None)
+        if pool is not None and not (pool.audit() and pool.in_use() == 0):
+            faults.append(f"pool of {iid} holds {pool.in_use()} pages")
+    mism = sum(b.pool.stats["import_tier_mismatch"] for b in bats.values()
+               if hasattr(b, "pool"))
+    if mism:
+        faults.append(f"{mism} cross-tier imports")
+    page_bytes = 0
+    b0 = next(iter(bats.values()))
+    if hasattr(b0, "pool"):
+        page_bytes = sum(t[0].numel() * t.element_size()
+                         for layer in b0.pool.pages for t in layer.values())
+    mig = {k: sum(b.migration_stats[k] for b in bats.values())
+           for k in ("exports", "imports", "imported_pages",
+                     "import_attach_hits", "recomputes")}
+    ts = orch.tick_stats
+    rec = {"phase": name, "model": cfg.name, "cache": cache,
+           "requests": len(rids), "ticks": ts["ticks"],
+           "events": sorted(dict(events)), "wall_s": wall,
+           "work_clock": sum(b.work_clock for b in bats.values()),
+           "migrations_started": ts["migrations_started"],
+           "migrations": ts["migrations"], "recomputes": ts["recomputes"],
+           "failovers": ts["failovers"], "restarts": ts["restarts"],
+           "migration_returns": ts["migration_returns"],
+           "batcher_migration_stats": mig,
+           "pages_shipped": mig["imported_pages"],
+           "largest_import_pages": max(
+               [n for nm, n, *_ in log["events"] if nm == "write_pages"],
+               default=0),
+           "trigger": fired,
+           "page_bytes": page_bytes,
+           "bytes_shipped": mig["imported_pages"] * page_bytes,
+           "imported_pages_checked": log["pages_checked"],
+           "export_gathers": io.get("read_pages"),
+           "import_scatters": io.get("write_pages"),
+           "import_tier_mismatch": mism,
+           "launches": {k: v for k, v in launches.items() if v},
+           "faults": faults}
+    return {"rec": rec, "rids": rids, "streams": streams, "rows": rows,
+            "frozen": frozen, "orch": orch, "bats": bats, "faults": faults}
+
+
+def _hold_runs(base, other, tol, keyed=False):
+    """Hold ``other``'s streams to ``base``'s under the near-tie rule:
+    those whose final stream ran on the same prompt text in both runs (a
+    move to an island that sanitizes differently restarts the request on
+    another text) and, when sampling (``keyed``), drew from the same
+    stream seed. When sampling, a ticket frozen while still queued carries
+    no key, so the destination issues one: every other stream must be
+    compared, and every stream that left an island with a key must finish
+    with that key's seed."""
+    bs, os_ = base["streams"], other["streams"]
+    rids = [r for r in bs if r in os_
+            and bs[r]["prompt"] == os_[r]["prompt"]
+            and (not keyed or bs[r]["seed"] == os_[r]["seed"])]
+    faults = []
+    if keyed:
+        frozen = other["frozen"]
+        lost = sorted(r for r, seed in frozen["seed"].items()
+                      if os_.get(r, {}).get("seed") != seed)
+        if lost:
+            faults.append(f"requests {lost} thawed without their key")
+        skipped = sorted(set(os_) - set(rids) - frozen["queued"])
+        if skipped:
+            faults.append(f"requests {skipped} were not frozen while "
+                          f"queued, yet ran on another prompt or seed")
+    want = {r: bs[r]["tokens"] for r in rids}
+    got = {r: os_[r]["tokens"] for r in rids}
+    held, st = hold_streams(want, base["rows"], got, other["rows"], tol,
+                            what=("churn", "undisturbed"))
+    return faults + held, {
+        "streams": len(os_), "streams_compared": len(rids),
+        "migrated_compared": sum(1 for r in rids if os_[r]["migrations"]),
+        "streams_identical": sum(want[r] == got[r] for r in rids),
+        "diverged_at_near_tie": st["diverged"],
+        "max_row_gap": max(st["gaps"]), "row_tol": tol}
+
+
+# the churn run's events: the reference's churn_ab drains the laptop after
+# tick 2 and fails the desktop after tick 5. With the long notes in the
+# traffic, the desktop's slots hold notes in prefill for dozens of ticks,
+# so every request drained off the laptop is still queued there when the
+# desktop fails, and no page would ever be imported: the port fails the
+# nas, which holds notes in prefill too, so that the run takes both a
+# failover and migrations that ship pages (the schedule does not depend on
+# the weights or widths)
+CHURN_EVENTS = {2: ("drain_island", "laptop"), 5: ("fail_island", "nas")}
+
+
+def churn_phase(cfg, params, device):
+    """The reference's ``churn_ab`` on the port at full width: the churn
+    traffic once undisturbed and once with ``CHURN_EVENTS``, fused chunked
+    paged batchers (K2 + K1); then one note's move on its own."""
+    traffic = churn_traffic()
+    base = churn_run("churn (undisturbed)", cfg, params, device, traffic)
+    churn = churn_run("churn", cfg, params, device, traffic,
+                      events={k: (lambda o, f=f, i=i: getattr(o, f)(i))
+                              for k, (f, i) in CHURN_EVENTS.items()})
+    faults = base["faults"] + churn["faults"]
+    held, st = _hold_runs(base, churn, CHURN_LOGIT_TOL)
+    faults += held
+    rec = churn["rec"]
+    if st["streams_compared"] != len(churn["rids"]):
+        faults.append(f"{st['streams_compared']} of {len(churn['rids'])} "
+                      f"streams comparable")
+    if rec["migrations"] < 1 or rec["pages_shipped"] < 1:
+        faults.append("no migration shipped pages")
+    if rec["failovers"] < 1:
+        faults.append("no failover")
+    w0, w1 = base["rec"]["work_clock"], rec["work_clock"]
+    if not w0 <= w1 <= 3 * w0:
+        faults.append(f"churn work clock {w1} outside [1, 3] x {w0}")
+    base["rec"].pop("faults")
+    rec.pop("faults")
+    emit(base["rec"])
+    emit({**rec, **st, "events": {k: list(v) for k, v in
+                                  CHURN_EVENTS.items()},
+          "work_clock_over_undisturbed": w1 / w0})
     if faults:
-        raise AssertionError(f"{name}: " + "; ".join(faults))
+        raise AssertionError("churn: " + "; ".join(faults))
+    note_drain(cfg, params, device, traffic, base)
+    note_move(cfg, params, device)
+
+
+def _drain_decoding_note(note):
+    """A churn trigger: once some island holds ``note`` in decode, drain
+    that island, so that the note moves with its pages through the
+    orchestrator (routing, the migration token budget, the tier rule)."""
+    def trigger(orch):
+        for iid, b in orch.batchers.items():
+            for s in b.slots:
+                if s.active and s.prompt == note and s.pos > s.prompt_len:
+                    orch.drain_island(iid)
+                    return {"island": iid, "kv_tokens": s.pos,
+                            "pages": len(s.pages)}
+        return None
+
+    return trigger
+
+
+def note_drain(cfg, params, device, traffic, base):
+    """The churn traffic with one event: the island that holds the longest
+    note is drained once the note is in decode. The note must arrive in
+    one import of all its pages, and every stream must hold to the
+    undisturbed run's."""
+    note = max((q for q, _p in long_prompts()), key=len)
+    run = churn_run("churn note drain", cfg, params, device, traffic,
+                    trigger=_drain_decoding_note(note))
+    faults = run["faults"]
+    held, st = _hold_runs(base, run, CHURN_LOGIT_TOL)
+    faults += held
+    rec = run["rec"]
+    if st["streams_compared"] != len(run["rids"]):
+        faults.append(f"{st['streams_compared']} of {len(run['rids'])} "
+                      f"streams comparable")
+    fired = rec["trigger"] or {}
+    if rec["largest_import_pages"] < fired.get("pages", 1):
+        faults.append(f"no import shipped the drained note's "
+                      f"{fired.get('pages')} pages: the largest shipped "
+                      f"{rec['largest_import_pages']}")
+    rec.pop("faults")
+    emit({**rec, **st})
+    if faults:
+        raise AssertionError("churn note drain: " + "; ".join(faults))
+
+
+def note_move(cfg, params, device, moves=2):
+    """The longest note (tier 1) frozen after its prefill and its first
+    decode step and imported into a fresh fused batcher, ``moves`` times
+    over (each move's ticket is dropped before the next, as the
+    orchestrator drops one after its import, so a later move reuses the
+    host allocations of an earlier one): the pages and bytes a move
+    ships, each move's export gather and import scatter times, every
+    imported page read back against its record, and K2/K1 once per layer
+    of every dispatch of all the batchers."""
+    import torch
+
+    from repro_torch.serving.batcher import PagedContinuousBatcher
+    note = max((q for q, _p in long_prompts()), key=len)
+    kw = dict(params=params, num_slots=1, max_len=2048, device=device)
+    bats, rows, faults = [], [], []
+    torch.cuda.synchronize()
+    zero_launches()
+    for _ in range(moves):
+        a, b = (PagedContinuousBatcher(cfg, **kw) for _ in range(2))
+        bats += [a, b]
+        log = {"events": [], "pages_checked": 0, "pages_unequal": 0}
+        rid = a.submit(note, max_new_tokens=8, trust_tier=1)
+        while not (a.slots[0].active
+                   and a.slots[0].pos > a.slots[0].prompt_len):
+            a.tick()
+        undo = _checked_pool_io({"a": a, "b": b}, log)
+        try:
+            t = a.freeze_request(rid)
+            nr = b.submit_ticket(t)
+            done = b.run_until_done()
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        io = _io_ms(log)
+        if done.get(nr) is None or b.migration_stats["imports"] != 1:
+            faults.append(f"the note did not thaw by import: "
+                          f"{b.migration_stats}")
+        if log["pages_unequal"] or log["pages_checked"] != len(t.pages):
+            faults.append(f"{log['pages_unequal']} of "
+                          f"{log['pages_checked']} imported pages differ "
+                          f"from their records")
+        rows.append({"kv_tokens": t.kv_tokens, "pages": len(t.pages),
+                     "bytes_moved": sum(d.nbytes for r in t.pages
+                                        for d in r.data),
+                     "export_gather": io.get("read_pages"),
+                     "import_scatter": io.get("write_pages"),
+                     "imported_pages_checked": log["pages_checked"]})
+        del t
+    launches = read_launches()
+    want = expected_launches(bats)
+    if launches != want:
+        faults.append(f"launches {launches}, expected {want}")
+    for x in bats:
+        if not (x.pool.audit() and x.pool.in_use() == 0):
+            faults.append("a pool kept pages")
+    emit({"phase": "churn note move", "moves": rows,
+          "launches": {k: v for k, v in launches.items() if v}})
+    if faults:
+        raise AssertionError("churn note move: " + "; ".join(faults))
+
+
+def churn_downhill_phase(cfg, params, device):
+    """``churn_ab``'s downhill leg: tier-1 KV (sensitivity 0.85) drained
+    off a personal island toward a tier-2 edge island must arrive with no
+    page import and at least one recompute."""
+    from repro_torch.core.waves import Request
+    req = (Request(query="summarize my medical history",
+                   priority="secondary", sensitivity_override=0.85,
+                   prev_privacy=0.9), 8)
+    kw = dict(islands=churn_islands(downhill=True), request=req)
+    base = churn_run("churn downhill (undisturbed)", cfg, params, device,
+                     None, **kw)
+    run = churn_run("churn downhill", cfg, params, device, None,
+                    events={2: lambda o: o.drain_island("laptop")}, **kw)
+    faults = base["faults"] + run["faults"]
+    held, st = _hold_runs(base, run, CHURN_LOGIT_TOL)
+    faults += held
+    edge = run["bats"]["edge"]
+    got = {"edge_imports": edge.migration_stats["imports"],
+           "edge_imported_pages": edge.pool.stats["imported_pages"],
+           "edge_recomputes": edge.migration_stats["recomputes"]}
+    if run["rec"]["migrations_started"] < 1 or got["edge_imports"] \
+            or got["edge_imported_pages"] or got["edge_recomputes"] < 1:
+        faults.append(f"tier rule not exercised or broken: {got}")
+    run["rec"].pop("faults")
+    emit({**run["rec"], **st, **got})
+    if faults:
+        raise AssertionError("churn downhill: " + "; ".join(faults))
+
+
+def churn_stacked_phase(cfg, params, device):
+    """The same drain (laptop, after tick 2) on stacked batchers: the
+    frozen requests' dense rows thaw on the other islands (K4 prefill, K3
+    decode)."""
+    traffic = churn_traffic()
+    base = churn_run("churn stacked (undisturbed)", cfg, params, device,
+                     traffic, cache="stacked")
+    run = churn_run("churn stacked", cfg, params, device, traffic,
+                    events={2: lambda o: o.drain_island("laptop")},
+                    cache="stacked")
+    faults = base["faults"] + run["faults"]
+    held, st = _hold_runs(base, run, CHURN_LOGIT_TOL)
+    faults += held
+    if run["rec"]["migrations"] < 1:
+        faults.append("no dense row was imported")
+    run["rec"].pop("faults")
+    emit({**run["rec"], **st})
+    if faults:
+        raise AssertionError("churn stacked: " + "; ".join(faults))
+
+
+def _decode_rows(b, logits, ready):
+    """The rows, on the host, whose argmax gives each ready slot of ``b``
+    its next token: the logits, or at temperature > 0 the perturbed scores
+    of each slot's sampling key."""
+    import torch
+
+    from repro_torch.serving import sampling
+    got = logits.index_select(0, torch.tensor(ready, device=logits.device))
+    if b.temperature > 0.0:
+        keys = torch.tensor([b.slots[si].sample_key for si in ready],
+                            dtype=torch.int64, device=logits.device)
+        got = sampling.perturbed_scores(got, keys, b.temperature)
+    return got.float().cpu()
+
+
+def _wrap_sample_ready(b, store, rid_of):
+    """Record the row behind every token ``b._sample_ready`` picks, keyed
+    by (``rid_of(batcher request id)``, token index), and hold each pick
+    to its row's argmax: a sampler that ignored the temperature or a
+    slot's key would pick another token than the perturbed scores'."""
+    sample_ready = b._sample_ready
+
+    def sampled(logits, ready):
+        got = _decode_rows(b, logits, ready)
+        keys = [(rid_of(b.slots[si].request_id),
+                 len(b.slots[si].carried) + len(b.slots[si].generated))
+                for si in ready]
+        out = sample_ready(logits, ready)
+        for n, si in enumerate(ready):
+            store[keys[n]] = got[n]
+            if out[si] != int(got[n].argmax()):
+                raise AssertionError(
+                    f"slot {si} sampled {out[si]}, the argmax of its row "
+                    f"is {int(got[n].argmax())} (temperature "
+                    f"{b.temperature})")
+        return out
+
+    b._sample_ready = sampled
+
+
+def _capture_sampled(b, store):
+    """``_capture_fused`` for the first tokens (greedy whatever the
+    temperature), and the perturbed scores behind every sampled token."""
+    _capture_fused(b, store)
+    _wrap_sample_ready(b, store, lambda rid: rid)
+
+
+def stochastic_phase(cfg, params, device, runs_on):
+    """The quickstart traffic through the fused paged batchers at
+    ``temperature`` 0.8, ``seed`` 7: two runs give identical streams; a
+    run with ``drain_island("laptop")`` after tick 2 gives the same
+    streams under the near-tie rule (held on the perturbed scores); and
+    the card and CPU replay of the four queries agree under it."""
+    import torch
+    faults, runs = [], []
+    for drain in (False, False, True):
+        orch, bats, rids, flags = serving_stack(
+            cfg, params, device, 2048, temperature=TEMPERATURE,
+            seed=SAMPLE_SEED)
+        streams, rows, frozen = _capture_orch(orch, bats)
+        torch.cuda.synchronize()
+        zero_launches()
+        k = 0
+        while orch.busy() and orch.tick_stats["ticks"] < 4000:
+            orch.tick()
+            k += 1
+            if drain and k == 2:
+                orch.drain_island("laptop")
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = expected_launches(bats.values())
+        if launches != want:
+            faults.append(f"run {len(runs)}: launches {launches}, expected "
+                          f"{want}")
+        if orch.busy() or any(orch.results.get(r) is None for r in rids):
+            faults.append(f"run {len(runs)}: unresolved requests")
+        if not all(bool(f) for f in flags):
+            faults.append(f"run {len(runs)}: non-finite logits")
+        runs.append({"streams": streams, "rows": rows, "frozen": frozen,
+                     "orch": orch, "launches": launches})
+    if runs[0]["streams"] != runs[1]["streams"]:
+        faults.append("two runs with one seed gave different streams")
+    held, st = _hold_runs(runs[0], runs[2], REPLAY_LOGIT_TOL / TEMPERATURE,
+                          keyed=True)
+    faults += held
+    ts = runs[2]["orch"].tick_stats
+    if ts["migrations_started"] < 1 or st["migrated_compared"] < 1:
+        faults.append(f"the drain moved no stream that kept its key: "
+                      f"{st}")
+    st["frozen_while_queued"] = len(runs[2]["frozen"]["queued"])
+    emit({"phase": "stochastic", "model": cfg.name,
+          "temperature": TEMPERATURE, "seed": SAMPLE_SEED,
+          "streams": len(runs[0]["streams"]),
+          "repeat_identical": runs[0]["streams"] == runs[1]["streams"],
+          "launches": {k: v for k, v in runs[0]["launches"].items() if v},
+          "drain": {k: ts[k] for k in ("migrations_started", "migrations",
+                                       "recomputes", "restarts",
+                                       "migration_returns")},
+          **st})
+    if faults:
+        raise AssertionError("stochastic: " + "; ".join(faults))
+    from repro_torch.serving.batcher import PagedContinuousBatcher
+    replay("replay stochastic", cfg, runs_on,
+           lambda dev, p: PagedContinuousBatcher(
+               cfg, params=p, num_slots=4, max_len=256, device=dev,
+               temperature=TEMPERATURE, seed=SAMPLE_SEED),
+           _capture_sampled, tol=REPLAY_LOGIT_TOL / TEMPERATURE,
+           first_tol=REPLAY_LOGIT_TOL)
 
 
 # -------------------------------------------------------------------- main
@@ -1498,6 +2209,10 @@ def main() -> int:
           lambda dev, p: ContinuousBatcher(
               cfg, params=p, num_slots=4, max_len=256, device=dev),
           _capture_stacked)
+    timed("churn", churn_phase, cfg, params, gpu)
+    timed("churn downhill", churn_downhill_phase, cfg, params, gpu)
+    timed("churn stacked", churn_stacked_phase, cfg, params, gpu)
+    timed("stochastic", stochastic_phase, cfg, params, gpu, runs_on)
     del runs_on, params
     gc.collect()
     torch.cuda.empty_cache()

@@ -3,7 +3,9 @@
 The port carries the serving paths of attention-only decoders, and of
 the Mamba-2 (mamba2-370m) and RG-LRU (recurrentgemma-9b, with windowed
 local attention) families on the stacked batcher and the per-request
-path, end to end on an NVIDIA H100, with greedy sampling:
+path, end to end on an NVIDIA H100, with greedy or stochastic sampling
+(``serving.sampling``: temperature, top-k, top-p, counter-based draws
+that are the same on the card and the CPU) and live migration:
 
 * ``serving.engine.TickOrchestrator`` routes the pending pool once per
   tick (``core.routing``) into per-island batchers
@@ -11,7 +13,12 @@ path, end to end on an NVIDIA H100, with greedy sampling:
   trust-tiered paged KV pool (``serving.kvpool``; chunked prefill with the
   fused two-dispatch tick or unfused, or full-prompt prefill; preemption
   with resume tickets when the pool runs out) or the stacked
-  ``ContinuousBatcher`` over dense per-slot caches;
+  ``ContinuousBatcher`` over dense per-slot caches; both freeze a request
+  into a migration ticket (``freeze_request``) and thaw one
+  (``submit_ticket``) by page or dense-row import or by recompute, and
+  ``TickOrchestrator.drain_island``/``fail_island`` move requests off an
+  island (``kvpool.export_request``/``import_request`` hold the trust
+  rules);
 * ``serving.engine.InferenceEngine`` routes one request at a time into a
   ``LocalModelServer`` (``python -m repro_torch.launch.serve``);
 * ``models`` runs the decoders, each layer's mixer by its block type
@@ -29,7 +36,12 @@ recurrentgemma-9b``; add ``--batched`` for the stacked batcher) and their
 parity tests with ``pytest tests/test_torch_ssd.py
 tests/test_torch_ssm_model.py tests/test_torch_ssm_serving.py`` and
 ``pytest tests/test_torch_rglru_*.py``; on the card, ``python3
-chip_smoke.py`` serves both at full width.
+chip_smoke.py`` serves both at full width. The sampler and migration
+hold to the reference on the CPU with ``pytest
+tests/test_torch_sampling.py tests/test_torch_migration.py``;
+``chip_smoke.py`` also drives island churn (a drain and a failure, with
+page imports, on paged and stacked batchers) and stochastic serving on
+the card.
 
 Entry points (``TickOrchestrator``, ``build_island_batchers``, both
 batchers, ``LocalModelServer``, ``Model.init``) run on the card unless the
@@ -47,7 +59,11 @@ change history):
   ``core/mist.py``, ``core/tide.py``, ``core/lighthouse.py`` and
   ``core/waves.py``;
 * ``serving/degrade.py`` (``waves.py`` needs ``RejectReason``);
-* ``serving/migration.py`` (the preemption resume ticket);
+* ``serving/migration.py`` (the migration ticket, also the preemption
+  resume ticket) and ``serving/session.py`` (conversation sessions over
+  either serving frontend);
+* ``core/carbon.py`` (the carbon-intensity agent) and ``core/audit.py``
+  (the hash-chained routing log);
 * ``core/tracegen.py`` and ``core/workload.py`` (the serve launcher's
   workload);
 * ``obs/metrics.py`` (``aggregate_stats`` needs ``latency_summary``).

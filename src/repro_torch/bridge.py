@@ -18,11 +18,24 @@ so that tests can compare caches. Layers outside the repeating cycles
 (recurrentgemma-9b's ``tail_0``/``tail_1``) take their places in depth
 order.
 
+``ticket_to_reference`` and ``page_data_from_reference`` move the KV
+payload of a migration ticket across for the tests. The port carries a
+page record's data as one raw-bits array per cache leaf (each layer's
+``k_pages`` then ``v_pages``, in depth order, bf16 as int16) and a dense
+row the same way (each layer's ``{"k", "v"}`` or ``{"conv", "h"}``); the
+reference carries them in ``jax.tree.leaves`` order of its pool or dense
+cache (sorted keys, the repeating layers stacked along a leading dim:
+(G, page_size, Hkv, D) for a page leaf, (G, 1, max_len, ...) for a dense
+row), with ml_dtypes bf16 host arrays. The ``like`` trees give the
+reference's keys, shapes and dtypes.
+
 numpy has no bfloat16: a bf16 leaf arrives as numpy's ml_dtypes
 ``bfloat16`` (or as ``uint16`` raw bits) and travels bit-exactly as
 16-bit integers -> ``torch.Tensor.view(torch.bfloat16)``.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -145,3 +158,86 @@ def dense_cache_to_reference(cfg, cache, like):
     numpy cache tree."""
     return to_reference(cfg, {"layers": [{"mixer": c} for c in cache]},
                         like)
+
+
+# ------------------------------------------------------- migration payloads
+
+_INT_BITS = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in ``jax.tree.leaves`` order (sorted
+    keys, depth first)."""
+    if not isinstance(tree, dict):
+        return [tree]
+    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+
+
+def _unflatten(like, leaves):
+    it = iter(leaves)
+
+    def build(node):
+        if not isinstance(node, dict):
+            return next(it)
+        return {k: build(node[k]) for k in sorted(node)}
+
+    return build(like)
+
+
+def _payload_to_reference(cfg, arrays, like):
+    """Per-leaf raw-bits arrays in the port's order -> the reference's
+    leaf list for a ``like`` tree of one page or one dense row."""
+    names = [sorted(_layer_of(like, key, g)) for key, g in
+             _layer_order(cfg, like)]
+    layers, i = [], 0
+    for ns in names:
+        layers.append({n: np.asarray(arrays[i + j])
+                       for j, n in enumerate(ns)})
+        i += len(ns)
+    if i != len(arrays):
+        raise ValueError(f"{len(arrays)} leaves for {i} in the reference")
+    out, stacked = {}, {}
+    for (key, g), layer in zip(_layer_order(cfg, like), layers):
+        if g is None:
+            out[key] = {"mixer": layer}
+        else:
+            stacked.setdefault(key, []).append({"mixer": layer})
+    if stacked:
+        out["blocks"] = {k: _stack(v) for k, v in stacked.items()}
+    return [np.ascontiguousarray(a).view(ref.dtype).reshape(ref.shape)
+            for a, ref in zip(tree_leaves(out), tree_leaves(like))]
+
+
+def _layer_of(like, key, g):
+    return (like[key] if g is None else like["blocks"][key])["mixer"]
+
+
+def page_data_from_reference(cfg, leaves, like) -> list:
+    """A reference page record's data (its pool's leaf list, (G, ps, Hkv,
+    D) bf16) -> the port's raw-bits list (each layer's ``k_pages`` then
+    ``v_pages``, (ps, Hkv, D) int16). ``like`` is the reference pool tree
+    of one page."""
+    tree = _unflatten(like, leaves)
+    out = []
+    for key, g in _layer_order(cfg, like):
+        mixer = _layer_of(tree, key, g)
+        for n in sorted(mixer):
+            a = np.asarray(mixer[n] if g is None else mixer[n][g])
+            out.append(np.ascontiguousarray(a).view(
+                _INT_BITS[a.dtype.itemsize]))
+    return out
+
+
+def ticket_to_reference(cfg, ticket, page_like=None, dense_like=None):
+    """A port ``MigrationTicket`` with its payload in the reference's form:
+    every page record's data, and the dense row, as the reference's leaf
+    lists. ``page_like`` is the reference pool tree of one page
+    (``p[:, 0]`` of each (G, P, ...) leaf); ``dense_like`` the reference's
+    one-slot dense cache tree. The other fields are unchanged."""
+    pages = [dataclasses.replace(
+        r, data=(None if r.data is None
+                 else _payload_to_reference(cfg, r.data, page_like)))
+        for r in ticket.pages]
+    dense = (None if ticket.dense is None
+             else _payload_to_reference(cfg, ticket.dense, dense_like))
+    return dataclasses.replace(ticket, pages=pages, dense=dense)

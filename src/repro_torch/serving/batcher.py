@@ -1,7 +1,7 @@
 """Continuous batching schedulers for a SHORE island.
 
-Port of ``repro/serving/batcher.py``, greedy sampling. Two cache managers
-behind one interface (``make_batcher(cfg, cache=...)``):
+Port of ``repro/serving/batcher.py``. Two cache managers behind one
+interface (``make_batcher(cfg, cache=...)``):
 
 * ``ContinuousBatcher`` (``cache="stacked"``): fixed decode slots over one
   dense KV cache per layer with a leading (num_slots,) axis. Admission
@@ -28,7 +28,8 @@ The chunked path runs **fused** by default: each tick is a host-side PLAN
 and at most two device dispatches: one batched chunk-prefill over every
 planned run across requests, one paged decode whose input tokens resolve
 on the device (``_dev_last`` / ``_dev_gen`` hold the greedy sampling
-state). Dispatch shapes round up to power-of-two buckets persisted across
+state; at ``temperature > 0`` the decode logits come back and each ready
+slot samples on the host side of the tick, as the reference does). Dispatch shapes round up to power-of-two buckets persisted across
 ticks (``_bucket``); padding is exact-zero masked. Host arrays cross to
 the device through pinned buffers without a host sync, and token values
 cross back only when a request finishes or is preempted
@@ -37,15 +38,33 @@ runs tick t. ``fused=False`` dispatches every chunk run on its own and
 samples each decode step on the host: the launch-count baseline, with the
 same token streams.
 
+Sampling is greedy at ``temperature`` 0 and stochastic above it
+(``serving.sampling``): each slot carries its own key (``sample_key``,
+``(stream seed, draws so far)``), set at admission from the batcher's seed
+and an admission counter and advanced once per draw, and one dispatch
+samples every ready row. A request's first token is the argmax of its
+prompt's last logits whatever the temperature, as in the reference
+(ROADMAP R7).
+
 When every decode-ready slot stalls on an exhausted pool, the
 least-invested slot is **preempted**: its pages return to the pool and it
 requeues at the head with a resume ticket (``serving.migration``) that
 keeps its generated tokens, so re-admission recomputes its context and
 its stream continues where it stopped.
 
-Not ported yet: stochastic sampling, migration (freeze/thaw and page
-import), SLO expiry, tier quotas, class-aware scheduling, constant-shape
-dispatch, straggler injection, the tracer and the profiler.
+Both managers support **live migration** (freeze/thaw):
+``freeze_request`` evacuates a request (still queued, mid-prefill or
+mid-decode) into a ``MigrationTicket`` with its KV pages or dense cache
+row, its generation progress and its sampling key, and ``submit_ticket``
+thaws a ticket through the normal admission queue on the destination: a
+page import (prefix-keyed pages re-attach to same-tier chain-hash matches,
+the rest deep-copy) or a dense-row import when the payload is legal and
+fits, recompute of the context otherwise. Either way the resumed stream is
+the one the source would have produced.
+
+Not ported yet: SLO expiry, tier quotas, class-aware scheduling,
+constant-shape dispatch, straggler injection, the tracer and the
+profiler (ROADMAP Queue 1, P9-P10).
 """
 from __future__ import annotations
 
@@ -64,9 +83,11 @@ from repro_torch.models.steps import (make_chunked_prefill_step,
                                       make_paged_serve_step,
                                       make_prefill_step, make_serve_step)
 from repro_torch.serving.kvpool import (SCRATCH_PAGE, PagePool,
-                                        prefix_chunk_hashes,
+                                        export_request, import_request,
+                                        prefix_chunk_hashes, raw_bits,
                                         resolve_chunk_page)
 from repro_torch.serving.migration import MigrationTicket, ticket_fits
+from repro_torch.serving.sampling import sample, stream_key
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -90,9 +111,12 @@ class SlotState:
     # into prompt_ids as recompute context — the full output stream is
     # carried + generated
     carried: list = field(default_factory=list)
+    # per-request sampling key (stream seed, draws so far)
+    sample_key: Optional[tuple] = None
     # trailing generated tokens whose VALUES still live only on the device
     # (the _dev_gen buffer); the full stream is carried + generated +
-    # gen_dev device-resident tokens, materialized at finish
+    # gen_dev device-resident tokens, materialized at finish, freeze and
+    # preemption
     gen_dev: int = 0
 
 
@@ -101,9 +125,6 @@ class _BatcherBase:
 
     def __init__(self, cfg, params=None, num_slots=4, max_len=256,
                  seed=0, dtype="float32", temperature=0.0, device=None):
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "stochastic sampling is not ported yet (greedy only)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = get_model(cfg)
@@ -112,14 +133,20 @@ class _BatcherBase:
                                             self.device))
         self.num_slots = num_slots
         self.max_len = max_len
+        self.temperature = temperature
         self.tok = ByteTokenizer(cfg.vocab_size)
+        # sampling keys: admission n of this batcher draws from stream
+        # stream_key(seed + 1, n)
+        self._key_seed = seed + 1
+        self._keys_issued = 0
         self.slots = [SlotState() for _ in range(num_slots)]
         self.queue: list = []
         # rid -> generated text; None marks an executor-level rejection
         # (request could never fit the page pool)
         self.finished: dict[int, Optional[str]] = {}
         self._next_id = 0
-        # rid -> resume ticket of a preempted request still in the queue
+        # rid -> MigrationTicket of a queued thaw or a preempted request
+        # (entries ride the normal queue; admission resolves them)
         self._tickets: dict[int, MigrationTicket] = {}
         self.migration_stats = {"exports": 0, "imports": 0,
                                 "imported_pages": 0, "import_attach_hits": 0,
@@ -163,6 +190,57 @@ class _BatcherBase:
         self.request_log[rid] = rec
         return rid
 
+    def submit_ticket(self, ticket: MigrationTicket) -> int:
+        """Enqueue a frozen in-flight request for thawing here. The ticket
+        rides the normal admission queue (same ordering, same
+        backpressure); admission either imports its KV payload or
+        recomputes the context from tokens. Returns this batcher's rid."""
+        rid = self._next_id
+        self._next_id += 1
+        self._tickets[rid] = ticket
+        self.queue.append((rid, ticket.prompt, ticket.max_new, ticket.tier))
+        self.stats["queued_peak"] = max(self.stats["queued_peak"],
+                                        len(self.queue))
+        enc_len = getattr(self, "_enc_len", None)
+        if enc_len is not None:
+            # the thaw prefills the whole resumed context, not just the
+            # prompt: report the real backlog
+            enc_len[rid] = len(ticket.context_ids())
+        rec = dict(ticket.log) if ticket.log else {}
+        rec.setdefault("tokens_skipped", 0)
+        # clock-relative fields re-stamp on this batcher's clocks;
+        # cumulative fields (tokens_skipped, migrations, a recorded TTFT)
+        # carry
+        rec["submit_tick"] = self.stats["ticks"]
+        rec["submit_work"] = self.work_clock
+        rec["migrations"] = rec.get("migrations", 0) + 1
+        self.request_log[rid] = rec
+        return rid
+
+    def freeze_request(self, rid: int) -> Optional[MigrationTicket]:
+        """Evacuate a request for live migration: a still-queued request
+        lifts out with no KV, an in-slot one (mid-prefill or mid-decode)
+        freezes through the cache manager's ``_freeze_slot``. None when the
+        rid is unknown or already finished."""
+        for i, (qrid, prompt, max_new, tier) in enumerate(self.queue):
+            if qrid != rid:
+                continue
+            self.queue.pop(i)
+            getattr(self, "_enc_len", {}).pop(rid, None)
+            t = self._tickets.pop(rid, None)
+            if t is not None:
+                return t            # still a ticket: forward untouched
+            return MigrationTicket(
+                rid=rid, prompt=prompt,
+                prompt_ids=self._encode(prompt, max_new), generated=[],
+                max_new=max_new, tier=tier, phase="queued",
+                log=self.request_log.get(rid))
+        for si, s in enumerate(self.slots):
+            if s.active and s.request_id == rid:
+                self.migration_stats["exports"] += 1
+                return self._freeze_slot(si)
+        return None
+
     def _resume_fields(self, s: SlotState) -> dict:
         """Resume-ticket fields of slot ``s``: un-fold the recompute
         context back into (original prompt, full output stream) so a
@@ -174,6 +252,7 @@ class _BatcherBase:
         return dict(rid=s.request_id, prompt=s.prompt, prompt_ids=orig,
                     generated=list(s.carried) + list(s.generated),
                     max_new=s.max_new, tier=s.tier,
+                    sample_key=s.sample_key,
                     log=self.request_log.get(s.request_id))
 
     # ------------------------------------------------------ lifecycle notes
@@ -236,6 +315,30 @@ class _BatcherBase:
     def _encode(self, prompt, max_new):
         return self.tok.encode(prompt)[: self.max_len - max_new - 1]
 
+    def _next_sample_key(self):
+        key = stream_key(self._key_seed, self._keys_issued)
+        self._keys_issued += 1
+        return key
+
+    def _sample_ready(self, logits, ready):
+        """Next token per decode-ready slot from (num_slots, V) logits.
+        Sampling state is PER SLOT (``SlotState.sample_key``), so a frozen
+        request's stream continues wherever it thaws; greedy (temperature
+        0) never consumes a key. One dispatch samples every ready row, and
+        the tokens cross to the host once."""
+        if self.temperature <= 0.0:
+            nxt = sample(logits).cpu().numpy()
+            return {si: int(nxt[si]) for si in ready}
+        keys = np.zeros((len(ready), 2), np.int64)
+        for n, si in enumerate(ready):
+            s = self.slots[si]
+            keys[n] = s.sample_key
+            s.sample_key = (s.sample_key[0], s.sample_key[1] + 1)
+        rows = self._to_device(np.asarray(ready, np.int64))
+        toks = sample(logits.index_select(0, rows), self._to_device(keys),
+                      self.temperature).cpu().numpy()
+        return {si: int(toks[n]) for n, si in enumerate(ready)}
+
     def _to_device(self, arr):
         """One host array onto the batcher's device. On the card the copy
         goes through a pinned staging buffer with non_blocking=True, so the
@@ -289,21 +392,94 @@ class ContinuousBatcher(_BatcherBase):
         self._decode_all = make_serve_step(self.model)
 
     def _admit(self):
+        """Admit queued requests into free slots: one full-prompt prefill
+        each. A migration ticket imports its dense row (``_thaw_dense``)
+        when it fits, else recomputes its context (prompt + every
+        generated token but the last) and continues with its pending
+        token."""
         for si, s in enumerate(self.slots):
             if s.active or not self.queue:
                 continue
             rid, prompt, max_new, tier = self.queue.pop(0)
-            ids = self._encode(prompt, max_new)
+            ticket = self._tickets.pop(rid, None)
+            if ticket is not None and self._thaw_dense(si, rid, ticket):
+                continue
+            if ticket is not None:
+                ids = ticket.context_ids()
+                carried, pending = ticket.progress()
+            else:
+                ids = self._encode(prompt, max_new)
+                carried, pending = [], []
+            if len(ids) + max_new - len(carried) - len(pending) \
+                    >= self.max_len:
+                self.finished[rid] = None       # resumed context outgrew us
+                self._note_terminal(rid, "rejected")
+                continue
             first, cache = self._prefill_ids(ids)
             _write_slot(self._cache, cache, si)
+            sk = (ticket.sample_key if ticket is not None
+                  and ticket.sample_key is not None
+                  else self._next_sample_key())
             self.slots[si] = SlotState(active=True, request_id=rid,
                                        pos=len(ids), prompt_len=len(ids),
-                                       generated=[first], max_new=max_new,
+                                       generated=pending or [first],
+                                       carried=carried, max_new=max_new,
                                        tier=tier, prompt=prompt,
-                                       prompt_ids=list(ids))
+                                       prompt_ids=list(ids), sample_key=sk)
+            if ticket is not None and ticket.resumes_compute():
+                self.migration_stats["recomputes"] += 1
             self._note_admission(rid, len(ids))
             self._note_prefill_dispatch(len(ids), tier)
-            self._note_first_token(rid)
+            if not pending:
+                self._note_first_token(rid)
+
+    # ----------------------------------------------------------- migration
+    def _leaves(self):
+        return [t for layer in self._cache for t in layer.values()]
+
+    def _freeze_slot(self, si) -> MigrationTicket:
+        """Export the slot's dense cache row, leaf by leaf as raw bits
+        (positions past ``pos`` are never attended, so the whole row ships
+        as is)."""
+        s = self.slots[si]
+        dense = [raw_bits(t[si]).cpu().numpy() for t in self._leaves()]
+        t = MigrationTicket(**self._resume_fields(s), kv_tokens=s.pos,
+                            dense=dense, max_len=self.max_len,
+                            phase="decode")
+        self.slots[si] = SlotState()
+        return t
+
+    def _thaw_dense(self, si, rid, t: MigrationTicket) -> bool:
+        """Import a stacked ticket's cache row into slot ``si``, bit for
+        bit. False (the caller recomputes) when the payload is absent or
+        any leaf's shape or element size, or ``max_len``, differs from
+        this batcher's cache (an SSM row's conv tail and state, an
+        RG-LRU row's rings and state included)."""
+        if t.dense is None or t.max_len != self.max_len or not t.generated:
+            return False
+        context = t.context_ids()
+        if t.kv_tokens != len(context):
+            return False
+        leaves = self._leaves()
+        if len(t.dense) != len(leaves) or any(
+                tuple(d.shape) != tuple(leaf.shape[1:])
+                or d.dtype.itemsize != leaf.element_size()
+                for d, leaf in zip(t.dense, leaves)):
+            return False
+        for d, leaf in zip(t.dense, leaves):
+            raw_bits(leaf)[si] = self._to_device(d).view(raw_bits(leaf).dtype)
+        sk = (t.sample_key if t.sample_key is not None
+              else self._next_sample_key())
+        carried, pending = t.progress()
+        self.slots[si] = SlotState(active=True, request_id=rid,
+                                   pos=t.kv_tokens, prompt_len=len(context),
+                                   generated=pending, carried=carried,
+                                   max_new=t.max_new, tier=t.tier,
+                                   prompt=t.prompt, prompt_ids=context,
+                                   sample_key=sk)
+        self.migration_stats["imports"] += 1
+        self._note_admission(rid, len(context))
+        return True
 
     # --------------------------------------------------------------- tick
     def _tick_inner(self):
@@ -323,12 +499,12 @@ class ContinuousBatcher(_BatcherBase):
             self.params, self._cache, self._to_device(toks),
             self._to_device(poss))
         self.stats["device_dispatches"] += 1
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = self._sample_ready(logits, active)
         self.stats["decode_steps"] += 1
         self._note_decode_work(active)
         for si in active:
             s = self.slots[si]
-            s.generated.append(int(nxt[si]))
+            s.generated.append(nxt[si])
             s.pos += 1
             self.stats["decode_tokens"] += 1
             done = (len(s.carried) + len(s.generated) >= s.max_new
@@ -520,13 +696,17 @@ class PagedContinuousBatcher(_BatcherBase):
             row = np.zeros(self.pages_per_seq, np.int32)
             row[:len(pages)] = pages
             self.block_tables[si] = row
+            sk = (ticket.sample_key if ticket is not None
+                  and ticket.sample_key is not None
+                  else self._next_sample_key())
             self.slots[si] = SlotState(active=True, request_id=rid,
                                        pos=len(ids), prompt_len=len(ids),
                                        generated=pending or [first],
                                        carried=carried, max_new=max_new,
                                        pages=pages, tier=tier,
                                        shared_pages=len(shared),
-                                       prompt=prompt, prompt_ids=list(ids))
+                                       prompt=prompt, prompt_ids=list(ids),
+                                       sample_key=sk)
             self.stats["share_hits"] += len(shared)
             if ticket is not None and ticket.resumes_compute():
                 self.migration_stats["recomputes"] += 1
@@ -624,7 +804,8 @@ class PagedContinuousBatcher(_BatcherBase):
                                    pages=list(shared), tier=tier,
                                    shared_pages=len(shared), prompt=prompt,
                                    prompt_ids=list(ids), chunks=plan,
-                                   next_chunk=0)
+                                   next_chunk=0,
+                                   sample_key=self._next_sample_key())
         if not plan:                    # fully shared resumed context:
             self.slots[si].pos = len(ids)    # decode-ready immediately
         self.stats["share_hits"] += len(shared)
@@ -636,21 +817,74 @@ class PagedContinuousBatcher(_BatcherBase):
         return "ok"
 
     def _admit_ticket(self, si, rid, t: MigrationTicket):
-        """Re-admit a preempted request into slot ``si`` by recomputing its
-        context (prompt + every generated token but the last) from tokens;
-        it keeps its generation progress, so the continued stream is the
-        one it would have produced unpreempted."""
+        """Thaw a migration or resume ticket into slot ``si``. When the
+        payload is compatible (page records at this pool's page size, an
+        admissible tier, room for the import plus reservations for the
+        chunks the source had not prefilled yet) the KV pages import
+        directly: prefix-keyed records re-attach to this pool's own
+        same-tier pages where the chain hash matches, the rest deep-copy.
+        Any fail-closed refusal (untiered, tier mismatch, no bytes) or
+        structural mismatch falls back to recomputing the context (prompt
+        + every generated token but the last) from tokens. Either way the
+        request keeps its generation progress and sampling key, so the
+        continued stream is the one the source would have produced."""
+        context = t.context_ids()
+        carried, pending = t.progress()
         if not ticket_fits(t, self.max_len, self.page_size,
                            self.pool.num_pages):
             self.finished[rid] = None
             self.stats["rejected_too_large"] += 1
             self._note_terminal(rid, "rejected")
             return "rejected"
-        carried, pending = t.progress()
-        status = self._admit_ids(si, rid, t.context_ids(), t.max_new, t.tier,
+        ps = self.page_size
+        if t.pages and t.page_size == ps:
+            chunks = prefix_chunk_hashes(context, ps)
+            kv_chunks = len(t.pages)
+            if kv_chunks <= len(chunks) and kv_chunks <= self.pages_per_seq \
+                    and t.kv_tokens == min(kv_chunks * ps, len(context)):
+                plan = [(j,) + chunks[j]
+                        for j in range(kv_chunks, len(chunks))]
+                if not pending and not plan:
+                    # mid-prefill freeze where every page was shared: the
+                    # first token is still owed, so the last chunk replays
+                    # for its boundary logits (scratch-masked write)
+                    j = len(chunks) - 1
+                    plan = [(j,) + chunks[j]]
+                n_fresh = sum(1 for (j, _h, _f) in plan if j >= kv_chunks)
+                if self.pool.free_count() - self.reserved \
+                        < len(t.pages) + n_fresh:
+                    return "blocked"
+                res = import_request(self.pool, t.pages, t.tier)
+                if res is not None:
+                    page_ids, copied, hits = res
+                    row = np.zeros(self.pages_per_seq, np.int32)
+                    row[:len(page_ids)] = page_ids
+                    self.block_tables[si] = row
+                    self.reserved += n_fresh
+                    sk = (t.sample_key if t.sample_key is not None
+                          else self._next_sample_key())
+                    self.slots[si] = SlotState(
+                        active=True, request_id=rid,
+                        pos=len(context) if not plan else 0,
+                        prompt_len=len(context), generated=pending,
+                        carried=carried, max_new=t.max_new,
+                        pages=list(page_ids), tier=t.tier,
+                        shared_pages=hits, prompt=t.prompt,
+                        prompt_ids=context, chunks=plan, next_chunk=0,
+                        sample_key=sk)
+                    self.migration_stats["imports"] += 1
+                    self.migration_stats["imported_pages"] += copied
+                    self.migration_stats["import_attach_hits"] += hits
+                    self._note_admission(rid, len(context))
+                    return "ok"
+        # recompute-from-tokens fallback (forbidden or impossible import)
+        status = self._admit_ids(si, rid, context, t.max_new, t.tier,
                                  t.prompt, carried=carried, pending=pending)
-        if status == "ok" and t.resumes_compute():
-            self.migration_stats["recomputes"] += 1
+        if status == "ok":
+            if t.resumes_compute():
+                self.migration_stats["recomputes"] += 1
+            if t.sample_key is not None:
+                self.slots[si].sample_key = t.sample_key
         return status
 
     # ------------------------------------------------------ chunked prefill
@@ -862,6 +1096,30 @@ class PagedContinuousBatcher(_BatcherBase):
                 dev(gen_idx), self._dev_last, self._dev_gen)
         self.stats["device_dispatches"] += 1
 
+    # ----------------------------------------------------------- migration
+    def _freeze_slot(self, si) -> MigrationTicket:
+        """Export the slot's live KV pages and evacuate it. A mid-prefill
+        slot's unfinished chunk plan travels implicitly: the ticket records
+        how many context tokens the exported pages cover, and the
+        destination rebuilds the rest of the plan from the tokens (chain
+        hashes are content-derived). The reservations of its undispatched
+        chunks return to the pool."""
+        self._materialize_slot(si)      # fused ticks leave a device tail
+        s = self.slots[si]
+        ps = self.page_size
+        mid_prefill = s.next_chunk < len(s.chunks)
+        self.reserved -= sum(1 for (j, _h, _f) in s.chunks[s.next_chunk:]
+                             if j >= len(s.pages))
+        kv_tokens = (min(len(s.pages) * ps, s.prompt_len) if mid_prefill
+                     else s.pos)
+        records = export_request(self.pool, list(s.pages), kv_tokens)
+        t = MigrationTicket(**self._resume_fields(s), kv_tokens=kv_tokens,
+                            page_size=ps, pages=records,
+                            phase="prefill" if mid_prefill else "decode")
+        self.block_tables[si] = 0
+        self.slots[si] = SlotState()
+        return t
+
     def prefill_backlog_tokens(self) -> int:
         """Prompt tokens admitted or queued but not yet prefilled — the
         head-of-line signal TIDE folds into the island's queueing-latency
@@ -1039,12 +1297,12 @@ class PagedContinuousBatcher(_BatcherBase):
             self.params, self.pool.pages, dev(toks), dev(poss),
             dev(bt[:, :n_live]))
         self.stats["device_dispatches"] += 1
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        nxt = self._sample_ready(logits, ready)
         self.stats["decode_steps"] += 1
         self._note_decode_work(ready)
         for si in ready:
             s = self.slots[si]
-            s.generated.append(int(nxt[si]))
+            s.generated.append(nxt[si])
             s.pos += 1
             self.stats["decode_tokens"] += 1
             done = (len(s.carried) + len(s.generated) >= s.max_new
@@ -1058,9 +1316,16 @@ class PagedContinuousBatcher(_BatcherBase):
     def _decode_fused(self, ready):
         """Fused-tick decode: one dispatch whose input tokens resolve ON
         DEVICE — a slot's last token is host-known only while
-        ``gen_dev == 0`` (admission-seeded); otherwise it lives in
-        ``_dev_last`` where earlier dispatches left it. Greedy next tokens
-        append to the device-resident stream."""
+        ``gen_dev == 0`` (admission-seeded or host-sampled); otherwise it
+        lives in ``_dev_last`` where earlier dispatches left it. Greedy
+        next tokens append to the device-resident stream. Stochastic
+        sampling must see the logits anyway, so temperature > 0
+        materializes the ready slots and samples on the host side of the
+        tick, exactly as the unfused path does."""
+        greedy = self.temperature <= 0.0
+        if not greedy:
+            for si in ready:
+                self._materialize_slot(si)
         toks = np.zeros((self.num_slots,), np.int32)
         host_mask = np.zeros((self.num_slots,), bool)
         poss = np.zeros((self.num_slots,), np.int32)
@@ -1074,8 +1339,9 @@ class PagedContinuousBatcher(_BatcherBase):
                 toks[si] = s.generated[-1]
             poss[si] = s.pos
             bt[si] = self.block_tables[si]
-            write_slot[si] = si
-            gen_idx[si] = len(s.generated) + s.gen_dev
+            if greedy:
+                write_slot[si] = si
+                gen_idx[si] = len(s.generated) + s.gen_dev
         # idle/stalled rows: host_mask stays False and their stale
         # _dev_last token decodes against the scratch page (all-zero table)
         w = self._bucket("decode_w",
@@ -1083,17 +1349,21 @@ class PagedContinuousBatcher(_BatcherBase):
                              for si in ready), self.pages_per_seq)
         self.dispatch_shapes.append(("decode", self.num_slots, w))
         dev = self._to_device
-        _logits, self._dev_last, self._dev_gen, self.pool.pages = \
+        logits, self._dev_last, self._dev_gen, self.pool.pages = \
             self._fused_decode(
                 self.params, self.pool.pages, self._dev_last,
                 dev(host_mask), dev(toks), dev(poss), dev(bt[:, :w]),
                 dev(write_slot), dev(gen_idx), self._dev_gen)
         self.stats["device_dispatches"] += 1
+        nxt = None if greedy else self._sample_ready(logits, ready)
         self.stats["decode_steps"] += 1
         self._note_decode_work(ready)
         for si in ready:
             s = self.slots[si]
-            s.gen_dev += 1
+            if greedy:
+                s.gen_dev += 1
+            else:
+                s.generated.append(nxt[si])
             s.pos += 1
             self.stats["decode_tokens"] += 1
             done = (len(s.carried) + len(s.generated) + s.gen_dev

@@ -20,8 +20,19 @@ Time is virtual: the per-request engine advances the TIDE/Lighthouse
 clocks by each submit's service latency (network model plus measured
 execution time), the orchestrator by a fixed interval per tick.
 
-Not ported yet: island drain and failure with migration, SLO expiry and
-classes, load shedding and backpressure, tenant fairness, and the tracer.
+Island churn: ``TickOrchestrator.drain_island`` takes an island out of
+routing and freezes its in-flight requests, up to
+``migration_token_budget`` context tokens a tick, into migration tickets
+that the next routing pass places (KV pages move only to an island at
+least as trusted as their tier; otherwise the destination recomputes from
+tokens; with nowhere to go a ticket returns to its source under a capped
+backoff); TIDE-flagged stragglers are evacuated the same way.
+``fail_island`` drops an island and requeues everything it held from the
+prompt.
+
+Not ported yet: SLO expiry and classes, load shedding and backpressure,
+tenant fairness, straggler injection (``set_slowdown``, ``FaultPlan``)
+and the tracer (ROADMAP Queue 1, P9).
 """
 from __future__ import annotations
 
@@ -35,15 +46,26 @@ import numpy as np
 import torch
 
 from repro_torch.core import routing as rt
-from repro_torch.core.islands import STATUS_FAILED
+from repro_torch.core.islands import STATUS_DRAINING, STATUS_FAILED
+from repro_torch.core.tide import MIGRATION_TOKENS_PER_UNIT
 from repro_torch.core.waves import Decision, Request
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models.model import get_model, resolve_device
 from repro_torch.models.steps import make_prefill_step, make_serve_step
 from repro_torch.obs.metrics import latency_summary
 from repro_torch.serving.kvpool import trust_tier_for_sensitivity
+from repro_torch.serving.migration import MigrationTicket, ticket_fits
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the ticks ``submit_sync`` waits for one request before it gives up
+_SYNC_MAX_TICKS = 10_000
+
+# Capped exponential backoff for failed migration placements: the first
+# failure waits BASE ticks before the request may freeze and retry, each
+# further failure doubles the wait up to CAP; a change of the routable
+# island set clears every backoff.
+BACKOFF_BASE_TICKS = 16
+BACKOFF_CAP_TICKS = 256
 
 
 @dataclass
@@ -204,6 +226,12 @@ class PendingRequest:
     req: Request
     max_new_tokens: int
     submitted_at: float        # virtual clock at submission
+    # set while the request is between islands: the frozen in-flight state
+    # a drain evacuated, consumed (and cleared) at the next dispatch, plus
+    # the decision it was running under (so the draining source can finish
+    # it if no destination will take it)
+    ticket: Optional[MigrationTicket] = None
+    decision: Optional[Decision] = None
 
 
 class TickOrchestrator:
@@ -223,13 +251,17 @@ class TickOrchestrator:
     4. advances the virtual clocks by ``tick_interval_s`` and releases
        simulated completions whose latency has elapsed.
 
+    Before routing, each tick services island churn (``drain_island``,
+    TIDE-flagged stragglers): frozen requests join the pool with their
+    migration tickets and are placed by the same pass.
+
     Routing runs on ``device`` (None = the card); its results cross to
     the host once per tick.
     """
 
     def __init__(self, waves, registry, batchers=None, seed=0,
                  decode_ticks_per_tick=4, tick_interval_s=0.05,
-                 device=None):
+                 migration_token_budget=512, device=None):
         self.waves = waves
         self.registry = registry
         self.batchers = batchers or {}
@@ -237,6 +269,10 @@ class TickOrchestrator:
         self.cloud = CloudSimulator(seed)
         self.decode_ticks_per_tick = decode_ticks_per_tick
         self.tick_interval_s = tick_interval_s
+        # context tokens (KV + generated) a single tick may evacuate from
+        # draining islands; the rest keeps decoding at the source and moves
+        # on later ticks
+        self.migration_token_budget = migration_token_budget
         self.pending: list[PendingRequest] = []
         self.results: dict[int, Optional[Response]] = {}
         self._local_inflight: dict[tuple, tuple] = {}
@@ -246,11 +282,23 @@ class TickOrchestrator:
         self._next_rid = 0
         self._util_sum: dict[str, float] = {}
         self._util_n: dict[str, int] = {}
+        self._draining: dict[str, bool] = {}     # island -> dereg on empty
+        # failed-placement backoff: rid -> (attempts, retry_at_tick)
+        self._placement_backoff: dict[int, tuple] = {}
+        self._last_routable: tuple = ()
         self._work_seen: dict[str, int] = {}
         self.tick_stats = {"ticks": 0, "route_calls": 0, "routed": 0,
                            "decode_ticks": 0, "pool_peak": 0,
                            "admissions": 0, "prefill_dispatches": 0,
-                           "device_dispatches": 0, "tick_dispatches_max": 0}
+                           "device_dispatches": 0, "tick_dispatches_max": 0,
+                           "migrations_started": 0, "migrations": 0,
+                           "recomputes": 0, "pages_shipped": 0,
+                           "restarts": 0, "failovers": 0,
+                           "migration_returns": 0, "islands_drained": 0,
+                           "hedges": 0}
+        hook = getattr(registry, "add_teardown_hook", None)
+        if hook is not None:
+            hook(self._on_island_deregistered)
 
     # --------------------------------------------------------- submission
     def submit(self, req: Request, max_new_tokens=12) -> int:
@@ -263,6 +311,182 @@ class TickOrchestrator:
         self.tick_stats["pool_peak"] = max(self.tick_stats["pool_peak"],
                                            len(self.pending))
         return rid
+
+    def submit_sync(self, req: Request,
+                    max_new_tokens=12) -> Optional[Response]:
+        """Blocking submit for session/chat callers: ticks until this
+        request resolves, or gives up after ``_SYNC_MAX_TICKS``."""
+        rid = self.submit(req, max_new_tokens)
+        ticks = 0
+        while rid not in self.results and ticks < _SYNC_MAX_TICKS:
+            self.tick()
+            ticks += 1
+        return self.results.get(rid)
+
+    # ----------------------------------------------------- island churn
+    def drain_island(self, island_id: str, deregister: bool = False):
+        """Begin graceful evacuation: the island stops taking new work at
+        once (TIDE reports zero capacity, LIGHTHOUSE discovery excludes
+        it) while each tick freezes up to ``migration_token_budget``
+        context tokens of its in-flight requests and re-routes them
+        through WAVES, so privacy, cost and latency constraints hold for
+        the move as for the first placement. ``deregister=True`` removes
+        the island from the registry once it is empty."""
+        if island_id not in self.registry or island_id in self._draining:
+            return
+        self.registry.set_status(island_id, STATUS_DRAINING)
+        self._draining[island_id] = deregister
+
+    def fail_island(self, island_id: str):
+        """Abrupt island loss: its batcher state (KV pages, slots, queue)
+        is unrecoverable. Every stranded request requeues for re-routing
+        from its prompt; under greedy decoding the rerun stream is the
+        lost one, so a failure costs work, never correctness, and never
+        loses or double-completes a request."""
+        if island_id not in self.registry:
+            return
+        self.registry.set_status(island_id, STATUS_FAILED)
+        self._draining.pop(island_id, None)
+        self.batchers.pop(island_id, None)
+        self._work_seen.pop(island_id, None)
+        self.waves.lighthouse.detach(island_id)
+        n = 0
+        for key in [k for k in self._local_inflight if k[0] == island_id]:
+            p, _d = self._local_inflight.pop(key)
+            p.ticket = None
+            self.pending.append(p)
+            n += 1
+        still = []
+        for item in self._sim_inflight:
+            _ready, p, d, _text, _exec_ms = item
+            if d.island.island_id == island_id:
+                p.ticket = None
+                self.pending.append(p)
+                n += 1
+            else:
+                still.append(item)
+        self._sim_inflight = still
+        self.tick_stats["failovers"] += n
+
+    def _on_island_deregistered(self, island_id: str):
+        """Registry teardown hook: drop the island's batcher and counters;
+        anything still in flight there fails over (a
+        ``drain_island(deregister=True)`` arrives here already empty)."""
+        self.batchers.pop(island_id, None)
+        self._draining.pop(island_id, None)
+        self._work_seen.pop(island_id, None)
+        self._util_sum.pop(island_id, None)
+        self._util_n.pop(island_id, None)
+        for key in [k for k in self._local_inflight if k[0] == island_id]:
+            p, _d = self._local_inflight.pop(key)
+            p.ticket = None
+            self.pending.append(p)
+            self.tick_stats["failovers"] += 1
+
+    def _return_to_source(self, p, t) -> bool:
+        """Hand a frozen request back to its still-draining source to
+        finish there (no destination would or could take it), with a
+        capped exponential backoff before it may be frozen again (or until
+        the routable island set changes)."""
+        if t.source in self.batchers and p.decision is not None:
+            p.ticket = None
+            brid = self.batchers[t.source].submit_ticket(t)
+            self._local_inflight[(t.source, brid)] = (p, p.decision)
+            attempts = self._placement_backoff.get(p.rid, (0, 0))[0] + 1
+            delay = min(BACKOFF_BASE_TICKS << (attempts - 1),
+                        BACKOFF_CAP_TICKS)
+            self._placement_backoff[p.rid] = (
+                attempts, self.tick_stats["ticks"] + delay)
+            self.tick_stats["migration_returns"] += 1
+            return True
+        return False
+
+    def _backed_off(self, rid: int) -> bool:
+        ent = self._placement_backoff.get(rid)
+        return ent is not None and self.tick_stats["ticks"] < ent[1]
+
+    @staticmethod
+    def _ticket_fits(b, t) -> bool:
+        """Whether a destination batcher can hold the resumed context AND
+        every still-owed decode token (WAVES routes on islands, not
+        batcher geometry); the predicate the batcher's thaw applies."""
+        pool = getattr(b, "pool", None)
+        return ticket_fits(t, b.max_len,
+                           page_size=getattr(b, "page_size", None),
+                           num_pages=pool.num_pages
+                           if pool is not None else None)
+
+    @staticmethod
+    def _import_allowed(island, tier) -> bool:
+        """Raw KV (pages or a dense row) may only land on an island at
+        least as trusted as the tier that produced it (island tier 1 =
+        personal; KV tier 1 = most sensitive). Untiered KV never ships."""
+        return tier is not None and island.tier <= tier
+
+    def _service_draining(self):
+        """One tick of drain progress: freeze in-flight requests off
+        draining islands, and off TIDE-flagged stragglers (the hedge),
+        budgeted by context tokens, and requeue them with their tickets so
+        this tick's routing pass places them."""
+        routable_fn = getattr(self.registry, "is_routable", None)
+        routable = tuple(sorted(
+            i.island_id for i in self.registry.all()
+            if routable_fn is None or routable_fn(i.island_id)))
+        if routable != self._last_routable:
+            self._last_routable = routable
+            self._placement_backoff.clear()  # mesh changed: retry now
+        budget = self.migration_token_budget
+        tide = self.waves.tide
+        evacuating = list(self._draining) + [
+            iid for iid in self.batchers
+            if iid not in self._draining and tide.is_straggler(iid)]
+        for iid in evacuating:
+            hedging = iid not in self._draining
+            b = self.batchers.get(iid)
+            if b is None:
+                continue
+            for key in [k for k in self._local_inflight if k[0] == iid]:
+                if budget <= 0:
+                    break
+                p, d = self._local_inflight[key]
+                if self._backed_off(p.rid):
+                    continue          # recently failed to place
+                t = b.freeze_request(key[1])
+                if t is None:
+                    continue          # already finished: delivered below
+                self._local_inflight.pop(key)
+                t.source = iid
+                p.ticket = t
+                p.decision = d
+                self.pending.append(p)
+                # kv_tokens already counts generated tokens for decode
+                # freezes; the max covers mid-prefill and queued tickets
+                budget -= max(t.kv_tokens, len(t.generated), 1)
+                self.tick_stats["migrations_started"] += 1
+                if hedging:
+                    self.tick_stats["hedges"] += 1
+
+    def _finalize_drains(self):
+        """End-of-tick drain completion (after deliveries, so the tick
+        that finishes an island's last request also finishes its
+        drain)."""
+        for iid in list(self._draining):
+            b = self.batchers.get(iid)
+            empty = ((b is None or not b.busy())
+                     and not any(k[0] == iid for k in self._local_inflight)
+                     # tickets frozen off this island but not yet placed
+                     # still need it as their return-to-source fallback
+                     and not any(p.ticket is not None
+                                 and p.ticket.source == iid
+                                 for p in self.pending)
+                     and not any(d.island.island_id == iid
+                                 for _r, _p, d, _t, _e
+                                 in self._sim_inflight))
+            if empty:
+                dereg = self._draining.pop(iid)
+                self.tick_stats["islands_drained"] += 1
+                if dereg:
+                    self.registry.deregister(iid)
 
     # ------------------------------------------------------------ routing
     def route_pool(self, reqs: list) -> list:
@@ -397,27 +621,70 @@ class TickOrchestrator:
         """One scheduling tick; returns the Responses completed in it."""
         waves = self.waves
         completed: list[Response] = []
+        self._service_draining()
         pool, self.pending = self.pending, []
         if pool:
             for p, d in zip(pool, self._route_pool(pool)):
                 if not d.accepted:
+                    # nowhere to migrate: the draining source keeps it and
+                    # finishes it under its original decision
+                    if p.ticket is not None \
+                            and self._return_to_source(p, p.ticket):
+                        continue
                     self.rejected.append(d)
                     self.results[p.rid] = None
+                    self._placement_backoff.pop(p.rid, None)
                     continue
                 self.tick_stats["routed"] += 1
+                self._placement_backoff.pop(p.rid, None)
                 island = d.island
                 query = (d.sanitized_history[-1] if d.sanitize
                          else p.req.query)
                 b = self.batchers.get(island.island_id)
+                tkt, p.ticket = p.ticket, None
+                if tkt is not None and tkt.prompt != query:
+                    # the new island sanitizes differently: nothing
+                    # computed for the old text is reusable (fail closed)
+                    self.tick_stats["restarts"] += 1
+                    tkt = None
                 if b is not None:
-                    # KV pages this request produces carry its MIST trust
-                    # tier; prefix sharing is only legal within a tier
-                    brid = b.submit(
-                        query, p.max_new_tokens,
-                        trust_tier=trust_tier_for_sensitivity(
-                            d.sensitivity))
+                    if tkt is not None and not self._ticket_fits(b, tkt):
+                        # a batcher too small for the resumed context:
+                        # prefer finishing at the source, else restart here
+                        # from the prompt alone
+                        if self._return_to_source(p, tkt):
+                            continue
+                        self.tick_stats["restarts"] += 1
+                        tkt = None
+                    if tkt is not None:
+                        if (tkt.pages or tkt.dense is not None) and \
+                                not self._import_allowed(island, tkt.tier):
+                            # the destination may not receive raw KV (page
+                            # records OR a dense row): keep the progress,
+                            # recompute the context
+                            tkt = tkt.without_pages()
+                        brid = b.submit_ticket(tkt)
+                        # thawing a context is real work for the
+                        # destination: charge it so later migrations
+                        # spread instead of dogpiling
+                        waves.tide.add_load(
+                            island.island_id,
+                            len(tkt.context_ids())
+                            / MIGRATION_TOKENS_PER_UNIT)
+                    else:
+                        # KV pages this request produces carry its MIST
+                        # trust tier; prefix sharing is only legal within
+                        # a tier
+                        brid = b.submit(
+                            query, p.max_new_tokens,
+                            trust_tier=trust_tier_for_sensitivity(
+                                d.sensitivity))
                     self._local_inflight[(island.island_id, brid)] = (p, d)
                 else:
+                    # simulated executor: a cross-executor move cannot
+                    # preserve a KV stream, so a migrated request restarts
+                    if tkt is not None:
+                        self.tick_stats["restarts"] += 1
                     text, exec_ms = self.cloud.complete(island, query)
                     ready = waves.tide.clock + \
                         (island.latency_ms + exec_ms) / 1000.0
@@ -473,6 +740,12 @@ class TickOrchestrator:
             self.tick_stats[k] = sum(b.stats.get(k, 0) for b in bs)
         self.tick_stats["tick_dispatches_max"] = max(
             [b.stats.get("tick_dispatches_max", 0) for b in bs] or [0])
+        # migration outcome totals (live batchers only: a failed island's
+        # counters died with it)
+        for k, src in (("migrations", "imports"), ("recomputes",
+                       "recomputes"), ("pages_shipped", "imported_pages")):
+            self.tick_stats[k] = sum(b.migration_stats.get(src, 0)
+                                     for b in bs)
         # advance virtual time
         waves.tide.advance(self.tick_interval_s)
         waves.lighthouse.advance(self.tick_interval_s)
@@ -490,6 +763,7 @@ class TickOrchestrator:
             else:
                 still.append((ready, p, d, text, exec_ms))
         self._sim_inflight = still
+        self._finalize_drains()
         self.tick_stats["ticks"] += 1
         return completed
 
@@ -535,6 +809,8 @@ class TickOrchestrator:
             s["kv_pools"] = pools
             s["prefill_backlog"] = \
                 self.waves.lighthouse.mesh_prefill_backlog()
+        if self.waves.lighthouse.migration_telemetry():
+            s["migration"] = self.waves.lighthouse.mesh_migration_stats()
         s["island_status"] = {i.island_id: self.registry.status(i.island_id)
                               for i in self.registry.all()}
         return s

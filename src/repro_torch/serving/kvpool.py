@@ -25,7 +25,11 @@ and uninitialised memory may hold NaN bits) and updated IN PLACE: the
 model's steps scatter K/V into it and ``cow`` copies a page with a slice
 assignment, where the reference donated the pool to jitted ops.
 
-Not ported yet: the migration export/import of pages.
+Migration moves a request's pages between pools (``export_request`` /
+``import_request``, with the reference's fail-closed rules). A page's
+content travels as its raw bits on the host: one array per cache leaf
+(``k_pages``/``v_pages`` of each layer, in depth order), bf16 viewed as
+int16, so an import writes back exactly the bits that were exported.
 """
 from __future__ import annotations
 
@@ -37,8 +41,18 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import resolve_device
+from repro_torch.serving.migration import PageRecord
 
 SCRATCH_PAGE = 0
+# the integer type whose bits carry a cache leaf of each element size
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def raw_bits(t):
+    """``t`` viewed as the integer type of its element size (bf16 ->
+    int16): what a migration record carries, so that no rounding can
+    happen in transit."""
+    return t.view(_BITS[t.element_size()])
 
 
 # --------------------------------------------------------------- trust tiers
@@ -159,6 +173,78 @@ class PagePool:
                 pages = layer[name + "_pages"]
                 pages.index_copy_(0, idx, dense[name][0].reshape(
                     n, self.page_size, *pages.shape[2:]).to(pages.dtype))
+
+    def _leaves(self):
+        """Every cache leaf, positionally: each layer's ``k_pages`` then
+        ``v_pages``, in depth order (the order of a record's ``data``)."""
+        return [t for layer in self.pages for t in layer.values()]
+
+    def read_page(self, pid: int):
+        """One page's K/V content as a positional list of host arrays of
+        raw bits (None on accounting-only pools): the migration-export
+        read."""
+        return self.read_pages([pid])[0]
+
+    def _host_slab(self, n):
+        """An uninitialised host slab of the raw bits of ``n`` pages, every
+        leaf: pinned when the pool is on the card, so that the copy to or
+        from the device runs at the link's rate and needs no staging."""
+        first = self.pages[0]["k_pages"]
+        return torch.empty((2 * len(self.pages), n) + tuple(first.shape[1:]),
+                           dtype=raw_bits(first).dtype,
+                           pin_memory=first.device.type == "cuda")
+
+    def read_pages(self, pids):
+        """Batched ``read_page``: ONE gather per cache leaf into one device
+        slab and ONE copy of it into a (pinned) host slab for the whole
+        list (the per-record arrays are views of the host slab). Returns
+        one leaf list per page id."""
+        if not pids:
+            return []
+        if self.pages is None:
+            return [None] * len(pids)
+        leaves = self._leaves()
+        first = leaves[0]
+        idx = torch.as_tensor(list(pids), dtype=torch.int64).to(first.device)
+        slab = torch.empty((len(leaves), len(pids)) + tuple(first.shape[1:]),
+                           dtype=first.dtype, device=first.device)
+        for i, leaf in enumerate(leaves):
+            torch.index_select(leaf, 0, idx, out=slab[i])
+        host = self._host_slab(len(pids))
+        host.copy_(raw_bits(slab))
+        host = host.numpy()
+        return [[host[i, n] for i in range(len(leaves))]
+                for n in range(len(pids))]
+
+    def write_page(self, pid: int, data):
+        """Overwrite one page from an exported record's leaf list."""
+        self.write_pages([pid], [data])
+
+    def write_pages(self, pids, datas):
+        """Batched ``write_page``: the records' bits go into ONE (pinned)
+        host slab, cross to the device in ONE copy, then ONE scatter per
+        cache leaf writes them (``datas`` is one exported leaf list per
+        page)."""
+        if not pids:
+            return
+        assert SCRATCH_PAGE not in pids
+        leaves = self._leaves()
+        first = leaves[0]
+        host = self._host_slab(len(pids))
+        slab = host.numpy()
+        for i in range(len(leaves)):
+            parts = [np.asarray(d[i]) for d in datas]
+            if any(p.shape != slab.shape[2:]
+                   or p.dtype.itemsize != slab.dtype.itemsize
+                   for p in parts):
+                raise ValueError(f"page records do not fit this pool's "
+                                 f"{tuple(first.shape[1:])} {first.dtype}")
+            np.stack([np.ascontiguousarray(p).view(slab.dtype)
+                      for p in parts], out=slab[i])
+        t = host.to(first.device, non_blocking=True).view(first.dtype)
+        idx = torch.as_tensor(list(pids), dtype=torch.int64).to(first.device)
+        for i, leaf in enumerate(leaves):
+            leaf.index_copy_(0, idx, t[i])
 
     # ------------------------------------------------------------ accounting
     def _tstat(self, tier) -> dict:
@@ -358,3 +444,98 @@ class PagePool:
                 assert self._prefix_index.get(meta.key) == pid, \
                     f"page {pid} claims an index key it doesn't hold"
         return True
+
+
+# ----------------------------------------------------- migration (export)
+
+def export_request(pool: PagePool, page_ids, kv_tokens: int):
+    """Serialize one request's live pages for cross-island migration.
+
+    Returns one ``PageRecord`` per page, in block-table order: the page's
+    trust tier, its prefix-index key when it holds a registered full
+    prompt-prefix chunk (so the destination can re-attach by chain hash
+    instead of copying bytes), its fill within the request's ``kv_tokens``
+    context, and the page content (None on accounting-only pools). Every
+    page is decrefed afterwards: the request has LEFT this pool; shared
+    pages survive under their other referents.
+    """
+    ps = pool.page_size
+    datas = pool.read_pages(list(page_ids))
+    records = []
+    for n, pid in enumerate(page_ids):
+        meta = pool._meta[pid]
+        fill = max(0, min(ps, kv_tokens - n * ps))
+        records.append(PageRecord(tier=meta.tier, key=meta.key, fill=fill,
+                                  data=datas[n]))
+    for pid in page_ids:
+        pool.decref(pid)
+    pool.stats["exported_pages"] += len(records)
+    return records
+
+
+def import_request(pool: PagePool, records, tier: Optional[int]):
+    """Materialize exported pages in this pool, all-or-nothing.
+
+    Per record: a prefix-keyed page whose fill equals its key's first
+    probes the destination's OWN prefix index through the tier-keyed
+    ``lookup_prefix`` — a hit re-attaches (increfed, zero bytes shipped).
+    Everything else deep-copies into a freshly allocated page tagged with
+    the record's tier and, when keyed, registers in the index strictly
+    AFTER its bytes are written.
+
+    Fail-closed rules, enforced here so no caller can launder trust:
+    untiered requests never import; a record whose tier differs from the
+    request's refuses the WHOLE import; a pool that stores real K/V
+    refuses records without data; exhaustion mid-import rolls everything
+    back. Returns ``(page_ids, copied, attach_hits)`` or None (the caller
+    recomputes from tokens).
+    """
+    if tier is None:
+        pool.stats["import_refused"] += 1
+        return None
+    for rec in records:
+        if rec.tier != tier:
+            pool.stats["import_tier_mismatch"] += 1
+            pool.stats["import_refused"] += 1
+            return None
+    counters0 = pool.snapshot_share_counters()
+    got: list[tuple[int, bool]] = []
+    copies: list[tuple[int, PageRecord]] = []
+
+    def rollback():
+        for pid, _ in got:
+            pool.decref(pid)
+        pool.restore_share_counters(counters0)
+        pool.stats["import_refused"] += 1
+        return None
+
+    for rec in records:
+        # re-attach only when the page holds EXACTLY the registered chunk:
+        # a tail page the source kept appending decode tokens to carries
+        # content past the key's fill that the hash does not commit to
+        if rec.key is not None and rec.fill == rec.key[2]:
+            hit = pool.lookup_prefix(*rec.key)
+            if hit is not None:
+                pool.incref(hit)
+                got.append((hit, True))
+                continue
+        if pool.pages is not None and rec.data is None:
+            return rollback()        # no bytes to materialize
+        pid = pool.alloc(rec.tier)
+        if pid is None:
+            return rollback()        # exhausted: caller recomputes
+        got.append((pid, False))
+        copies.append((pid, rec))
+    # the whole import is decided: write every copied page, then register
+    # (a hit must always be readable)
+    if pool.pages is not None and copies:
+        pool.write_pages([pid for pid, _ in copies],
+                         [rec.data for _, rec in copies])
+    for pid, rec in copies:
+        if rec.key is not None:
+            pool.register_prefix(pid, *rec.key)
+    attach_hits = sum(1 for _, a in got if a)
+    copied = len(copies)
+    pool.stats["imported_pages"] += copied
+    pool.stats["import_attach_hits"] += attach_hits
+    return [pid for pid, _ in got], copied, attach_hits

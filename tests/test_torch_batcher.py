@@ -128,15 +128,17 @@ def test_backlog_and_telemetry_match_mid_run(weights):
 
 
 def test_unported_paths_refuse_clearly(weights):
-    """What the port still does not carry says so: stochastic sampling,
-    and model families other than attention, Mamba-2 and RG-LRU decoders
-    (for every cache manager, at ``Model``, naming the ROADMAP item)."""
+    """What the port still does not carry says so: model families other
+    than attention, Mamba-2 and RG-LRU decoders (for every cache manager,
+    at ``Model``, naming the ROADMAP item). Stochastic sampling is ported:
+    both batchers serve ``temperature=0.9``."""
     _, tcfg, _, tparams, _ = weights
-    with pytest.raises(NotImplementedError, match="greedy"):
-        TBatcher(tcfg, params=tparams, temperature=0.9, device="cpu")
-    with pytest.raises(NotImplementedError, match="greedy"):
-        make_batcher(tcfg, cache="stacked", params=tparams, temperature=0.9,
-                     device="cpu")
+    for b in (TBatcher(tcfg, params=tparams, temperature=0.9, device="cpu"),
+              make_batcher(tcfg, cache="stacked", params=tparams,
+                           temperature=0.9, device="cpu")):
+        rid = b.submit("a sampled request", max_new_tokens=4, trust_tier=2)
+        text = b.run_until_done()[rid]
+        assert text is not None and b.stats["decode_tokens"] >= 3
     moe = tget_config("kimi-k2-1t-a32b").reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.*MoE"):
         get_model(moe)

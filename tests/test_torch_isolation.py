@@ -28,8 +28,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "kernels.decode_attention", "kernels.flash_attention",
                 "kernels.ssd", "kernels.rglru", "models.ssm",
                 "models.rglru", "serving.engine", "serving.batcher",
-                "serving.migration", "core.tracegen", "core.workload",
-                "launch.serve"):
+                "serving.migration", "serving.sampling",
+                "serving.session", "core.carbon", "core.audit",
+                "core.tracegen", "core.workload", "launch.serve"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -59,7 +60,8 @@ def test_sources_name_no_jax_and_no_reference():
 COPIES = ["data/tokenizer.py", "core/trust.py", "core/islands.py",
           "core/placeholder.py", "core/mist.py", "core/tide.py",
           "core/lighthouse.py", "core/waves.py", "core/tracegen.py",
-          "core/workload.py", "serving/migration.py", "obs/metrics.py"]
+          "core/workload.py", "serving/migration.py", "obs/metrics.py",
+          "core/carbon.py", "core/audit.py", "serving/session.py"]
 
 
 def test_copied_modules_match_the_reference():

@@ -716,3 +716,106 @@ def test_rglru_scan_wrapper_refuses_what_the_kernel_does_not_take(card):
         rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), a)
     assert rglru_scan(a[:, :0].contiguous(), a[:, :0].contiguous()).shape \
         == (1, 0, 64)
+
+
+# ------------------------------------------------ migration and sampling
+
+# a thawed request's next logits against the undisturbed slot's: the same
+# kernels on the same K/V bits, where only the batch around the row (and
+# with it the key-walk split and cuBLAS's choice of algorithm) differs
+THAW_LOGIT_TOL = 1e-4
+
+
+def test_page_export_then_import_is_bit_equal_on_the_card(card):
+    """A card pool's pages, exported (one gather a leaf, one host copy)
+    and imported into another card pool (one host copy, one scatter a
+    leaf), hold exactly the exported bits."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import get_model
+    from repro_torch.serving.kvpool import (PagePool, export_request,
+                                            import_request)
+    model = get_model(get_config("smollm-135m").reduced())
+    src, dst = (PagePool(model, max_len=128, page_size=16, num_pages=12,
+                         device=card) for _ in range(2))
+    g = torch.Generator(device=card).manual_seed(5)
+    for layer in src.pages:
+        for t in layer.values():
+            t.copy_(torch.randn(t.shape, generator=g, device=card))
+    pids = [src.alloc(1) for _ in range(5)]
+    want = [[t[p].clone() for layer in src.pages for t in layer.values()]
+            for p in pids]
+    recs = export_request(src, pids, 70)
+    got, copied, hits = import_request(dst, recs, 1)
+    assert copied == 5 and hits == 0
+    for pid, w in zip(got, want):
+        have = [t[pid] for layer in dst.pages for t in layer.values()]
+        for a, b in zip(have, w):
+            assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_thawed_request_decodes_like_the_undisturbed_slot(card):
+    """A request frozen mid-decode on one card batcher and imported into
+    another continues with next-token logits within ``THAW_LOGIT_TOL`` of
+    the undisturbed run's (fused and stacked)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.batcher import (ContinuousBatcher,
+                                             PagedContinuousBatcher)
+    cfg = get_config("smollm-135m").reduced()
+    prompts = ["a somewhat longer request that spans multiple pages here",
+               "short one"]
+    for cls, kw in ((PagedContinuousBatcher, dict(page_size=16)),
+                    (ContinuousBatcher, {})):
+        def make(params=None):
+            return cls(cfg, params=params, num_slots=2, max_len=96,
+                       device=card, **kw)
+
+        def logged(b):
+            rows = {}
+            forward = b.model.forward
+
+            def fwd(*a, **k):
+                out = forward(*a, **k)
+                if k.get("mode") == "decode":
+                    for si, s in enumerate(b.slots):
+                        if s.active:
+                            step = (len(s.carried) + len(s.generated)
+                                    + getattr(s, "gen_dev", 0))
+                            rows[(s.prompt, step)] = out[0][si, 0].float()
+                return out
+
+            b.model.forward = fwd
+            return rows
+
+        base = make()
+        want = logged(base)
+        for p in prompts:
+            base.submit(p, max_new_tokens=6, trust_tier=2)
+        base.run_until_done()
+        a, b = make(base.params), make(base.params)
+        rids = [a.submit(p, max_new_tokens=6, trust_tier=2)
+                for p in prompts]
+        for _ in range(4):
+            a.tick()
+        got = logged(b)
+        for r in rids:
+            b.submit_ticket(a.freeze_request(r))
+        b.run_until_done()
+        assert b.migration_stats["imports"] == len(rids)
+        assert got, "the thawed requests decoded nothing"
+        for key, row in got.items():
+            err = (row - want[key]).abs().max().item()
+            assert err <= THAW_LOGIT_TOL, (cls.__name__, key, err)
+
+
+def test_counter_noise_is_equal_on_the_card_and_the_cpu(card):
+    """The sampler's uniforms are bit-equal on the card and on the CPU
+    (integer hash), and the Gumbel noise within one float32 rounding."""
+    from repro_torch.serving import sampling
+    seeds = torch.tensor([3, 2 ** 31 + 9, 77, 0], dtype=torch.int64)
+    draws = torch.tensor([0, 5, 123, 2 ** 20], dtype=torch.int64)
+    cpu = sampling.counter_bits(seeds, draws, 49152)
+    dev = sampling.counter_bits(seeds.to(card), draws.to(card), 49152)
+    assert torch.equal(dev.cpu(), cpu)
+    gc = sampling.gumbel_noise(seeds, draws, 49152)
+    gd = sampling.gumbel_noise(seeds.to(card), draws.to(card), 49152).cpu()
+    assert torch.allclose(gd, gc, rtol=2 ** -23, atol=2 ** -23)
