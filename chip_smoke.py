@@ -40,7 +40,32 @@ Phases (each raises on failure, and the script then exits non-zero):
    seeded random weights through ``TickOrchestrator``, the launch counters
    zeroed just before and read just after, every kernel of the path
    required once per layer of every dispatch and no other kernel:
-   - main: fused chunked paged batchers (K2 + K1), then a profile;
+   - main: fused chunked paged batchers (K2 + K1), then a profile (which
+     also records the run's streams and device-to-host copies);
+   - traced main path: the main path's traffic with a ``Tracer`` on the
+     orchestrator and every batcher, under the same torch profile:
+     streams, work clocks, K1/K2 launches and device-to-host copies
+     identical to the profile's untraced run; span conservation, one
+     terminal per request, one first token per completed request; the
+     Chrome trace written to ``build/`` and read back;
+   - profile host split: the same traffic unprofiled and then with a
+     ``DispatchProfiler`` on every batcher, each orchestrator tick timed:
+     host_plan / bucket / dispatch_submit / device_sync per island and
+     the orchestrator's own share, both runs' streams the profile's;
+   - degradation: ``benchmarks/degradation.py`` (ported here) fault-free
+     and under its fault plan (a slowed laptop, two bursts, stale
+     telemetry, the desktop drained then killed), held to the
+     benchmark's checks: nothing stranded, every rid resolved once,
+     bounded expiry, shedding, backpressure, a hedge, a failover, every
+     pool audited at every tick, typed reject reasons, and the
+     non-expired streams held to the fault-free run's under the churn
+     phase's near-tie rule;
+   - trace harness: ``benchmarks/trace.py``'s seeded trace with
+     ``default_slo_classes()`` (``TRACE_N`` requests) SLO-aware on and
+     off, each arm's per-class rows, ticks and work clock equal to the
+     port's on the CPU at ``.reduced()`` width;
+   - serve --trace: the serve launcher with ``--trace`` on the card, its
+     JSON read back, one terminal per request;
    - stacked: ``ContinuousBatcher``s over dense caches (K4 + K3), then a
      profile;
    - paged prefill="full" (K4 + K1) and paged fused=False (K2 + K1);
@@ -105,6 +130,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -868,12 +894,13 @@ def _watch_finite(b, flags):
     b.model.forward = checked
 
 
-def serving_stack(cfg, params, device, max_len, long_new=16, **bkw):
-    """The quickstart mesh's orchestrator and batchers (``bkw`` goes to
-    ``build_island_batchers``) with every request of the traffic
-    submitted: the quickstart's four queries (8 new tokens) and the long
-    notes (``long_new`` new tokens). Returns (orch, batchers, rids,
-    flags)."""
+def serving_stack(cfg, params, device, max_len, long_new=16, tracer=None,
+                  **bkw):
+    """The quickstart mesh's orchestrator (with ``tracer``, if given) and
+    batchers (``bkw`` goes to ``build_island_batchers``) with every
+    request of the traffic submitted: the quickstart's four queries (8 new
+    tokens) and the long notes (``long_new`` new tokens). Returns (orch,
+    batchers, rids, flags)."""
     from repro_torch.core.waves import Request
     from repro_torch.serving.engine import (TickOrchestrator,
                                             build_island_batchers)
@@ -886,7 +913,8 @@ def serving_stack(cfg, params, device, max_len, long_new=16, **bkw):
     flags = []
     for b in batchers.values():
         _watch_finite(b, flags)
-    orch = TickOrchestrator(waves, reg, batchers, device=device)
+    orch = TickOrchestrator(waves, reg, batchers, tracer=tracer,
+                            device=device)
     reqs = [(Request(query=q, priority=p), 8) for q, p in QUICKSTART]
     reqs += [(Request(query=q, priority=p), long_new)
              for q, p in long_prompts()]
@@ -1161,31 +1189,38 @@ def _dispatch_matmuls(events):
 
 
 def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
-                  split_dispatches=False, **bkw):
+                  split_dispatches=False, streams=False, tracer=None, **bkw):
     """A serving path's workload once more, on fresh batchers, under
     ``torch.profiler``: device busy time as the union of kernel
-    intervals, and device time by kernel family. The busy time does not
-    depend on the profiler's host overhead, so the idle share is read
-    against the unprofiled run's wall time. With ``split_dispatches``
-    (stacked batchers) the host ops are recorded too, with their input
-    shapes, and the matmul time and rate are split by prefill and decode
-    dispatch."""
+    intervals, device time by kernel family, and the device-to-host
+    copies. The busy time does not depend on the profiler's host
+    overhead, so the idle share is read against the unprofiled run's wall
+    time. With ``split_dispatches`` (stacked batchers) the host ops are
+    recorded too, with their input shapes, and the matmul time and rate
+    are split by prefill and decode dispatch. With ``streams`` (fused
+    paged batchers) the run's streams are recorded; ``tracer`` goes to
+    the orchestrator. Returns the run (streams, work clocks, launches,
+    copies) for the traced phase to compare."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    orch, batchers, _r, _f = serving_stack(cfg, params, device, max_len,
-                                           **bkw)
+    orch, batchers, rids, flags = serving_stack(cfg, params, device, max_len,
+                                                tracer=tracer, **bkw)
+    captured = _orch_streams(orch, batchers) if streams else None
     acts = [ProfilerActivity.CUDA]
     if split_dispatches:
         _label_dispatches(batchers)
         acts.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
+    zero_launches()
     t0 = time.perf_counter()
     with profile(activities=acts, record_shapes=split_dispatches) as prof:
         orch.run_until_done(max_ticks=4000)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = read_launches()
     events = prof.events()
+    dtoh = _dtoh_copies(events)
     labels = set(DISPATCH_RANGES.values())
     # the dispatch ranges' device-side annotations are not kernels
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -1209,8 +1244,13 @@ def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
           "device_ms_by_family": {k: round(v[0], 3) for k, v in
                                   sorted(fam.items(), key=lambda x: -x[1][0])},
           "launches_by_family": {k: v[1] for k, v in fam.items()},
+          "dtoh_copies": dtoh,
           **({"matmul_by_dispatch": _dispatch_matmuls(events)}
              if split_dispatches else {})})
+    return {"orch": orch, "batchers": batchers, "rids": rids,
+            "flags": flags, "streams": captured,
+            "work": {k: b.work_clock for k, b in batchers.items()},
+            "launches": launches, "dtoh": dtoh, "wall": wall}
 
 
 # ------------------------------------------------------- per-request phase
@@ -2105,6 +2145,458 @@ def stochastic_phase(cfg, params, device, runs_on):
 
 # -------------------------------------------------------------------- main
 
+# ------------------------------------- observation and degradation phases
+
+def _orch_streams(orch, batchers):
+    """Record, per orchestrator request id, the stream each request
+    finished with. The tokens are read where ``_finish_slot`` reads them
+    anyway (its tail materialization), so no readback is added."""
+    out = {}
+    for iid, b in batchers.items():
+        def record(si, b=b, iid=iid, finish=b._finish_slot):
+            b._materialize_slot(si)
+            s = b.slots[si]
+            rid = orch._local_inflight[(iid, s.request_id)][0].rid
+            out[rid] = list(s.carried) + list(s.generated)
+            finish(si)
+
+        b._finish_slot = record
+    return out
+
+
+def _dtoh_copies(events):
+    """Device-to-host copies in a torch profile's events."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in events if e.device_type == DeviceType.CUDA
+               and "Memcpy DtoH" in e.name)
+
+
+def traced_phase(cfg, params, device, base, main_launches,
+                 wall_unprofiled):
+    """The main path's traffic with a ``Tracer`` on the orchestrator and
+    every batcher, profiled as ``profile main_path``'s untraced run
+    (``base``) was: the streams, work clocks, K1/K2 launches and
+    device-to-host copies must be identical (tracing is a dict append and
+    reads nothing back), and the launches those of the ``main_path`` run.
+    Then the journal itself: span conservation on every batcher, one
+    terminal per request, one first token per completed request, and its
+    Chrome trace written to ``build/`` and read back."""
+    from repro_torch.obs import Tracer, write_chrome_trace
+    tracer = Tracer()
+    run = profile_phase("main_path traced", cfg, params, device,
+                        wall_unprofiled, streams=True, tracer=tracer)
+    orch, rids = run["orch"], run["rids"]
+    faults = []
+    if orch.busy() or any(orch.results.get(r) is None for r in rids):
+        faults.append("the traffic did not complete")
+    if not all(bool(f) for f in run["flags"]):
+        faults.append("non-finite logits")
+    for key in ("streams", "work", "launches", "dtoh"):
+        if run[key] != base[key]:
+            faults.append(f"traced {key} differ: {run[key]} vs {base[key]}")
+    if run["launches"] != main_launches:
+        faults.append(f"launches {run['launches']} differ from the "
+                      f"main_path run's {main_launches}")
+    cons = tracer.conservation_ok(run["batchers"])
+    if not cons["all"]:
+        faults.append(f"span work not conserved: {cons}")
+    if not tracer.terminals_exactly_once(rids):
+        faults.append("a request did not resolve exactly once")
+    firsts = tracer.first_token_counts()
+    if set(firsts.values()) != {1} or len(firsts) != len(orch.log):
+        faults.append(f"first tokens {firsts} for {len(orch.log)} "
+                      f"completed requests")
+    path = ROOT / "build" / "main_path_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    n = write_chrome_trace(tracer, str(path))
+    back = json.loads(path.read_text())["traceEvents"]
+    if len(back) != n:
+        faults.append(f"the Chrome trace holds {len(back)} of {n} events")
+    emit({"phase": "traced main_path", "requests": len(rids),
+          "streams_identical": run["streams"] == base["streams"],
+          "work_clocks": run["work"],
+          "launches": {k: v for k, v in run["launches"].items() if v},
+          "dtoh_copies_untraced": base["dtoh"],
+          "dtoh_copies_traced": run["dtoh"],
+          "events": len(tracer), "chrome_trace_events": len(back),
+          "chrome_trace": str(path.relative_to(ROOT)),
+          "conservation": cons["all"],
+          "wall_s_profiled_untraced": base["wall"],
+          "wall_s_profiled_traced": run["wall"]})
+    if faults:
+        raise AssertionError("traced main_path: " + "; ".join(faults))
+
+
+def _tick_walls(cfg, params, device, profiled):
+    """The main path's traffic on fresh batchers with each
+    ``orch.tick()`` timed on the host clock, and with one
+    ``DispatchProfiler`` per batcher when ``profiled``. Returns (streams,
+    tick ns, wall, profilers, orch)."""
+    import torch
+
+    from repro_torch.obs import DispatchProfiler
+    orch, batchers, _rids, _flags = serving_stack(cfg, params, device, 2048)
+    streams = _orch_streams(orch, batchers)
+    profs = {}
+    if profiled:
+        for iid, b in batchers.items():
+            b.profiler = profs[iid] = DispatchProfiler()
+    torch.cuda.synchronize()
+    tick_ns = []
+    t0 = time.perf_counter()
+    while orch.busy() and orch.tick_stats["ticks"] < 4000:
+        t = time.perf_counter_ns()
+        orch.tick()
+        tick_ns.append(time.perf_counter_ns() - t)
+    torch.cuda.synchronize()
+    return streams, tick_ns, time.perf_counter() - t0, profs, orch
+
+
+def host_split_phase(cfg, params, device, base):
+    """The main path's traffic once unprofiled and once with one
+    ``DispatchProfiler`` per batcher, back to back, each orchestrator
+    tick timed: each island's phase report, and the profiled run split
+    into the batchers' host_plan / bucket / dispatch_submit / device_sync
+    and the orchestrator's own time (routing, MIST, telemetry: the tick
+    wall less the profiled batcher ticks). Both runs' streams must be
+    those of ``profile main_path``'s run (``base``)."""
+    from repro_torch.obs import DispatchProfiler
+    plain, plain_ns, plain_wall, _p, _o = _tick_walls(cfg, params, device,
+                                                      False)
+    streams, tick_ns, wall, profs, orch = _tick_walls(cfg, params, device,
+                                                      True)
+    if streams != base["streams"] or plain != base["streams"]:
+        raise AssertionError("host split: streams differ from the "
+                             "profile run's")
+    total = sum(tick_ns)
+    phases = {p: sum(pr.totals[p] for pr in profs.values())
+              for p in DispatchProfiler.PHASES}
+    batcher_ns = sum(pr.total_ns for pr in profs.values())
+    split_ms = {p: v / 1e6 for p, v in phases.items()}
+    split_ms["orchestrator"] = (total - batcher_ns) / 1e6
+    emit({"phase": "profile host split", "model": cfg.name,
+          "requests": len(streams), "ticks": orch.tick_stats["ticks"],
+          "batcher_ticks": sum(len(pr.ticks) for pr in profs.values()),
+          "dispatches": sum(pr.dispatches for pr in profs.values()),
+          "islands": {iid: pr.report() for iid, pr in profs.items()},
+          "tick_wall_ms": total / 1e6, "split_ms": split_ms,
+          "split_frac": {k: v * 1e6 / total for k, v in split_ms.items()},
+          "wall_s_profiled": wall, "wall_s_unprofiled": plain_wall,
+          "tick_wall_ms_unprofiled": sum(plain_ns) / 1e6,
+          "streams_identical": True})
+
+
+# benchmarks/degradation.py's scenario (ported here: it imports the JAX
+# package). DEADLINE_WORK is above the fault-free run's total mesh work,
+# so its two deadline requests can only expire in the faulted run
+DEADLINE_WORK = 520.0
+
+
+def _deg_workload():
+    out = []
+    for i in range(6):
+        out.append((f"primary interactive request number {i} with some "
+                    f"padding text", "primary", math.inf))
+    for i in range(2):
+        out.append((f"burstable background job {i} crunching a batch",
+                    "burstable", math.inf))
+    for i in range(2):
+        out.append((f"primary deadline-tagged request {i} that must "
+                    f"finish soon", "primary", DEADLINE_WORK))
+    return out
+
+
+def _burst_submit(wave):
+    """A burst wave: 14 short sheddable requests, unique per wave."""
+    from repro_torch.core.waves import Request
+
+    def fire(orch):
+        for k in range(14):
+            orch.submit(Request(query=f"burst w{wave} req {k} spam",
+                                priority="secondary",
+                                sensitivity_override=0.9),
+                        max_new_tokens=4)
+    return fire
+
+
+def _deg_plan():
+    """benchmarks/degradation.py's ``make_plan``: the laptop slowed x4 at
+    t1, bursts at t3 and t4, telemetry stale t6-t8, the desktop drained at
+    t9 and killed at t10 (tickets in flight), the laptop recovered at
+    t14."""
+    from repro_torch.serving.degrade import FaultEvent, FaultPlan
+    plan = FaultPlan()
+    plan.add(FaultEvent(1, "slowdown", island="laptop", factor=4))
+    plan.add(FaultEvent(3, "burst", submit=_burst_submit(1)))
+    plan.add(FaultEvent(4, "burst", submit=_burst_submit(2)))
+    plan.add(FaultEvent(6, "telemetry_stale", on=True))
+    plan.add(FaultEvent(8, "telemetry_stale", on=False))
+    plan.add(FaultEvent(9, "drain", island="desktop"))
+    plan.add(FaultEvent(10, "kill", island="desktop"))
+    plan.add(FaultEvent(14, "recover", island="laptop"))
+    return plan
+
+
+def degradation_run(cfg, params, device, plan, max_ticks=600):
+    """``drive`` of benchmarks/degradation.py on the port: three personal
+    islands, max_len 96, ``debug_audit`` (every pool audited at every
+    tick), a ``Tracer``, the overload ladder (queue watermark 12,
+    backpressure at 100), the workload and whatever bursts the plan
+    injects, with every stream and the logits behind it captured."""
+    import torch
+
+    from repro_torch.core.islands import IslandRegistry, personal_island
+    from repro_torch.core.lighthouse import Lighthouse
+    from repro_torch.core.mist import MIST
+    from repro_torch.core.tide import TIDE
+    from repro_torch.core.waves import WAVES, Policy, Request
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.degrade import OverloadPolicy
+    from repro_torch.serving.engine import (TickOrchestrator,
+                                            build_island_batchers)
+    reg = IslandRegistry()
+    for iid, lat in (("laptop", 120), ("desktop", 150), ("nas", 200)):
+        reg.register(personal_island(iid, latency_ms=lat,
+                                     capacity_units=2.0),
+                     reg.attestation_token(iid))
+    tide = TIDE(reg, straggler_patience=3)
+    lh = Lighthouse(reg)
+    for i in reg.all():
+        lh.heartbeat(i.island_id)
+    waves = WAVES(MIST(), tide, lh, Policy())
+    bats = build_island_batchers(cfg, reg, cache="paged", max_len=96,
+                                 slots_per_capacity_unit=2.0, params=params,
+                                 device=device)
+    every = dict(bats)      # a killed island leaves orch.batchers
+    tracer = Tracer()
+    orch = TickOrchestrator(
+        waves, reg, bats, decode_ticks_per_tick=1, migration_token_budget=64,
+        overload=OverloadPolicy(queue_watermark=12, backpressure_pct=100),
+        debug_audit=True, tracer=tracer, device=device)
+    streams, rows, frozen = _capture_orch(orch, bats)
+    rids = [orch.submit(Request(query=q, priority=pr, deadline_ms=dl,
+                                sensitivity_override=0.9),
+                        max_new_tokens=16) for q, pr, dl in _deg_workload()]
+    zero_launches()
+    while orch.busy() and orch.tick_stats["ticks"] < max_ticks:
+        if plan is not None:
+            plan.step(orch)
+        orch.tick()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    all_rids = list(range(orch._next_rid))
+    reasons: dict = {}
+    for d in orch.rejected:
+        reasons[str(d.reason)] = reasons.get(str(d.reason), 0) + 1
+    ts = orch.tick_stats
+    return {
+        "streams": streams, "rows": rows, "frozen": frozen,
+        "workload_rids": rids,
+        "texts": {r: (orch.results[r].text if orch.results.get(r)
+                      else None) for r in all_rids},
+        "ticks": ts["ticks"], "work_clock": orch.mesh_work,
+        "expired": ts["expired"], "shed": ts["shed"],
+        "backpressure_rejects": ts["backpressure_rejects"],
+        "hedges": ts["hedges"], "failovers": ts["failovers"],
+        "migrations_started": ts["migrations_started"],
+        "reject_reasons": reasons,
+        "unresolved": sum(1 for r in all_rids if r not in orch.results),
+        "terminals_exactly_once": tracer.terminals_exactly_once(all_rids),
+        "audits_ok": all(b.pool.audit() and b.pool.in_use() == 0
+                         for b in orch.batchers.values()),
+        "applied": list(plan.applied) if plan is not None else [],
+        "launches": launches,
+        "launches_expected": expected_launches(every.values()),
+        "events": len(tracer)}
+
+
+def degradation_phase(cfg, params, device):
+    """benchmarks/degradation.py at full width on the card, fault-free and
+    under its fault plan, held to the benchmark's deterministic checks
+    (its quota attack A/B is P10 and left out). The faulted run's streams
+    are held to the fault-free run's under the churn phase's near-tie
+    rule: a hedge, a failover or a recompute thaw rebuilds K/V with the
+    prefill kernel, and a destination's other batch changes the key-walk
+    split and cuBLAS's algorithm."""
+    from repro_torch.serving.degrade import RejectReason
+    base = degradation_run(cfg, params, device, None)
+    plan = _deg_plan()
+    fault = degradation_run(cfg, params, device, plan)
+    n_deadline = sum(1 for _q, _p, dl in _deg_workload()
+                     if math.isfinite(dl))
+    faults, st = _hold_runs(base, fault, CHURN_LOGIT_TOL)
+    both = [r for r in fault["workload_rids"]
+            if fault["texts"].get(r) is not None
+            and base["texts"].get(r) is not None]
+    checks = {
+        "plan_fully_applied": len(fault["applied"]) == len(plan.events),
+        "zero_stranded":
+            fault["unresolved"] == 0 and base["unresolved"] == 0
+            and fault["terminals_exactly_once"]
+            and base["terminals_exactly_once"],
+        "expired_within_bound":
+            1 <= fault["expired"] <= n_deadline and base["expired"] == 0,
+        "non_expired_streams_held": len(both) >= 6 and not faults,
+        "shed_exercised": fault["shed"] >= 1 and base["shed"] == 0,
+        "backpressure_exercised":
+            fault["backpressure_rejects"] >= 1
+            and base["backpressure_rejects"] == 0,
+        "hedge_exercised": fault["hedges"] >= 1 and base["hedges"] == 0,
+        "mid_migration_failover": fault["failovers"] >= 1,
+        "audits_ok": fault["audits_ok"] and base["audits_ok"],
+        "typed_reject_reasons": set(fault["reject_reasons"]) <= {
+            str(m) for m in RejectReason},
+        "launches": all(r["launches"] == r["launches_expected"]
+                        for r in (base, fault)),
+    }
+    skip = ("streams", "rows", "frozen", "texts", "workload_rids",
+            "launches_expected")
+    emit({"phase": "degradation", "model": cfg.name,
+          "fault_free": {k: v for k, v in base.items() if k not in skip},
+          "faulted": {k: v for k, v in fault.items() if k not in skip},
+          "completed_in_both": len(both), **st, "stream_faults": faults,
+          "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"degradation checks failed: {failed}")
+
+
+# benchmarks/trace.py's run: a seeded trace with default_slo_classes(),
+# base rate 4, its tenants, tiers and prefix reuse, batch-class shedding
+# over a mesh prefill backlog of 8000 tokens
+TRACE_N = 300
+TRACE_BASE_RATE = 4.0
+TRACE_SHED_BACKLOG = 8000
+
+
+def trace_arm(cfg, params, device, n, slo_aware):
+    """One arm of the trace harness: benchmarks/trace.py's
+    ``_build_mesh`` (three personal islands, max_len 96, fair tenancy,
+    class-aware batchers exactly when ``slo_aware``) with a ``Tracer``,
+    the seeded trace streamed through it. Returns its deterministic
+    result row (and the wall time)."""
+    import torch
+
+    from repro_torch.core.islands import IslandRegistry, personal_island
+    from repro_torch.core.lighthouse import Lighthouse
+    from repro_torch.core.mist import MIST
+    from repro_torch.core.tide import TIDE
+    from repro_torch.core.tracegen import (ArrivalSpec, TraceSpec,
+                                           default_slo_classes,
+                                           generate_trace, stream_trace)
+    from repro_torch.core.waves import WAVES, Policy
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.metrics import jain_index
+    from repro_torch.serving.degrade import OverloadPolicy
+    from repro_torch.serving.engine import (TickOrchestrator,
+                                            build_island_batchers)
+    spec = TraceSpec(n_requests=n, seed=0, classes=default_slo_classes(),
+                     arrivals=ArrivalSpec(base_rate=TRACE_BASE_RATE))
+    reg = IslandRegistry()
+    for iid, lat in (("laptop", 120), ("desktop", 150), ("nas", 200)):
+        reg.register(personal_island(iid, latency_ms=lat,
+                                     capacity_units=2.0),
+                     reg.attestation_token(iid))
+    tide = TIDE(reg)
+    lh = Lighthouse(reg)
+    for i in reg.all():
+        lh.heartbeat(i.island_id)
+    waves = WAVES(MIST(), tide, lh, Policy(on_infeasible="queue_local"))
+    bats = build_island_batchers(cfg, reg, cache="paged", max_len=96,
+                                 slots_per_capacity_unit=2.0, params=params,
+                                 class_aware=slo_aware, device=device)
+    tracer = Tracer()
+    orch = TickOrchestrator(
+        waves, reg, bats, decode_ticks_per_tick=4,
+        overload=OverloadPolicy(backlog_watermark=TRACE_SHED_BACKLOG,
+                                shed_priorities=("burstable",)),
+        slo_classes=spec.slo_classes(), slo_aware=slo_aware,
+        fair_tenancy=True, tracer=tracer, device=device)
+    t0 = time.perf_counter()
+    rids = stream_trace(orch, generate_trace(spec))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"n": len(rids), "ticks": orch.tick_stats["ticks"],
+            "work_clock": orch.mesh_work,
+            "unresolved": sum(1 for r in rids if r not in orch.results),
+            "terminals_exactly_once": tracer.terminals_exactly_once(rids),
+            "completed": sum(1 for r in rids
+                             if orch.results.get(r) is not None),
+            "expired": orch.tick_stats["expired"],
+            "shed": orch.tick_stats["shed"],
+            "slo": orch.slo_report(),
+            "fairness_final_jain": jain_index(
+                orch.tenant_service.values()),
+            "fairness_min_jain": orch.tick_stats["fairness_min_jain"],
+            "device_dispatches": orch.tick_stats["device_dispatches"],
+            "wall_s": wall}
+
+
+def trace_harness_phase(cfg, params, device, n=TRACE_N):
+    """The trace harness at full width on the card, SLO-aware on and off,
+    each arm held to the same arm of the port on the CPU at ``.reduced()``
+    width (generation has no EOS, so scheduling depends on neither the
+    width nor the device): per-class rows, ticks and work clock equal,
+    every rid resolved exactly once."""
+    import torch
+
+    from repro_torch.models.model import get_model
+    cpu = torch.device("cpu")
+    rcfg = cfg.reduced()
+    rparams = get_model(rcfg).init(seed=0, device=cpu)
+    out, faults = {}, []
+    for on in (True, False):
+        card = trace_arm(cfg, params, device, n, on)
+        ref = trace_arm(rcfg, rparams, cpu, n, on)
+        arm = "slo_aware" if on else "slo_blind"
+        for key in ("slo", "ticks", "work_clock", "expired", "shed",
+                    "fairness_final_jain", "fairness_min_jain"):
+            if card[key] != ref[key]:
+                faults.append(f"{arm} {key}: card {card[key]} vs cpu "
+                              f"{ref[key]}")
+        if card["unresolved"] or not card["terminals_exactly_once"]:
+            faults.append(f"{arm}: {card['unresolved']} unresolved, "
+                          f"terminals once {card['terminals_exactly_once']}")
+        out[arm] = dict(card, cpu_wall_s=ref["wall_s"])
+    att = {arm: out[arm]["slo"]["interactive"].get("ttft_attainment")
+           for arm in out}
+    emit({"phase": "trace harness", "model": cfg.name, "n": n,
+          **out, "interactive_ttft_attainment": att})
+    if faults:
+        raise AssertionError("trace harness: " + "; ".join(faults))
+
+
+def serve_trace_phase():
+    """``python -m repro_torch.launch.serve --batched --requests 12
+    --trace build/serve_trace.json`` on the card, through its ``main``:
+    the file loads as JSON and every submitted request has exactly one
+    terminal (in the journal and among the file's orchestrator events)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    path = ROOT / "build" / "serve_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        eng = serve.main(["--batched", "--requests", "12", "--trace",
+                          str(path)])
+    doc = json.loads(path.read_text())
+    terms = [e for e in doc["traceEvents"] if e.get("pid") == 0
+             and e.get("name") in ("complete", "reject", "expire")]
+    rids = list(range(eng._next_rid))
+    ok = (eng.tracer.terminals_exactly_once(rids) and len(rids) == 12
+          and len(terms) == 12)
+    emit({"phase": "serve --trace", "requests": len(rids),
+          "events": len(doc["traceEvents"]), "terminal_events": len(terms),
+          "completed": len(eng.log), "rejected": len(eng.rejected),
+          "stdout_lines": len(out.getvalue().splitlines()),
+          "device": str(next(iter(eng.batchers.values())).device)})
+    if not ok:
+        raise AssertionError("serve --trace: a request did not resolve "
+                             "exactly once")
+
+
 def fp32_tail(b):
     """Make stacked batcher ``b`` keep every cache leaf in fp32 (the
     serving paths keep the conv tails and the K/V in bf16): its slot rows
@@ -2183,8 +2675,15 @@ def main() -> int:
     launches, wall = timed("main_path", main_path, cfg, params, gpu)
     for k in ("paged_decode_attention", "chunked_prefill_attention"):
         rows[k]["launches"] = launches[k]
-    timed("profile main_path", profile_phase, "main_path", cfg, params, gpu,
-          wall)
+    base = timed("profile main_path", profile_phase, "main_path", cfg,
+                 params, gpu, wall, streams=True)
+    timed("traced main_path", traced_phase, cfg, params, gpu, base,
+          launches, wall)
+    timed("profile host split", host_split_phase, cfg, params, gpu, base)
+    del base
+    timed("degradation", degradation_phase, cfg, params, gpu)
+    timed("trace harness", trace_harness_phase, cfg, params, gpu)
+    timed("serve --trace", serve_trace_phase)
     _, wall, _ = timed("stacked", serve_path, "stacked", cfg, params, gpu,
                        cache="stacked")
     timed("profile stacked", profile_phase, "stacked", cfg, params, gpu,

@@ -43,6 +43,16 @@ tests/test_torch_sampling.py tests/test_torch_migration.py``;
 page imports, on paged and stacked batchers) and stochastic serving on
 the card.
 
+The orchestrator also carries the reference's degradation ladder (SLO
+expiry on a monotonic mesh work clock, watermark shedding, submit-time
+backpressure, straggler hedging under ``FaultPlan``), SLO classes with
+class-aware batchers, tenant fairness, and the observability layer
+(``obs``: the span tracer, its Chrome-trace export and the per-tick
+``DispatchProfiler``); ``python -m repro_torch.launch.serve --trace
+PATH`` writes a run's journal. Their parity tests are
+``tests/test_torch_obs.py``, ``tests/test_torch_degradation.py`` and
+``tests/test_torch_trace_harness.py``.
+
 Entry points (``TickOrchestrator``, ``build_island_batchers``, both
 batchers, ``LocalModelServer``, ``Model.init``) run on the card unless the
 caller passes ``device="cpu"``; asking for the card without one raises.
@@ -66,7 +76,9 @@ change history):
   (the hash-chained routing log);
 * ``core/tracegen.py`` and ``core/workload.py`` (the serve launcher's
   workload);
-* ``obs/metrics.py`` (``aggregate_stats`` needs ``latency_summary``).
+* ``obs/metrics.py`` (``aggregate_stats`` needs ``latency_summary``),
+  ``obs/trace.py`` (the span tracer) and ``obs/export.py`` (its
+  Chrome-trace/Perfetto writer).
 
 Ported modules keep the reference's paths and names
 (``repro_torch/models/attention.py`` <-> ``repro/models/attention.py``);

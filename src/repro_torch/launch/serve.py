@@ -18,9 +18,16 @@ and ``recurrentgemma-9b`` serve on both paths, through the stacked
 batcher when ``--batched`` (``--cache auto`` resolves to it: an SSM or
 RG-LRU config, or a windowed one, has no paged cache).
 ``--device`` picks where the models run: the card by default, ``cpu`` for
-the plain versions of the kernels. Not offered yet: the reference's
-``--train-classifier`` (MIST's JAX stage-2 classifier) and ``--trace``
-(the span tracer).
+the plain versions of the kernels.
+
+``--trace out.json`` (implies ``--batched``) attaches the operator-side
+span tracer (``repro_torch.obs``) to the run and writes the request-span
+journal as Chrome-trace/Perfetto JSON: islands as processes, decode
+slots as tracks, migrations as flow arrows. Load it at ui.perfetto.dev
+or chrome://tracing.
+
+Not offered yet: the reference's ``--train-classifier`` (MIST's JAX
+stage-2 classifier).
 """
 from __future__ import annotations
 
@@ -92,14 +99,25 @@ def main(argv=None):
                     help="paged-pool prefill policy: prefix-aware chunked "
                          "admission or the monolithic full-prompt dispatch "
                          "(--batched only)")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the request-span journal as Chrome-trace/"
+                         "Perfetto JSON (implies --batched; operator-view "
+                         "only)")
     args = ap.parse_args(argv)
+    if args.trace and not args.batched:
+        print("--trace implies --batched: enabling the tick orchestrator")
+        args.batched = True
 
     reg, waves = build_mesh(Policy(mode=args.mode), args.buffer)
     cfg = get_config(args.arch).reduced()
     wl = healthcare_workload(args.requests, seed=args.seed)
+    tracer = None
     if args.batched:
         from repro_torch.serving.batcher import make_batcher
         from repro_torch.serving.engine import TickOrchestrator
+        if args.trace:
+            from repro_torch.obs import Tracer
+            tracer = Tracer()
         batchers = {iid: make_batcher(cfg, cache=args.cache,
                                       num_slots=args.slots,
                                       prefill=args.prefill,
@@ -107,7 +125,7 @@ def main(argv=None):
                                       device=args.device)
                     for iid in ("laptop", "home-nas")}
         eng = TickOrchestrator(waves, reg, batchers, seed=args.seed,
-                               device=args.device)
+                               tracer=tracer, device=args.device)
     else:
         servers = {iid: LocalModelServer(cfg, max_len=128, seed=args.seed,
                                          device=args.device)
@@ -118,6 +136,11 @@ def main(argv=None):
     if args.batched:
         eng.run_until_done()
     print(json.dumps(eng.stats(), indent=1))
+    if tracer is not None:
+        from repro_torch.obs import write_chrome_trace
+        n = write_chrome_trace(tracer, args.trace)
+        print(f"wrote {n} trace events to {args.trace} "
+              f"(load at ui.perfetto.dev)")
     return eng
 
 

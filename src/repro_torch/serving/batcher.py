@@ -62,12 +62,23 @@ the rest deep-copy) or a dense-row import when the payload is legal and
 fits, recompute of the context otherwise. Either way the resumed stream is
 the one the source would have produced.
 
-Not ported yet: SLO expiry, tier quotas, class-aware scheduling,
-constant-shape dispatch, straggler injection, the tracer and the
-profiler (ROADMAP Queue 1, P9-P10).
+Observation and degradation (ROADMAP Queue 1, P9): ``attach_tracer``
+journals every lifecycle step (queue, admit, prefill, first token,
+decode, preempt, freeze, finish, expire, page alloc/share/COW) on the
+batcher's tick and work clocks, a ``DispatchProfiler`` (``profiler``)
+splits each tick into host planning, bucketing, dispatch submission and
+device waits; neither reads the device or changes a decision.
+``cancel_request`` ends a request at any stage (SLO expiry: a fused
+slot's device-resident tail is dropped unread), ``set_slowdown`` makes
+the batcher a straggler, and ``class_aware`` batchers prefer the highest
+SLO rank in admission, chunk order and preemption.
+
+Not ported yet: constant-shape dispatch and per-tier quotas (ROADMAP
+Queue 1, P10); both are refused by name.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -90,6 +101,17 @@ from repro_torch.serving.migration import MigrationTicket, ticket_fits
 from repro_torch.serving.sampling import sample, stream_key
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def refuse_unported(constant_shape=False, tier_quotas=None):
+    """Constant-shape dispatch and per-tier quotas are not ported: refuse
+    them rather than ignore them, so that a quota-on run cannot pass for
+    a quota-off one."""
+    for name, value in (("constant_shape", constant_shape),
+                        ("tier_quotas", tier_quotas)):
+        if value:
+            raise ValueError(f"{name} is not ported yet (ROADMAP Queue 1, "
+                             f"P10)")
 
 
 @dataclass
@@ -124,7 +146,8 @@ class _BatcherBase:
     """Queue/slot lifecycle shared by both cache managers."""
 
     def __init__(self, cfg, params=None, num_slots=4, max_len=256,
-                 seed=0, dtype="float32", temperature=0.0, device=None):
+                 seed=0, dtype="float32", temperature=0.0, device=None,
+                 class_aware=False):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = get_model(cfg)
@@ -134,6 +157,11 @@ class _BatcherBase:
         self.num_slots = num_slots
         self.max_len = max_len
         self.temperature = temperature
+        # SLO-class-aware scheduling (opt-in): admission and budgeted
+        # prefill prefer the highest ``slo_rank`` (FCFS within a rank),
+        # and page-exhaustion preemption prefers low-rank victims. False
+        # keeps every scheduling decision identical to the unranked path.
+        self.class_aware = class_aware
         self.tok = ByteTokenizer(cfg.vocab_size)
         # sampling keys: admission n of this batcher draws from stream
         # stream_key(seed + 1, n)
@@ -169,14 +197,62 @@ class _BatcherBase:
         self.tier_work: dict = {}
         # rid -> lifecycle record (submit/admit/first-token ticks & work)
         self.request_log: dict[int, dict] = {}
+        # observability (opt-in, zero-interference): a Tracer receives
+        # span events stamped on this batcher's tick/work clocks, a
+        # DispatchProfiler times tick phases. Both default off; neither
+        # may touch scheduling state, and no event attribute is read
+        # from the device
+        self.tracer = None
+        self.island = ""
+        self.profiler = None
+        # fault injection: work-clock multiplier (1 = full speed); a
+        # slowed batcher does real work only every ``slowdown``-th tick
+        self.slowdown = 1
+        self._slow_phase = 0
+
+    def attach_tracer(self, tracer, island: str = ""):
+        """Attach a span tracer; ``island`` labels this batcher's events.
+        Paged mode also wires the page pool's event hook."""
+        self.tracer = tracer
+        self.island = island
+        pool = getattr(self, "pool", None)
+        if pool is not None and tracer is not None:
+            pool.trace_hook = self._trace
+
+    def _trace(self, kind, rid=None, **attrs):
+        if self.tracer is not None:
+            self.tracer.emit(kind, island=self.island, rid=rid,
+                             tick=self.stats["ticks"],
+                             work=self.work_clock, **attrs)
+
+    @contextmanager
+    def _dispatching(self):
+        """Charge a model dispatch (staging its host arrays and issuing
+        its launches) to the profiler's ``dispatch_submit``."""
+        prof = self.profiler
+        if prof is None:
+            yield
+            return
+        with prof.phase("dispatch_submit"):
+            yield
+        prof.add_ns("dispatch_submit", 0, dispatches=1)
+
+    def _readback(self, t):
+        """``t`` on the host as a numpy array. The copy waits for the
+        device, so a profiler charges it to ``device_sync``."""
+        if self.profiler is None:
+            return t.cpu().numpy()
+        with self.profiler.phase("device_sync"):
+            return t.cpu().numpy()
 
     # --------------------------------------------------------- submission
     def submit(self, prompt: str, max_new_tokens=16,
                trust_tier: Optional[int] = None, slo_rank: int = 0) -> int:
         """Enqueue a request. ``trust_tier`` tags the KV pages it produces
         (paged mode); None = untiered, which shares nothing (fail closed).
-        The stacked cache manager ignores the tier. ``slo_rank`` is
-        recorded only: class-aware scheduling is not ported yet."""
+        The stacked cache manager ignores the tier. ``slo_rank`` is the
+        request's SLO-class urgency (higher = tighter TTFT target; 0 =
+        unclassed/batch), inert unless ``class_aware`` is set."""
         rid = self._next_id
         self._next_id += 1
         self.queue.append((rid, prompt, max_new_tokens, trust_tier))
@@ -186,8 +262,11 @@ class _BatcherBase:
                "submit_work": self.work_clock,
                "tokens_skipped": 0}
         if slo_rank:
-            rec["slo_rank"] = slo_rank
+            rec["slo_rank"] = slo_rank  # carries across migrations (log)
         self.request_log[rid] = rec
+        if self.tracer is not None:
+            self._trace("queue", rid=rid, tier=trust_tier,
+                        max_new=max_new_tokens)
         return rid
 
     def submit_ticket(self, ticket: MigrationTicket) -> int:
@@ -215,7 +294,32 @@ class _BatcherBase:
         rec["submit_work"] = self.work_clock
         rec["migrations"] = rec.get("migrations", 0) + 1
         self.request_log[rid] = rec
+        if self.tracer is not None:
+            self._trace("thaw_queue", rid=rid, tier=ticket.tier,
+                        phase=ticket.phase, kv_tokens=ticket.kv_tokens)
         return rid
+
+    # --------------------------------------------- class-aware scheduling
+    def _rank_of(self, rid: int) -> int:
+        rec = self.request_log.get(rid)
+        return rec.get("slo_rank", 0) if rec else 0
+
+    def _slot_rank(self, si: int) -> int:
+        s = self.slots[si]
+        return self._rank_of(s.request_id) if s.active else 0
+
+    def _queue_pick(self) -> Optional[int]:
+        """Index of the next queue entry to admit. FCFS by default;
+        ``class_aware`` batchers prefer the highest ``slo_rank`` (strict
+        ``>`` keeps FCFS order within a rank)."""
+        best = None
+        for i, (rid, _p, _mn, _tier) in enumerate(self.queue):
+            if not self.class_aware:
+                return i
+            r = self._rank_of(rid)
+            if best is None or r > best[0]:
+                best = (r, i)
+        return None if best is None else best[1]
 
     def freeze_request(self, rid: int) -> Optional[MigrationTicket]:
         """Evacuate a request for live migration: a still-queued request
@@ -228,6 +332,8 @@ class _BatcherBase:
             self.queue.pop(i)
             getattr(self, "_enc_len", {}).pop(rid, None)
             t = self._tickets.pop(rid, None)
+            if self.tracer is not None:
+                self._trace("freeze", rid=rid, phase="queued")
             if t is not None:
                 return t            # still a ticket: forward untouched
             return MigrationTicket(
@@ -240,6 +346,50 @@ class _BatcherBase:
                 self.migration_stats["exports"] += 1
                 return self._freeze_slot(si)
         return None
+
+    # ---------------------------------------------------------- expiry
+    def cancel_request(self, rid: int) -> bool:
+        """Terminally cancel a request at any lifecycle stage (SLO
+        expiry): a queued request lifts out of the queue, an in-slot
+        request (mid-prefill or mid-decode) releases its cache state
+        through the manager's ``_cancel_slot``. Partial output is
+        discarded and ``finished`` is NOT written (the caller owns the
+        terminal record). False when the rid is unknown or already
+        finished, so a request that completed in the tick its deadline
+        lapsed is delivered, never resolved twice."""
+        for i, (qrid, _p, _mn, tier) in enumerate(self.queue):
+            if qrid != rid:
+                continue
+            self.queue.pop(i)
+            self._tickets.pop(rid, None)
+            getattr(self, "_enc_len", {}).pop(rid, None)
+            self._note_terminal(rid, "expired", tier=tier)
+            return True
+        for si, s in enumerate(self.slots):
+            if s.active and s.request_id == rid:
+                self._cancel_slot(si)
+                return True
+        return False
+
+    def _cancel_slot(self, si):
+        """Release slot ``si`` without finishing it (stacked manager: the
+        dense row is overwritten at the next admission, nothing to
+        free)."""
+        s = self.slots[si]
+        self._note_terminal(s.request_id, "expired",
+                            tokens=len(s.carried) + len(s.generated),
+                            tier=s.tier)
+        self.slots[si] = SlotState()
+
+    # --------------------------------------------------- fault injection
+    def set_slowdown(self, factor: int):
+        """Deterministic straggler injection: a work-clock multiplier.
+        With factor k, only every k-th ``tick()`` does real work — the
+        tick clock still advances every call, so each unit of work takes
+        k ticks. Streams are unchanged (skipped ticks do nothing at all);
+        factor 1 restores full speed."""
+        self.slowdown = max(1, int(factor))
+        self._slow_phase = 0
 
     def _resume_fields(self, s: SlotState) -> dict:
         """Resume-ticket fields of slot ``s``: un-fold the recompute
@@ -256,24 +406,36 @@ class _BatcherBase:
                     log=self.request_log.get(s.request_id))
 
     # ------------------------------------------------------ lifecycle notes
-    def _note_admission(self, rid, prompt_tokens):
+    def _note_admission(self, rid, prompt_tokens, slot=None):
         self.stats["admissions"] += 1
         rec = self.request_log.get(rid)
         if rec is not None:
             rec["admit_tick"] = self.stats["ticks"]
             rec["prompt_tokens"] = prompt_tokens
+        if self.tracer is not None:
+            self._trace("admit", rid=rid, slot=slot,
+                        prompt_tokens=prompt_tokens)
 
-    def _note_prefill_dispatch(self, tokens, tier=None):
+    def _note_prefill_dispatch(self, tokens, tier=None, rid=None,
+                               slot=None):
         self.stats["prefills"] += 1
         self.stats["prefill_dispatches"] += 1
         self.work_clock += tokens
         self.tier_work[tier] = self.tier_work.get(tier, 0) + tokens
+        if self.tracer is not None:
+            self._trace("prefill", rid=rid, slot=slot, tokens=tokens,
+                        tier=tier)
 
     def _note_decode_work(self, slot_indices):
         self.work_clock += len(slot_indices)
         for si in slot_indices:
             t = self.slots[si].tier
             self.tier_work[t] = self.tier_work.get(t, 0) + 1
+        if self.tracer is not None:
+            self._trace("decode",
+                        rids=[self.slots[si].request_id
+                              for si in slot_indices],
+                        slots=list(slot_indices))
 
     def _note_first_token(self, rid):
         rec = self.request_log.get(rid)
@@ -281,16 +443,24 @@ class _BatcherBase:
             rec["first_token_tick"] = self.stats["ticks"]
             rec["ttft_ticks"] = rec["first_token_tick"] - rec["submit_tick"]
             rec["ttft_work"] = self.work_clock - rec["submit_work"]
+        if self.tracer is not None:
+            self._trace("first_token", rid=rid)
 
-    def _note_terminal(self, rid, outcome, tokens=0):
-        """Stamp a request's terminal record: ``outcome`` is "completed"
-        or "rejected" (executor-level: could never fit)."""
+    def _note_terminal(self, rid, outcome, tokens=0, tier=None):
+        """Stamp a request's terminal record: ``outcome`` is "completed",
+        "rejected" (executor-level: could never fit) or "expired"
+        (work-clock SLO budget blown: ``cancel_request``). Exactly one
+        terminal note per batcher-local rid."""
         rec = self.request_log.get(rid)
         if rec is not None:
             rec["done_tick"] = self.stats["ticks"]
             rec["done_work"] = self.work_clock
             rec["outcome"] = outcome
             rec["generated_tokens"] = tokens
+        if self.tracer is not None:
+            kind = {"completed": "finish",
+                    "expired": "expire"}.get(outcome, "exec_reject")
+            self._trace(kind, rid=rid, tokens=tokens, tier=tier)
 
     def busy(self) -> bool:
         return bool(self.queue) or any(s.active for s in self.slots)
@@ -298,8 +468,26 @@ class _BatcherBase:
     def tick(self):
         """One engine tick; ``tick_dispatches_max`` records the peak
         number of model dispatches any single tick issued."""
+        if self.slowdown > 1:
+            # straggler injection: the tick clock advances, the work
+            # clock stands still, and nothing is planned, launched or
+            # read back
+            self._slow_phase = (self._slow_phase + 1) % self.slowdown
+            if self._slow_phase != 1:
+                self.stats["ticks"] += 1
+                return
         d0 = self.stats["device_dispatches"]
-        self._tick_inner()
+        prof = self.profiler
+        if prof is None:
+            self._tick_inner()
+        else:
+            shapes = getattr(self, "dispatch_shapes", None)
+            k0 = len(shapes) if shapes is not None else 0
+            prof.tick_begin()
+            self._tick_inner()
+            prof.tick_end(self._profile_sync_target())
+            if shapes is not None:
+                prof.note_shapes(shapes[k0:])
         self.stats["tick_dispatches_max"] = max(
             self.stats["tick_dispatches_max"],
             self.stats["device_dispatches"] - d0)
@@ -327,7 +515,7 @@ class _BatcherBase:
         0) never consumes a key. One dispatch samples every ready row, and
         the tokens cross to the host once."""
         if self.temperature <= 0.0:
-            nxt = sample(logits).cpu().numpy()
+            nxt = self._readback(sample(logits))
             return {si: int(nxt[si]) for si in ready}
         keys = np.zeros((len(ready), 2), np.int64)
         for n, si in enumerate(ready):
@@ -335,8 +523,9 @@ class _BatcherBase:
             keys[n] = s.sample_key
             s.sample_key = (s.sample_key[0], s.sample_key[1] + 1)
         rows = self._to_device(np.asarray(ready, np.int64))
-        toks = sample(logits.index_select(0, rows), self._to_device(keys),
-                      self.temperature).cpu().numpy()
+        toks = self._readback(sample(logits.index_select(0, rows),
+                                     self._to_device(keys),
+                                     self.temperature))
         return {si: int(toks[n]) for n, si in enumerate(ready)}
 
     def _to_device(self, arr):
@@ -355,17 +544,19 @@ class _BatcherBase:
         token crosses to the host: admission needs it to seed decode."""
         cache = self.model.init_cache(1, self.max_len, dtype=torch.bfloat16,
                                       device=self.device)
-        toks = self._to_device(np.asarray(ids, np.int32)[None])
-        logits, cache = self._prefill(self.params, cache, toks)
+        with self._dispatching():
+            toks = self._to_device(np.asarray(ids, np.int32)[None])
+            logits, cache = self._prefill(self.params, cache, toks)
         self.stats["device_dispatches"] += 1
-        return int(torch.argmax(logits[0])), cache
+        return int(self._readback(torch.argmax(logits[0]))), cache
 
     def _finish_slot(self, si):
         s = self.slots[si]
         self.finished[s.request_id] = self.tok.decode(
             list(s.carried) + list(s.generated))
         self._note_terminal(s.request_id, "completed",
-                            tokens=len(s.carried) + len(s.generated))
+                            tokens=len(s.carried) + len(s.generated),
+                            tier=s.tier)
         self.slots[si] = SlotState()
 
 
@@ -382,9 +573,10 @@ class ContinuousBatcher(_BatcherBase):
     """Dense stacked-slot cache manager."""
 
     def __init__(self, cfg, params=None, num_slots=4, max_len=256,
-                 seed=0, dtype="float32", temperature=0.0, device=None):
+                 seed=0, dtype="float32", temperature=0.0, device=None,
+                 class_aware=False):
         super().__init__(cfg, params, num_slots, max_len, seed, dtype,
-                         temperature, device)
+                         temperature, device, class_aware)
         # stacked slot caches: leading axis = slot
         self._cache = self.model.init_cache(num_slots, max_len,
                                             dtype=torch.bfloat16,
@@ -400,7 +592,7 @@ class ContinuousBatcher(_BatcherBase):
         for si, s in enumerate(self.slots):
             if s.active or not self.queue:
                 continue
-            rid, prompt, max_new, tier = self.queue.pop(0)
+            rid, prompt, max_new, tier = self.queue.pop(self._queue_pick())
             ticket = self._tickets.pop(rid, None)
             if ticket is not None and self._thaw_dense(si, rid, ticket):
                 continue
@@ -413,7 +605,7 @@ class ContinuousBatcher(_BatcherBase):
             if len(ids) + max_new - len(carried) - len(pending) \
                     >= self.max_len:
                 self.finished[rid] = None       # resumed context outgrew us
-                self._note_terminal(rid, "rejected")
+                self._note_terminal(rid, "rejected", tier=tier)
                 continue
             first, cache = self._prefill_ids(ids)
             _write_slot(self._cache, cache, si)
@@ -428,10 +620,15 @@ class ContinuousBatcher(_BatcherBase):
                                        prompt_ids=list(ids), sample_key=sk)
             if ticket is not None and ticket.resumes_compute():
                 self.migration_stats["recomputes"] += 1
-            self._note_admission(rid, len(ids))
-            self._note_prefill_dispatch(len(ids), tier)
+            self._note_admission(rid, len(ids), slot=si)
+            self._note_prefill_dispatch(len(ids), tier, rid=rid, slot=si)
             if not pending:
                 self._note_first_token(rid)
+
+    def _profile_sync_target(self):
+        """Device values the profiler waits on at tick end, so in-flight
+        work is charged to the tick that launched it (profiling only)."""
+        return self._cache
 
     # ----------------------------------------------------------- migration
     def _leaves(self):
@@ -446,6 +643,9 @@ class ContinuousBatcher(_BatcherBase):
         t = MigrationTicket(**self._resume_fields(s), kv_tokens=s.pos,
                             dense=dense, max_len=self.max_len,
                             phase="decode")
+        if self.tracer is not None:
+            self._trace("freeze", rid=s.request_id, slot=si,
+                        phase="decode", kv_tokens=s.pos)
         self.slots[si] = SlotState()
         return t
 
@@ -478,7 +678,7 @@ class ContinuousBatcher(_BatcherBase):
                                    prompt=t.prompt, prompt_ids=context,
                                    sample_key=sk)
         self.migration_stats["imports"] += 1
-        self._note_admission(rid, len(context))
+        self._note_admission(rid, len(context), slot=si)
         return True
 
     # --------------------------------------------------------------- tick
@@ -495,9 +695,10 @@ class ContinuousBatcher(_BatcherBase):
             s = self.slots[si]
             toks[si, 0] = s.generated[-1]
             poss[si] = s.pos
-        logits, self._cache = self._decode_all(
-            self.params, self._cache, self._to_device(toks),
-            self._to_device(poss))
+        with self._dispatching():
+            logits, self._cache = self._decode_all(
+                self.params, self._cache, self._to_device(toks),
+                self._to_device(poss))
         self.stats["device_dispatches"] += 1
         nxt = self._sample_ready(logits, active)
         self.stats["decode_steps"] += 1
@@ -530,7 +731,10 @@ class PagedContinuousBatcher(_BatcherBase):
     def __init__(self, cfg, params=None, num_slots=4, max_len=256,
                  seed=0, dtype="float32", temperature=0.0, page_size=16,
                  num_pages=None, sharing=True, prefill="chunked",
-                 prefill_token_budget=None, fused=True, device=None):
+                 prefill_token_budget=None, fused=True, device=None,
+                 constant_shape=False, tier_quotas=None,
+                 class_aware=False):
+        refuse_unported(constant_shape, tier_quotas)
         if not paged_supported(cfg):
             raise ValueError(
                 f"paged KV cache requires a full-history attention-only "
@@ -540,7 +744,7 @@ class PagedContinuousBatcher(_BatcherBase):
         if prefill not in ("chunked", "full"):
             raise ValueError(f"unknown prefill mode {prefill!r}")
         super().__init__(cfg, params, num_slots, max_len, seed, dtype,
-                         temperature, device)
+                         temperature, device, class_aware)
         self.page_size = page_size
         self.pages_per_seq = -(-max_len // page_size)
         if num_pages is None:
@@ -596,6 +800,12 @@ class PagedContinuousBatcher(_BatcherBase):
         used, in which case that one is reused. Padding is numerically
         free: padded rows/pages write only the scratch page and masked
         attention positions contribute exact zeros."""
+        if self.profiler is not None:
+            with self.profiler.phase("bucket"):
+                return self._bucket_inner(kind, need, cap)
+        return self._bucket_inner(kind, need, cap)
+
+    def _bucket_inner(self, kind, need, cap) -> int:
         need = max(1, min(need, cap))
         want = min(1 << (need - 1).bit_length(), cap)
         used = self._buckets.setdefault(kind, set())
@@ -608,18 +818,23 @@ class PagedContinuousBatcher(_BatcherBase):
 
     def _materialize_slot(self, si):
         """Pull slot ``si``'s device-resident generated tokens to the host
-        (the only device sync of the fused path: finish and preemption)."""
+        (the only device sync of the fused path: finish, freeze and
+        preemption)."""
         s = self.slots[si]
         if not s.gen_dev:
             return
         lo = len(s.generated)
-        vals = self._dev_gen[si, lo:lo + s.gen_dev].cpu().numpy()
+        vals = self._readback(self._dev_gen[si, lo:lo + s.gen_dev])
         s.generated.extend(int(v) for v in vals)
         s.gen_dev = 0
 
     def _finish_slot(self, si):
         self._materialize_slot(si)
         super()._finish_slot(si)
+
+    def _profile_sync_target(self):
+        return (self.pool.pages, self._dev_gen) if self.fused \
+            else self.pool.pages
 
     # ---------------------------------------------------------- admission
     def _admit(self):
@@ -638,9 +853,10 @@ class PagedContinuousBatcher(_BatcherBase):
         for si, s in enumerate(self.slots):
             if s.active:
                 continue
-            if not self.queue:
+            qi = self._queue_pick()
+            if qi is None:
                 break
-            rid, prompt, max_new, tier = self.queue[0]
+            rid, prompt, max_new, tier = self.queue[qi]
             ticket = self._tickets.get(rid)
             if ticket is not None:
                 ids = ticket.context_ids()
@@ -664,11 +880,11 @@ class PagedContinuousBatcher(_BatcherBase):
             if total >= self.max_len \
                     or -(-total // self.page_size) \
                     > self.pool.num_pages - 1:
-                self.queue.pop(0)
+                self.queue.pop(qi)
                 self._tickets.pop(rid, None)
                 self.finished[rid] = None
                 self.stats["rejected_too_large"] += 1
-                self._note_terminal(rid, "rejected")
+                self._note_terminal(rid, "rejected", tier=tier)
                 continue
             if self.pool.free_count() < n_fresh:
                 # pool exhausted — leave the request queued (eviction
@@ -678,7 +894,7 @@ class PagedContinuousBatcher(_BatcherBase):
                 self.pool.stats["blocked"] += 1
                 self.blocked_last_tick += 1
                 break
-            self.queue.pop(0)
+            self.queue.pop(qi)
             self._tickets.pop(rid, None)
             for pid in shared:
                 self.pool.incref(pid)
@@ -710,8 +926,8 @@ class PagedContinuousBatcher(_BatcherBase):
             self.stats["share_hits"] += len(shared)
             if ticket is not None and ticket.resumes_compute():
                 self.migration_stats["recomputes"] += 1
-            self._note_admission(rid, len(ids))
-            self._note_prefill_dispatch(len(ids), tier)
+            self._note_admission(rid, len(ids), slot=si)
+            self._note_prefill_dispatch(len(ids), tier, rid=rid, slot=si)
             if not pending:
                 self._note_first_token(rid)
 
@@ -720,14 +936,16 @@ class PagedContinuousBatcher(_BatcherBase):
         attach to every leading chunk already cached at this exact trust
         tier, and queue the rest for budgeted dispatch by
         ``_prefill_tick``. No model dispatch happens here. A preempted
-        request's resume ticket re-admits as a recompute of its
-        context."""
+        request's resume ticket re-admits as a recompute of its context.
+        ``class_aware`` batchers admit the most urgent SLO rank first
+        (``_queue_pick``) instead of strict FCFS."""
         for si, s in enumerate(self.slots):
             if s.active:
                 continue
-            if not self.queue:
+            qi = self._queue_pick()
+            if qi is None:
                 break
-            rid, prompt, max_new, tier = self.queue[0]
+            rid, prompt, max_new, tier = self.queue[qi]
             ticket = self._tickets.get(rid)
             if ticket is not None:
                 status = self._admit_ticket(si, rid, ticket)
@@ -741,7 +959,7 @@ class PagedContinuousBatcher(_BatcherBase):
                 self.pool.stats["blocked"] += 1
                 self.blocked_last_tick += 1
                 break
-            self.queue.pop(0)
+            self.queue.pop(qi)
             self._tickets.pop(rid, None)
             self._enc_len.pop(rid, None)
 
@@ -772,7 +990,7 @@ class PagedContinuousBatcher(_BatcherBase):
                 or -(-total // self.page_size) > self.pool.num_pages - 1:
             self.finished[rid] = None
             self.stats["rejected_too_large"] += 1
-            self._note_terminal(rid, "rejected")
+            self._note_terminal(rid, "rejected", tier=tier)
             return "rejected"
         # the plan holds every chunk that must DISPATCH: fresh chunks, plus
         # the last chunk even when shared IF the first token is still owed
@@ -810,7 +1028,7 @@ class PagedContinuousBatcher(_BatcherBase):
             self.slots[si].pos = len(ids)    # decode-ready immediately
         self.stats["share_hits"] += len(shared)
         self.stats["prefix_tokens_skipped"] += skipped
-        self._note_admission(rid, len(ids))
+        self._note_admission(rid, len(ids), slot=si)
         rec = self.request_log.get(rid)
         if rec is not None:
             rec["tokens_skipped"] = rec.get("tokens_skipped", 0) + skipped
@@ -834,7 +1052,7 @@ class PagedContinuousBatcher(_BatcherBase):
                            self.pool.num_pages):
             self.finished[rid] = None
             self.stats["rejected_too_large"] += 1
-            self._note_terminal(rid, "rejected")
+            self._note_terminal(rid, "rejected", tier=t.tier)
             return "rejected"
         ps = self.page_size
         if t.pages and t.page_size == ps:
@@ -875,7 +1093,7 @@ class PagedContinuousBatcher(_BatcherBase):
                     self.migration_stats["imports"] += 1
                     self.migration_stats["imported_pages"] += copied
                     self.migration_stats["import_attach_hits"] += hits
-                    self._note_admission(rid, len(context))
+                    self._note_admission(rid, len(context), slot=si)
                     return "ok"
         # recompute-from-tokens fallback (forbidden or impossible import)
         status = self._admit_ids(si, rid, context, t.max_new, t.tier,
@@ -895,11 +1113,14 @@ class PagedContinuousBatcher(_BatcherBase):
         ROTATES, so even a budget of one chunk per tick cannot starve a
         short prompt behind a long one. Fused, every planned row goes into
         ONE device dispatch; unfused, each run dispatches as it is
-        planned."""
+        planned. ``class_aware`` batchers serve higher SLO ranks first
+        (a stable sort keeps the rotation order within a rank)."""
         budget = self.prefill_token_budget
         n = self.num_slots
         start = self._prefill_rr
         order = [(start + k) % n for k in range(n)]
+        if self.class_aware:
+            order.sort(key=lambda si: -self._slot_rank(si))
         rows = []
         progress = True
         while budget > 0 and progress:
@@ -990,7 +1211,8 @@ class PagedContinuousBatcher(_BatcherBase):
                 # prompt complete: the boundary logits are the first token
                 # (a resumed request already holds its pending token)
                 off = (s.prompt_len - 1) - group[0][0] * self.page_size
-                s.generated = [int(torch.argmax(logits[0, off]))]
+                s.generated = [int(self._readback(
+                    torch.argmax(logits[0, off])))]
                 self._note_first_token(s.request_id)
         return gtok
 
@@ -1015,13 +1237,15 @@ class PagedContinuousBatcher(_BatcherBase):
             dst[n] = d
             fills += fill
         dev = self._to_device
-        logits, self.pool.pages = self._chunk_prefill(
-            self.params, self.pool.pages, dev(toks),
-            dev(np.asarray([start], np.int32)),
-            dev(self.block_tables[si:si + 1, :w]), dev(dst))
+        with self._dispatching():
+            logits, self.pool.pages = self._chunk_prefill(
+                self.params, self.pool.pages, dev(toks),
+                dev(np.asarray([start], np.int32)),
+                dev(self.block_tables[si:si + 1, :w]), dev(dst))
         self.stats["device_dispatches"] += 1
         self.stats["prefill_chunk_tokens"] += fills
-        self._note_prefill_dispatch(fills, s.tier)
+        self._note_prefill_dispatch(fills, s.tier, rid=s.request_id,
+                                    slot=si)
         return logits
 
     def _plan_prefill_row(self, si, budget):
@@ -1041,7 +1265,8 @@ class PagedContinuousBatcher(_BatcherBase):
             if dst != SCRATCH_PAGE:
                 self.pool.register_prefix(dst, s.tier, chash, fill)
         self.stats["prefill_chunk_tokens"] += gtok
-        self._note_prefill_dispatch(gtok, s.tier)
+        self._note_prefill_dispatch(gtok, s.tier, rid=s.request_id,
+                                    slot=si)
         row = {"si": si, "group": group,
                "start": group[0][0] * self.page_size,
                "bt": self.block_tables[si].copy(),
@@ -1089,11 +1314,12 @@ class PagedContinuousBatcher(_BatcherBase):
             emit_off[r] = row["emit_off"]
             gen_idx[r] = row["gen_idx"]
         dev = self._to_device
-        self._dev_last, self._dev_gen, self.pool.pages = \
-            self._fused_prefill(
-                self.params, self.pool.pages, dev(toks), dev(starts),
-                dev(bt), dev(dst), dev(emit_slot), dev(emit_off),
-                dev(gen_idx), self._dev_last, self._dev_gen)
+        with self._dispatching():
+            self._dev_last, self._dev_gen, self.pool.pages = \
+                self._fused_prefill(
+                    self.params, self.pool.pages, dev(toks), dev(starts),
+                    dev(bt), dev(dst), dev(emit_slot), dev(emit_off),
+                    dev(gen_idx), self._dev_last, self._dev_gen)
         self.stats["device_dispatches"] += 1
 
     # ----------------------------------------------------------- migration
@@ -1116,9 +1342,34 @@ class PagedContinuousBatcher(_BatcherBase):
         t = MigrationTicket(**self._resume_fields(s), kv_tokens=kv_tokens,
                             page_size=ps, pages=records,
                             phase="prefill" if mid_prefill else "decode")
+        if self.tracer is not None:
+            self._trace("freeze", rid=s.request_id, slot=si,
+                        phase=t.phase, kv_tokens=kv_tokens,
+                        pages=len(records))
         self.block_tables[si] = 0
         self.slots[si] = SlotState()
         return t
+
+    def _cancel_slot(self, si):
+        """Release slot ``si`` without finishing it (SLO expiry): free its
+        pages, return the reservations its undispatched chunks hold,
+        clear its block table. A fused slot's device-resident token tail
+        is dropped unread: ``gen_dev`` leaves with the slot (a fresh
+        ``SlotState``), so the next request admitted here starts from the
+        host-known tokens its admission seeds, and idle rows decode
+        against the scratch page. The expire terminal counts the tail's
+        tokens, which the host knows without reading them."""
+        s = self.slots[si]
+        self.reserved -= sum(1 for (j, _h, _f) in s.chunks[s.next_chunk:]
+                             if j >= len(s.pages))
+        for pid in s.pages:
+            self.pool.decref(pid)
+        self.block_tables[si] = 0
+        self._note_terminal(
+            s.request_id, "expired",
+            tokens=len(s.carried) + len(s.generated) + s.gen_dev,
+            tier=s.tier)
+        self.slots[si] = SlotState()
 
     def prefill_backlog_tokens(self) -> int:
         """Prompt tokens admitted or queued but not yet prefilled — the
@@ -1255,7 +1506,13 @@ class PagedContinuousBatcher(_BatcherBase):
             return (len(s.pages) * self.page_size + len(s.generated)
                     + s.gen_dev)
 
-        victim = min(stalled + prefilling, key=invested)
+        # class-aware: victims come from the class with the most SLO
+        # headroom first (lowest slo_rank); least-invested breaks ties
+        if self.class_aware:
+            victim = min(stalled + prefilling,
+                         key=lambda si: (self._slot_rank(si), invested(si)))
+        else:
+            victim = min(stalled + prefilling, key=invested)
         if victim in stalled:
             stalled.remove(victim)
         # the resume ticket needs the victim's whole stream on the host
@@ -1272,6 +1529,9 @@ class PagedContinuousBatcher(_BatcherBase):
             self._tickets[s.request_id] = MigrationTicket(
                 **self._resume_fields(s), phase="queued")
         self.preempted_rids.append(s.request_id)
+        if self.tracer is not None:
+            self._trace("preempt", rid=s.request_id, slot=victim,
+                        invested=invested(victim))
         self.slots[victim] = SlotState()
         self.stats["preemptions"] += 1
 
@@ -1293,9 +1553,10 @@ class PagedContinuousBatcher(_BatcherBase):
                      for si in ready)
         self.dispatch_shapes.append(("decode", self.num_slots, n_live))
         dev = self._to_device
-        logits, self.pool.pages = self._decode_all(
-            self.params, self.pool.pages, dev(toks), dev(poss),
-            dev(bt[:, :n_live]))
+        with self._dispatching():
+            logits, self.pool.pages = self._decode_all(
+                self.params, self.pool.pages, dev(toks), dev(poss),
+                dev(bt[:, :n_live]))
         self.stats["device_dispatches"] += 1
         nxt = self._sample_ready(logits, ready)
         self.stats["decode_steps"] += 1
@@ -1349,11 +1610,12 @@ class PagedContinuousBatcher(_BatcherBase):
                              for si in ready), self.pages_per_seq)
         self.dispatch_shapes.append(("decode", self.num_slots, w))
         dev = self._to_device
-        logits, self._dev_last, self._dev_gen, self.pool.pages = \
-            self._fused_decode(
-                self.params, self.pool.pages, self._dev_last,
-                dev(host_mask), dev(toks), dev(poss), dev(bt[:, :w]),
-                dev(write_slot), dev(gen_idx), self._dev_gen)
+        with self._dispatching():
+            logits, self._dev_last, self._dev_gen, self.pool.pages = \
+                self._fused_decode(
+                    self.params, self.pool.pages, self._dev_last,
+                    dev(host_mask), dev(toks), dev(poss), dev(bt[:, :w]),
+                    dev(write_slot), dev(gen_idx), self._dev_gen)
         self.stats["device_dispatches"] += 1
         nxt = None if greedy else self._sample_ready(logits, ready)
         self.stats["decode_steps"] += 1
@@ -1389,6 +1651,8 @@ def make_batcher(cfg, cache: str = "auto", **kw):
     if cache == "paged":
         return PagedContinuousBatcher(cfg, **kw)
     if cache == "stacked":
+        refuse_unported(kw.pop("constant_shape", False),
+                        kw.pop("tier_quotas", None))
         for k in ("page_size", "num_pages", "sharing", "prefill",
                   "prefill_token_budget", "fused"):
             kw.pop(k, None)

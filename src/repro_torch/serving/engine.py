@@ -30,9 +30,23 @@ backoff); TIDE-flagged stragglers are evacuated the same way.
 ``fail_island`` drops an island and requeues everything it held from the
 prompt.
 
-Not ported yet: SLO expiry and classes, load shedding and backpressure,
-tenant fairness, straggler injection (``set_slowdown``, ``FaultPlan``)
-and the tracer (ROADMAP Queue 1, P9).
+Degradation, SLO classes and fairness: every tick first expires the
+requests whose work-clock budget (``deadline_ms``, or their SLO class's)
+the monotonic mesh work clock has passed, at any stage (queued, frozen,
+in a batcher, simulated), then sheds the newest lowest-priority pending
+requests once the ``OverloadPolicy`` watermarks are crossed; ``submit``
+bounces sheddable priorities while the Lighthouse's hardened saturation
+hint is at the policy's threshold. ``slo_classes`` give requests their
+deadline and an urgency rank for class-aware batchers; ``slo_aware``
+lets the classes steer (ranks and SLO lag fed to TIDE) or only be
+counted (``slo_report``); ``fair_tenancy`` orders each tick's routing
+pool round-robin across tenants, least served first. A ``Tracer``
+journals every submit, route, dispatch, migration, failover and
+terminal, and every batcher's spans (``serving.batcher``);
+``debug_audit`` checks every paged pool's invariants at every tick.
+
+Not ported yet: constant-shape dispatch and per-tier quotas (ROADMAP
+Queue 1, P10); ``build_island_batchers`` refuses both by name.
 """
 from __future__ import annotations
 
@@ -52,7 +66,9 @@ from repro_torch.core.waves import Decision, Request
 from repro_torch.data.tokenizer import ByteTokenizer
 from repro_torch.models.model import get_model, resolve_device
 from repro_torch.models.steps import make_prefill_step, make_serve_step
-from repro_torch.obs.metrics import latency_summary
+from repro_torch.obs.metrics import jain_index, latency_summary, percentile
+from repro_torch.serving.degrade import (SLO_WORK_PER_MS, OverloadPolicy,
+                                         RejectReason, slo_rank_map)
 from repro_torch.serving.kvpool import trust_tier_for_sensitivity
 from repro_torch.serving.migration import MigrationTicket, ticket_fits
 
@@ -66,6 +82,12 @@ _SYNC_MAX_TICKS = 10_000
 # island set clears every backoff.
 BACKOFF_BASE_TICKS = 16
 BACKOFF_CAP_TICKS = 256
+
+# Trust tier through which the engine reads the Lighthouse's hardened
+# mesh-saturation hint for submit-time backpressure: the least-trusted
+# view, so admission control never sees sharper load data than any
+# tenant could.
+BACKPRESSURE_VIEWER_TIER = 3
 
 
 @dataclass
@@ -232,6 +254,10 @@ class PendingRequest:
     # it if no destination will take it)
     ticket: Optional[MigrationTicket] = None
     decision: Optional[Decision] = None
+    # SLO budget: the monotonic mesh work-clock reading past which this
+    # request expires (inf = no deadline), set once at submit and carried
+    # through freezes and migrations
+    deadline_work: float = math.inf
 
 
 class TickOrchestrator:
@@ -253,7 +279,9 @@ class TickOrchestrator:
 
     Before routing, each tick services island churn (``drain_island``,
     TIDE-flagged stragglers): frozen requests join the pool with their
-    migration tickets and are placed by the same pass.
+    migration tickets and are placed by the same pass; then it expires
+    blown SLO budgets, sheds overload and, with ``fair_tenancy``, orders
+    the pool across tenants.
 
     Routing runs on ``device`` (None = the card); its results cross to
     the host once per tick.
@@ -261,11 +289,20 @@ class TickOrchestrator:
 
     def __init__(self, waves, registry, batchers=None, seed=0,
                  decode_ticks_per_tick=4, tick_interval_s=0.05,
-                 migration_token_budget=512, device=None):
+                 migration_token_budget=512, tracer=None, overload=None,
+                 debug_audit=False, slo_classes=None, slo_aware=True,
+                 fair_tenancy=False, device=None):
         self.waves = waves
         self.registry = registry
         self.batchers = batchers or {}
         self.device = resolve_device(device)
+        # optional span tracer (repro_torch.obs.Tracer): orchestrator
+        # events carry island=None; every island batcher is attached
+        # under its island id. Pure observation.
+        self.tracer = tracer
+        if tracer is not None:
+            for iid, b in self.batchers.items():
+                b.attach_tracer(tracer, island=iid)
         self.cloud = CloudSimulator(seed)
         self.decode_ticks_per_tick = decode_ticks_per_tick
         self.tick_interval_s = tick_interval_s
@@ -286,6 +323,16 @@ class TickOrchestrator:
         # failed-placement backoff: rid -> (attempts, retry_at_tick)
         self._placement_backoff: dict[int, tuple] = {}
         self._last_routable: tuple = ()
+        # overload ladder (load shedding + submit backpressure); the
+        # default policy disables every watermark
+        self.overload = overload or OverloadPolicy()
+        # end-of-tick PagePool.audit() on every paged batcher
+        self.debug_audit = debug_audit
+        # monotonic mesh work clock: per-island work_clock deltas
+        # accumulated across churn (an island failure drops its batcher
+        # clock; this counter never goes backwards): the clock SLO
+        # deadlines are enforced against
+        self.mesh_work = 0
         self._work_seen: dict[str, int] = {}
         self.tick_stats = {"ticks": 0, "route_calls": 0, "routed": 0,
                            "decode_ticks": 0, "pool_peak": 0,
@@ -295,19 +342,88 @@ class TickOrchestrator:
                            "recomputes": 0, "pages_shipped": 0,
                            "restarts": 0, "failovers": 0,
                            "migration_returns": 0, "islands_drained": 0,
-                           "hedges": 0}
+                           "expired": 0, "shed": 0, "hedges": 0,
+                           "backpressure_rejects": 0,
+                           "fairness_min_jain": 1.0}
+        # SLO classes: name -> SLOClass. A tagged request inherits its
+        # class's deadline (a finite request-level deadline wins) and its
+        # urgency rank for class-aware batchers. slo_aware=False keeps the
+        # classes for accounting but stops them from influencing any
+        # scheduling decision (the A/B arm of the trace harness).
+        self.slo_classes: dict = dict(slo_classes or {})
+        self.slo_aware = slo_aware
+        self._slo_ranks = slo_rank_map(self.slo_classes.values())
+        self.class_log = {name: {"ttft_work": [], "tpot_work": [],
+                                 "completed": 0, "expired": 0,
+                                 "shed": 0, "rejected": 0}
+                          for name in self.slo_classes}
+        # per-tenant work-clock service (prompt tokens computed +
+        # generated tokens) and the tenants that ever entered the pool;
+        # fair_tenancy=True also orders each tick's routing pool to
+        # interleave tenants, least served first
+        self.fair_tenancy = fair_tenancy
+        self.tenant_service: dict[str, int] = {}
+        self._tenant_seen: set = set()
         hook = getattr(registry, "add_teardown_hook", None)
         if hook is not None:
             hook(self._on_island_deregistered)
 
+    def _otrace(self, kind, rid=None, **attrs):
+        """Orchestrator-scope span event: tick = orchestrator tick, work
+        = the sum of the LIVE batchers' work clocks (an island failure
+        drops its clock, so this stamp is not monotonic across churn)."""
+        if self.tracer is not None:
+            # an "island" kwarg here is an attribute (e.g. the chosen
+            # route target): orchestrator events keep scope island=None
+            island_attr = attrs.pop("island", None)
+            ev = self.tracer.emit(kind, island=None, rid=rid,
+                                  tick=self.tick_stats["ticks"],
+                                  work=sum(b.work_clock
+                                           for b in self.batchers.values()),
+                                  **attrs)
+            if island_attr is not None:
+                ev.attrs["island"] = island_attr
+
     # --------------------------------------------------------- submission
     def submit(self, req: Request, max_new_tokens=12) -> int:
         """Enqueue; returns a request id resolved in ``results`` once the
-        request completes (None if rejected)."""
+        request completes (None if rejected, shed, bounced by
+        backpressure, or expired)."""
         rid = self._next_rid
         self._next_rid += 1
-        self.pending.append(PendingRequest(rid, req, max_new_tokens,
-                                           self.waves.tide.clock))
+        p = PendingRequest(rid, req, max_new_tokens, self.waves.tide.clock)
+        deadline_ms = req.deadline_ms
+        if not math.isfinite(deadline_ms):
+            # no deadline of its own: inherit the SLO class's
+            cls = self._class_of(req)
+            if cls is not None:
+                deadline_ms = cls.deadline_ms
+        if math.isfinite(deadline_ms):
+            # the deadline becomes a work-clock budget at admission
+            p.deadline_work = self.mesh_work \
+                + deadline_ms * SLO_WORK_PER_MS
+        if self.tracer is not None:
+            self._otrace("submit", rid=rid, priority=req.priority,
+                         max_new=max_new_tokens)
+        # submit-time backpressure: sheddable priorities bounce while the
+        # mesh-saturation hint (read through the LEAST-trusted telemetry
+        # view) sits at or above the policy threshold
+        pol = self.overload
+        if pol.backpressure_pct is not None \
+                and pol.shed_rank(req.priority) < len(pol.shed_priorities) \
+                and self.waves.lighthouse.mesh_saturation(
+                    viewer_tier=BACKPRESSURE_VIEWER_TIER) \
+                >= pol.backpressure_pct:
+            d = Decision(None, False, RejectReason.BACKPRESSURE, -1.0)
+            self.rejected.append(d)
+            self.results[rid] = None
+            self.tick_stats["backpressure_rejects"] += 1
+            self._class_count(req, "rejected")
+            self._otrace("reject", rid=rid,
+                         reason=str(RejectReason.BACKPRESSURE))
+            return rid
+        self._tenant_seen.add(req.user)
+        self.pending.append(p)
         self.tick_stats["pool_peak"] = max(self.tick_stats["pool_peak"],
                                            len(self.pending))
         return rid
@@ -322,6 +438,146 @@ class TickOrchestrator:
             self.tick()
             ticks += 1
         return self.results.get(rid)
+
+    # ------------------------------------------ SLO classes and fairness
+    def _class_of(self, req):
+        """The request's SLOClass, or None when untagged/unregistered."""
+        if req.slo_class is None:
+            return None
+        return self.slo_classes.get(req.slo_class)
+
+    def _slo_rank(self, req) -> int:
+        """Urgency rank forwarded to class-aware batchers (0 = none);
+        always 0 when slo_aware is off."""
+        if not self.slo_aware or req.slo_class is None:
+            return 0
+        return self._slo_ranks.get(req.slo_class, 0)
+
+    def _class_count(self, req, outcome: str):
+        log = self.class_log.get(req.slo_class) if req.slo_class else None
+        if log is not None:
+            log[outcome] += 1
+
+    def _account_completion(self, req, rec):
+        """Fold a finished request's batcher log record into the
+        per-class TTFT/TPOT histograms and the tenant service clock.
+        ``rec`` is None on the simulated-cloud path (no batcher log): the
+        tenant is still credited a nominal unit."""
+        work = 1
+        if rec is not None:
+            work = max(1, rec.get("prompt_tokens", 0)
+                       - rec.get("tokens_skipped", 0)
+                       + rec.get("generated_tokens", 0))
+        self.tenant_service[req.user] = \
+            self.tenant_service.get(req.user, 0) + work
+        log = self.class_log.get(req.slo_class) if req.slo_class else None
+        if log is None:
+            return
+        log["completed"] += 1
+        if rec is None or "ttft_work" not in rec:
+            return
+        log["ttft_work"].append(rec["ttft_work"])
+        if "done_work" in rec:
+            # decode work past the first token, per decode token (the
+            # formula of obs.metrics.collect_batcher_metrics)
+            span = rec["done_work"] - rec["submit_work"] - rec["ttft_work"]
+            toks = max(rec.get("generated_tokens", 0) - 1, 1)
+            log["tpot_work"].append(span / toks)
+
+    def _fair_order(self, pool):
+        """Deterministic fair-queueing order for the tick's routing pool:
+        each tenant's k-th queued request sorts into round k, rounds break
+        ties by accumulated work-clock service (least served first), then
+        rid."""
+        nth: dict = {}
+        rounds = {}
+        for p in pool:
+            k = nth.get(p.req.user, 0)
+            nth[p.req.user] = k + 1
+            rounds[p.rid] = k
+        pool.sort(key=lambda p: (rounds[p.rid],
+                                 self.tenant_service.get(p.req.user, 0),
+                                 p.rid))
+
+    def _report_slo_pressure(self):
+        """Feed per-island SLO lag into TIDE's queueing term: for every
+        in-flight request whose class has a finite work-clock target, the
+        overshoot past that target (TTFT while queued or prefilling, TPOT
+        once decoding) sums into a lag the router prices as extra queue
+        depth on that island. Reads host bookkeeping only (a fused slot's
+        device-resident tokens are counted by ``gen_dev``)."""
+        lags: dict = {}
+        for (iid, brid), (p, _d) in self._local_inflight.items():
+            cls = self._class_of(p.req)
+            if cls is None:
+                continue
+            b = self.batchers.get(iid)
+            if b is None:
+                continue
+            rec = b.request_log.get(brid)
+            if rec is None or "outcome" in rec:
+                continue
+            if "ttft_work" not in rec:
+                if math.isfinite(cls.ttft_work_target):
+                    lag = (b.work_clock - rec["submit_work"]) \
+                        - cls.ttft_work_target
+                    if lag > 0.0:
+                        lags[iid] = lags.get(iid, 0.0) + lag
+            elif math.isfinite(cls.tpot_work_target):
+                toks = None
+                for s in b.slots:
+                    if s.active and s.request_id == brid:
+                        toks = len(s.generated) + s.gen_dev
+                        break
+                if not toks:
+                    continue
+                elapsed = b.work_clock - rec["submit_work"] \
+                    - rec["ttft_work"]
+                lag = elapsed - max(toks - 1, 1) * cls.tpot_work_target
+                if lag > 0.0:
+                    lags[iid] = lags.get(iid, 0.0) + lag
+        for iid, lag in sorted(lags.items()):
+            self.waves.tide.report_slo_lag(iid, lag)
+
+    def _snapshot_fairness(self):
+        """Per-tick min-Jain snapshot over tenants that have entered the
+        pool, sampled once every seen tenant has nonzero service."""
+        if len(self._tenant_seen) < 2:
+            return
+        vals = [self.tenant_service.get(t, 0) for t in self._tenant_seen]
+        if all(vals):
+            self.tick_stats["fairness_min_jain"] = min(
+                self.tick_stats["fairness_min_jain"], jain_index(vals))
+
+    def slo_report(self) -> dict:
+        """Per-class attainment summary from the deterministic work-clock
+        records: TTFT/TPOT percentiles, attainment fractions against the
+        class targets, and terminal outcome counts."""
+        out = {}
+        for name in sorted(self.slo_classes):
+            cls = self.slo_classes[name]
+            log = self.class_log[name]
+            n = log["completed"]
+            row = {"completed": n, "expired": log["expired"],
+                   "shed": log["shed"], "rejected": log["rejected"]}
+            if log["ttft_work"]:
+                row["ttft_work_p50"] = percentile(log["ttft_work"], 0.5)
+                row["ttft_work_p95"] = percentile(log["ttft_work"], 0.95)
+                if math.isfinite(cls.ttft_work_target):
+                    row["ttft_attainment"] = sum(
+                        1 for v in log["ttft_work"]
+                        if v <= cls.ttft_work_target) / len(log["ttft_work"])
+            if log["tpot_work"]:
+                row["tpot_work_p95"] = percentile(log["tpot_work"], 0.95)
+                if math.isfinite(cls.tpot_work_target):
+                    row["tpot_attainment"] = sum(
+                        1 for v in log["tpot_work"]
+                        if v <= cls.tpot_work_target) / len(log["tpot_work"])
+            terminal = n + log["expired"]
+            if terminal:
+                row["deadline_attainment"] = n / terminal
+            out[name] = row
+        return out
 
     # ----------------------------------------------------- island churn
     def drain_island(self, island_id: str, deregister: bool = False):
@@ -348,6 +604,8 @@ class TickOrchestrator:
         self.registry.set_status(island_id, STATUS_FAILED)
         self._draining.pop(island_id, None)
         self.batchers.pop(island_id, None)
+        # a replacement batcher under the same id starts a fresh clock;
+        # the mesh work clock already holds everything this one did
         self._work_seen.pop(island_id, None)
         self.waves.lighthouse.detach(island_id)
         n = 0
@@ -355,6 +613,7 @@ class TickOrchestrator:
             p, _d = self._local_inflight.pop(key)
             p.ticket = None
             self.pending.append(p)
+            self._otrace("failover", rid=p.rid, island=island_id)
             n += 1
         still = []
         for item in self._sim_inflight:
@@ -362,6 +621,7 @@ class TickOrchestrator:
             if d.island.island_id == island_id:
                 p.ticket = None
                 self.pending.append(p)
+                self._otrace("failover", rid=p.rid, island=island_id)
                 n += 1
             else:
                 still.append(item)
@@ -398,6 +658,9 @@ class TickOrchestrator:
             self._placement_backoff[p.rid] = (
                 attempts, self.tick_stats["ticks"] + delay)
             self.tick_stats["migration_returns"] += 1
+            self._otrace("migrate_return", rid=p.rid, island=t.source,
+                         brid=brid, attempts=attempts,
+                         backoff_ticks=delay)
             return True
         return False
 
@@ -465,6 +728,9 @@ class TickOrchestrator:
                 self.tick_stats["migrations_started"] += 1
                 if hedging:
                     self.tick_stats["hedges"] += 1
+                self._otrace("migrate_out", rid=p.rid, island=iid,
+                             brid=key[1], kv_tokens=t.kv_tokens,
+                             phase=t.phase, hedge=hedging)
 
     def _finalize_drains(self):
         """End-of-tick drain completion (after deliveries, so the tick
@@ -487,6 +753,113 @@ class TickOrchestrator:
                 self.tick_stats["islands_drained"] += 1
                 if dereg:
                     self.registry.deregister(iid)
+
+    # ----------------------------------------------- degradation ladder
+    def _advance_mesh_work(self):
+        """Fold each live batcher's work-clock advance into the monotonic
+        mesh work clock (the per-island last-seen map makes it never go
+        backwards across an island failure). SLO deadlines expire
+        against it."""
+        for iid, b in self.batchers.items():
+            delta = b.work_clock - self._work_seen.get(iid, 0)
+            if delta > 0:
+                self.mesh_work += delta
+            self._work_seen[iid] = b.work_clock
+
+    def _expire(self, p, stage: str, island: str | None = None):
+        """Terminal a request whose work-clock budget is spent: typed
+        reject, TIDE expiry pressure on the island it died on, and the
+        ``expire`` trace terminal."""
+        self.rejected.append(Decision(None, False, RejectReason.EXPIRED,
+                                      -1.0))
+        self.results[p.rid] = None
+        self._placement_backoff.pop(p.rid, None)
+        self.tick_stats["expired"] += 1
+        self._class_count(p.req, "expired")
+        if island is not None:
+            self.waves.tide.note_expiry(island)
+        self._otrace("expire", rid=p.rid, stage=stage, island=island)
+
+    def _expire_requests(self):
+        """Expire every request whose deadline_work the mesh work clock
+        has passed: queued, frozen mid-migration, in a batcher, or
+        simulated. A request that FINISHED this tick (in ``b.finished``)
+        is delivered normally: completion and expiry are exclusive."""
+        now = self.mesh_work
+        keep = []
+        for p in self.pending:
+            if p.deadline_work <= now and p.rid not in self.results:
+                self._expire(p, "frozen" if p.ticket is not None
+                             else "queued",
+                             island=(p.ticket.source
+                                     if p.ticket is not None else None))
+            else:
+                keep.append(p)
+        self.pending = keep
+        for key in [k for k, (p, _d) in self._local_inflight.items()
+                    if p.deadline_work <= now]:
+            iid, brid = key
+            b = self.batchers.get(iid)
+            if b is not None and brid in b.finished:
+                continue          # completed this tick: deliver, not expire
+            p, _d = self._local_inflight.pop(key)
+            if b is not None:
+                b.cancel_request(brid)
+            self._expire(p, "inflight", island=iid)
+        still = []
+        for item in self._sim_inflight:
+            _ready, p, d, _text, _exec_ms = item
+            if p.deadline_work <= now:
+                self._expire(p, "sim", island=d.island.island_id)
+            else:
+                still.append(item)
+        self._sim_inflight = still
+
+    def _shed_overload(self):
+        """Watermark-driven load shedding: saturation is the worst ratio
+        of (pending pool, mesh prefill backlog, max pool occupancy) to
+        its watermark. The level is published to the Lighthouse every
+        tick (hardened for tenant viewers: the backpressure hint); at or
+        above 1.0 the newest lowest-priority sheddable pending requests
+        are dropped with the typed ``shed`` reason until the pool is back
+        at the queue watermark."""
+        pol = self.overload
+        if not pol.enabled():
+            return
+        sat = 0.0
+        if pol.queue_watermark:
+            sat = max(sat, len(self.pending) / pol.queue_watermark)
+        if pol.backlog_watermark:
+            sat = max(sat, self.waves.lighthouse.mesh_prefill_backlog()
+                      / pol.backlog_watermark)
+        if pol.occupancy_watermark:
+            occs = [b.pool.occupancy() for b in self.batchers.values()
+                    if getattr(b, "pool", None) is not None]
+            if occs:
+                sat = max(sat, max(occs) / pol.occupancy_watermark)
+        self.waves.lighthouse.report_saturation(min(sat, 1.0))
+        if sat < 1.0:
+            return
+        target = pol.queue_watermark or 0
+        sheddable = sorted(
+            (p for p in self.pending
+             if p.ticket is None
+             and pol.shed_rank(p.req.priority) < len(pol.shed_priorities)),
+            key=lambda p: (pol.shed_rank(p.req.priority), -p.rid))
+        drop = set()
+        for p in sheddable:
+            if len(self.pending) - len(drop) <= target:
+                break
+            drop.add(p.rid)
+            self.rejected.append(Decision(None, False, RejectReason.SHED,
+                                          -1.0))
+            self.results[p.rid] = None
+            self.tick_stats["shed"] += 1
+            self._class_count(p.req, "shed")
+            self._otrace("reject", rid=p.rid,
+                         reason=str(RejectReason.SHED))
+        if drop:
+            self.pending = [p for p in self.pending if p.rid not in drop]
 
     # ------------------------------------------------------------ routing
     def route_pool(self, reqs: list) -> list:
@@ -621,9 +994,23 @@ class TickOrchestrator:
         """One scheduling tick; returns the Responses completed in it."""
         waves = self.waves
         completed: list[Response] = []
+        self._advance_mesh_work()
         self._service_draining()
+        # degradation ladder, in order: expire blown SLO budgets, then
+        # shed overload, then route what remains
+        self._expire_requests()
+        self._shed_overload()
         pool, self.pending = self.pending, []
+        if self.fair_tenancy and len(pool) > 1:
+            self._fair_order(pool)
         if pool:
+            if self.tracer is not None:
+                # per-island capacity snapshot for this routing pass
+                # (peek_capacity does not advance TIDE's EWMA state)
+                self._otrace("route_tick", pool=len(pool), capacities={
+                    i.island_id: round(
+                        waves.tide.peek_capacity(i.island_id), 4)
+                    for i in self.registry.all()})
             for p, d in zip(pool, self._route_pool(pool)):
                 if not d.accepted:
                     # nowhere to migrate: the draining source keeps it and
@@ -634,10 +1021,18 @@ class TickOrchestrator:
                     self.rejected.append(d)
                     self.results[p.rid] = None
                     self._placement_backoff.pop(p.rid, None)
+                    self._class_count(p.req, "rejected")
+                    self._otrace("reject", rid=p.rid, reason=d.reason)
                     continue
                 self.tick_stats["routed"] += 1
                 self._placement_backoff.pop(p.rid, None)
                 island = d.island
+                self._otrace("route", rid=p.rid,
+                             island=island.island_id,
+                             score=(round(d.score, 4)
+                                    if d.score is not None else None),
+                             reason=d.reason,
+                             n_candidates=d.n_candidates)
                 query = (d.sanitized_history[-1] if d.sanitize
                          else p.req.query)
                 b = self.batchers.get(island.island_id)
@@ -646,6 +1041,8 @@ class TickOrchestrator:
                     # the new island sanitizes differently: nothing
                     # computed for the old text is reusable (fail closed)
                     self.tick_stats["restarts"] += 1
+                    self._otrace("restart", rid=p.rid,
+                                 reason="sanitize_mismatch")
                     tkt = None
                 if b is not None:
                     if tkt is not None and not self._ticket_fits(b, tkt):
@@ -655,6 +1052,8 @@ class TickOrchestrator:
                         if self._return_to_source(p, tkt):
                             continue
                         self.tick_stats["restarts"] += 1
+                        self._otrace("restart", rid=p.rid,
+                                     reason="ticket_too_large")
                         tkt = None
                     if tkt is not None:
                         if (tkt.pages or tkt.dense is not None) and \
@@ -664,6 +1063,12 @@ class TickOrchestrator:
                             # recompute the context
                             tkt = tkt.without_pages()
                         brid = b.submit_ticket(tkt)
+                        self._otrace("migrate_in", rid=p.rid,
+                                     island=island.island_id, brid=brid,
+                                     source=tkt.source,
+                                     with_pages=bool(tkt.pages
+                                                     or tkt.dense
+                                                     is not None))
                         # thawing a context is real work for the
                         # destination: charge it so later migrations
                         # spread instead of dogpiling
@@ -678,17 +1083,25 @@ class TickOrchestrator:
                         brid = b.submit(
                             query, p.max_new_tokens,
                             trust_tier=trust_tier_for_sensitivity(
-                                d.sensitivity))
+                                d.sensitivity),
+                            slo_rank=self._slo_rank(p.req))
+                        self._otrace("dispatch", rid=p.rid,
+                                     island=island.island_id, brid=brid)
                     self._local_inflight[(island.island_id, brid)] = (p, d)
                 else:
                     # simulated executor: a cross-executor move cannot
                     # preserve a KV stream, so a migrated request restarts
                     if tkt is not None:
                         self.tick_stats["restarts"] += 1
+                        self._otrace("restart", rid=p.rid,
+                                     reason="cross_executor")
                     text, exec_ms = self.cloud.complete(island, query)
                     ready = waves.tide.clock + \
                         (island.latency_ms + exec_ms) / 1000.0
                     self._sim_inflight.append((ready, p, d, text, exec_ms))
+                    self._otrace("dispatch_sim", rid=p.rid,
+                                 island=island.island_id,
+                                 exec_ms=round(exec_ms, 3))
         # SHORE: continuous-batching ticks
         for iid, b in self.batchers.items():
             blocked = 0            # accumulated: b.tick() resets its count
@@ -710,8 +1123,12 @@ class TickOrchestrator:
                 if text is None:       # executor-level rejection (e.g. the
                     self.rejected.append(d)    # request can't fit the pool)
                     self.results[p.rid] = None
+                    self._class_count(p.req, "rejected")
+                    self._otrace("reject", rid=p.rid, island=iid,
+                                 reason="executor")
                     continue
-                completed.append(self._complete(p, d, text))
+                completed.append(self._complete(
+                    p, d, text, rec=b.request_log.get(brid)))
             # KV-pool pressure feedback + telemetry (paged batchers only)
             kv_pool = getattr(b, "pool", None)
             if kv_pool is not None:
@@ -730,11 +1147,17 @@ class TickOrchestrator:
                     work_clock=b.work_clock, tiers=b.tier_telemetry()))
             if any(b.migration_stats.values()):
                 waves.lighthouse.report_migration(iid, b.migration_stats)
-        # per-island progress feedback for straggler detection
+        # per-island progress feedback for straggler detection (the delta
+        # against the last-seen clock BEFORE _advance_mesh_work folds it
+        # into the mesh clock below)
         for iid, b in self.batchers.items():
             waves.tide.report_progress(
                 iid, b.work_clock - self._work_seen.get(iid, 0), b.busy())
-            self._work_seen[iid] = b.work_clock
+        # per-class SLO lag joins progress in the routing feedback loop
+        # (slo_aware only: the accounting-only arm must not steer)
+        if self.slo_aware and self.slo_classes:
+            self._report_slo_pressure()
+        self._advance_mesh_work()
         bs = self.batchers.values()
         for k in ("admissions", "prefill_dispatches", "device_dispatches"):
             self.tick_stats[k] = sum(b.stats.get(k, 0) for b in bs)
@@ -764,11 +1187,25 @@ class TickOrchestrator:
                 still.append((ready, p, d, text, exec_ms))
         self._sim_inflight = still
         self._finalize_drains()
+        if self.debug_audit:
+            # end-of-tick page-pool invariant check: a refcount-vs-table
+            # violation surfaces at the tick that caused it
+            for iid, b in self.batchers.items():
+                kv_pool = getattr(b, "pool", None)
+                if kv_pool is not None:
+                    try:
+                        kv_pool.audit()
+                    except AssertionError as e:
+                        raise AssertionError(
+                            f"PagePool audit failed on {iid} at tick "
+                            f"{self.tick_stats['ticks']}: {e}") from e
+        self._snapshot_fairness()
         self.tick_stats["ticks"] += 1
         return completed
 
     def _complete(self, p, d, text, exec_ms=0.0,
-                  include_base=True) -> Response:
+                  include_base=True, rec=None) -> Response:
+        self._account_completion(p.req, rec)
         if d.sanitize and d.placeholder_store is not None:
             text = self.waves.mist.desanitize(text, d.placeholder_store)
         elapsed = (self.waves.tide.clock - p.submitted_at) * 1000.0
@@ -782,6 +1219,8 @@ class TickOrchestrator:
                         decision=d, island_privacy=d.island.privacy)
         self.log.append(resp)
         self.results[p.rid] = resp
+        self._otrace("complete", rid=p.rid, island=d.island.island_id,
+                     latency_ms=round(latency, 3))
         return resp
 
     # ------------------------------------------------------------ control
@@ -813,6 +1252,10 @@ class TickOrchestrator:
             s["migration"] = self.waves.lighthouse.mesh_migration_stats()
         s["island_status"] = {i.island_id: self.registry.status(i.island_id)
                               for i in self.registry.all()}
+        if self.slo_classes:
+            s["slo"] = self.slo_report()
+        if self.tenant_service:
+            s["tenant_service"] = dict(sorted(self.tenant_service.items()))
         return s
 
 
@@ -821,7 +1264,8 @@ def build_island_batchers(cfg, registry, cache="auto", params=None,
                           page_size=16, pool_headroom=1.0, seed=0,
                           temperature=0.0, prefill="chunked",
                           prefill_token_budget=None, fused=True,
-                          device=None):
+                          constant_shape=False, tier_quotas=None,
+                          class_aware=False, device=None):
     """Per-SHORE-island continuous batchers (``cache`` "auto", "stacked"
     or "paged") with KV pools sized from each island's declared
     ``capacity_units``.
@@ -831,8 +1275,12 @@ def build_island_batchers(cfg, registry, cache="auto", params=None,
     can hold every slot fully private (never stalls), < 1.0 deliberately
     oversubscribes so the pool only fits the workload when prefix sharing
     pays, and otherwise preempts. Model parameters are initialized once
-    (on ``device``, None = the card) and shared across islands."""
-    from repro_torch.serving.batcher import make_batcher, paged_supported
+    (on ``device``, None = the card) and shared across islands.
+    ``class_aware`` batchers schedule by SLO rank; ``constant_shape`` and
+    ``tier_quotas`` are not ported yet and raise."""
+    from repro_torch.serving.batcher import (make_batcher, paged_supported,
+                                             refuse_unported)
+    refuse_unported(constant_shape, tier_quotas)
     if cache == "auto":                 # resolve once so sizing matches
         cache = "paged" if paged_supported(cfg) else "stacked"
     pages_per_seq = -(-max_len // page_size)
@@ -849,6 +1297,7 @@ def build_island_batchers(cfg, registry, cache="auto", params=None,
             max_len=max_len, seed=seed, temperature=temperature,
             page_size=page_size, prefill=prefill,
             prefill_token_budget=prefill_token_budget, fused=fused,
+            class_aware=class_aware,
             num_pages=max(2, int(slots * pages_per_seq
                                  * pool_headroom)) + 1,
             device=device)

@@ -143,6 +143,11 @@ class PagePool:
                       "import_tier_mismatch": 0, "import_refused": 0}
         # per-trust-tier counters backing the tier-scoped telemetry view
         self.tier_stats: dict = {}
+        # observability hook (wired by the owning batcher's
+        # ``attach_tracer``): called as hook(kind, **attrs) on page
+        # alloc / COW / prefix-share hits. Pure observation — never
+        # consulted for any allocation decision.
+        self.trace_hook = None
         self.pages = None
         if model is not None:
             cfg = model.cfg
@@ -323,6 +328,9 @@ class PagePool:
         self._tstat(tier)["allocs"] += 1
         self.stats["peak_in_use"] = max(self.stats["peak_in_use"],
                                         self.in_use())
+        if self.trace_hook is not None:
+            self.trace_hook("page_alloc", page=pid, tier=tier,
+                            in_use=self.in_use())
         return pid
 
     def incref(self, pid: int):
@@ -357,6 +365,8 @@ class PagePool:
         assert self._meta[pid].tier == tier      # impossible by construction
         self.stats["share_hits"] += 1
         self._tstat(tier)["share_hits"] += 1
+        if self.trace_hook is not None:
+            self.trace_hook("page_share", page=pid, tier=tier)
         return pid
 
     def register_prefix(self, pid: int, tier: Optional[int], chash: str,
@@ -393,6 +403,8 @@ class PagePool:
                     t[new] = t[pid]
         self.decref(pid)
         self.stats["cow_copies"] += 1
+        if self.trace_hook is not None:
+            self.trace_hook("page_cow", page=pid, new_page=new)
         return new
 
     # ------------------------------------------------------------ telemetry

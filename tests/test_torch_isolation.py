@@ -30,7 +30,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "models.rglru", "serving.engine", "serving.batcher",
                 "serving.migration", "serving.sampling",
                 "serving.session", "core.carbon", "core.audit",
-                "core.tracegen", "core.workload", "launch.serve"):
+                "core.tracegen", "core.workload", "launch.serve",
+                "obs.trace", "obs.export", "obs.profile"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -61,7 +62,8 @@ COPIES = ["data/tokenizer.py", "core/trust.py", "core/islands.py",
           "core/placeholder.py", "core/mist.py", "core/tide.py",
           "core/lighthouse.py", "core/waves.py", "core/tracegen.py",
           "core/workload.py", "serving/migration.py", "obs/metrics.py",
-          "core/carbon.py", "core/audit.py", "serving/session.py"]
+          "obs/trace.py", "obs/export.py", "core/carbon.py", "core/audit.py",
+          "serving/session.py"]
 
 
 def test_copied_modules_match_the_reference():

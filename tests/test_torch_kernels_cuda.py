@@ -819,3 +819,20 @@ def test_counter_noise_is_equal_on_the_card_and_the_cpu(card):
     gc = sampling.gumbel_noise(seeds, draws, 49152)
     gd = sampling.gumbel_noise(seeds.to(card), draws.to(card), 49152).cpu()
     assert torch.allclose(gd, gc, rtol=2 ** -23, atol=2 ** -23)
+
+
+def test_profiler_waits_for_the_card(card):
+    """``DispatchProfiler.tick_end`` synchronizes the device that holds
+    its target: the work launched in the tick has finished when it
+    returns, and the wait is charged to ``device_sync``."""
+    from repro_torch.obs import DispatchProfiler
+    prof = DispatchProfiler()
+    a = torch.randn(4096, 4096, device=card)
+    torch.cuda.synchronize()
+    prof.tick_begin()
+    for _ in range(8):
+        a = a @ a / 64.0
+    prof.tick_end([{"k": a}])
+    assert torch.cuda.current_stream(card).query()
+    assert prof.totals["device_sync"] > 0
+    assert prof.report()["ticks"] == 1
