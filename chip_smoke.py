@@ -57,15 +57,36 @@ Phases (each raises on failure, and the script then exits non-zero):
      telemetry, the desktop drained then killed), held to the
      benchmark's checks: nothing stranded, every rid resolved once,
      bounded expiry, shedding, backpressure, a hedge, a failover, every
-     pool audited at every tick, typed reject reasons, and the
-     non-expired streams held to the fault-free run's under the churn
-     phase's near-tie rule;
+     pool audited at every tick, typed reject reasons, the non-expired
+     streams held to the fault-free run's under the churn phase's
+     near-tie rule, and its quota attack A/B (the scheduling-interference
+     attack with per-tier quotas off and on);
    - trace harness: ``benchmarks/trace.py``'s seeded trace with
      ``default_slo_classes()`` (``TRACE_N`` requests) SLO-aware on and
      off, each arm's per-class rows, ticks and work clock equal to the
      port's on the CPU at ``.reduced()`` width;
    - serve --trace: the serve launcher with ``--trace`` on the card, its
      JSON read back, one terminal per request;
+   - leakage: ``benchmarks/leakage.py``'s adversary suite (seven
+     attacks, ``repro_torch.privacy``) with mitigations off and on, held
+     to the benchmark's checks (the leaks shown off, chance + 0.05 on),
+     every attack's result equal to the port's on the CPU at
+     ``.reduced()`` width, and K1/K2 once per layer of every dispatch of
+     every batcher the suite built;
+   - constant shape: ``constant_shape`` against the default on
+     ``benchmarks/leakage.py``'s ``constant_shape_ab`` workload and on
+     the main path's traffic: every request resolved, K1/K2 once per
+     layer of every dispatch, one prefill and one decode geometry per
+     batcher, one K1 and one K2 key-walk split per island (each launch's
+     ``last_split``), streams under the near-tie rule, the work clock
+     within 1.25x; then the main path default, constant, constant,
+     default for wall tokens/s, and one profiled constant run for its
+     device busy time against ``profile main_path``'s;
+   - fp8 smollm: an fp32 and a ``float8_e4m3fn`` dense cache through
+     ``Model.forward`` (4 rows, a 1,024-token prompt, 32 decode steps;
+     K4, K3): tests/test_extensions.py's bounds on the logit gap, the
+     first attention layer's quantized K/V and scales bit-equal to a CPU
+     quantization of the same fp32 K/V;
    - stacked: ``ContinuousBatcher``s over dense caches (K4 + K3), then a
      profile;
    - paged prefill="full" (K4 + K1) and paged fused=False (K2 + K1);
@@ -118,7 +139,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    decode dispatch), the per-request path, and the card-vs-CPU replay on
    the stacked batcher, cut to one pattern cycle (3 layers at full
    width: 34 GB of fp32 weights and 26 TFLOP prefills do not replay on
-   a CPU), once as served and once with every cache leaf in fp32.
+   a CPU), once as served and once with every cache leaf in fp32; then
+   the fp8 phase on the served weights (2 rows, a 512-token prompt, 16
+   steps: the local-attention rings' scales at head_dim 256).
+
+The profile phases read the device spans from the profiler's raw
+events (parsing them into host-op trees takes ~60 s a main path run);
+only recurrentgemma's matmul split parses them.
 
 It prints one JSON object per phase (with its seconds), then the card's
 name and power limit, the kernel table, and last
@@ -1202,7 +1229,6 @@ def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
     the orchestrator. Returns the run (streams, work clocks, launches,
     copies) for the traced phase to compare."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     orch, batchers, rids, flags = serving_stack(cfg, params, device, max_len,
                                                 tracer=tracer, **bkw)
@@ -1219,25 +1245,19 @@ def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    events = prof.events()
-    dtoh = _dtoh_copies(events)
-    labels = set(DISPATCH_RANGES.values())
-    # the dispatch ranges' device-side annotations are not kernels
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in events if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.name not in labels)
+    spans, events = _device_spans(prof, split_dispatches)
+    dtoh = sum(1 for _s, _e, kname in spans if "Memcpy DtoH" in kname)
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
-    busy, end = 0.0, float("-inf")
+    busy, end = 0, float("-inf")
     fam: dict = {}
     for s, e, kname in spans:
-        busy += max(0.0, e - max(s, end))
+        busy += max(0, e - max(s, end))
         end = max(end, e)
         f = fam.setdefault(_kernel_family(kname), [0.0, 0])
-        f[0] += (e - s) / 1e3
+        f[0] += (e - s) / 1e6
         f[1] += 1
-    busy_s = busy / 1e6
+    busy_s = busy / 1e9
     emit({"phase": f"profile {name}", "device_busy_s": busy_s,
           "wall_s_profiled": wall, "wall_s_unprofiled": wall_unprofiled,
           "device_idle_share": 1.0 - busy_s / wall_unprofiled,
@@ -1250,7 +1270,8 @@ def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
     return {"orch": orch, "batchers": batchers, "rids": rids,
             "flags": flags, "streams": captured,
             "work": {k: b.work_clock for k, b in batchers.items()},
-            "launches": launches, "dtoh": dtoh, "wall": wall}
+            "launches": launches, "dtoh": dtoh, "wall": wall,
+            "busy_s": busy_s}
 
 
 # ------------------------------------------------------- per-request phase
@@ -1548,11 +1569,14 @@ def _capture_orch(orch, batchers):
     returns): nothing is re-run, so no kernel launch is added. Also the
     freezes: ``queued`` holds the rids frozen while still queued (such a
     ticket carries no sampling key), ``seed`` the stream seed of each
-    rid's last ticket that carried one."""
+    rid's last ticket that carried one. With ``orch`` None the batchers
+    are driven bare, and a request is keyed by its batcher's own rid."""
     streams, rows = {}, {}
     frozen = {"queued": set(), "seed": {}}
     for iid, b in batchers.items():
         def orid(brid, iid=iid):
+            if orch is None:
+                return brid
             return orch._local_inflight[(iid, brid)][0].rid
 
         last = {}
@@ -2164,11 +2188,31 @@ def _orch_streams(orch, batchers):
     return out
 
 
-def _dtoh_copies(events):
-    """Device-to-host copies in a torch profile's events."""
+def _device_spans(prof, parsed=False):
+    """The device activity of a finished torch profile as sorted (start
+    ns, end ns, name), without the dispatch ranges' device-side
+    annotations (they are not kernels), and the parsed events when
+    ``parsed`` (None otherwise). Only the matmul split by dispatch reads
+    the parsed event tree; the raw kineto events give the same spans
+    without parsing every host op (``prof.events()``: ~50 s a main path
+    run)."""
     from torch.autograd import DeviceType
-    return sum(1 for e in events if e.device_type == DeviceType.CUDA
-               and "Memcpy DtoH" in e.name)
+    labels = set(DISPATCH_RANGES.values())
+    if parsed:
+        events = prof.events()
+        return sorted((int(e.time_range.start * 1000),
+                       int(e.time_range.end * 1000), e.name)
+                      for e in events if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)
+                      and e.name not in labels), events
+    spans = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.name() in labels \
+                or e.is_user_annotation():
+            continue
+        spans.append((e.start_ns(), e.start_ns() + e.duration_ns(),
+                      e.name()))
+    return sorted(spans), None
 
 
 def traced_phase(cfg, params, device, base, main_launches,
@@ -2412,12 +2456,14 @@ def degradation_run(cfg, params, device, plan, max_ticks=600):
 
 def degradation_phase(cfg, params, device):
     """benchmarks/degradation.py at full width on the card, fault-free and
-    under its fault plan, held to the benchmark's deterministic checks
-    (its quota attack A/B is P10 and left out). The faulted run's streams
-    are held to the fault-free run's under the churn phase's near-tie
-    rule: a hedge, a failover or a recompute thaw rebuilds K/V with the
-    prefill kernel, and a destination's other batch changes the key-walk
-    split and cuBLAS's algorithm."""
+    under its fault plan, held to the benchmark's deterministic checks,
+    its quota attack A/B included (the scheduling-interference attack
+    with per-tier quotas off, the positive control, and on). The faulted
+    run's streams are held to the fault-free run's under the churn
+    phase's near-tie rule: a hedge, a failover or a recompute thaw
+    rebuilds K/V with the prefill kernel, and a destination's other batch
+    changes the key-walk split and cuBLAS's algorithm."""
+    from repro_torch.privacy import Mitigations, run_attack_suite
     from repro_torch.serving.degrade import RejectReason
     base = degradation_run(cfg, params, device, None)
     plan = _deg_plan()
@@ -2449,13 +2495,25 @@ def degradation_phase(cfg, params, device):
         "launches": all(r["launches"] == r["launches_expected"]
                         for r in (base, fault)),
     }
+    quota = {}
+    for label in ("off", "on"):
+        r = run_attack_suite(cfg, params, getattr(Mitigations, label)(),
+                             include={"scheduling_interference"},
+                             device=device)["scheduling_interference"]
+        quota[label] = {"accuracy": r.accuracy, "chance": r.chance,
+                        "n_test": r.n_test}
+    checks["quota_attack_mitigated"] = (
+        quota["on"]["accuracy"] <= quota["on"]["chance"] + LEAK_SLACK)
+    checks["quota_attack_positive_control"] = (
+        quota["off"]["accuracy"]
+        >= quota["off"]["chance"] + LEAK_POSITIVE_MARGIN)
     skip = ("streams", "rows", "frozen", "texts", "workload_rids",
             "launches_expected")
     emit({"phase": "degradation", "model": cfg.name,
           "fault_free": {k: v for k, v in base.items() if k not in skip},
           "faulted": {k: v for k, v in fault.items() if k not in skip},
           "completed_in_both": len(both), **st, "stream_faults": faults,
-          "checks": checks})
+          "quota_attack": quota, "checks": checks})
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"degradation checks failed: {failed}")
@@ -2597,6 +2655,388 @@ def serve_trace_phase():
                              "exactly once")
 
 
+# ------------------------------------------------------ privacy hardening
+
+# benchmarks/leakage.py's gate constants (the benchmark imports the JAX
+# package, so its suite is ported here): a mitigated attack may beat
+# chance by at most LEAK_SLACK, an unmitigated one must beat it by at
+# least LEAK_POSITIVE_MARGIN
+LEAK_SLACK = 0.05
+LEAK_POSITIVE_MARGIN = 0.25
+SPLIT_KERNELS = ("paged_decode_attention", "chunked_prefill_attention")
+
+
+def _made_batchers(module):
+    """Collect every batcher ``module``'s ``make_batcher`` and
+    ``build_island_batchers`` build, so that a run's launches can be held
+    to ``expected_launches``. Returns (the list, undo)."""
+    made = []
+    mk, build = module.make_batcher, module.build_island_batchers
+
+    def make_batcher(*a, **k):
+        made.append(mk(*a, **k))
+        return made[-1]
+
+    def build_island_batchers(*a, **k):
+        out = build(*a, **k)
+        made.extend(out.values())
+        return out
+
+    module.make_batcher = make_batcher
+    module.build_island_batchers = build_island_batchers
+
+    def undo():
+        module.make_batcher, module.build_island_batchers = mk, build
+    return made, undo
+
+
+def leakage_phase(cfg, params, device):
+    """benchmarks/leakage.py's adversary suite (``run_attack_suite`` at
+    its defaults: seven attacks, mitigations off and on) at full width on
+    the card, held to the benchmark's three checks, with every attack's
+    result equal to the port's on the CPU at ``.reduced()`` width (no EOS:
+    scheduling depends on neither the width nor the weights), and the
+    card run's K1/K2 launches once per layer of every dispatch of every
+    batcher the suite built. The traced leg runs in the CPU tests."""
+    import torch
+
+    from repro_torch.models.model import get_model
+    from repro_torch.privacy import (Mitigations, adversary, leakage_report,
+                                     run_attack_suite)
+    cpu = torch.device("cpu")
+    rcfg = cfg.reduced()
+    rparams = get_model(rcfg).init(seed=0, device=cpu)
+    out, faults, suites = {}, [], {}
+    for label in ("off", "on"):
+        mit = getattr(Mitigations, label)()
+        made, undo = _made_batchers(adversary)
+        zero_launches()
+        t0 = time.perf_counter()
+        try:
+            card = run_attack_suite(cfg, params, mit, device=device)
+        finally:
+            undo()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = expected_launches(made)
+        if launches != want:
+            faults.append(f"mitigations {label}: launches {launches}, "
+                          f"expected {want}")
+        t0 = time.perf_counter()
+        ref = run_attack_suite(rcfg, rparams, mit, device=cpu)
+        cpu_wall = time.perf_counter() - t0
+        for name in sorted(set(card) | set(ref)):
+            if card.get(name) != ref.get(name):
+                faults.append(f"mitigations {label} {name}: card "
+                              f"{card.get(name)} vs cpu {ref.get(name)}")
+        rep = leakage_report(card)
+        suites[label] = card
+        out[f"mitigations_{label}"] = {
+            "attacks": {s["attack"]: {k: s[k] for k in (
+                "signal", "accuracy", "chance", "advantage", "n_test")}
+                for s in rep["per_signal"]},
+            "lps": rep["lps"], "batchers": len(made),
+            "dispatches": sum(len(b.dispatch_shapes) for b in made),
+            "launches": {k: v for k, v in launches.items() if v},
+            "wall_s": wall, "cpu_wall_s": cpu_wall}
+    off, on = suites["off"], suites["on"]
+    checks = {
+        "positive_control_prefix_ge_0p8":
+            off["prefix_membership"].accuracy >= 0.8,
+        "positive_control_leaks": all(
+            r.accuracy >= r.chance + LEAK_POSITIVE_MARGIN
+            for r in off.values()),
+        "mitigated_le_chance_plus_slack": all(
+            r.accuracy <= r.chance + LEAK_SLACK for r in on.values()),
+        "card_equals_cpu": not faults,
+    }
+    emit({"phase": "leakage", "model": cfg.name, **out, "checks": checks,
+          "faults": faults})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"leakage checks failed: {failed}: {faults}")
+
+
+def _record_splits(batchers):
+    """Record the key-walk split of every K1 and K2 launch by island: each
+    batcher's forward pass names its island, and the attention module's
+    two kernel names are wrapped to read the wrapper's ``last_split``
+    after each launch (no kernel argument, no device read). Returns
+    ({island: {kernel: [split, ...]}}, undo)."""
+    from repro_torch.models import attention
+    current = [None]
+    splits = {iid: {k: [] for k in SPLIT_KERNELS} for iid in batchers}
+    for iid, b in batchers.items():
+        def named(*a, iid=iid, forward=b.model.forward, **k):
+            current[0] = iid
+            return forward(*a, **k)
+
+        b.model.forward = named
+    saved = {k: getattr(attention, k) for k in SPLIT_KERNELS}
+    for name, fn in saved.items():
+        def recorded(*a, fn=fn, name=name, **k):
+            out = fn(*a, **k)
+            splits[current[0]][name].append(fn.last_split)
+            return out
+
+        setattr(attention, name, recorded)
+
+    def undo():
+        for name, fn in saved.items():
+            setattr(attention, name, fn)
+    return splits, undo
+
+
+def shape_run(cfg, params, device, constant_shape, main=True):
+    """One run for the constant-shape A/B, its streams and rows captured
+    (``_capture_orch``) and its K1/K2 splits recorded by island: the main
+    path's traffic through ``TickOrchestrator`` (``main``), else
+    benchmarks/leakage.py's ``constant_shape_ab`` workload on one bare
+    batcher (``tiered_serving_prompts(16, seed=7)``, 8 slots, ``max_len``
+    96, 8 new tokens)."""
+    import torch
+
+    from repro_torch.core.workload import tiered_serving_prompts
+    from repro_torch.serving.batcher import make_batcher
+    if main:
+        orch, batchers, rids, flags = serving_stack(
+            cfg, params, device, 2048, constant_shape=constant_shape)
+    else:
+        orch, flags = None, []
+        b = make_batcher(cfg, cache="paged", num_slots=8, max_len=96,
+                         params=params, constant_shape=constant_shape,
+                         device=device)
+        _watch_finite(b, flags)
+        batchers = {"shape_ab": b}
+        rids = [b.submit(p, max_new_tokens=8, trust_tier=t)
+                for p, t in tiered_serving_prompts(16, seed=7)]
+    streams, rows, frozen = _capture_orch(orch, batchers)
+    splits, undo = _record_splits(batchers)
+    torch.cuda.synchronize()
+    zero_launches()
+    try:
+        if main:
+            orch.run_until_done(max_ticks=4000)
+            results = orch.results
+        else:
+            results = b.run_until_done()
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    return {"streams": streams, "rows": rows, "frozen": frozen,
+            "splits": splits, "launches": read_launches(),
+            "launches_expected": expected_launches(batchers.values()),
+            "unresolved": [r for r in rids if results.get(r) is None],
+            "finite": all(bool(f) for f in flags),
+            "shapes": {iid: {kind: sorted({s[1:] for s in b.dispatch_shapes
+                                           if s[0] == kind})
+                             for kind in ("prefill", "decode")}
+                       for iid, b in batchers.items()},
+            "dispatches": sum(len(b.dispatch_shapes)
+                              for b in batchers.values()),
+            "work": sum(b.work_clock for b in batchers.values())}
+
+
+def _shape_ab(label, base, const):
+    """Hold a constant-shape run to the default run: every request
+    resolved with finite logits, K1/K2 once per layer of every dispatch,
+    one prefill and one decode geometry per batcher and one K1 and one K2
+    split per island, and the streams under the churn phase's near-tie
+    rule (the pinned rows and widths change the split and cuBLAS's
+    algorithm, so bit-equality is not expected; the result says whether
+    it held). Returns (faults, summary)."""
+    faults = []
+    for name, run in (("default", base), ("constant", const)):
+        if run["unresolved"] or not run["finite"]:
+            faults.append(f"{label} {name}: unresolved {run['unresolved']}"
+                          f", finite {run['finite']}")
+        if run["launches"] != run["launches_expected"]:
+            faults.append(f"{label} {name}: launches {run['launches']}, "
+                          f"expected {run['launches_expected']}")
+    for iid, kinds in const["shapes"].items():
+        for kind, shapes in kinds.items():
+            if len(shapes) > 1:
+                faults.append(f"{label} {iid}: {len(shapes)} {kind} shapes")
+    split_sets = {iid: {k: sorted(set(v), key=str) for k, v in ks.items()}
+                  for iid, ks in const["splits"].items()}
+    for iid, ks in split_sets.items():
+        for k, v in ks.items():
+            if len(v) > 1:
+                faults.append(f"{label} {iid}: {k} splits {v}")
+    held, st = _hold_runs(base, const, CHURN_LOGIT_TOL)
+    faults += held
+    return faults, {
+        "constant_shapes": const["shapes"],
+        "default_shape_counts": {
+            iid: {kind: len(v) for kind, v in kinds.items()}
+            for iid, kinds in base["shapes"].items()},
+        "constant_splits": split_sets,
+        "default_splits": {
+            iid: {k: sorted(set(v), key=str) for k, v in ks.items()}
+            for iid, ks in base["splits"].items()},
+        "dispatches": {"default": base["dispatches"],
+                       "constant": const["dispatches"]},
+        "launches": {k: v for k, v in const["launches"].items() if v},
+        "work": {"default": base["work"], "constant": const["work"]},
+        "work_overhead": const["work"] / max(base["work"], 1), **st}
+
+
+def constant_shape_phase(cfg, params, device, main_busy_s):
+    """Constant-shape dispatch against the default on the card, at full
+    width: (a) benchmarks/leakage.py's ``constant_shape_ab`` (its checks:
+    streams, the work clock within 1.25x, one prefill and one decode
+    shape), (b) the main path's traffic with ``constant_shape`` on every
+    island. Both: ``_shape_ab``. Then (b)'s card cost: wall tokens/s of
+    the serving path (launches checked by ``serve_path``) run default,
+    constant, constant, default back to back (host walls drift within a
+    call), and device busy seconds from one profiled rerun, against
+    ``profile main_path``'s (``main_busy_s``)."""
+    out, faults = {}, []
+    for label, main in (("constant_shape_ab", False), ("main_path", True)):
+        base = shape_run(cfg, params, device, False, main)
+        const = shape_run(cfg, params, device, True, main)
+        f, out[label] = _shape_ab(label, base, const)
+        faults += f
+    if out["constant_shape_ab"]["work_overhead"] > 1.25:
+        faults.append("constant_shape_ab: work clock over 1.25x")
+    walls = {"default": [], "constant": []}
+    tps = {"default": [], "constant": []}
+    for constant in (False, True, True, False):
+        label = "constant" if constant else "default"
+        _, wall, result = serve_path(f"main_path {label} (A/B)", cfg,
+                                     params, device,
+                                     constant_shape=constant)
+        walls[label].append(wall)
+        tps[label].append(result["tokens_per_s"])
+    wall = sum(walls["constant"]) / 2
+    prof = profile_phase("main_path constant_shape", cfg, params, device,
+                         wall, constant_shape=True)
+    out["cost"] = {
+        "card": gpu_line(), "wall_s": walls, "tokens_per_s": tps,
+        "tokens_per_s_ratio": sum(tps["constant"]) / sum(tps["default"]),
+        "device_busy_s": {"default": main_busy_s,
+                          "constant": prof["busy_s"]},
+        "busy_ratio": prof["busy_s"] / main_busy_s}
+    emit({"phase": "constant shape", "model": cfg.name, **out,
+          "faults": faults})
+    if faults:
+        raise AssertionError("constant shape: " + "; ".join(faults))
+
+
+# tests/test_extensions.py's bounds on an fp8 KV cache's decode logits
+# against an fp32 cache's
+FP8_MAX_GAP = 0.5
+FP8_MEAN_REL = 0.05
+
+
+def fp8_phase(name, cfg, params, device, B, S, T, seed=0):
+    """tests/test_extensions.py's fp8 KV cache check at full width: an
+    fp32 and a ``float8_e4m3fn`` dense cache (``Model.init_cache``), each
+    prefilled with the same seeded S-token prompts (K4 on every attention
+    layer, the fp8 cache quantized on write) and decoded T teacher-forced
+    steps (K3 on the fp32 cache, or on the fp8 cache dequantized to fp32).
+    Held: the test's bounds on the two runs' decode logits, finite logits,
+    the first attention layer's quantized K/V and scales bit-equal to a
+    CPU quantization of the same fp32 K/V (and in the cache), every kernel
+    once per layer of its family per call, and the caches' bytes and peak
+    memory reported."""
+    import torch
+
+    from repro_torch.models import attention
+    from repro_torch.models.model import get_model
+    model = get_model(cfg)
+    n_attn, n_ssm, n_rg = layer_counts(model)
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (B, S + T), generator=g,
+                         dtype=torch.int64).to(device)
+    want = dict.fromkeys(kernel_fns(), 0)
+    want.update(flash_attention=n_attn, decode_attention=n_attn * T,
+                ssd_chunk=n_ssm, rglru_scan=n_rg)
+    runs, faults = {}, []
+    quantize = attention._fp8_quantize
+    for dt in (torch.float32, torch.float8_e4m3fn):
+        seen = []
+
+        def recorded(x, d):
+            q, scale = quantize(x, d)
+            if len(seen) < 2:          # the first attention layer's K, V
+                seen.append((x.float().cpu(), q.cpu(), scale.cpu()))
+            return q, scale
+
+        attention._fp8_quantize = recorded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        zero_launches()
+        t0 = time.perf_counter()
+        try:
+            cache = model.init_cache(B, S + T, dtype=dt, device=device)
+            _, cache = model.forward(params, tokens=toks[:, :S], mode="full",
+                                     cache=cache)
+            logits = []
+            for t in range(T):
+                lg, cache = model.forward(params, mode="decode",
+                                          tokens=toks[:, S + t:S + t + 1],
+                                          cache=cache, pos=S + t)
+                logits.append(lg.float())
+            torch.cuda.synchronize()
+        finally:
+            attention._fp8_quantize = quantize
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        if launches != want:
+            faults.append(f"{dt}: launches {launches}, expected {want}")
+        first = next(layer for layer in cache if "k" in layer)
+        runs[str(dt)] = {"logits": torch.stack(logits), "seen": seen,
+                         "first": first, "wall_s": wall,
+                         "cache_bytes": tensor_bytes(cache),
+                         "peak_bytes": torch.cuda.max_memory_allocated()
+                         - mem0}
+    f32, f8 = (runs[str(dt)] for dt in (torch.float32, torch.float8_e4m3fn))
+    if f8["first"]["k"].shape[1] < S + T:
+        raise ValueError(f"{name}: a ring of {f8['first']['k'].shape[1]} "
+                         f"slots overwrites the prompt's; take S + T <= it")
+    gap = (f32["logits"] - f8["logits"]).abs()
+    max_gap = float(gap.max())
+    mean_rel = float(gap.mean() / (f32["logits"].abs().mean() + 1e-9))
+    finite = bool(torch.isfinite(f8["logits"]).all())
+    # elements that differ: the card's quantization against the CPU's of
+    # the same fp32 K/V, and the cache's prompt slots against the card's
+    differ = {}
+    for (x, q, scale), leaf in zip(f8["seen"], ("k", "v")):
+        cq, cs = quantize(x, torch.float8_e4m3fn)
+        stored = f8["first"][leaf][:, :S].cpu()
+        stored_s = f8["first"][leaf + "_scale"][:, :S].cpu()
+        differ[leaf] = {
+            "bytes_vs_cpu": int((cq.view(torch.uint8)
+                                 != q.view(torch.uint8)).sum()),
+            "scales_vs_cpu": int((cs.view(torch.int32)
+                                  != scale.view(torch.int32)).sum()),
+            "cache_bytes": int((stored.view(torch.uint8)
+                                != q.view(torch.uint8)).sum()),
+            "cache_scales": int((stored_s.view(torch.int32)
+                                 != scale.view(torch.int32)).sum())}
+    bits = len(differ) == 2 and not any(
+        n for d in differ.values() for n in d.values())
+    checks = {"max_gap_lt_0p5": max_gap < FP8_MAX_GAP,
+              "mean_rel_lt_0p05": mean_rel < FP8_MEAN_REL,
+              "finite": finite, "quantized_card_equals_cpu": bits,
+              "launches": not faults}
+    emit({"phase": name, "model": cfg.name, "batch": B, "prompt": S,
+          "decode_steps": T, "attention_layers": n_attn,
+          "max_abs_gap": max_gap, "mean_rel_gap": mean_rel,
+          "launches": {k: v for k, v in want.items() if v},
+          **{f"{k}_{lab}": run[k] for lab, run in (("fp32", f32),
+                                                   ("fp8", f8))
+             for k in ("wall_s", "cache_bytes", "peak_bytes")},
+          "differing_elements": differ, "checks": checks,
+          "faults": faults})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"{name}: checks failed: {failed} {faults}")
+
+
 def fp32_tail(b):
     """Make stacked batcher ``b`` keep every cache leaf in fp32 (the
     serving paths keep the conv tails and the K/V in bf16): its slot rows
@@ -2680,10 +3120,16 @@ def main() -> int:
     timed("traced main_path", traced_phase, cfg, params, gpu, base,
           launches, wall)
     timed("profile host split", host_split_phase, cfg, params, gpu, base)
+    main_busy_s = base["busy_s"]
     del base
     timed("degradation", degradation_phase, cfg, params, gpu)
     timed("trace harness", trace_harness_phase, cfg, params, gpu)
     timed("serve --trace", serve_trace_phase)
+    timed("leakage", leakage_phase, cfg, params, gpu)
+    timed("constant shape", constant_shape_phase, cfg, params, gpu,
+          main_busy_s)
+    timed("fp8 smollm", fp8_phase, "fp8 smollm", cfg, params, gpu, B=4,
+          S=1024, T=32)
     _, wall, _ = timed("stacked", serve_path, "stacked", cfg, params, gpu,
                        cache="stacked")
     timed("profile stacked", profile_phase, "stacked", cfg, params, gpu,
@@ -2777,6 +3223,9 @@ def main() -> int:
           lambda dev, p: fp32_tail(ContinuousBatcher(
               ccfg, params=p, num_slots=4, max_len=256, device=dev)),
           _capture_stacked, tol=RG_PREFILL_LOGIT_TOL)
+    del rruns, cut
+    timed("fp8 recurrentgemma", fp8_phase, "fp8 recurrentgemma", rcfg,
+          rparams, gpu, B=2, S=512, T=16)
     emit({"phase": "seconds", **seconds})
 
     print(card)

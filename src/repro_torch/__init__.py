@@ -53,6 +53,16 @@ PATH`` writes a run's journal. Their parity tests are
 ``tests/test_torch_obs.py``, ``tests/test_torch_degradation.py`` and
 ``tests/test_torch_trace_harness.py``.
 
+Privacy hardening: the paged batcher's ``constant_shape`` dispatch (one
+launch geometry per kind, so one key-walk split per attention kernel)
+and ``tier_quotas`` (per-tier slot caps and prefill shares), and the
+reference's adversary harness with its seven attacks and leakage scoring
+(``privacy``), held to the reference by ``tests/test_torch_leakage.py``
+and ``tests/test_torch_privacy_sched.py``. Dense KV caches may be fp8
+(``Model.init_cache(dtype=torch.float8_e4m3fn)``: per-token-per-head
+scales, quantized on write, dequantized to fp32 before the decode
+kernel), held by ``tests/test_torch_fp8_cache.py``.
+
 Entry points (``TickOrchestrator``, ``build_island_batchers``, both
 batchers, ``LocalModelServer``, ``Model.init``) run on the card unless the
 caller passes ``device="cpu"``; asking for the card without one raises.
@@ -78,7 +88,8 @@ change history):
   workload);
 * ``obs/metrics.py`` (``aggregate_stats`` needs ``latency_summary``),
   ``obs/trace.py`` (the span tracer) and ``obs/export.py`` (its
-  Chrome-trace/Perfetto writer).
+  Chrome-trace/Perfetto writer);
+* ``privacy/leakage.py`` (the per-signal leakage scorer).
 
 Ported modules keep the reference's paths and names
 (``repro_torch/models/attention.py`` <-> ``repro/models/attention.py``);

@@ -22,8 +22,14 @@ a prompt then overwrites slot ``S % W``, not the oldest token's slot 0,
 and the port reproduces that too (ROADMAP R6). The paged modes take no
 window, as in the reference.
 
-Not ported yet: fp8 KV caches, the sequence-sharded decode and prefix-LM
-masking.
+A dense cache may be fp8 (``float8_e4m3fn`` or ``float8_e5m2``, from
+``Model.init_cache``): it then carries fp32 ``k_scale``/``v_scale`` (B, W,
+Hkv) beside ``k``/``v``, K/V are quantized on write with a
+per-token-per-head scale (``_fp8_quantize``), and decode dequantizes the
+whole cache to fp32 before ``decode_attention``, as the reference does.
+Prefill attends the unquantized K/V.
+
+Not ported yet: the sequence-sharded decode and prefix-LM masking.
 """
 from __future__ import annotations
 
@@ -34,6 +40,20 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.models.layers import PSpec, apply_rope, rms_norm
+
+
+def _fp8_quantize(x, dt):
+    """Per-token-per-head symmetric quantization for fp8 KV caches: the
+    head-dim amax maps onto the dtype's max normal, keeping small K/V
+    values out of the fp8 subnormal range. Returns (quantized, scale)."""
+    fmax = float(torch.finfo(dt).max)
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    # divide by a tensor: on the card PyTorch divides by a Python scalar as
+    # a product with its reciprocal, which can put the scale one ulp off
+    # the reference's true division (and off the CPU's)
+    s = torch.clamp(amax / torch.full_like(amax, fmax), min=1e-12)
+    return (xf / s[..., None]).to(dt), s
 
 
 def attend_decode_paged(q, k_pages, v_pages, block_table, valid_lens, scale):
@@ -118,12 +138,17 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
         o = flash_attention(q, k, v, scale, window=window)
         if cache is not None:
             W = cache["k"].shape[1]
-            if W >= S:
-                cache["k"][:, :S] = k.to(cache["k"].dtype)
-                cache["v"][:, :S] = v.to(cache["v"].dtype)
-            else:            # windowed ring: keep the last W tokens
-                cache["k"].copy_(k[:, -W:])
-                cache["v"].copy_(v[:, -W:])
+            new = {}
+            if "k_scale" in cache:       # fp8 cache: quantize on write
+                new["k"], new["k_scale"] = _fp8_quantize(k, cache["k"].dtype)
+                new["v"], new["v_scale"] = _fp8_quantize(v, cache["v"].dtype)
+            else:
+                new["k"], new["v"] = k, v
+            for name, val in new.items():
+                if W >= S:
+                    cache[name][:, :S] = val.to(cache[name].dtype)
+                else:        # windowed ring: keep the last W tokens
+                    cache[name].copy_(val[:, -W:])
     elif mode == "decode" and "k" in cache:   # one token, dense cache
         W = cache["k"].shape[1]
         posb = (torch.zeros(B, dtype=torch.int32, device=x.device)
@@ -132,10 +157,20 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
         k = apply_rope(k, posb[:, None], cfg.rope_theta)
         rows = torch.arange(B, device=x.device)
         slot = (posb % W if window else torch.clamp(posb, max=W - 1)).long()
-        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-        o = attend_decode(q, cache["k"], cache["v"],
-                          torch.clamp(posb + 1, max=W), scale)
+        if "k_scale" in cache:           # fp8 cache: quantize on write
+            for n, t in (("k", k), ("v", v)):
+                td, ts = _fp8_quantize(t[:, 0], cache[n].dtype)
+                cache[n][rows, slot] = td
+                cache[n + "_scale"][rows, slot] = ts
+            # the decode kernel reads the dequantized fp32 cache
+            k_att = cache["k"].float() * cache["k_scale"][..., None]
+            v_att = cache["v"].float() * cache["v_scale"][..., None]
+        else:
+            cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+            k_att, v_att = cache["k"], cache["v"]
+        o = attend_decode(q, k_att, v_att, torch.clamp(posb + 1, max=W),
+                          scale)
     elif mode == "chunk":    # page-aligned prefill chunks into the paged pool
         kp, vp = cache["k_pages"], cache["v_pages"]
         ps = kp.shape[1]

@@ -143,14 +143,26 @@ class Model:
         layer an attention ``{"k", "v"}`` dict of (batch, W, Hkv, D)
         tensors (W = max_len, or the window's ring) or an SSM / RG-LRU
         ``{"conv", "h"}`` dict. ``h``, the recurrent state, is fp32 and
-        every other leaf ``dtype``, as the reference. Zeros, not empty
-        memory: a masked slot multiplies p = 0 by what it holds, and
+        every other leaf ``dtype``, as the reference. An fp8 ``dtype``
+        (``float8_e4m3fn``, ``float8_e5m2``) adds fp32 ``k_scale``/
+        ``v_scale`` leaves of ones (batch, W, Hkv) beside an attention
+        layer's ``k``/``v``: K/V quantize on write with a
+        per-token-per-head scale (``attention._fp8_quantize``). Zeros, not
+        empty memory: a masked slot multiplies p = 0 by what it holds, and
         uninitialised memory may hold NaN bits."""
         dev = resolve_device(device)
-        return [{n: torch.zeros(sh, dtype=torch.float32 if n == "h"
-                                else dtype, device=dev)
-                 for n, sh in layer.items()}
-                for layer in self.cache_spec(batch, max_len)]
+        out = [{n: torch.zeros(sh, dtype=torch.float32 if n == "h"
+                               else dtype, device=dev)
+                for n, sh in layer.items()}
+               for layer in self.cache_spec(batch, max_len)]
+        if dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+            for layer in out:
+                if "k" in layer:
+                    for leaf in ("k", "v"):
+                        layer[leaf + "_scale"] = torch.ones(
+                            layer[leaf].shape[:-1], dtype=torch.float32,
+                            device=dev)
+        return out
 
     def init(self, seed=0, dtype=torch.float32, device=None):
         """Seeded random weights at the config's widths, drawn on

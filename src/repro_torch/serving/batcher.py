@@ -73,8 +73,15 @@ slot's device-resident tail is dropped unread), ``set_slowdown`` makes
 the batcher a straggler, and ``class_aware`` batchers prefer the highest
 SLO rank in admission, chunk order and preemption.
 
-Not ported yet: constant-shape dispatch and per-tier quotas (ROADMAP
-Queue 1, P10); both are refused by name.
+Privacy hardening (ROADMAP Queue 1, P10), both opt-in on the paged
+batcher: ``constant_shape`` pins every dispatch bucket to its per-kind
+maximum (rows ``num_slots``, the canonical chunk width, table width
+``pages_per_seq``), so launch geometry (and with it each attention
+kernel's key-walk split) carries nothing about which requests were
+served; ``tier_quotas`` gives each listed trust tier a hard slot cap and
+a fixed share of the prefill budget, so one tier's admission latency and
+prefill pace do not depend on another's load. ``make_batcher`` drops both
+for the stacked manager, as the reference does.
 """
 from __future__ import annotations
 
@@ -101,17 +108,6 @@ from repro_torch.serving.migration import MigrationTicket, ticket_fits
 from repro_torch.serving.sampling import sample, stream_key
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def refuse_unported(constant_shape=False, tier_quotas=None):
-    """Constant-shape dispatch and per-tier quotas are not ported: refuse
-    them rather than ignore them, so that a quota-on run cannot pass for
-    a quota-off one."""
-    for name, value in (("constant_shape", constant_shape),
-                        ("tier_quotas", tier_quotas)):
-        if value:
-            raise ValueError(f"{name} is not ported yet (ROADMAP Queue 1, "
-                             f"P10)")
 
 
 @dataclass
@@ -308,12 +304,15 @@ class _BatcherBase:
         s = self.slots[si]
         return self._rank_of(s.request_id) if s.active else 0
 
-    def _queue_pick(self) -> Optional[int]:
+    def _queue_pick(self, admissible=None) -> Optional[int]:
         """Index of the next queue entry to admit. FCFS by default;
         ``class_aware`` batchers prefer the highest ``slo_rank`` (strict
-        ``>`` keeps FCFS order within a rank)."""
+        ``>`` keeps FCFS order within a rank). ``admissible(tier)``
+        filters entries (the per-tier quota scan)."""
         best = None
-        for i, (rid, _p, _mn, _tier) in enumerate(self.queue):
+        for i, (rid, _p, _mn, tier) in enumerate(self.queue):
+            if admissible is not None and not admissible(tier):
+                continue
             if not self.class_aware:
                 return i
             r = self._rank_of(rid)
@@ -734,7 +733,6 @@ class PagedContinuousBatcher(_BatcherBase):
                  prefill_token_budget=None, fused=True, device=None,
                  constant_shape=False, tier_quotas=None,
                  class_aware=False):
-        refuse_unported(constant_shape, tier_quotas)
         if not paged_supported(cfg):
             raise ValueError(
                 f"paged KV cache requires a full-history attention-only "
@@ -743,6 +741,20 @@ class PagedContinuousBatcher(_BatcherBase):
                 f"cache='stacked' for this config")
         if prefill not in ("chunked", "full"):
             raise ValueError(f"unknown prefill mode {prefill!r}")
+        if constant_shape and not (fused and prefill == "chunked"):
+            raise ValueError(
+                "constant_shape requires the fused chunked-prefill path "
+                "(fused=True, prefill='chunked')")
+        if tier_quotas:
+            if prefill != "chunked":
+                raise ValueError(
+                    "tier_quotas require the chunked-prefill path "
+                    "(prefill='chunked')")
+            if any(c < 1 for c in tier_quotas.values()) \
+                    or sum(tier_quotas.values()) > num_slots:
+                raise ValueError(
+                    f"tier_quotas {tier_quotas} must be >=1 each and sum "
+                    f"to at most num_slots={num_slots}")
         super().__init__(cfg, params, num_slots, max_len, seed, dtype,
                          temperature, device, class_aware)
         self.page_size = page_size
@@ -771,6 +783,15 @@ class PagedContinuousBatcher(_BatcherBase):
         # free pages spoken for by admitted-but-undispatched prefill chunks
         self.reserved = 0
         self._prefill_rr = 0     # rotating round-robin pointer (fairness)
+        # per-tier scheduling quotas: a listed tier owns exactly that many
+        # slots (a hard cap, even when others idle, and reserved at
+        # admission) and a proportional share of the prefill budget;
+        # unlisted tiers share the leftover. Deliberately NOT
+        # work-conserving, so a tier's admission latency, prefill pace and
+        # slot count are independent of every other tier's load. None keeps
+        # the shared round-robin scheduler unchanged.
+        self.tier_quotas = dict(tier_quotas) if tier_quotas else None
+        self._rr_by_class: dict = {}   # quota class -> rotating pointer
         self._enc_len: dict[int, int] = {}   # backlog length memo (by rid)
         self.blocked_last_tick = 0
         self._fused_prefill = make_fused_prefill_step(self.model)
@@ -785,8 +806,19 @@ class PagedContinuousBatcher(_BatcherBase):
         # / block-table widths): re-dispatching into an already-used larger
         # bucket keeps the set of launch geometries small
         self._buckets: dict[str, set] = {}
+        # constant-shape dispatch: every bucket pins to its per-kind
+        # maximum, so dispatch geometry (and each attention kernel's
+        # key-walk split, which follows the shapes) is victim-independent.
+        # Padding stays exact-zero masked, and the work clock counts only
+        # real tokens
+        self.constant_shape = bool(constant_shape)
+        self._const_caps = {"rows": num_slots,
+                            "chunk": self._chunk_pages_canon,
+                            "prefill_w": self.pages_per_seq,
+                            "decode_w": self.pages_per_seq}
         # per-tick dispatch geometry log: ("prefill", rows, chunk_pages,
-        # table_width) / ("decode", slots, table_width)
+        # table_width) / ("decode", slots, table_width); the observable the
+        # launch-shape side channel reads
         self.dispatch_shapes: list = []
         self.stats.update({"share_hits": 0, "cow_copies": 0, "stalls": 0,
                            "preemptions": 0, "rejected_too_large": 0,
@@ -799,7 +831,8 @@ class PagedContinuousBatcher(_BatcherBase):
         ``need`` (capped) — unless a LARGER bucket of this kind was already
         used, in which case that one is reused. Padding is numerically
         free: padded rows/pages write only the scratch page and masked
-        attention positions contribute exact zeros."""
+        attention positions contribute exact zeros. ``constant_shape``
+        pins every kind to its per-kind maximum instead."""
         if self.profiler is not None:
             with self.profiler.phase("bucket"):
                 return self._bucket_inner(kind, need, cap)
@@ -807,6 +840,11 @@ class PagedContinuousBatcher(_BatcherBase):
 
     def _bucket_inner(self, kind, need, cap) -> int:
         need = max(1, min(need, cap))
+        if self.constant_shape:
+            fixed = self._const_caps[kind]
+            assert need <= fixed, \
+                f"{kind} dispatch ({need}) overflows constant shape {fixed}"
+            return fixed
         want = min(1 << (need - 1).bit_length(), cap)
         used = self._buckets.setdefault(kind, set())
         if want not in used:
@@ -841,7 +879,8 @@ class PagedContinuousBatcher(_BatcherBase):
         if self.prefill_mode == "full":
             self._admit_full()
         else:
-            self._admit_chunked()
+            self._admit_chunked(self._quota_admits if self.tier_quotas
+                                else None)
 
     def _admit_full(self):
         """Monolithic admission (the pre-chunking baseline): one blocking
@@ -931,20 +970,23 @@ class PagedContinuousBatcher(_BatcherBase):
             if not pending:
                 self._note_first_token(rid)
 
-    def _admit_chunked(self):
+    def _admit_chunked(self, admissible=None):
         """Plan-only admission: split the prompt into page-size chunks,
         attach to every leading chunk already cached at this exact trust
         tier, and queue the rest for budgeted dispatch by
         ``_prefill_tick``. No model dispatch happens here. A preempted
         request's resume ticket re-admits as a recompute of its context.
         ``class_aware`` batchers admit the most urgent SLO rank first
-        (``_queue_pick``) instead of strict FCFS."""
+        (``_queue_pick``) instead of strict FCFS. With ``tier_quotas`` the
+        queue is SCANNED (``admissible`` is ``_quota_admits``): a request
+        whose tier is at its cap is skipped, not waited on, so one tier's
+        backlog cannot delay another tier's admission."""
         for si, s in enumerate(self.slots):
             if s.active:
                 continue
-            qi = self._queue_pick()
+            qi = self._queue_pick(admissible)
             if qi is None:
-                break
+                break            # empty queue, or every queued tier capped
             rid, prompt, max_new, tier = self.queue[qi]
             ticket = self._tickets.get(rid)
             if ticket is not None:
@@ -962,6 +1004,63 @@ class PagedContinuousBatcher(_BatcherBase):
             self.queue.pop(qi)
             self._tickets.pop(rid, None)
             self._enc_len.pop(rid, None)
+
+    # ------------------------------------------------- per-tier quotas
+    def _quota_admits(self, tier) -> bool:
+        """Whether a request of ``tier`` may take a slot now: a listed tier
+        uses at most its cap; unlisted tiers share the slots no quota
+        reserves. Hard caps both ways, so one tier's occupancy is
+        invisible to another's admission latency."""
+        caps = self.tier_quotas
+        if tier in caps:
+            used = sum(1 for s in self.slots
+                       if s.active and s.tier == tier)
+            return used < caps[tier]
+        used = sum(1 for s in self.slots
+                   if s.active and s.tier not in caps)
+        return used < self.num_slots - sum(caps.values())
+
+    def _prefill_tick_quota(self):
+        """Quota-aware budgeted prefill: the token budget splits into
+        per-class shares (a listed tier gets ``budget * cap / num_slots``,
+        unlisted tiers the remainder), and each class runs its own rotating
+        round-robin over its own slots. A class that spends its share
+        stops; nobody inherits leftover budget (not work-conserving on
+        purpose). Every planned row still fuses into ONE dispatch."""
+        caps = self.tier_quotas
+        total = self.prefill_token_budget
+        shares = {t: total * c // self.num_slots for t, c in caps.items()}
+        shares[None] = total - sum(shares.values())   # unlisted tiers
+        rows = []
+        n = self.num_slots
+        for key, budget in shares.items():
+            start = self._rr_by_class.get(key, 0)
+            progress = True
+            while budget > 0 and progress:
+                progress = False
+                for k in range(n):
+                    if budget <= 0:
+                        break
+                    si = (start + k) % n
+                    s = self.slots[si]
+                    if not (s.active and s.next_chunk < len(s.chunks)):
+                        continue
+                    if (s.tier != key) if key is not None \
+                            else (s.tier in caps):
+                        continue
+                    if self.fused:
+                        row, gtok = self._plan_prefill_row(si, budget)
+                        if row is not None:
+                            rows.append(row)
+                        budget -= gtok
+                    else:
+                        budget -= self._advance_prefill(si, budget)
+                    self._rr_by_class[key] = (si + 1) % n
+                    progress = True
+                if self.constant_shape:
+                    break        # one pass at most (see _prefill_tick)
+        if rows:
+            self._execute_prefill_rows(rows)
 
     def _admit_ids(self, si, rid, ids, max_new, tier, prompt, carried=(),
                    pending=()):
@@ -1140,6 +1239,11 @@ class PagedContinuousBatcher(_BatcherBase):
                     budget -= self._advance_prefill(si, budget)
                 self._prefill_rr = (si + 1) % n
                 progress = True
+            if self.constant_shape:
+                # one round-robin pass at most: one planned row a slot, so
+                # the fused prefill's row count pins to num_slots (leftover
+                # budget rolls to the next tick)
+                break
         if rows:
             self._execute_prefill_rows(rows)
 
@@ -1288,7 +1392,8 @@ class PagedContinuousBatcher(_BatcherBase):
         shapes (row count / run pages / table width); padding rows write
         only the scratch page and emit into the dump row."""
         ps = self.page_size
-        r_n = self._bucket("rows", len(rows), 1 << 16)
+        r_n = self._bucket("rows", len(rows),
+                           self.num_slots if self.constant_shape else 1 << 16)
         c_n = self._bucket("chunk", max(len(r["group"]) for r in rows),
                            self._chunk_pages_canon)
         w_n = self._bucket("prefill_w",
@@ -1463,7 +1568,10 @@ class PagedContinuousBatcher(_BatcherBase):
         self._admit()
         self.stats["ticks"] += 1
         if self.prefill_mode == "chunked":
-            self._prefill_tick()
+            if self.tier_quotas:
+                self._prefill_tick_quota()
+            else:
+                self._prefill_tick()
         active = [si for si, s in enumerate(self.slots)
                   if s.active and s.next_chunk >= len(s.chunks)]
         if not active:
@@ -1651,10 +1759,9 @@ def make_batcher(cfg, cache: str = "auto", **kw):
     if cache == "paged":
         return PagedContinuousBatcher(cfg, **kw)
     if cache == "stacked":
-        refuse_unported(kw.pop("constant_shape", False),
-                        kw.pop("tier_quotas", None))
         for k in ("page_size", "num_pages", "sharing", "prefill",
-                  "prefill_token_budget", "fused"):
+                  "prefill_token_budget", "fused", "constant_shape",
+                  "tier_quotas"):
             kw.pop(k, None)
         return ContinuousBatcher(cfg, **kw)
     raise ValueError(f"unknown cache manager {cache!r}")

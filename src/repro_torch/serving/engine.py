@@ -44,9 +44,8 @@ pool round-robin across tenants, least served first. A ``Tracer``
 journals every submit, route, dispatch, migration, failover and
 terminal, and every batcher's spans (``serving.batcher``);
 ``debug_audit`` checks every paged pool's invariants at every tick.
-
-Not ported yet: constant-shape dispatch and per-tier quotas (ROADMAP
-Queue 1, P10); ``build_island_batchers`` refuses both by name.
+``build_island_batchers`` passes the privacy hardening options
+(``constant_shape``, ``tier_quotas``) to every island's batcher.
 """
 from __future__ import annotations
 
@@ -1277,10 +1276,9 @@ def build_island_batchers(cfg, registry, cache="auto", params=None,
     pays, and otherwise preempts. Model parameters are initialized once
     (on ``device``, None = the card) and shared across islands.
     ``class_aware`` batchers schedule by SLO rank; ``constant_shape`` and
-    ``tier_quotas`` are not ported yet and raise."""
-    from repro_torch.serving.batcher import (make_batcher, paged_supported,
-                                             refuse_unported)
-    refuse_unported(constant_shape, tier_quotas)
+    ``tier_quotas`` reach every paged batcher (the stacked one drops
+    them, as in the reference)."""
+    from repro_torch.serving.batcher import make_batcher, paged_supported
     if cache == "auto":                 # resolve once so sizing matches
         cache = "paged" if paged_supported(cfg) else "stacked"
     pages_per_seq = -(-max_len // page_size)
@@ -1297,6 +1295,7 @@ def build_island_batchers(cfg, registry, cache="auto", params=None,
             max_len=max_len, seed=seed, temperature=temperature,
             page_size=page_size, prefill=prefill,
             prefill_token_budget=prefill_token_budget, fused=fused,
+            constant_shape=constant_shape, tier_quotas=tier_quotas,
             class_aware=class_aware,
             num_pages=max(2, int(slots * pages_per_seq
                                  * pool_headroom)) + 1,

@@ -14,9 +14,12 @@ reference with bf16 pages on the test models (at most 1.1e-4, held under
 cannot flip unless the port is wrong.
 """
 import dataclasses
+import functools
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 MARGIN = 5e-3
 
@@ -189,3 +192,30 @@ def assert_streams_match(ref_tokens, ref_margins, port_tokens,
 def port_request(req, module):
     """The same ``Request`` rebuilt from the port's copy of ``waves``."""
     return module.Request(**dataclasses.asdict(req))
+
+
+_REFERENCE_STEP_FNS = ("get_model", "make_chunked_prefill_step",
+                       "make_fused_decode_step", "make_fused_prefill_step",
+                       "make_paged_serve_step", "make_prefill_step",
+                       "make_serve_step")
+
+
+@pytest.fixture(scope="module")
+def lean_cpu():
+    """For a module that builds dozens of batchers in both packages (the
+    adversary suite builds 17 a run): every reference batcher shares one
+    model and one set of step functions per config, so ``jax.jit``
+    compiles each program once instead of once a batcher, and torch runs
+    one thread, which keeps its many small CPU ops from spinning against
+    the other test workers' threads. Neither changes a program or a
+    result. Restored when the module ends."""
+    from repro.serving import batcher as jbatcher
+    mp = pytest.MonkeyPatch()
+    for name in _REFERENCE_STEP_FNS:
+        mp.setattr(jbatcher, name,
+                   functools.lru_cache(None)(getattr(jbatcher, name)))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+    mp.undo()

@@ -1,8 +1,7 @@
 """The port's graceful-degradation layer, held to the reference's.
 
 The scenarios of tests/test_degradation.py (all but the two per-tier
-quota cases: quotas are not ported, and the port refuses them by name)
-run through both packages' ``TickOrchestrator`` on the CPU
+quota cases, which tests/test_torch_privacy_sched.py holds) run through both packages' ``TickOrchestrator`` on the CPU
 (smollm-135m ``.reduced()``, the reference's weights moved across by
 ``repro_torch.bridge``, a ``Tracer`` and ``debug_audit`` on both), and
 each test asserts the reference test's claims on the port and then
@@ -406,35 +405,40 @@ def test_stale_telemetry_suppresses_saturation_hint(cfg, params, ref):
              overload=dict(queue_watermark=8, backpressure_pct=100))
 
 
-# ------------------------------------------- unported options are refused
+# ------------------------------------------- privacy options are accepted
 
 @pytest.mark.parametrize("kw", [dict(tier_quotas={1: 2}),
                                 dict(constant_shape=True)])
-def test_p10_options_are_refused_by_name(cfg, params, kw):
-    """Per-tier quotas and constant-shape dispatch are not ported: every
-    entry point that takes them refuses them, naming P10, where the
-    reference would apply them (a silent ignore would let a quota-on run
-    pass for a quota-off one)."""
-    name = next(iter(kw))
-    for cache in ("paged", "stacked"):
-        with pytest.raises(ValueError, match=f"{name}.*P10"):
-            make_batcher(cfg, cache=cache, params=params, num_slots=4,
-                         max_len=96, device=CPU, **kw)
-    with pytest.raises(ValueError, match=f"{name}.*P10"):
-        PagedContinuousBatcher(cfg, params=params, num_slots=4, max_len=96,
+def test_p10_options_are_accepted(cfg, params, kw):
+    """Per-tier quotas and constant-shape dispatch reach the paged batcher
+    through every entry point that takes them (``make_batcher``, the
+    batcher itself, ``build_island_batchers``), and ``make_batcher`` drops
+    them for the stacked manager, as the reference does."""
+    name, value = next(iter(kw.items()))
+    b = make_batcher(cfg, cache="paged", params=params, num_slots=4,
+                     max_len=96, device=CPU, **kw)
+    assert isinstance(b, PagedContinuousBatcher)
+    assert (b.tier_quotas if name == "tier_quotas"
+            else b.constant_shape) == value
+    b = PagedContinuousBatcher(cfg, params=params, num_slots=4, max_len=96,
                                device=CPU, **kw)
+    assert getattr(b, name) == value
+    s = make_batcher(cfg, cache="stacked", params=params, num_slots=4,
+                     max_len=96, device=CPU, **kw)
+    assert isinstance(s, ContinuousBatcher)
+    assert not hasattr(s, name)
     reg = IslandRegistry()
     reg.register(personal_island("solo", latency_ms=20.0,
                                  capacity_units=2.0),
                  reg.attestation_token("solo"))
-    with pytest.raises(ValueError, match=f"{name}.*P10"):
-        build_island_batchers(cfg, reg, cache="paged", max_len=96,
-                              params=params, device=CPU, **kw)
-    # off is accepted and changes nothing
+    bats = build_island_batchers(cfg, reg, cache="paged", max_len=96,
+                                 params=params, device=CPU, **kw)
+    assert getattr(bats["solo"], name) == value
+    # off changes nothing
     b = make_batcher(cfg, cache="paged", params=params, num_slots=2,
                      max_len=96, device=CPU, constant_shape=False,
                      tier_quotas=None)
-    assert isinstance(b, PagedContinuousBatcher)
+    assert b.tier_quotas is None and not b.constant_shape
 
 
 # ------------------------------------------- stragglers, hedging, backoff

@@ -31,7 +31,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "serving.migration", "serving.sampling",
                 "serving.session", "core.carbon", "core.audit",
                 "core.tracegen", "core.workload", "launch.serve",
-                "obs.trace", "obs.export", "obs.profile"):
+                "obs.trace", "obs.export", "obs.profile", "privacy",
+                "privacy.adversary", "privacy.leakage"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -64,6 +65,7 @@ COPIES = ["data/tokenizer.py", "core/trust.py", "core/islands.py",
           "core/workload.py", "serving/migration.py", "obs/metrics.py",
           "obs/trace.py", "obs/export.py", "core/carbon.py", "core/audit.py",
           "serving/session.py"]
+COPIES.append("privacy/leakage.py")
 
 
 def test_copied_modules_match_the_reference():

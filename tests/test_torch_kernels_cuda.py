@@ -836,3 +836,70 @@ def test_profiler_waits_for_the_card(card):
     assert torch.cuda.current_stream(card).query()
     assert prof.totals["device_sync"] > 0
     assert prof.report()["ticks"] == 1
+
+
+def _record_splits(monkeypatch):
+    """Record the key-walk split of every K1/K2 launch the model makes."""
+    from repro_torch.models import attention
+    seen = {"paged_decode_attention": [], "chunked_prefill_attention": []}
+    for name in seen:
+        fn = getattr(attention, name)
+
+        def rec(*a, fn=fn, name=name, **k):
+            out = fn(*a, **k)
+            seen[name].append(fn.last_split)
+            return out
+
+        monkeypatch.setattr(attention, name, rec)
+    return seen
+
+
+def test_padded_prefill_rows_touch_only_the_scratch_page(card):
+    """Under ``constant_shape`` every fused prefill carries ``num_slots``
+    rows; the padded ones (no tokens, an all-zero table, ``dst`` the
+    scratch page) change no pool page but the scratch page, and the real
+    rows write only their own fresh pages."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.batcher import PagedContinuousBatcher
+    cfg = get_config("smollm-135m").reduced()
+    b = PagedContinuousBatcher(cfg, num_slots=6, max_len=128, device=card,
+                               constant_shape=True)
+    checked = []
+    prefill = b._fused_prefill
+
+    def watched(params, pages, toks, starts, bt, dst, *rest):
+        before = [t.clone() for layer in pages for t in layer.values()]
+        out = prefill(params, pages, toks, starts, bt, dst, *rest)
+        written = {int(p) for p in dst.flatten().tolist()} - {0}
+        after = [t for layer in out[2] for t in layer.values()]
+        for was, now in zip(before, after):
+            moved = {int(p) for p in
+                     (was != now).flatten(1).any(1).nonzero().flatten()}
+            assert moved <= written | {0}, (moved, written)
+        checked.append(int((dst == 0).all(1).sum()))
+        return out
+
+    b._fused_prefill = watched
+    for k, p in enumerate(["one short request", "a second request that is "
+                           "somewhat longer than the first one by a page"]):
+        b.submit(p, max_new_tokens=4, trust_tier=1 + k)
+    b.run_until_done()
+    assert checked and max(checked) >= 4      # padded rows were launched
+    assert {s[1] for s in b.dispatch_shapes if s[0] == "prefill"} == {6}
+
+
+def test_constant_shape_launches_one_split_per_kernel(card, monkeypatch):
+    """Every K1 launch and every K2 launch of a constant-shape batcher
+    takes one key-walk split, whatever the load."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.batcher import PagedContinuousBatcher
+    cfg = get_config("smollm-135m").reduced()
+    seen = _record_splits(monkeypatch)
+    b = PagedContinuousBatcher(cfg, num_slots=8, max_len=256, device=card,
+                               constant_shape=True)
+    for k in range(5):
+        b.submit(f"request {k} " + "pad " * (6 * k + 1), max_new_tokens=3 + k,
+                 trust_tier=1)
+    b.run_until_done()
+    for name, splits in seen.items():
+        assert splits and len(set(splits)) == 1, (name, sorted(set(splits)))
