@@ -141,7 +141,29 @@ Phases (each raises on failure, and the script then exits non-zero):
    width: 34 GB of fp32 weights and 26 TFLOP prefills do not replay on
    a CPU), once as served and once with every cache leaf in fp32; then
    the fp8 phase on the served weights (2 rows, a 512-token prompt, 16
-   steps: the local-attention rings' scales at head_dim 256).
+   steps: the local-attention rings' scales at head_dim 256);
+9. P12a: paligemma-3b (18 layers, d_model 2048, 8 heads of 256 on one kv
+   head, a 256-token prefix-LM, vocab 257216, tied embeddings),
+   musicgen-large (48 layers, 32 MHA heads of 64, vocab 2048),
+   qwen3-4b (36 layers, 32 heads on 8 kv heads of 128, qk_norm) and
+   glm4-9b (40 layers, 32 heads on 2 kv heads of 128: G 16) at their
+   full published widths and depths with seeded random fp32 weights, one
+   at a time, each freed before the next: the quickstart traffic through
+   ``build_island_batchers(cache="auto")`` (fused chunked paged
+   batchers: K2 and K1 once per layer of every dispatch), a profile of
+   it, and the card-vs-CPU replay on the fused paged batcher cut to the
+   first two layers (every width and the whole vocabulary kept);
+   paligemma also on the stacked, paged ``prefill="full"`` and
+   per-request paths, every K4 launch carrying its 256-token prefix, and
+   paligemma and musicgen through ``Model.forward`` with their
+   frontends' ``embeddings`` (tests/test_models.py::
+   test_prefill_decode_matches_full's inputs at full width: the card at
+   full depth against itself, and against the CPU at the cut); then
+   ``route_batch`` and ``pareto_front`` at 4,096 requests x 16 islands,
+   equal to the CPU's, timed beside the card's name. The kernel phase
+   also holds K1 and K2 at paligemma's and glm4's heads and K4 with
+   paligemma's prefix at S 1024 and 2048 against their plain versions
+   (SDPA with an explicit boolean mask as K4's yardstick).
 
 The profile phases read the device spans from the profiler's raw
 events (parsing them into host-op trees takes ~60 s a main path run);
@@ -378,16 +400,24 @@ def dense_decode_case(dev, gen, H=9, Hkv=3, D=64, S=2048):
     return (q, k, v, lens), nbytes, flops, valid
 
 
-def dense_prefill_case(dev, gen, H=9, Hkv=3, D=64, S=1024, window=None):
+def dense_prefill_case(dev, gen, H=9, Hkv=3, D=64, S=1024, window=None,
+                       prefix=0):
     """K4 at a full-prompt prefill: one prompt of S tokens, fp32 q/k/v
-    (fp32 weights), causal, with a local-attention window or none. The
-    flops count the pairs the mask allows: the causal half, or a band."""
+    (fp32 weights), causal, with a local-attention window or none, and a
+    prefix-LM prefix or none. The flops count the pairs the mask allows:
+    the causal half, or a band, plus the prefix keys above the diagonal
+    (query t attends max(t + 1, prefix) keys without a window)."""
     import torch
     q = torch.randn(1, S, H, D, generator=gen, device=dev)
     k, v = (torch.randn(1, S, Hkv, D, generator=gen, device=dev)
             for _ in range(2))
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
-    pairs = sum(min(t + 1, window or S) for t in range(S))
+    P = min(prefix, S)
+    # a window's band (t - W, t] and the prefix [0, P) overlap where
+    # t - W < P: count their union
+    pairs = sum(min(t + 1, window or S)
+                + max(0, P - (t + 1)) + max(0, min(P, t + 1 - (window or S)))
+                for t in range(S))
     flops = 4 * H * D * pairs
     return (q, k, v), nbytes, flops, S
 
@@ -698,18 +728,34 @@ def kernel_phase(dev):
           ref.paged_decode_attention,
           "src/repro_torch/csrc/paged_attention.cu",
           "src/repro/kernels/paged_attention.py:111")
-    # the kernels line carries K1 at the main path's largest island, with
-    # the phone island's one slot beside it (a phase line of its own too)
+    K2 = ("chunked_prefill_attention", chunked_prefill_attention,
+          ref.chunked_prefill_attention,
+          "src/repro_torch/csrc/chunked_prefill.cu",
+          "src/repro/kernels/chunked_prefill.py:123")
+    # the kernels line carries K1 and K2 at smollm-135m's heads on the main
+    # path's largest island, with the phone island's one slot beside K1's
+    # (a phase line of its own too), and both at the heads of the configs
+    # P12a serves on the paged main path: paligemma-3b (8 on 1 kv head, D
+    # 256) and glm4-9b (32 on 2, D 128, G 16)
+    PALI, GLM = dict(H=8, Hkv=1, D=256), dict(H=32, Hkv=2, D=128)
     for (name, wrapper, plain, src, replaces), case, geom, role in (
             (K1, decode_case, "8 slots, fills 1-1600", "row"),
             (K1, lambda dev, gen: decode_case(dev, gen, valid=(1600,),
                                               idle=()),
              "the phone island: 1 slot, fill 1600", "phone_island"),
-            (("chunked_prefill_attention", chunked_prefill_attention,
-              ref.chunked_prefill_attention,
-              "src/repro_torch/csrc/chunked_prefill.cu",
-              "src/repro/kernels/chunked_prefill.py:123"), prefill_case,
-             "4 rows of 64 tokens", "row")):
+            (K1, lambda dev, gen: decode_case(dev, gen, **PALI),
+             "paligemma-3b heads (8 on 1, D 256), 8 slots, fills 1-1600",
+             "paligemma_heads"),
+            (K1, lambda dev, gen: decode_case(dev, gen, **GLM),
+             "glm4-9b heads (32 on 2, D 128, G 16), 8 slots, fills 1-1600",
+             "glm4_heads"),
+            (K2, prefill_case, "4 rows of 64 tokens", "row"),
+            (K2, lambda dev, gen: prefill_case(dev, gen, **PALI),
+             "paligemma-3b heads (8 on 1, D 256), 4 rows of 64 tokens",
+             "paligemma_heads"),
+            (K2, lambda dev, gen: prefill_case(dev, gen, **GLM),
+             "glm4-9b heads (32 on 2, D 128, G 16), 4 rows of 64 tokens",
+             "glm4_heads")):
         args, nbytes, flops, (kind, fills, live) = case(dev, gen)
         scale = args[0].shape[-1] ** -0.5
         out = wrapper(*args)
@@ -746,6 +792,7 @@ def kernel_phase(dev):
             rows[name][role] = {k: row[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "walk_attrs")}
+            rows[name][role]["geometry"] = geom
         emit({"phase": "kernel", **row, **extra, "geometry": geom,
               "shape_q": list(args[0].shape), "fills_or_starts": fills,
               "bytes": nbytes, "flops": flops, "library_max_abs_err": lib_err,
@@ -761,16 +808,18 @@ def kernel_phase(dev):
         return (q[:, :, None, :], k.float().transpose(1, 2).contiguous(),
                 v.float().transpose(1, 2).contiguous(), mask)
 
-    def sdpa_prefill(q, k, v, window=None):
-        """(B, H, S, D) inputs, and a band mask where a window bites."""
+    def sdpa_prefill(q, k, v, window=None, prefix=0):
+        """(B, H, S, D) inputs, and an explicit boolean mask where a window
+        bites or a prefix-LM prefix opens keys above the diagonal."""
         qkv = tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
         S = q.shape[1]
-        if not window or window >= S:
+        if (not window or window >= S) and not prefix:
             return qkv
         pos = torch.arange(S, device=q.device)
-        band = ((pos[None, :] <= pos[:, None])
-                & (pos[None, :] > pos[:, None] - window))
-        return qkv + (band,)
+        mask = pos[None, :] <= pos[:, None]
+        if window and window < S:
+            mask &= pos[None, :] > pos[:, None] - window
+        return qkv + (mask | (pos[None, :] < prefix),)
 
     def sdpa_prefill_call(q, k, v, band=None):
         if band is None:
@@ -799,7 +848,11 @@ def kernel_phase(dev):
              dict(RG, S=2048, window=512), "biting_window"),
             (K4, "recurrentgemma-9b heads, window 2047 (the windowed walk "
                  "over all but one causal pair)",
-             dict(RG, S=2048, window=2047), None)):
+             dict(RG, S=2048, window=2047), None),
+            (K4, "paligemma-3b heads (8 on 1, D 256), prefix 256, S 1024",
+             dict(PALI, S=1024, prefix=256), "prefix_S1024"),
+            (K4, "paligemma-3b heads (8 on 1, D 256), prefix 256, S 2048",
+             dict(PALI, S=2048, prefix=256), "prefix_S2048")):
         if name == "decode_attention":
             args, nbytes, flops, fills = dense_decode_case(dev, gen,
                                                            **case_kw)
@@ -810,17 +863,17 @@ def kernel_phase(dev):
             lib_inputs = (lambda c: sdpa_decode(*c))
             shape = {"fills": fills}
         else:
-            w = case_kw.get("window")
+            w, pre = case_kw.get("window"), case_kw.get("prefix", 0)
             args, nbytes, flops, S = dense_prefill_case(dev, gen, **case_kw)
-            wrapper = (lambda q, k, v, w=w: flash_attention(q, k, v,
-                                                            window=w))
-            plain = (lambda q, k, v, scale, w=w: ref.flash_attention(
-                q, k, v, scale, True, w))
+            wrapper = (lambda q, k, v, w=w, pre=pre: flash_attention(
+                q, k, v, window=w, prefix_len=pre))
+            plain = (lambda q, k, v, scale, w=w, pre=pre:
+                     ref.flash_attention(q, k, v, scale, True, w, pre))
             rate = TF32_FLOP_PER_S
             lib_fn = sdpa_prefill_call
-            lib_inputs = (lambda c, w=w: sdpa_prefill(*c, w))
+            lib_inputs = (lambda c, w=w, pre=pre: sdpa_prefill(*c, w, pre))
             # the wrapper drops a window of at least S: the causal walk
-            shape = {"S": S, "window": w,
+            shape = {"S": S, "window": w, "prefix_len": pre,
                      "walk": "windowed" if w and w < S else "causal"}
         scale = args[0].shape[-1] ** -0.5
         out = wrapper(*args)
@@ -3037,6 +3090,286 @@ def fp8_phase(name, cfg, params, device, B, S, T, seed=0):
         raise AssertionError(f"{name}: checks failed: {failed} {faults}")
 
 
+# ------------------------------------------------- P12a: four new configs
+
+# the configs P12a brings to the card, one phase group each, one at a
+# time (each freed before the next): all four take the paged main path
+# (cache="auto": attention only, no window), K2 prefill and K1 decode
+P12A = ("paligemma-3b", "musicgen-large", "qwen3-4b", "glm4-9b")
+# the replay's cut: the first two layers of the served weights, every
+# width and the whole vocabulary kept (3.2-9.4 B parameters of fp32
+# weights do not replay on a CPU at full depth)
+P12A_CUT_LAYERS = 2
+# Model.forward with a frontend's embeddings, card against itself at full
+# depth (prefill and decode rows against the full forward's): the
+# reference test's 2e-4 (tests/test_models.py::
+# test_prefill_decode_matches_full), both sides fp32 on the card; card
+# against CPU at the cut: the same 2e-4, both sides fp32 (as the
+# recurrentgemma replay's fp32 cache, RG_PREFILL_LOGIT_TOL)
+EMBED_TOL = 2e-4
+
+
+def cut_model(cfg, params, layers=P12A_CUT_LAYERS):
+    """The config and the served weights cut to their first ``layers``
+    layers, at full widths with the full vocabulary (the embedding table,
+    the final norm and an untied head kept)."""
+    ccfg = dataclasses.replace(cfg, num_layers=layers)
+    cut = {k: v for k, v in params.items() if k != "layers"}
+    cut["layers"] = params["layers"][:layers]
+    emit({"phase": "replay cut", "model": cfg.name, "layers": layers,
+          "of": cfg.num_layers, "pattern": list(cfg.pattern),
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "weight_bytes": tensor_bytes(cut)})
+    return ccfg, cut
+
+
+def _record_prefix():
+    """Record the ``prefix_len`` of every K4 launch from the attention
+    module (its name there wrapped; nothing read from the device).
+    Returns (the list of prefix lengths, undo)."""
+    from repro_torch.models import attention
+    seen, fn = [], attention.flash_attention
+
+    def recorded(*a, prefix_len=0, **k):
+        seen.append(prefix_len)
+        return fn(*a, prefix_len=prefix_len, **k)
+
+    attention.flash_attention = recorded
+
+    def undo():
+        attention.flash_attention = fn
+    return seen, undo
+
+
+def prefix_path(label, prefix, fn, /, *args, **kw):
+    """A paligemma path that prefills in mode="full" (``fn(*args, **kw)``
+    runs it): every K4 launch must carry the config's ``prefix``."""
+    seen, undo = _record_prefix()
+    try:
+        out = fn(*args, **kw)
+    finally:
+        undo()
+    if not seen or set(seen) != {prefix}:
+        raise AssertionError(f"{label}: K4 prefix lengths "
+                             f"{sorted(set(seen))}, expected {prefix}")
+    emit({"phase": f"{label} prefix", "k4_launches": len(seen),
+          "prefix_len": prefix})
+    return out
+
+
+def _close_rows(got, want, tol):
+    """Largest |got - want| and whether it is within tol + tol * |want|
+    (numpy's allclose with rtol = atol = tol, as the reference test)."""
+    import torch
+    got, want = got.float().cpu(), want.float().cpu()
+    gap = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= tol + tol * want.abs()).all()) \
+        and bool(torch.isfinite(got).all())
+    return gap, ok
+
+
+def _embed_inputs(cfg, seed=3):
+    """tests/test_models.py::test_prefill_decode_matches_full's inputs at
+    full width (drawn with a seeded torch generator on the CPU): B 2, a
+    prefill of S positions and T decode steps; vision: the prefix's
+    embeddings then tokens (S = the prefix + 16); audio: embeddings alone,
+    prefill compared."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    B, T = 2, 4
+    if cfg.frontend == "vision":
+        P = cfg.num_prefix_tokens
+        S = P + 16
+        emb = torch.randn(B, P, cfg.d_model, generator=gen)
+        toks = torch.randint(0, cfg.vocab_size, (B, S + T - P), generator=gen)
+        return (B, S, T, dict(embeddings=emb, tokens=toks),
+                dict(embeddings=emb, tokens=toks[:, :S - P]),
+                toks[:, S - P:])
+    S = 16
+    emb = torch.randn(B, S + T, cfg.d_model, generator=gen)
+    return B, S, T, dict(embeddings=emb), dict(embeddings=emb[:, :S]), None
+
+
+def _embed_run(model, params, device, inputs):
+    """The reference test's three passes on ``device``: the full forward,
+    the prefill into an fp32 cache and the decode steps. Returns (full
+    logits, prefill logits, [decode rows])."""
+    import torch
+    B, S, T, kw_full, kw_pre, dec = inputs
+
+    def on(kw):
+        return {k: v.to(device) for k, v in kw.items()}
+
+    full, _ = model.forward(params, mode="full", **on(kw_full))
+    cache = model.init_cache(B, S + T, dtype=torch.float32, device=device)
+    pre, cache = model.forward(params, mode="full", cache=cache,
+                               **on(kw_pre))
+    rows = []
+    if dec is not None:
+        for t in range(T):
+            d, cache = model.forward(params, mode="decode",
+                                     tokens=dec[:, t:t + 1].to(device),
+                                     cache=cache, pos=S + t)
+            rows.append(d[:, 0])
+    return full, pre, rows
+
+
+def embeddings_phase(name, cfg, params, device, ccfg, cut):
+    """``Model.forward`` with a frontend's ``embeddings`` at full width:
+    on the card at full depth, the prefill's last row and each decode row
+    held to the full forward's (the reference test's claim), with K4 once
+    a layer per full-mode pass and K3 once a layer per decode step; then
+    the card against the CPU on the cut model, every pass."""
+    import torch
+
+    from repro_torch.models.model import get_model
+    inputs = _embed_inputs(cfg)
+    B, S, T = inputs[:3]
+    zero_launches()
+    full, pre, rows = _embed_run(get_model(cfg), params, device, inputs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    L = cfg.num_layers
+    want = dict.fromkeys(kernel_fns(), 0)
+    want["flash_attention"] = 2 * L
+    want["decode_attention"] = len(rows) * L
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    checks = [_close_rows(pre[:, -1], full[:, S - 1], EMBED_TOL)]
+    checks += [_close_rows(r, full[:, S + t], EMBED_TOL)
+               for t, r in enumerate(rows)]
+    del full, pre, rows
+    cmodel = get_model(ccfg)
+    card = _embed_run(cmodel, cut, device, inputs)
+    cpu = _embed_run(cmodel, params_to(cut, torch.device("cpu")),
+                     torch.device("cpu"), inputs)
+    cross = [_close_rows(card[0], cpu[0], EMBED_TOL),
+             _close_rows(card[1], cpu[1], EMBED_TOL)]
+    cross += [_close_rows(a, b, EMBED_TOL) for a, b in zip(card[2], cpu[2])]
+    result = {"phase": name, "model": cfg.name, "frontend": cfg.frontend,
+              "batch": B, "prefill_positions": S,
+              "decode_steps": len(checks) - 1,
+              "embedding_positions": inputs[3]["embeddings"].shape[1],
+              "tol": EMBED_TOL,
+              "launches": {k: v for k, v in launches.items() if v},
+              "full_depth_max_gap": max(g for g, _ in checks),
+              "full_depth_gaps": [g for g, _ in checks],
+              "cut_layers": ccfg.num_layers,
+              "card_vs_cpu_max_gap": max(g for g, _ in cross),
+              "card_vs_cpu_gaps": [g for g, _ in cross]}
+    emit(result)
+    if not all(ok for _, ok in checks + cross):
+        raise AssertionError(f"{name}: rows beyond {EMBED_TOL}: {result}")
+
+
+def p12a_group(arch, device, timed, rows):
+    """One P12a config at full width: (a) the auto path (the paged main
+    path) on the quickstart traffic with exact launch counts, and a
+    profile of it (device busy time and idle share); paligemma
+    also on the stacked, paged prefill="full" and per-request paths, each
+    with K4 running its prefix; (b) the replay of the card against the
+    CPU at the cut; paligemma and musicgen the Model.forward phase with
+    embeddings. Its seconds go to ``timed``'s record; its launches to the
+    kernel rows."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import get_model
+    from repro_torch.serving.batcher import PagedContinuousBatcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": f"memory before {arch}",
+          "memory_allocated_bytes": torch.cuda.memory_allocated()})
+    cfg = get_config(arch)
+    params = timed(f"init {arch}", get_model(cfg).init, seed=0,
+                   device=device)
+    launches, wall, _ = timed(arch, serve_path, arch, cfg, params, device)
+    for k in ("paged_decode_attention", "chunked_prefill_attention"):
+        rows[k].setdefault("launches_p12a", {})[arch] = launches[k]
+    timed(f"profile {arch}", profile_phase, arch, cfg, params, device, wall)
+    if cfg.prefix_lm:
+        P = cfg.num_prefix_tokens
+        for label, kw in ((f"{arch} stacked", dict(cache="stacked")),
+                          (f"{arch} paged_prefill_full",
+                           dict(prefill="full"))):
+            got, _, _ = timed(label, prefix_path, label, P, serve_path,
+                              label, cfg, params, device, **kw)
+            rows["flash_attention"].setdefault("launches_prefix", {})[
+                label] = got["flash_attention"]
+        label = f"per_request {arch}"
+        timed(label, prefix_path, label, P, per_request_phase, cfg, params,
+              device, name=label)
+    ccfg, cut = cut_model(cfg, params)
+    cpu = torch.device("cpu")
+    runs = [(device, cut), (cpu, params_to(cut, cpu))]
+    timed(f"replay {arch}", replay, f"replay {arch}", ccfg, runs,
+          lambda dev, p: PagedContinuousBatcher(
+              ccfg, params=p, num_slots=4, max_len=256, device=dev),
+          _capture_fused)
+    del runs
+    if cfg.frontend is not None:
+        timed(f"embeddings {arch}", embeddings_phase, f"embeddings {arch}",
+              cfg, params, device, ccfg, cut)
+    del cut, params
+
+
+def _islands_of(n):
+    """``benchmarks/micro.py``'s registry of n islands (a laptop, then
+    edge and cloud islands in turn), from the port's own modules."""
+    from repro_torch.core.islands import (IslandRegistry, cloud_island,
+                                          edge_island, personal_island)
+    reg = IslandRegistry()
+    reg.register(personal_island("laptop"), reg.attestation_token("laptop"))
+    for i in range(n - 1):
+        isl = (edge_island(f"edge{i}", privacy=0.6 + 0.3 * (i % 2))
+               if i % 2 else cloud_island(f"cloud{i}"))
+        reg.register(isl, reg.attestation_token(isl.island_id))
+    return reg
+
+
+def route_batch_phase(device, card, m=4096, n=16, reps=50):
+    """``route_batch`` at ``benchmarks/micro.py``'s size (4,096 requests x
+    16 islands) on the card: its assignments, feasibility and scores equal
+    to the same call on the CPU, and ``pareto_front`` too; the time a
+    call (host clock over ``reps`` calls, the card synchronized at the
+    end, as the benchmark times it) beside the card's name."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import routing as rt
+    from repro_torch.core.tide import TIDE
+    reg = _islands_of(n)
+    tide = TIDE(reg)
+    rng = np.random.default_rng(0)
+    sens = rng.uniform(0, 1, m).astype(np.float32)
+    gate = np.zeros(m, np.float32)
+    w = (0.4, 0.3, 0.3)
+    out, us = {}, {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        tbl = rt.pack_islands(reg.all(), [], tide, device=dev)
+        reqs = rt.pack_requests(sens, gate, device=dev)
+        got = rt.route_batch(tbl, reqs, w)               # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            got = rt.route_batch(tbl, reqs, w)
+        torch.cuda.synchronize()
+        us[side] = (time.perf_counter() - t0) / reps * 1e6
+        out[side] = [t.cpu() for t in got] + [rt.pareto_front(tbl).cpu()]
+    same = [bool(torch.equal(a, b)) for a, b in zip(out["card"], out["cpu"])]
+    result = {"phase": "route_batch", "requests": m, "islands": n,
+              "card": card, "us_per_call_card": us["card"],
+              "us_per_call_cpu": us["cpu"],
+              "requests_per_s_card": m / (us["card"] / 1e6),
+              "feasible": int(out["card"][1].sum()),
+              "islands_chosen": len(set(out["card"][0].tolist())),
+              "equal_to_cpu": dict(zip(("assign", "feasible", "scores",
+                                        "pareto_front"), same))}
+    emit(result)
+    if not all(same[:2]) or not same[3]:
+        raise AssertionError(f"route_batch: card and CPU differ: {result}")
+
+
 def fp32_tail(b):
     """Make stacked batcher ``b`` keep every cache leaf in fp32 (the
     serving paths keep the conv tails and the K/V in bf16): its slot rows
@@ -3205,13 +3538,7 @@ def main() -> int:
           gpu, name="per_request recurrentgemma")
     # the replay at full width, cut to one pattern cycle: its weights are
     # the first three layers of the served model's
-    ccfg = dataclasses.replace(rcfg, num_layers=len(rcfg.pattern))
-    cut = {"embed": rparams["embed"], "final_norm": rparams["final_norm"],
-           "layers": rparams["layers"][:ccfg.num_layers]}
-    emit({"phase": "replay cut", "model": rcfg.name,
-          "layers": ccfg.num_layers, "of": rcfg.num_layers,
-          "pattern": list(rcfg.pattern), "d_model": ccfg.d_model,
-          "vocab": ccfg.vocab_size, "weight_bytes": tensor_bytes(cut)})
+    ccfg, cut = cut_model(rcfg, rparams, len(rcfg.pattern))
     rruns = [(gpu, cut), (cpu, params_to(cut, cpu))]
     timed("replay recurrentgemma", replay, "replay recurrentgemma", ccfg,
           rruns, lambda dev, p: ContinuousBatcher(
@@ -3226,6 +3553,14 @@ def main() -> int:
     del rruns, cut
     timed("fp8 recurrentgemma", fp8_phase, "fp8 recurrentgemma", rcfg,
           rparams, gpu, B=2, S=512, T=16)
+    del rparams
+
+    # P12a: paligemma-3b, musicgen-large, qwen3-4b and glm4-9b at full
+    # width, one at a time, on the paged main path (and paligemma on every
+    # path that applies its prefix); then the snapshot router
+    for arch in P12A:
+        p12a_group(arch, gpu, timed, rows)
+    timed("route_batch", route_batch_phase, gpu, card)
     emit({"phase": "seconds", **seconds})
 
     print(card)

@@ -1,10 +1,15 @@
 """Batched WAVES routing for one scheduling tick, on tensors.
 
 Port of ``repro/core/routing_jax.py`` (``pack_islands``,
-``pack_requests``, ``pack_tide_state``, ``unpack_tide_state`` and
-``route_batch_tick``). The scalar Algorithm-1 path in ``waves.py`` is the
-oracle: the batched router is decision-equivalent to routing the same
-requests one by one at a frozen clock.
+``pack_requests``, ``route_batch``, ``pack_tide_state``,
+``unpack_tide_state``, ``route_batch_tick`` and ``pareto_front``). The
+scalar Algorithm-1 path in ``waves.py`` is the oracle: the batched router
+is decision-equivalent to routing the same requests one by one at a
+frozen clock.
+
+``route_batch`` answers, for every request at once, which island it would
+pick from a frozen capacity snapshot: one (requests x islands) pass of
+tensor ops on the tables' device, with no read back to the host.
 
 ``route_batch_tick`` is a sequential greedy pass — request i sees the
 capacity left over by requests 0..i-1 — so the reference's
@@ -98,6 +103,52 @@ def pack_requests(sens, priority_gate, deadline_ms=None, dataset=None,
                           else torch.zeros((m,), dtype=torch.bool,
                                            device=device)),
     }
+
+
+def _f32_reciprocal(x, dev):
+    return torch.reciprocal(torch.tensor(x, dtype=_F32, device=dev))
+
+
+def route_batch(tbl: IslandTable, reqs, weights, *, mode="scalarized",
+                budget=float("inf"), min_trust=0.0, cost_scale=0.05,
+                latency_scale=2000.0):
+    """Returns (assign (m,) int32 [-1 infeasible], feasible (m,) bool,
+    score matrix (m, n) float32: the score where feasible, else ``BIG``),
+    as tensors on the tables' device. ``weights`` is (w_cost, w_latency,
+    w_privacy), a sequence or a (3,) tensor; ``mode="constraint"`` scores
+    by normalised latency alone."""
+    dev = tbl.privacy.device
+    w1, w2, w3 = weights[0], weights[1], weights[2]
+    sens = reqs["sens"][:, None]                          # (m, 1)
+    ok = tbl.alive[None, :] & (tbl.privacy[None, :] >= sens)  # hard privacy
+    ok = ok & (tbl.unbounded[None, :]
+               | (tbl.capacity[None, :] >= reqs["gate"][:, None]))
+    ok = ok & (tbl.latency[None, :] <= reqs["deadline"][:, None])
+    ok = ok & (tbl.cost[None, :] <= budget)
+    ok = ok & (tbl.trust[None, :] >= min_trust)
+    ok = ok & torch.where(reqs["personal_only"][:, None],
+                          (tbl.tier == 1)[None, :], True)
+    has_ds = reqs["dataset"] >= 0
+    ds_hit = tbl.datasets.t()[torch.clamp(reqs["dataset"], min=0).long()]
+    ok = ok & torch.where(has_ds[:, None], ds_hit, True)   # (m, n)
+
+    # the reference's jit folds the default scales into constants, which
+    # XLA divides by as products with their float32 reciprocals: the same
+    # products here give its scores bit for bit
+    cn = torch.clamp(tbl.cost * _f32_reciprocal(cost_scale, dev), max=1.0)
+    ln = torch.clamp(tbl.latency * _f32_reciprocal(latency_scale, dev),
+                     max=1.0)
+    if mode == "constraint":
+        score = ln[None, :].expand(ok.shape)
+    else:
+        score = (w1 * cn + w2 * ln + w3 * (1.0 - tbl.privacy))[
+            None, :].expand(ok.shape)
+    masked = torch.where(ok, score.to(_F32),
+                         torch.tensor(BIG, dtype=_F32, device=dev))
+    assign = torch.argmin(masked, dim=1).to(torch.int32)
+    feasible = torch.any(ok, dim=1)
+    assign = torch.where(feasible, assign, -1).to(torch.int32)
+    return assign, feasible, masked
 
 
 def pack_tide_state(islands, tide, device="cpu"):
@@ -257,3 +308,13 @@ def route_batch_tick(tbl: IslandTable, reqs, weights, state, extra_ok, *,
     new_state = dict(state, cpu=cpu, gpu=gpu, mem=mem, inflight=infl,
                      local_ok=lok)
     return assign, acc, que, sco, ncand, new_state
+
+
+def pareto_front(tbl: IslandTable):
+    """Non-dominated islands in (cost, latency, 1-privacy) space: (n,)
+    bool on the tables' device."""
+    objs = torch.stack([tbl.cost, tbl.latency, 1.0 - tbl.privacy], dim=1)
+    le = torch.all(objs[:, None, :] <= objs[None, :, :], dim=-1)
+    lt = torch.any(objs[:, None, :] < objs[None, :, :], dim=-1)
+    dominated = torch.any(le & lt, dim=0)  # someone dominates j
+    return ~dominated

@@ -25,7 +25,10 @@
 // TFLOP/s effective), accurate to fp32's ~1e-7. A block of 64 query rows
 // (21 tokens x smollm's 3 query heads of a kv head) gathers 64-key tiles
 // (four 16-row pages, one table lookup a key row) through a two-stage
-// cp.async ring; pages strictly in the tile's future are never read. Where
+// cp.async ring; pages strictly in the tile's future are never read. At
+// paligemma-3b's heads (8 of 256 on one kv head) a block is 8 tokens x 8
+// heads, with 32-key tiles: its fp32 q block (66 KB) and the bf16 ring
+// (66 KB) take 132 KB of shared memory, one block an SM. Where
 // B x Hkv x q tiles leave the card short of blocks (a tick's 4 rows of 64
 // tokens give 48), the wrapper splits each walk into n_split ranges of
 // whole key tiles, and a merge kernel combines them in split order, so
@@ -44,7 +47,7 @@ static cudaError_t launch(const void* q, const void* kp, const void* vp,
     const PagedRows rows{(const int32_t*)bt, N, ps, (int64_t)Hkv * 32 * DPL};
     return launch_prefill_walk<TQ, TKV, DPL, PagedRows, true, false>(
         q, kp, vp, rows, start, out, part_o, part_ml, n_split, B, T, H, Hkv,
-        N * ps, 0, scale, stream);
+        N * ps, 0, 0, scale, stream);
 }
 
 template <typename TQ, typename TKV, int DPL>
@@ -54,7 +57,7 @@ static cudaError_t attrs(int* out) {
 
 // q (B, T, H, D); k/v pages (P, ps, Hkv, D); block_table (B, N) int32;
 // start_pos (B,) int32; out (B, T, H, D) in q's dtype. All contiguous and
-// 16-byte aligned, D in {32, 64, 128}. n_split >= 1 key ranges; with more
+// 16-byte aligned, D in {32, 64, 128, 256}. n_split >= 1 key ranges; with more
 // than one, part_o (n_split, B, T, H, D) and part_ml (n_split, B, T, H, 2)
 // fp32 scratch. Returns the cudaError_t of the launches (0 = launched).
 extern "C" int chunked_prefill_attention_launch(
@@ -63,7 +66,7 @@ extern "C" int chunked_prefill_attention_launch(
         void* part_o, void* part_ml, int n_split, int B, int T, int H,
         int Hkv, int D, int ps, int N, float scale, int q_dtype,
         int kv_dtype, void* stream) {
-    REPRO_DISPATCH(launch, q_dtype, kv_dtype, D, q, k_pages, v_pages,
+    REPRO_DISPATCH_WIDE(launch, q_dtype, kv_dtype, D, q, k_pages, v_pages,
                    block_table, start_pos, out, part_o, part_ml, n_split, B,
                    T, H, Hkv, ps, N, scale, (cudaStream_t)stream);
 }
@@ -72,5 +75,5 @@ extern "C" int chunked_prefill_attention_launch(
 // bytes, resident blocks an SM and key tile, into out[0..4].
 extern "C" int chunked_prefill_attention_attrs(int q_dtype, int kv_dtype,
                                                int D, int* out) {
-    REPRO_DISPATCH(attrs, q_dtype, kv_dtype, D, out);
+    REPRO_DISPATCH_WIDE(attrs, q_dtype, kv_dtype, D, out);
 }

@@ -145,13 +145,9 @@ static cudaError_t launch_with_smem(void (*kernel)(KArgs...), dim3 grid,
 }
 
 // Return `LAUNCH<TQ, TKV, DPL>(...)` for the dtype pair and head_dim
-// (D = 32 * DPL, D in {32, 64, 128}); anything else is refused.
-// REPRO_DISPATCH_WIDE also takes D = 256 (recurrentgemma's heads): only
-// the dense-cache kernels K3/K4 use it, so the paged kernels compile no
-// D 256 variant that no path runs.
-#define REPRO_DISPATCH(LAUNCH, q_dtype, kv_dtype, D, ...)                   \
-    REPRO_DISPATCH_T(REPRO_DISPATCH_D, LAUNCH, q_dtype, kv_dtype, D,         \
-                     __VA_ARGS__)
+// (D = 32 * DPL, D in {32, 64, 128, 256}: up to recurrentgemma-9b's and
+// paligemma-3b's heads); anything else is refused. Every attention kernel
+// (K1-K4) dispatches through it.
 #define REPRO_DISPATCH_WIDE(LAUNCH, q_dtype, kv_dtype, D, ...)              \
     REPRO_DISPATCH_T(REPRO_DISPATCH_D_WIDE, LAUNCH, q_dtype, kv_dtype, D,    \
                      __VA_ARGS__)

@@ -3,7 +3,9 @@
 // the model holds them in, q (B, Sq, H, D) and k/v (B, Sk, Hkv, D), with
 // no transposes. Causal masking is aligned at the top left: query t
 // attends keys 0..t; with a local-attention window W (recurrentgemma's
-// attention layers) keys t-W+1..t. Head dims 32, 64, 128 and 256.
+// attention layers) keys t-W+1..t; with a prefix-LM's prefix P
+// (paligemma-3b's 256 image tokens) also every key below P, whatever the
+// query. Head dims 32, 64, 128 and 256.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py
 // (flash_attention, the pl.pallas_call at line 82; its wrapper
@@ -32,7 +34,9 @@
 // scores in registers, fed by a two-stage cp.async ring. Key tiles above
 // the diagonal are never read, so the work is the causal half; with a
 // window the walk begins at the first key tile of the q tile's window (a
-// band of width W). The q tiles with the longest walks launch first, and
+// band of width W); with a prefix a q tile above it walks on to the
+// prefix's last tile (the prefix is a runtime value, so it adds no
+// instantiation). The q tiles with the longest walks launch first, and
 // a grid too small for the card splits each walk into ranges merged in
 // a fixed order (short prompts).
 
@@ -42,7 +46,7 @@ template <typename TQ, typename TKV, int DPL>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           void* out, void* part_o, void* part_ml,
                           int n_split, int B, int Sq, int Sk, int H, int Hkv,
-                          int causal, int window, float scale,
+                          int causal, int window, int prefix, float scale,
                           cudaStream_t stream) {
     const DenseRows rows{Sk, (int64_t)Hkv * 32 * DPL};
     if (!causal)
@@ -50,15 +54,15 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
                           : launch_prefill_walk<TQ, TKV, DPL, DenseRows,
                                                 false, false>(
                                 q, k, v, rows, nullptr, out, part_o,
-                                part_ml, n_split, B, Sq, H, Hkv, Sk, 0,
+                                part_ml, n_split, B, Sq, H, Hkv, Sk, 0, 0,
                                 scale, stream);
     return window > 0
         ? launch_prefill_walk<TQ, TKV, DPL, DenseRows, true, true>(
               q, k, v, rows, nullptr, out, part_o, part_ml, n_split, B, Sq,
-              H, Hkv, Sk, window, scale, stream)
+              H, Hkv, Sk, window, prefix, scale, stream)
         : launch_prefill_walk<TQ, TKV, DPL, DenseRows, true, false>(
               q, k, v, rows, nullptr, out, part_o, part_ml, n_split, B, Sq,
-              H, Hkv, Sk, 0, scale, stream);
+              H, Hkv, Sk, 0, prefix, scale, stream);
 }
 
 template <typename TQ, typename TKV, int DPL>
@@ -72,7 +76,8 @@ static cudaError_t attrs(int causal, int window, int* out) {
 
 // q (B, Sq, H, D); k/v (B, Sk, Hkv, D); out (B, Sq, H, D) in q's dtype.
 // All contiguous and 16-byte aligned, D in {32, 64, 128, 256}; window 0
-// for none, else >= 1 and causal. n_split >= 1 key ranges; with more than
+// for none, else >= 1 and causal; prefix >= 0 keys visible to every query
+// (a prefix-LM; 0 for none). n_split >= 1 key ranges; with more than
 // one, part_o (n_split, B, Sq, H, D) and part_ml (n_split, B, Sq, H, 2)
 // fp32 scratch. Returns the cudaError_t of the launches (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -80,11 +85,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       void* part_o, void* part_ml,
                                       int n_split, int B, int Sq, int Sk,
                                       int H, int Hkv, int D, int causal,
-                                      int window, float scale, int q_dtype,
-                                      int kv_dtype, void* stream) {
+                                      int window, int prefix, float scale,
+                                      int q_dtype, int kv_dtype,
+                                      void* stream) {
+    if (prefix < 0) return (int)cudaErrorInvalidValue;
     REPRO_DISPATCH_WIDE(launch, q_dtype, kv_dtype, D, q, k, v, out, part_o,
                         part_ml, n_split, B, Sq, Sk, H, Hkv, causal, window,
-                        scale, (cudaStream_t)stream);
+                        prefix, scale, (cudaStream_t)stream);
 }
 
 // The walk instantiation's registers, dynamic shared memory bytes, local

@@ -24,9 +24,11 @@
 // split. A block copies a tile's page ids (four 16-token pages a 64-token
 // tile at page size 16) with one warp, in the cp.async group of an earlier
 // tile, so they wait in shared memory before the tile's own copies are
-// issued; those fly in a 4-stage cp.async ring at D 64. All G query heads
-// of a kv head are one tensor-core tile, so each live K/V byte is read
-// once.
+// issued; those fly in a 4-stage cp.async ring at D 64 (3 stages of 64
+// bf16 keys at D 128 and 256: paligemma-3b's 8 query heads of 256 on one
+// kv head are 8 rows of one tile, glm4-9b's 16 a full tile, musicgen's 1
+// a tile of one live row). All G query heads of a kv head are one
+// tensor-core tile, so each live K/V byte is read once.
 // Table entries past valid_len (the scratch page) are never read.
 
 #include "decode_walk.cuh"
@@ -50,7 +52,7 @@ static cudaError_t attrs(int B, int H, int Hkv, int* out) {
 
 // q (B, H, D); k/v pages (P, ps, Hkv, D); block_table (B, N) int32;
 // valid_lens (B,) int32; out (B, H, D) in q's dtype. All contiguous and
-// 16-byte aligned, D in {32, 64, 128}. With n_split > 1, part_o (n_split,
+// 16-byte aligned, D in {32, 64, 128, 256}. With n_split > 1, part_o (n_split,
 // B, H, D) and part_ml (n_split, B, H, 2) are fp32 scratch. Returns the
 // cudaError_t of the launches (0 = launched).
 extern "C" int paged_decode_attention_launch(
@@ -59,7 +61,7 @@ extern "C" int paged_decode_attention_launch(
         void* part_o, void* part_ml, int n_split, int B, int H, int Hkv,
         int D, int ps, int N, float scale, int q_dtype, int kv_dtype,
         void* stream) {
-    REPRO_DISPATCH(launch, q_dtype, kv_dtype, D, q, k_pages, v_pages,
+    REPRO_DISPATCH_WIDE(launch, q_dtype, kv_dtype, D, q, k_pages, v_pages,
                    block_table, valid_lens, out, part_o, part_ml, n_split, B,
                    H, Hkv, ps, N, scale, (cudaStream_t)stream);
 }
@@ -69,5 +71,5 @@ extern "C" int paged_decode_attention_launch(
 extern "C" int paged_decode_attention_attrs(int q_dtype, int kv_dtype,
                                             int D, int B, int H, int Hkv,
                                             int* out) {
-    REPRO_DISPATCH(attrs, q_dtype, kv_dtype, D, B, H, Hkv, out);
+    REPRO_DISPATCH_WIDE(attrs, q_dtype, kv_dtype, D, B, H, Hkv, out);
 }

@@ -9,7 +9,11 @@
 // K4 only) also drops keys at or below its position minus `window`, and
 // the block's walk begins at the first key tile some row of its q tile
 // can attend. CAUSAL and WINDOWED are template parameters, not runtime
-// flags.
+// flags. A prefix-LM's `prefix` (K4 only; 0 for none, and always 0 for K2,
+// as the reference's chunk mode applies none) is a runtime value: keys
+// below it are visible to every query, ORed with the causal and window
+// mask (the reference's allowed_mask), so a q tile's walk runs to the
+// larger of its causal end and the prefix, and starts at key 0.
 //
 // What bounds it: both products (S = Q.K^T and O += P.V) are matrix
 // products over the D dims and the keys of a tile, so the walk is bound by
@@ -69,9 +73,9 @@
 //   adds l_i = 0 and a weight e^(NEG_INF - m) = 0.
 // - Causal balance: grid.x runs the q tiles backwards, so the longest
 //   walks start in the first wave and the short ones fill the tail.
-// - Keys past a tile's causal horizon (and pages strictly in its future)
-//   are never read, and a ragged last q tile is masked, so every query
-//   length runs.
+// - Keys past a tile's causal horizon and the prefix (and pages strictly
+//   in its future) are never read, and a ragged last q tile is masked, so
+//   every query length runs.
 #pragma once
 
 #include "decode_walk.cuh"
@@ -116,7 +120,8 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 
 // q (B, T, H, D); out (B, T, H, D) in q's dtype; start_pos (B,) int32 or
 // null (all 0); keys [0, cap) exist; with WINDOWED, a query at position p
-// attends keys in (p - window, p], window >= 1. With n_split > 1, block
+// attends keys in (p - window, p], window >= 1; keys below prefix (>= 0)
+// are attended by every query. With n_split > 1, block
 // (.., .., b * n_split + s) walks range s of its q tile's key tiles and
 // writes part_o (n_split, B, T, H, D) and part_ml (n_split, B, T, H) of
 // (m, l) instead of out.
@@ -128,7 +133,8 @@ prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const int32_t* __restrict__ start_pos,
                     TQ* __restrict__ out, float* __restrict__ part_o,
                     float2* __restrict__ part_ml, int n_split, int B, int T,
-                    int H, int Hkv, int cap, int window, float scale) {
+                    int H, int Hkv, int cap, int window, int prefix,
+                    float scale) {
     constexpr int D = 32 * DPL;
     constexpr int KT = pf_kt<TKV, DPL>();
     constexpr int NT = KT / 8;          // 8-key n tiles of a score tile
@@ -160,10 +166,13 @@ prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
     TKV* vring = kring + 2 * KT * KS;                           // 2 x (KT, VS)
 
     const int start = start_pos != nullptr ? start_pos[b] : 0;
-    // keys [kbeg, kend) can be attended by some row of the tile; with a
-    // window the walk begins at the tile holding the first row's first key
-    const int kend = CAUSAL ? min(start + t0 + tn, cap) : cap;
-    const int kbeg = WINDOWED ? max(0, start + t0 - window + 1) / KT * KT : 0;
+    // keys [kbeg, kend) can be attended by some row of the tile: up to the
+    // larger of its last row's position and the prefix; with a window (and
+    // no prefix) the walk begins at the tile holding the first row's first
+    // key. The split ranges below cut this extended walk
+    const int kend = CAUSAL ? min(max(start + t0 + tn, prefix), cap) : cap;
+    const int kbeg = WINDOWED && prefix == 0
+                         ? max(0, start + t0 - window + 1) / KT * KT : 0;
     const int ntile = kend > kbeg ? (kend - kbeg + KT - 1) / KT : 0;
     const int per = (ntile + n_split - 1) / n_split;
     const int tlo = min(ntile, split * per), thi = min(ntile, tlo + per);
@@ -258,10 +267,14 @@ prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
                 const int key = k0 + n * 8 + 2 * tq + e;
-                const bool oka = key < kend && (!CAUSAL || key <= qpa) &&
-                                 (!WINDOWED || key > qpa - window);
-                const bool okb = key < kend && (!CAUSAL || key <= qpb) &&
-                                 (!WINDOWED || key > qpb - window);
+                const bool oka = key < kend &&
+                                 (((!CAUSAL || key <= qpa) &&
+                                   (!WINDOWED || key > qpa - window)) ||
+                                  key < prefix);
+                const bool okb = key < kend &&
+                                 (((!CAUSAL || key <= qpb) &&
+                                   (!WINDOWED || key > qpb - window)) ||
+                                  key < prefix);
                 s[n][e] = oka ? s[n][e] * scale : REPRO_NEG_INF;
                 s[n][2 + e] = okb ? s[n][2 + e] * scale : REPRO_NEG_INF;
                 xa = fmaxf(xa, s[n][e]);
@@ -413,7 +426,8 @@ static cudaError_t launch_prefill_walk(const void* q, const void* k,
                                        void* part_o, void* part_ml,
                                        int n_split, int B, int T, int H,
                                        int Hkv, int cap, int window,
-                                       float scale, cudaStream_t stream) {
+                                       int prefix, float scale,
+                                       cudaStream_t stream) {
     if (n_split < 1 || (n_split > 1 && (part_o == nullptr ||
                                         part_ml == nullptr)))
         return cudaErrorInvalidValue;
@@ -423,7 +437,7 @@ static cudaError_t launch_prefill_walk(const void* q, const void* k,
         dim3(PF_THREADS), pf_smem<TKV, DPL>(), stream, (const TQ*)q,
         (const TKV*)k, (const TKV*)v, rows, (const int32_t*)start, (TQ*)out,
         (float*)part_o, (float2*)part_ml, n_split, B, T, H, Hkv, cap,
-        window, scale);
+        window, prefix, scale);
     if (e != cudaSuccess || n_split == 1) return e;
     const int64_t nrows = (int64_t)B * T * H;
     prefill_merge_kernel<TQ, DPL, Rows>

@@ -21,13 +21,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("paged_attention", "chunked_prefill", "decode_attention",
            "flash_attention", "ssd_chunk", "rglru_scan")
-# the dense-cache kernels' (K3, K4) compiled head_dim variants: those of
-# the configs the port runs (smollm-135m 64; qwen3, glm4 128;
-# recurrentgemma-9b 256; their .reduced() widths 32)
+# the attention kernels' (K1-K4) compiled head_dim variants: those of the
+# configs the port runs (smollm-135m, musicgen-large 64; qwen3, glm4 128;
+# recurrentgemma-9b, paligemma-3b 256; their .reduced() widths 32)
 HEAD_DIMS = (32, 64, 128, 256)
-# the paged kernels' (K1, K2): no config with head_dim 256 has a paged
-# pool (recurrentgemma's windowed attention keeps stacked slot caches)
-PAGED_HEAD_DIMS = (32, 64, 128)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -119,9 +116,9 @@ def check_paged_args(q, k_pages, v_pages, block_table, lens, q_rank):
             or H % k_pages.shape[2]:
         raise ValueError(f"paged attention: bad shapes q {tuple(q.shape)}, "
                          f"pages {tuple(k_pages.shape)}")
-    if D not in PAGED_HEAD_DIMS:
+    if D not in HEAD_DIMS:
         raise ValueError(f"paged attention: head_dim {D} not in "
-                         f"{PAGED_HEAD_DIMS}")
+                         f"{HEAD_DIMS}")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("paged attention: pages must be 16-byte aligned")
     if block_table.dim() != 2 or block_table.shape[0] != B \

@@ -18,11 +18,13 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
-def flash_attention(q, k, v, scale, causal=True, window=None):
+def flash_attention(q, k, v, scale, causal=True, window=None,
+                    prefix_len=0):
     """q (B, Sq, H, D); k/v (B, Sk, Hkv, D), H a multiple of Hkv. Causal
     masking is aligned at the top left: query t attends keys 0..t, and
-    with a local-attention ``window`` only keys t-window+1..t (the
-    reference's ``allowed_mask``)."""
+    with a local-attention ``window`` only keys t-window+1..t; keys below
+    ``prefix_len`` (a prefix-LM's prefix) are visible to every query (the
+    reference's ``allowed_mask``: (causal and window) or key < prefix)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -34,6 +36,8 @@ def flash_attention(q, k, v, scale, causal=True, window=None):
         mask = kpos <= qpos
         if window:
             mask &= kpos > qpos - window
+        if prefix_len:
+            mask = mask | (kpos < prefix_len)
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())

@@ -29,7 +29,16 @@ per-token-per-head scale (``_fp8_quantize``), and decode dequantizes the
 whole cache to fp32 before ``decode_attention``, as the reference does.
 Prefill attends the unquantized K/V.
 
-Not ported yet: the sequence-sharded decode and prefix-LM masking.
+A prefix-LM config (paligemma-3b) makes its first ``num_prefix_tokens``
+keys visible to every query in ``mode="full"`` only, as the reference
+does (``repro/models/attention.py:217``): its chunk mode and both decode
+modes stay causal, so the paged chunked path attends the prefix causally
+while the stacked, per-request and ``prefill="full"`` paths attend it both
+ways (ROADMAP R8), and a full-mode re-prefill of a generated stream that
+is still inside the prefix attends those tokens both ways too (R9). The
+port reproduces both, path for path.
+
+Not ported yet: the sequence-sharded decode.
 """
 from __future__ import annotations
 
@@ -135,7 +144,9 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
         S = x.shape[1]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        o = flash_attention(q, k, v, scale, window=window)
+        prefix_len = cfg.num_prefix_tokens if cfg.prefix_lm else 0
+        o = flash_attention(q, k, v, scale, window=window,
+                            prefix_len=prefix_len)
         if cache is not None:
             W = cache["k"].shape[1]
             new = {}

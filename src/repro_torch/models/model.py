@@ -2,10 +2,14 @@
 blocks, with a SwiGLU MLP after each mixer when ``d_ff`` is set.
 
 Port of ``repro/models/model.py`` for patterns drawn from {``attn``,
-``ssm``, ``rglru``} without MoE, a prefix-LM mask or a frontend, in every
-mode the serving paths run: ``full`` (a whole prompt, with or without a
-dense cache), ``chunk`` (paged prefill runs, attention only) and
-``decode`` (against a dense cache or the paged pool). Each layer's mixer
+``ssm``, ``rglru``} without MoE, in every mode the serving paths run:
+``full`` (a whole prompt, with or without a dense cache), ``chunk``
+(paged prefill runs, attention only) and ``decode`` (against a dense
+cache or the paged pool). A prefix-LM config (paligemma-3b) masks its
+prefix in ``full`` mode (``attention.py``); a frontend (paligemma's
+vision, musicgen's audio) is, as in the reference, a stub whose
+precomputed ``embeddings`` ``forward`` takes alone or before the tokens'
+embeddings; the batchers serve by tokens. Each layer's mixer
 is dispatched by its block type (``BLOCK_TABLE``/``BLOCK_APPLY``/
 ``BLOCK_CACHE``, as the reference). The
 reference stores layers stacked along a leading dim and runs them with
@@ -47,28 +51,19 @@ BLOCK_CACHE = {"attn": attention.attn_cache_spec,
                "rglru": rglru.rglru_cache_spec}
 
 # what the port does not run yet, and the ROADMAP item that ports it
-_NOT_PORTED = {"mla": "ROADMAP Queue 1, P12 (MLA)"}
+_NOT_PORTED = {"mla": "ROADMAP Queue 1, P12b (MLA)"}
 
 
 def unported_reason(cfg):
     """None when the port runs ``cfg`` (a pattern drawn from {attn, ssm,
-    rglru}, no MoE, no prefix-LM mask, no frontend), else what is missing
-    and where ROADMAP queues it. A prefix-LM config is refused with or
-    without its frontend: the reference attends its prefix both ways
-    whatever the frontend, and the port's attention is causal."""
+    rglru}, no MoE; a prefix-LM mask and a frontend are ported), else
+    what is missing and where ROADMAP queues it."""
     for bt in effective_pattern(cfg):
         if bt not in BLOCK_TABLE:
             return (f"{bt!r} layers "
-                    f"({_NOT_PORTED.get(bt, 'ROADMAP Queue 1, P12')})")
+                    f"({_NOT_PORTED.get(bt, 'ROADMAP Queue 1, P12b')})")
     if cfg.num_experts:
-        return "MoE layers (ROADMAP Queue 1, P12 (MoE))"
-    if cfg.prefix_lm:
-        return ("the prefix-LM mask over the first "
-                f"{cfg.num_prefix_tokens} tokens (ROADMAP Queue 1, P12 "
-                "(prefix-LM))")
-    if cfg.frontend is not None:
-        return (f"the {cfg.frontend!r} frontend (ROADMAP Queue 1, P12 "
-                f"(frontends))")
+        return "MoE layers (ROADMAP Queue 1, P12b (MoE))"
     return None
 
 
@@ -188,16 +183,18 @@ class Model:
             x = x + swiglu_apply(p["mlp"], rms_norm(x, p["mlp"]["ln"]))
         return x, cache
 
-    def forward(self, params, *, tokens, mode="full", cache=None, pos=None,
-                block_table=None, dst_page=None):
+    def forward(self, params, *, tokens=None, embeddings=None, mode="full",
+                cache=None, pos=None, block_table=None, dst_page=None):
         """Returns (logits, cache); ``cache`` is the list of per-layer
         cache dicts, updated in place, or None (the reference also returns
         an MoE aux loss, which the port's models do not have).
 
-        mode='full': tokens (B, S) at positions 0..S-1; ``cache`` None or
-        a dense cache from ``init_cache`` whose first S slots take the
-        prompt's K/V (a windowed ring shorter than S takes the last
-        tokens').
+        mode='full': tokens (B, S) and/or embeddings (B, P, d) — a
+        frontend's precomputed embeddings, alone or placed before the
+        tokens' embeddings, cast to the embedding table's dtype — at
+        positions 0..S-1; ``cache`` None or a dense cache from
+        ``init_cache`` whose first S slots take the prompt's K/V (a
+        windowed ring shorter than S takes the last tokens').
         mode='decode': tokens (B, 1); ``pos`` a scalar or (B,)
         per-sequence absolute positions; ``cache`` a dense cache, or the
         pool's page dicts with block_table (B, N).
@@ -209,7 +206,13 @@ class Model:
         scratch page for prefix-shared chunks and padding)."""
         cfg = self.cfg
         emb = params["embed"]
-        x = emb[tokens.long()]
+        if embeddings is not None and tokens is not None:
+            x = torch.cat([embeddings.to(emb.dtype), emb[tokens.long()]],
+                          dim=1)
+        elif embeddings is not None:
+            x = embeddings.to(emb.dtype)
+        else:
+            x = emb[tokens.long()]
         S = x.shape[1]
         if mode == "full":
             positions = torch.arange(S, dtype=torch.int32, device=x.device)

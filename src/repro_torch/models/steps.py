@@ -20,12 +20,14 @@ from repro_torch.serving.sampling import sample
 
 
 def make_prefill_step(model):
-    """Full-prompt prefill: tokens (B, S) at positions 0..S-1 into a dense
-    cache from ``model.init_cache``. Returns the last position's logits
-    (B, V) and the cache."""
-    def prefill_step(params, cache, tokens):
+    """Full-prompt prefill: tokens (B, S) and/or a frontend's
+    ``embeddings`` (B, P, d), placed before the tokens, at positions
+    0..S-1 into a dense cache from ``model.init_cache`` (the reference's
+    step takes the same inputs as a dict). Returns the last position's
+    logits (B, V) and the cache."""
+    def prefill_step(params, cache, tokens=None, embeddings=None):
         logits, cache = model.forward(params, mode="full", tokens=tokens,
-                                      cache=cache)
+                                      embeddings=embeddings, cache=cache)
         return logits[:, -1, :], cache
 
     return prefill_step

@@ -457,6 +457,10 @@ class PagePool:
                     f"page {pid} claims an index key it doesn't hold"
         return True
 
+    def check(self):
+        """Back-compat alias for :meth:`audit`."""
+        return self.audit()
+
 
 # ----------------------------------------------------- migration (export)
 

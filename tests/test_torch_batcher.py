@@ -128,10 +128,10 @@ def test_backlog_and_telemetry_match_mid_run(weights):
 
 
 def test_unported_paths_refuse_clearly(weights):
-    """What the port still does not carry says so: model families other
-    than attention, Mamba-2 and RG-LRU decoders (for every cache manager,
-    at ``Model``, naming the ROADMAP item). Stochastic sampling is ported:
-    both batchers serve ``temperature=0.9``."""
+    """What the port still does not carry says so: MoE and MLA (for every
+    cache manager, at ``Model``, naming the ROADMAP item, P12b). Stochastic
+    sampling is ported: both batchers serve ``temperature=0.9``; so is the
+    prefix-LM mask, with or without its frontend."""
     _, tcfg, _, tparams, _ = weights
     for b in (TBatcher(tcfg, params=tparams, temperature=0.9, device="cpu"),
               make_batcher(tcfg, cache="stacked", params=tparams,
@@ -140,23 +140,29 @@ def test_unported_paths_refuse_clearly(weights):
         text = b.run_until_done()[rid]
         assert text is not None and b.stats["decode_tokens"] >= 3
     moe = tget_config("kimi-k2-1t-a32b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*MoE"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*P12b.*MoE"):
         get_model(moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*MoE"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*P12b.*MoE"):
         make_batcher(moe, cache="auto", device="cpu")
-    # a prefix-LM config without its frontend: the reference attends the
-    # prefix both ways, the port's attention is causal
+    mla = tget_config("deepseek-v2-lite-16b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*P12b.*MLA"):
+        make_batcher(mla, cache="auto", device="cpu")
+    # a prefix-LM config without its frontend is served: the reference
+    # attends the prefix both ways whatever the frontend, and so does the
+    # port in mode="full"
     plm = dataclasses.replace(tget_config("paligemma-3b").reduced(),
                               frontend=None)
     assert plm.prefix_lm and plm.num_prefix_tokens
-    with pytest.raises(NotImplementedError, match="ROADMAP.*prefix-LM"):
-        get_model(plm)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*prefix-LM"):
-        make_batcher(plm, cache="auto", device="cpu")
+    assert unported_reason(plm) is None
+    b = make_batcher(plm, cache="auto", device="cpu")
+    rid = b.submit("a prefix-LM request", max_new_tokens=3, trust_tier=2)
+    assert b.run_until_done()[rid] is not None
 
 
 def test_prefix_lm_is_named_with_its_frontend():
-    """The reference applies the prefix-LM mask whatever the frontend, so
-    the refusal names it while the frontend is still set too."""
-    why = unported_reason(tget_config("paligemma-3b").reduced())
-    assert "ROADMAP Queue 1, P12 (prefix-LM)" in why
+    """The reference applies the prefix-LM mask whatever the frontend; the
+    port admits paligemma with its vision frontend as it admits it
+    without, and musicgen with its audio frontend."""
+    for arch in ("paligemma-3b", "musicgen-large"):
+        assert unported_reason(tget_config(arch).reduced()) is None
+        assert unported_reason(tget_config(arch)) is None

@@ -27,7 +27,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
     for mod in ("kernels.paged_attention", "kernels.chunked_prefill",
                 "kernels.decode_attention", "kernels.flash_attention",
                 "kernels.ssd", "kernels.rglru", "models.ssm",
-                "models.rglru", "serving.engine", "serving.batcher",
+                "models.rglru", "models.model", "models.attention",
+                "core.routing", "serving.engine", "serving.batcher",
                 "serving.migration", "serving.sampling",
                 "serving.session", "core.carbon", "core.audit",
                 "core.tracegen", "core.workload", "launch.serve",

@@ -33,6 +33,15 @@ decode), recurrentgemma-9b's heads at fills 1-2048, bit-equal repeated
 launches, poison past every row's fill under the split, and the split
 the wrappers plan from the walk's own grid (its ``*_attrs`` entry).
 
+P12a adds K1 and K2 at head_dim 256 (paligemma-3b's 8 query heads on one
+kv head) and at G 1, 4, 8 and 16 (musicgen-large, qwen3-4b, paligemma,
+glm4-9b), the main path's tick and the phone island's one slot included,
+and K4 with a prefix-LM prefix of 0, 1, 33 (inside a key tile), 256 and
+5,000 (past the prompt: all of it bidirectional) tokens, with and
+without a window, split and unsplit, fp32 and bf16; keys past every
+early query's causal end and the prefix are never used, and the prefix
+walk repeats bit for bit.
+
 The RG-LRU scan (``rglru_scan``, K6) runs ragged S and C, with and
 without h0, fp32 and bf16 inputs, at recurrentgemma-9b's prefill width
 (C 4096), through both of its copy paths (16-byte chunks where C and the
@@ -290,8 +299,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     lens = torch.ones(1, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         paged_decode_attention(q, kp, kp, bt, lens)
-    q = torch.zeros(1, 4, 256, device=card)   # no paged config has D 256
-    kp = torch.zeros(2, 16, 2, 256, device=card, dtype=torch.bfloat16)
+    q = torch.zeros(1, 4, 512, device=card)   # no config has D 512
+    kp = torch.zeros(2, 16, 2, 512, device=card, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         paged_decode_attention(q, kp, kp, bt, lens)
     q = torch.zeros(1, 4, 64, device=card)
@@ -319,6 +328,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="window"):
         flash_attention(torch.zeros(1, 16, 4, 64, device=card), k, k,
                         window=0)
+    with pytest.raises(ValueError, match="prefix_len"):
+        flash_attention(torch.zeros(1, 16, 4, 64, device=card), k, k,
+                        prefix_len=-1)
     # q one element into a buffer: contiguous, but not 16-byte aligned
     q = torch.zeros(1 + 16 * 4 * 64, device=card)[1:].view(1, 16, 4, 64)
     with pytest.raises(ValueError, match="aligned"):
@@ -402,6 +414,138 @@ def test_flash_kernel_packed_rows_match_plain(card, B, S, H, Hkv, D, window,
     got = flash_attention(q, k, v, window=window)
     _close(got, ref.flash_attention(q, k, v, D ** -0.5, True, window), qdt,
            kvdt)
+
+
+# K1 and K2 at the heads of the configs P12a serves on the paged main
+# path: paligemma-3b (8 heads of 256 on one kv head, G 8), musicgen-large
+# (32 heads of 64, G 1), qwen3-4b (32 of 128 on 8, G 4), glm4-9b (32 of
+# 128 on 2, G 16), and D 256 at G 1, 4 and 16
+P12A_DECODE = [
+    (3, 8, 1, 40, 16, 16, 256, (1, 100, 256)),              # paligemma
+    (8, 8, 1, 64, 16, 128, 256, (1, 16, 17, 300, 1024, 1, 1600, 32)),
+    (1, 8, 1, 110, 16, 128, 256, (1600,)),       # the phone island: split
+    (2, 2, 2, 30, 16, 8, 256, (33, 128)),                   # D 256, G 1
+    (2, 4, 1, 30, 16, 8, 256, (64, 5)),                     # D 256, G 4
+    (2, 16, 1, 30, 16, 12, 256, (17, 180)),                 # D 256, G 16
+    (4, 32, 32, 64, 16, 12, 64, (1, 50, 190, 100)),         # musicgen
+    (4, 32, 8, 64, 16, 24, 128, (7, 300, 1, 64)),           # qwen3-4b
+    (8, 32, 2, 64, 16, 128, 128, (1, 16, 17, 300, 1024, 1, 1600, 32)),
+    # ^ glm4-9b at the main path's largest island
+]
+P12A_PREFILL = [
+    (4, 8, 1, 64, 16, 128, 64, 256, (0, 64, 1024, 0)),      # paligemma
+    (2, 2, 2, 20, 16, 8, 32, 256, (0, 48)),                 # D 256, G 1
+    (2, 4, 1, 20, 16, 8, 32, 256, (16, 80)),                # D 256, G 4
+    (2, 16, 1, 20, 16, 8, 24, 256, (8, 100)),               # D 256, G 16
+    (4, 32, 32, 64, 16, 128, 64, 64, (0, 64, 1024, 0)),     # musicgen
+    (4, 32, 8, 64, 16, 128, 64, 128, (0, 64, 1024, 0)),     # qwen3-4b
+    (4, 32, 2, 64, 16, 128, 64, 128, (0, 64, 1024, 0)),     # glm4-9b
+]
+
+
+@pytest.mark.parametrize("qdt,kvdt", DTYPES)
+@pytest.mark.parametrize("B,H,Hkv,P,ps,N,D,valids", P12A_DECODE)
+def test_paged_decode_kernel_at_p12a_heads(card, B, H, Hkv, P, ps, N, D,
+                                           valids, qdt, kvdt):
+    q, kp, vp, bt = _inputs(card, B * 31 + H + D, (B, H, D), P, ps, Hkv, D,
+                            B, N, qdt, kvdt)
+    lens = torch.tensor(valids, dtype=torch.int32, device=card)
+    n0 = paged_decode_attention.launches
+    got = paged_decode_attention(q, kp, vp, bt, lens)
+    assert paged_decode_attention.launches == n0 + 1
+    _close(got, ref.paged_decode_attention(q, kp, vp, bt, lens, D ** -0.5),
+           qdt, kvdt)
+
+
+@pytest.mark.parametrize("qdt,kvdt", DTYPES)
+@pytest.mark.parametrize("B,H,Hkv,P,ps,N,T,D,starts", P12A_PREFILL)
+def test_chunked_prefill_kernel_at_p12a_heads(card, B, H, Hkv, P, ps, N, T,
+                                              D, starts, qdt, kvdt):
+    q, kp, vp, bt, sp = _paged_context(card, B * 7 + H + D, starts, T, H,
+                                       Hkv, D, ps, qdt, kvdt)
+    n0 = chunked_prefill_attention.launches
+    got = chunked_prefill_attention(q, kp, vp, bt, sp)
+    assert chunked_prefill_attention.launches == n0 + 1
+    _close(got, ref.chunked_prefill_attention(q, kp, vp, bt, sp, D ** -0.5),
+           qdt, kvdt)
+
+
+def test_paged_kernels_at_d256_never_read_the_scratch_page(card):
+    """paligemma's heads: table entries past every fill and causal horizon
+    point at page 0, whose poison reaches no output bit."""
+    q, kp, vp, bt, sp = _paged_context(card, 3, (0, 48), 32, 8, 1, 256, 16,
+                                       torch.float32, torch.bfloat16)
+    lens = sp + 32
+    o1 = paged_decode_attention(q[:, -1].contiguous(), kp, vp, bt, lens)
+    c1 = chunked_prefill_attention(q, kp, vp, bt, sp)
+    kp[0], vp[0] = 1e4, -1e4
+    assert torch.equal(
+        paged_decode_attention(q[:, -1].contiguous(), kp, vp, bt, lens), o1)
+    assert torch.equal(chunked_prefill_attention(q, kp, vp, bt, sp), c1)
+
+
+# K4 with a prefix-LM prefix: (B, S, H, Hkv, D) x prefix_len x window; the
+# short prompts split their walks (whose ranges must cover the extended
+# end), S 1024 at paligemma's heads too
+PREFIX_SHAPES = [(1, 1024, 8, 1, 256), (2, 300, 8, 1, 256),
+                 (1, 97, 4, 2, 64), (1, 200, 32, 2, 128)]
+
+
+@pytest.mark.parametrize("qdt,kvdt", [(torch.float32, torch.float32),
+                                      (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("prefix", [0, 1, 33, 256, 5000])
+@pytest.mark.parametrize("B,S,H,Hkv,D", PREFIX_SHAPES)
+def test_prefix_flash_kernel_matches_plain(card, B, S, H, Hkv, D, prefix,
+                                           window, qdt, kvdt):
+    g = torch.Generator(device=card).manual_seed(S + prefix + D)
+    q = torch.randn(B, S, H, D, generator=g, device=card).to(qdt)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=card).to(kvdt)
+            for _ in range(2))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, window=window, prefix_len=prefix)
+    assert flash_attention.launches == n0 + 1
+    _close(got, ref.flash_attention(q, k, v, D ** -0.5, True,
+                                    window if window and window < S
+                                    else None, prefix), qdt, kvdt)
+
+
+def test_prefix_split_walk_covers_the_extended_end(card):
+    """A short prompt whose rows all see a prefix longer than their causal
+    end: the wrapper splits the walk, and the ranges cover the prefix."""
+    g = torch.Generator(device=card).manual_seed(4)
+    q = torch.randn(1, 64, 4, 2 * 32, generator=g, device=card)
+    k, v = (torch.randn(1, 256, 2, 64, generator=g, device=card)
+            for _ in range(2))
+    got = flash_attention(q, k, v, prefix_len=200)
+    assert flash_attention.last_split > 1
+    _close(got, ref.flash_attention(q, k, v, 64 ** -0.5, True, None, 200),
+           torch.float32, torch.float32)
+
+
+def test_prefix_flash_kernel_never_reads_past_the_prefix(card):
+    """Keys past every early query's causal end and the prefix are never
+    used: poisoning them leaves those queries' outputs bit for bit, and
+    the keys below the prefix do reach them."""
+    g = torch.Generator(device=card).manual_seed(9)
+    q = torch.randn(1, 256, 8, 256, generator=g, device=card)
+    k, v = (torch.randn(1, 256, 1, 256, generator=g, device=card)
+            for _ in range(2))
+    o = flash_attention(q, k, v, prefix_len=100)
+    causal = flash_attention(q, k, v)
+    assert not torch.equal(o[:, :40], causal[:, :40])
+    k[:, 100:], v[:, 100:] = 1e4, -1e4
+    assert torch.equal(flash_attention(q, k, v, prefix_len=100)[:, :90],
+                       o[:, :90])
+
+
+def test_prefix_flash_kernel_is_deterministic(card):
+    g = torch.Generator(device=card).manual_seed(10)
+    q = torch.randn(1, 2048, 8, 256, generator=g, device=card)
+    k, v = (torch.randn(1, 2048, 1, 256, generator=g, device=card)
+            for _ in range(2))
+    first = flash_attention(q, k, v, prefix_len=256)
+    assert torch.equal(first, flash_attention(q, k, v, prefix_len=256))
 
 
 def test_prefill_kernels_are_deterministic(card):
