@@ -163,11 +163,34 @@ Phases (each raises on failure, and the script then exits non-zero):
    equal to the CPU's, timed beside the card's name. The kernel phase
    also holds K1 and K2 at paligemma's and glm4's heads and K4 with
    paligemma's prefix at S 1024 and 2048 against their plain versions
-   (SDPA with an explicit boolean mask as K4's yardstick).
+   (SDPA with an explicit boolean mask as K4's yardstick);
+10. P12b: kimi-k2-1t-a32b at ``.reduced()`` (MoE on GQA attention; one
+   of its MoE layers is 67.6 GB of fp32 at full width) on the paged main
+   path, with exact K1/K2 launch counts, one ``moe_apply`` call a MoE
+   layer of every dispatch, and a card-vs-CPU replay (no throughput: a
+   smoke width); then deepseek-v2-lite-16b at its published widths and
+   full depth (27 layers, d_model 2048, 16 heads, MLA with a 512-wide
+   latent and a 64-wide RoPE key, layer 0 dense with a 10,944-wide
+   SwiGLU, layers 1-26 MoE: 64 experts of 1,408, top-6, 2 shared; vocab
+   102,400; 15.71 B parameters, 62.8 GB of fp32 weights) with seeded
+   random weights, loaded after every earlier model is freed: the
+   quickstart traffic through ``build_island_batchers(cache="auto")``
+   (stacked batchers: MLA's latent cache is not paged), which launches
+   none of K1-K6 by design and is held instead to one ``mla_apply`` call
+   a layer and one ``moe_apply`` call a MoE layer of every dispatch; one
+   decode step of 8 rows timed against the 18.75 ms the weight bytes
+   take at 3.35 TB/s (the dense MoE reads every expert every step); a
+   profile of the path (device busy time, idle share); the matmul time
+   by block (MLA, MoE, the dense MLP, the head) in one 1,024-token
+   prefill and one decode step; the per-request path; and the
+   card-vs-CPU replay on the stacked batcher at a 2-layer cut (the dense
+   layer 0 and one MLA+MoE layer at full widths and vocabulary, 4.3 GB
+   of fp32).
 
 The profile phases read the device spans from the profiler's raw
 events (parsing them into host-op trees takes ~60 s a main path run);
-only recurrentgemma's matmul split parses them.
+only recurrentgemma's matmul split parses them, and deepseek's block
+split parses the events of one prefill and one decode step.
 
 It prints one JSON object per phase (with its seconds), then the card's
 name and power limit, the kernel table, and last
@@ -1018,10 +1041,44 @@ def kernel_fns():
 def zero_launches():
     for f in kernel_fns().values():
         f.launches = 0
+    for f in block_fns().values():
+        f.calls = 0
 
 
 def read_launches():
     return {n: f.launches for n, f in kernel_fns().items()}
+
+
+def block_fns():
+    """The blocks that run no kernel of K1-K6: MLA and MoE count their
+    calls, as the kernel wrappers count launches."""
+    from repro_torch.models.mla import mla_apply
+    from repro_torch.models.moe import moe_apply
+    return {"mla_apply": mla_apply, "moe_apply": moe_apply}
+
+
+def read_blocks():
+    return {n: f.calls for n, f in block_fns().items()}
+
+
+def block_layers(model):
+    """(MLA layers, MoE layers) of a model: MoE after the
+    ``first_dense_layers`` head layers when the config has experts."""
+    cfg = model.cfg
+    moe = (cfg.num_layers - cfg.first_dense_layers if cfg.num_experts
+           else 0)
+    return model.block_types.count("mla"), moe
+
+
+def expected_blocks(models_and_passes):
+    """MLA and MoE calls a run must show: one a layer of every forward
+    pass, given as (model, passes) pairs."""
+    want = dict.fromkeys(block_fns(), 0)
+    for model, passes in models_and_passes:
+        mla, moe = block_layers(model)
+        want["mla_apply"] += mla * passes
+        want["moe_apply"] += moe * passes
+    return want
 
 
 def layer_counts(model):
@@ -1056,11 +1113,14 @@ def expected_launches(batchers):
 
 
 def serve_path(name, cfg, params, device, max_len=2048, long_new=16,
-               **bkw):
+               throughput=True, **bkw):
     """One serving path over the quickstart traffic: drives it with the
     launch counters zeroed just before and read just after, checks that
     every request resolved with finite logits and caches and that the
-    path went through its kernels, and emits its end-to-end numbers.
+    path went through its kernels (and its MLA and MoE blocks, once a
+    layer of every dispatch: deepseek-v2-lite-16b's path launches no
+    kernel of K1-K6, by design), and emits its end-to-end numbers
+    (``throughput=False``: no tokens/s, for a ``.reduced()`` config).
     Returns (launches, wall seconds, the emitted result)."""
     import torch
     orch, batchers, rids, flags = serving_stack(cfg, params, device,
@@ -1075,6 +1135,7 @@ def serve_path(name, cfg, params, device, max_len=2048, long_new=16,
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()   # before the checks below
     launches = read_launches()
+    blocks = read_blocks()
     if orch.busy():
         raise AssertionError(f"{name}: did not drain within 4000 ticks")
     missing = [r for r in rids if r not in orch.results]
@@ -1100,7 +1161,13 @@ def serve_path(name, cfg, params, device, max_len=2048, long_new=16,
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected "
                              f"{want} (one per layer of every dispatch)")
-    if not any(launches.values()):
+    want_blocks = expected_blocks((b.model, b.stats["device_dispatches"])
+                                  for b in batchers.values())
+    if blocks != want_blocks:
+        raise AssertionError(f"{name}: MLA/MoE calls {blocks}, expected "
+                             f"{want_blocks} (one per layer of every "
+                             f"dispatch)")
+    if not any(launches.values()) and not any(blocks.values()):
         raise AssertionError(f"{name}: no kernel ran")
     bs = list(batchers.values())
     ttft = sorted(rec["ttft_ticks"] for b in bs
@@ -1122,9 +1189,11 @@ def serve_path(name, cfg, params, device, max_len=2048, long_new=16,
         "decode_dispatches": sum(b.stats["decode_steps"] for b in bs),
         "admissions": sum(b.stats["admissions"] for b in bs),
         "launches": {k: v for k, v in launches.items() if v},
+        **({"block_calls": blocks} if any(blocks.values()) else {}),
         "tick_dispatches_max": orch.tick_stats["tick_dispatches_max"],
         "generated_tokens": gen_tokens, "wall_s": wall,
-        "tokens_per_s": gen_tokens / wall,
+        **({"tokens_per_s": gen_tokens / wall} if throughput
+           else {"reduced": True}),
         "ttft_ticks_p50": ttft[len(ttft) // 2], "ttft_ticks_max": ttft[-1],
         "max_memory_allocated_bytes": peak,
         "memory_allocated_at_start_bytes": mem0,
@@ -1215,6 +1284,35 @@ def _label_dispatches(batchers):
             setattr(b, attr, ranged)
 
 
+BLOCK_RANGES = {"mla": "mla block", "moe": "moe block", "mlp": "dense mlp"}
+
+
+def _label_blocks():
+    """Wrap the MLA mixer, the MoE block and the dense MLP as
+    ``Model.forward`` calls them in ``record_function`` ranges, so that a
+    profile can tell which block launched a matmul. Returns the undo."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import model as mmod
+    # the names Model.forward calls, not the blocks' own: their call
+    # counters stay on the functions their modules define
+    saved = (mmod.BLOCK_APPLY["mla"], mmod.moe_apply, mmod.swiglu_apply)
+
+    def ranged(fn, label):
+        def run(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return run
+
+    mmod.BLOCK_APPLY["mla"] = ranged(saved[0], BLOCK_RANGES["mla"])
+    mmod.moe_apply = ranged(saved[1], BLOCK_RANGES["moe"])
+    mmod.swiglu_apply = ranged(saved[2], BLOCK_RANGES["mlp"])
+
+    def undo():
+        mmod.BLOCK_APPLY["mla"], mmod.moe_apply, mmod.swiglu_apply = saved
+    return undo
+
+
 def _gemm_flops(op, shapes):
     """2·M·N·K (times the batch) of a matmul op from its recorded input
     shapes, or None for an op this does not know."""
@@ -1233,13 +1331,15 @@ def _gemm_flops(op, shapes):
     return None
 
 
-def _dispatch_matmuls(events):
+def _dispatch_matmuls(events, kinds=None, outside="outside a dispatch"):
     """Device time and flops of the matmul kernels by the dispatch that
     launched them: each kernel belongs to the aten op that launched it,
-    and that op to its innermost enclosing dispatch range. Flops come from
-    the ops' recorded input shapes, so the rate is this trace's."""
+    and that op to its innermost enclosing dispatch range (or, with
+    ``kinds``, the innermost range of those names; ``outside`` names the
+    rest). Flops come from the ops' recorded input shapes, so the rate is
+    this trace's."""
     from torch.autograd import DeviceType
-    kinds = set(DISPATCH_RANGES.values())
+    kinds = set(DISPATCH_RANGES.values()) if kinds is None else set(kinds)
     out: dict = {}
     for e in events:
         if e.device_type != DeviceType.CPU or not e.kernels:
@@ -1251,7 +1351,7 @@ def _dispatch_matmuls(events):
         p = e.cpu_parent
         while p is not None and p.name not in kinds:
             p = p.cpu_parent
-        kind = p.name if p is not None else "outside a dispatch"
+        kind = p.name if p is not None else outside
         r = out.setdefault(kind, {"matmul_device_s": 0.0, "gemm_flops": 0,
                                   "ops": {}, "ops_without_flops_s": 0.0})
         r["matmul_device_s"] += us / 1e6
@@ -1365,6 +1465,7 @@ def per_request_phase(cfg, params, device, n=12, max_new=8,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
+    blocks = read_blocks()
     served = [r for r in resps if r is not None]
     if len(served) + len(eng.rejected) != n or not served:
         raise AssertionError(f"per-request: {len(served)} served, "
@@ -1378,12 +1479,19 @@ def per_request_phase(cfg, params, device, n=12, max_new=8,
     if launches != want or not calls:
         raise AssertionError(f"per-request: launches {launches}, expected "
                              f"{want} for {len(calls)} local requests")
+    want_blocks = expected_blocks([(servers["laptop"].model,
+                                    len(calls) * max_new)])
+    if blocks != want_blocks:
+        raise AssertionError(f"per-request: MLA/MoE calls {blocks}, "
+                             f"expected {want_blocks} for {len(calls)} "
+                             f"local requests")
     stats = eng.stats()
     emit({"phase": name, "model": cfg.name, "requests": n,
           "served": len(served), "rejected": len(eng.rejected),
           "local_generate_calls": len(calls),
           "by_island": stats["by_island"],
           "launches": {k: v for k, v in launches.items() if v},
+          **({"block_calls": blocks} if any(blocks.values()) else {}),
           "wall_s": wall, "local_tokens_per_s": len(calls) * max_new / wall})
 
 
@@ -2250,7 +2358,7 @@ def _device_spans(prof, parsed=False):
     without parsing every host op (``prof.events()``: ~50 s a main path
     run)."""
     from torch.autograd import DeviceType
-    labels = set(DISPATCH_RANGES.values())
+    labels = set(DISPATCH_RANGES.values()) | set(BLOCK_RANGES.values())
     if parsed:
         events = prof.events()
         return sorted((int(e.time_range.start * 1000),
@@ -3113,11 +3221,12 @@ def cut_model(cfg, params, layers=P12A_CUT_LAYERS):
     """The config and the served weights cut to their first ``layers``
     layers, at full widths with the full vocabulary (the embedding table,
     the final norm and an untied head kept)."""
+    from repro_torch.models.model import effective_pattern
     ccfg = dataclasses.replace(cfg, num_layers=layers)
     cut = {k: v for k, v in params.items() if k != "layers"}
     cut["layers"] = params["layers"][:layers]
     emit({"phase": "replay cut", "model": cfg.name, "layers": layers,
-          "of": cfg.num_layers, "pattern": list(cfg.pattern),
+          "of": cfg.num_layers, "pattern": list(effective_pattern(cfg)),
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
           "weight_bytes": tensor_bytes(cut)})
     return ccfg, cut
@@ -3311,6 +3420,196 @@ def p12a_group(arch, device, timed, rows):
         timed(f"embeddings {arch}", embeddings_phase, f"embeddings {arch}",
               cfg, params, device, ccfg, cut)
     del cut, params
+
+
+P12B = "deepseek-v2-lite-16b"
+# the MoE config on GQA attention, at .reduced(): one of its MoE layers
+# alone is 67.6 GB of fp32 at full width (a full-width run waits for the
+# distributed slice)
+P12B_REDUCED = "kimi-k2-1t-a32b"
+
+
+def decode_step_phase(cfg, params, device, B=8, fill=1024, reps=10):
+    """deepseek's decode step as its stacked batcher runs it: ``B`` rows
+    (the home-nas island's slots) at ``fill`` positions each against a
+    bf16 latent cache, timed with CUDA events over ``reps`` steps after a
+    warm-up. The dense MoE reads every expert's weights every step, so the
+    least time is the weight bytes over the card's memory rate."""
+    import torch
+
+    from repro_torch.models.model import get_model
+    model = get_model(cfg)
+    cache = model.init_cache(B, 2048, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    tok = torch.randint(1, cfg.vocab_size, (B, 1), generator=gen,
+                        device=device)
+    pos = torch.full((B,), fill, dtype=torch.int32, device=device)
+    model.forward(params, tokens=tok, mode="decode", cache=cache, pos=pos)
+    torch.cuda.synchronize()
+    zero_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        logits, _ = model.forward(params, tokens=tok, mode="decode",
+                                  cache=cache, pos=pos)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    launches, blocks = read_launches(), read_blocks()
+    want = expected_blocks([(model, reps)])
+    if any(launches.values()) or blocks != want:
+        raise AssertionError(f"decode step: launches {launches}, MLA/MoE "
+                             f"calls {blocks}, expected none and {want}")
+    if not bool(torch.isfinite(logits.sum())):
+        raise AssertionError("decode step: non-finite logits")
+    nbytes = tensor_bytes(params)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    emit({"phase": f"decode step {cfg.name}", "rows": B, "fill": fill,
+          "reps": reps, "ms": ms, "bound_ms": bound_ms,
+          "bound_by": "bytes (every weight read once a step)",
+          "weight_bytes": nbytes,
+          "achieved_bytes_per_s": nbytes / (ms / 1e3),
+          "share_of_hbm_rate": bound_ms / ms, "block_calls": blocks})
+
+
+def _profiled_pass(fn, label):
+    """Run ``fn`` once under a torch profile (host ops with their shapes,
+    the blocks labelled) inside a ``record_function`` range ``label``;
+    returns (its matmul time and rate by block, device busy ms, wall
+    ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    undo = _label_blocks()
+    torch.cuda.synchronize()
+    try:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            with record_function(label):
+                fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    spans, events = _device_spans(prof, parsed=True)
+    busy, end = 0, float("-inf")
+    for a, b, _name in spans:
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    return (_dispatch_matmuls(events, BLOCK_RANGES.values(),
+                              "head, embedding, norms"),
+            busy / 1e6, wall * 1e3)
+
+
+def block_split_phase(cfg, params, device, S=1024, B=8, fill=1024):
+    """Where deepseek's matmul time goes, block by block (MLA, MoE, the
+    dense first layer's MLP, and the head with the embedding and norms),
+    in one prefill of an ``S``-token prompt into a bf16 latent cache (a
+    stacked admission) and one decode step of ``B`` rows at ``fill``
+    positions, each profiled alone (the serving profile records no host
+    ops: parsing a whole run's took 114 s); with each pass's device busy
+    time against its wall."""
+    import torch
+
+    from repro_torch.models.model import get_model
+    model = get_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(6)
+    prompt = torch.randint(1, cfg.vocab_size, (1, S), generator=gen,
+                           device=device)
+    cache = model.init_cache(1, 2048, device=device)
+    model.forward(params, tokens=prompt, cache=cache)     # warm-up
+    pre, pre_busy, pre_wall = _profiled_pass(
+        lambda: model.forward(params, tokens=prompt, cache=cache),
+        "prefill dispatch")
+    del cache
+    cache = model.init_cache(B, 2048, device=device)
+    tok = torch.randint(1, cfg.vocab_size, (B, 1), generator=gen,
+                        device=device)
+    pos = torch.full((B,), fill, dtype=torch.int32, device=device)
+    model.forward(params, tokens=tok, mode="decode", cache=cache, pos=pos)
+    dec, dec_busy, dec_wall = _profiled_pass(
+        lambda: model.forward(params, tokens=tok, mode="decode", cache=cache,
+                              pos=pos), "decode dispatch")
+    emit({"phase": f"matmul split {cfg.name}", "prefill_tokens": S,
+          "prefill_by_block": pre, "prefill_device_busy_ms": pre_busy,
+          "prefill_wall_ms_profiled": pre_wall, "decode_rows": B,
+          "decode_fill": fill, "decode_by_block": dec,
+          "decode_device_busy_ms": dec_busy,
+          "decode_wall_ms_profiled": dec_wall,
+          "decode_bound_ms": tensor_bytes(params) / HBM_BYTES_PER_S * 1e3})
+
+
+def p12b_group(device, timed, rows):
+    """P12b on the card. kimi-k2-1t-a32b at ``.reduced()`` (MoE on GQA
+    attention) on the paged main path, with exact K1/K2 launch counts and
+    MoE calls, and a replay against the CPU: the one run where MoE meets
+    the fused paged dispatch on the card (no throughput: a smoke width).
+    Then deepseek-v2-lite-16b at its published widths and full depth
+    (15.71 B fp32 parameters) after everything else is freed: the
+    quickstart traffic on ``cache="auto"`` (stacked: MLA's latent cache is
+    not paged), which launches none of K1-K6, with its MLA and MoE calls
+    counted exactly; its decode step timed against its byte bound; a
+    profile (device busy time, idle share); the matmul split by block in
+    one prefill and one decode step; the per-request path; and the replay of the card against the CPU at a
+    2-layer cut (the dense layer 0 and one MLA+MoE layer at full widths
+    and vocabulary)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import get_model
+    from repro_torch.serving.batcher import (ContinuousBatcher,
+                                             PagedContinuousBatcher)
+    cpu = torch.device("cpu")
+    kcfg = get_config(P12B_REDUCED).reduced()
+    label = f"{P12B_REDUCED} .reduced()"
+    kparams = get_model(kcfg).init(seed=0, device=device)
+    launches, _, _ = timed(label, serve_path, label, kcfg, kparams, device,
+                           throughput=False)
+    for k in ("paged_decode_attention", "chunked_prefill_attention"):
+        rows[k].setdefault("launches_p12b", {})[label] = launches[k]
+    kruns = [(device, kparams), (cpu, params_to(kparams, cpu))]
+    timed(f"replay {label}", replay, f"replay {label}", kcfg, kruns,
+          lambda dev, p: PagedContinuousBatcher(
+              kcfg, params=p, num_slots=4, max_len=256, device=dev),
+          _capture_fused)
+    del kruns, kparams
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": f"memory before {P12B}",
+          "memory_allocated_bytes": torch.cuda.memory_allocated()})
+    cfg = get_config(P12B)
+    params = timed(f"init {P12B}", get_model(cfg).init, seed=0,
+                   device=device)
+    emit({"phase": f"params {P12B}",
+          "parameters": sum(t.numel() for t in _tensors(params)),
+          "weight_bytes": tensor_bytes(params),
+          "memory_allocated_bytes": torch.cuda.memory_allocated()})
+    _, wall, result = timed(P12B, serve_path, P12B, cfg, params, device)
+    if "share_hits" in result:
+        raise AssertionError(f"{P12B}: cache='auto' built paged batchers")
+    timed(f"decode step {P12B}", decode_step_phase, cfg, params, device)
+    timed(f"profile {P12B}", profile_phase, P12B, cfg, params, device, wall)
+    timed(f"matmul split {P12B}", block_split_phase, cfg, params, device)
+    timed(f"per_request {P12B}", per_request_phase, cfg, params, device,
+          name=f"per_request {P12B}")
+    ccfg, cut = cut_model(cfg, params)
+    runs = [(device, cut), (cpu, params_to(cut, cpu))]
+    timed(f"replay {P12B}", replay, f"replay {P12B}", ccfg, runs,
+          lambda dev, p: ContinuousBatcher(
+              ccfg, params=p, num_slots=4, max_len=256, device=dev),
+          _capture_stacked)
+    del runs, cut, params
+
+
+def _tensors(tree):
+    import torch
+    if isinstance(tree, torch.Tensor):
+        yield tree
+        return
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        yield from _tensors(v)
 
 
 def _islands_of(n):
@@ -3561,6 +3860,9 @@ def main() -> int:
     for arch in P12A:
         p12a_group(arch, gpu, timed, rows)
     timed("route_batch", route_batch_phase, gpu, card)
+    # P12b: kimi .reduced() on the paged main path, then
+    # deepseek-v2-lite-16b at full width, the largest model of the script
+    p12b_group(gpu, timed, rows)
     emit({"phase": "seconds", **seconds})
 
     print(card)

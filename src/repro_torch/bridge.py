@@ -7,13 +7,17 @@ along a leading dim (``params["blocks"]["slot{s}"][...]`` of shape
 (``params["layers"][i]``). ``from_reference`` takes the reference's tree
 with every leaf already a numpy array (``jax.tree.map(np.asarray,
 params)`` on the caller's side — the port never imports JAX) and
-``to_reference`` inverts it, so a round trip is exact.
+``to_reference`` inverts it, so a round trip is exact. The maps are
+generic over a layer's leaves: an MoE layer's ``moe`` dict (the
+reference stacks its (E, d, f) experts to (G, E, d, f)), an MLA mixer,
+and the dense first layers (``head_{i}``) cross like any other.
 
 ``dense_cache_from_reference``/``dense_cache_to_reference`` do the same
 for a dense decode cache (the reference's ``init_cache`` tree, whose
 leaves sit under ``mixer``; the port's per-layer list of ``{"k", "v"}``
-attention dicts, windowed rings included, and ``{"conv", "h"}`` SSM and
-RG-LRU dicts, bf16 ``conv`` and fp32 ``h`` as the reference keeps them),
+attention dicts, windowed rings included, MLA's ``{"ckr"}`` latents, and
+``{"conv", "h"}`` SSM and RG-LRU dicts, bf16 ``conv`` and fp32 ``h`` as
+the reference keeps them),
 so that tests can compare caches. Layers outside the repeating cycles
 (recurrentgemma-9b's ``tail_0``/``tail_1``) take their places in depth
 order.
@@ -22,7 +26,8 @@ order.
 payload of a migration ticket across for the tests. The port carries a
 page record's data as one raw-bits array per cache leaf (each layer's
 ``k_pages`` then ``v_pages``, in depth order, bf16 as int16) and a dense
-row the same way (each layer's ``{"k", "v"}`` or ``{"conv", "h"}``); the
+row the same way (each layer's ``{"k", "v"}``, ``{"ckr"}`` or
+``{"conv", "h"}``); the
 reference carries them in ``jax.tree.leaves`` order of its pool or dense
 cache (sorted keys, the repeating layers stacked along a leading dim:
 (G, page_size, Hkv, D) for a page leaf, (G, 1, max_len, ...) for a dense

@@ -1,0 +1,169 @@
+"""Multi-head Latent Attention (DeepSeek-V2) [arXiv:2405.04434].
+
+Port of ``repro/models/mla.py``. KV is compressed to a rank-
+``kv_lora_rank`` latent ``c`` plus a shared (MQA-style) RoPE key. The
+decode cache stores only ``ckr = concat(c, k_rope)``: (512+64) values a
+token instead of 2*H*128.
+
+Modes:
+* ``full``: q/k at D nope+rope (192 at full width), v at D ``v_head_dim``
+  (128), the latent through ``kv_ln``, the RoPE key broadcast over the
+  heads; causal attention in fp32 (the reference's ``attend_naive``, or
+  ``attend_blocked`` above 1024 tokens: the same function, which the
+  port computes in one pass at every length). With a cache, the prompt's
+  ``ckr``, cast to the cache's dtype, fills slots 0..S-1.
+* decode ``absorbed`` (the default): W_uk is folded into the query and
+  W_uv applied after the attention, so scores and outputs are computed
+  in latent space, MQA over the 576-wide latent, the query in fp32.
+* decode ``naive``: K/V re-expanded from the latent every step (the
+  numerical oracle).
+
+Decode writes the new token's ``ckr`` into the cache BEFORE attending, so
+the token attends to its own latent as the cache's dtype rounds it, as
+the reference does. ``pos`` is a scalar or (B,) per-row positions (the
+port's stacked batcher decodes every slot in one call; the reference
+``vmap``s its step over slots with a scalar ``pos``): row b writes slot
+``min(pos_b, S-1)`` (the reference's ``dynamic_update_slice`` clamp) and
+attends slots ``< pos_b + 1``. An fp8 cache is a plain cast, with no
+scale: the reference adds scales only beside attention's ``k``/``v``.
+
+The reference computes all of this with XLA einsums and no Pallas
+kernel, and so does the port with torch ops: the port's K3/K4 take one
+D up to 256 for q, k and v, and MLA needs 192/128 and 576/512. The
+sequence-sharded decode waits for ROADMAP P13.
+
+``mla_apply`` counts its calls in ``mla_apply.calls``, as the kernel
+wrappers count ``.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import PSpec, apply_rope, rms_norm
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def mla_table(cfg):
+    d, H = cfg.d_model, cfg.num_heads
+    nd, rd, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    return {
+        "ln": PSpec((d,), (None,), "zeros"),
+        "wq": PSpec((d, H * (nd + rd)), (None, "heads")),
+        "w_dkv": PSpec((d, r), (None, None)),
+        "w_krope": PSpec((d, rd), (None, None)),
+        "kv_ln": PSpec((r,), (None,), "zeros"),
+        "w_uk": PSpec((r, H * nd), (None, "heads")),
+        "w_uv": PSpec((r, H * vd), (None, "heads")),
+        "wo": PSpec((H * vd, d), ("heads", None)),
+    }
+
+
+def mla_cache_spec(cfg, batch, max_len):
+    """{name: shape} of this block's dense decode cache: one latent of
+    ``kv_lora_rank + rope_head_dim`` a slot, no kv-head dim."""
+    return {"ckr": (batch, max_len, 1, cfg.kv_lora_rank + cfg.rope_head_dim)}
+
+
+def _project_q(cfg, p, h, B):
+    H = cfg.num_heads
+    nd, rd = cfg.nope_head_dim, cfg.rope_head_dim
+    q = torch.matmul(h, p["wq"]).reshape(B, -1, H, nd + rd)
+    return q[..., :nd], q[..., nd:]
+
+
+def _attend_causal(q, k, v, scale):
+    """The reference's ``attend_naive`` at q_pos = k_pos = 0..S-1, one kv
+    head per query head: q/k (B, S, H, D), v (B, S, H, Dv) -> (B, S, H,
+    Dv) in q's dtype, softmax in fp32 with masked scores at NEG_INF."""
+    S = q.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    allowed = pos[None, :] <= pos[:, None]
+    s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    pr = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", pr, v.float()).to(q.dtype)
+
+
+def mla_apply(cfg, p, x, positions, *, mode, cache=None,
+              decode_mode="absorbed"):
+    """mode 'full' (x (B, S, d), positions (S,) = 0..S-1; ``cache`` None
+    or this layer's ``{"ckr"}`` (B, W, 1, r + rd), whose first S slots
+    take the prompt's latent) or 'decode' (x (B, 1, d), positions a
+    scalar or (B,) per-row positions, ``cache`` required; ``decode_mode``
+    "absorbed" or "naive"). The cache is updated in place. Returns
+    (x + attn_out, cache)."""
+    mla_apply.calls += 1
+    B = x.shape[0]
+    H = cfg.num_heads
+    nd, rd, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim,
+                     cfg.kv_lora_rank)
+    scale = (nd + rd) ** -0.5
+    h = rms_norm(x, p["ln"])
+    q_nope, q_rope = _project_q(cfg, p, h, B)
+    c = rms_norm(torch.matmul(h, p["w_dkv"]), p["kv_ln"])
+    k_rope_new = torch.matmul(h, p["w_krope"])
+
+    if mode == "full":
+        S = x.shape[1]
+        q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+        k_rope = apply_rope(k_rope_new[:, :, None, :], positions,
+                            cfg.rope_theta)
+        k_nope = torch.matmul(c, p["w_uk"]).reshape(B, S, H, nd)
+        v = torch.matmul(c, p["w_uv"]).reshape(B, S, H, vd)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+        o = _attend_causal(q, k, v, scale)
+        if cache is not None:
+            ckr = torch.cat([c, k_rope[:, :, 0, :]], dim=-1)
+            cache["ckr"][:, :S] = ckr[:, :, None, :].to(cache["ckr"].dtype)
+    elif mode == "decode":
+        posb = (torch.zeros(B, dtype=torch.int32, device=x.device)
+                + positions).to(torch.int32)       # scalar or (B,)
+        q_rope = apply_rope(q_rope, posb[:, None], cfg.rope_theta)
+        k_rope_t = apply_rope(k_rope_new[:, :, None, :], posb[:, None],
+                              cfg.rope_theta)[:, :, 0, :]
+        ckr = cache["ckr"]
+        S = ckr.shape[1]
+        rows = torch.arange(B, device=x.device)
+        slot = torch.clamp(posb, max=S - 1).long()
+        ckr[rows, slot] = torch.cat([c, k_rope_t], dim=-1)[:, 0, None, :].to(
+            ckr.dtype)
+        valid = (torch.arange(S, device=x.device)[None, :]
+                 < (posb.long() + 1)[:, None])[:, None, :]     # (B, 1, S)
+        kk = ckr[:, :, 0, :].float()                           # (B, S, r+rd)
+        if decode_mode == "absorbed":
+            # absorbed query: q' = [q_nope @ W_uk^T, q_rope]  (B, 1, H, r+rd)
+            wuk = p["w_uk"].reshape(r, H, nd)
+            q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(),
+                                 wuk.float())
+            q_abs = torch.cat([q_lat, q_rope.float()], dim=-1).to(x.dtype)
+            s = torch.einsum("bthd,bsd->bhs", q_abs.float(), kk) * scale
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+            pr = torch.softmax(s, dim=-1)
+            o_lat = torch.einsum("bhs,bsr->bhr", pr, kk[..., :r])[:, None]
+            # absorbed output: o = (p . c) @ W_uv per head
+            wuv = p["w_uv"].reshape(r, H, vd)
+            o = torch.einsum("bthr,rhv->bthv", o_lat, wuv.float()).to(x.dtype)
+        elif decode_mode == "naive":   # re-expansion: the oracle
+            cc = kk[..., :r].to(h.dtype)
+            k_nope = torch.matmul(cc, p["w_uk"]).reshape(B, S, H, nd)
+            vv = torch.matmul(cc, p["w_uv"]).reshape(B, S, H, vd)
+            kf = torch.cat([k_nope, kk[:, :, None, r:].to(h.dtype).expand(
+                B, S, H, rd)], dim=-1)
+            qf = torch.cat([q_nope, q_rope.to(h.dtype)], dim=-1)
+            s = torch.einsum("bthd,bshd->bhs", qf.float(), kf.float()) * scale
+            s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+            pr = torch.softmax(s, dim=-1)
+            o = torch.einsum("bhs,bshv->bhv", pr,
+                             vv.float())[:, None].to(x.dtype)
+        else:
+            raise ValueError(f"unknown MLA decode mode {decode_mode!r}")
+    else:
+        raise ValueError(f"MLA has no {mode!r} mode (it is not paged)")
+    y = torch.matmul(o.reshape(B, o.shape[1], H * vd), p["wo"])
+    return x + y, cache
+
+
+mla_apply.calls = 0

@@ -1,8 +1,8 @@
-"""Model assembly: a decoder of attention, Mamba-2 (SSM) and RG-LRU mixer
-blocks, with a SwiGLU MLP after each mixer when ``d_ff`` is set.
+"""Model assembly: a decoder of attention, MLA, Mamba-2 (SSM) and RG-LRU
+mixer blocks, each followed by a SwiGLU MLP (when ``d_ff`` is set) or a
+Mixture-of-Experts block.
 
-Port of ``repro/models/model.py`` for patterns drawn from {``attn``,
-``ssm``, ``rglru``} without MoE, in every mode the serving paths run:
+Port of ``repro/models/model.py`` in every mode the serving paths run:
 ``full`` (a whole prompt, with or without a dense cache), ``chunk``
 (paged prefill runs, attention only) and ``decode`` (against a dense
 cache or the paged pool). A prefix-LM config (paligemma-3b) masks its
@@ -11,7 +11,11 @@ vision, musicgen's audio) is, as in the reference, a stub whose
 precomputed ``embeddings`` ``forward`` takes alone or before the tokens'
 embeddings; the batchers serve by tokens. Each layer's mixer
 is dispatched by its block type (``BLOCK_TABLE``/``BLOCK_APPLY``/
-``BLOCK_CACHE``, as the reference). The
+``BLOCK_CACHE``, as the reference); an MLA config (deepseek-v2-lite-16b)
+runs ``mla`` layers. In an MoE config (deepseek, kimi-k2-1t-a32b) the
+first ``first_dense_layers`` layers take the dense MLP and the rest the
+``moe`` block, whose load-balance loss ``forward`` sums
+(``return_aux``). The
 reference stores layers stacked along a leading dim and runs them with
 ``lax.scan``; the port keeps one parameter dict per layer
 (``params["layers"][i]``) and runs them in a Python loop, in the same
@@ -20,10 +24,11 @@ depth order (head layers, then every pattern cycle, then tail layers —
 
 Parameters are a nested dict of tensors (the reference's pytree, per
 layer): ``embed`` (V, d), ``final_norm`` (d,), ``lm_head`` (d, V) unless
-embeddings are tied, and per layer a ``mixer`` dict (attention, SSM or
-RG-LRU) and, when ``d_ff`` is set, an ``mlp`` (SwiGLU) dict. Every
+embeddings are tied, and per layer a ``mixer`` dict (attention, MLA, SSM
+or RG-LRU) and an ``mlp`` (SwiGLU) or ``moe`` dict. Every
 projection is a plain ``torch.matmul``; attention, the SSD chunk and the
-RG-LRU recurrence go through ``repro_torch.kernels``. Attention layers
+RG-LRU recurrence go through ``repro_torch.kernels``; MLA and MoE are
+torch ops, as the reference's are XLA einsums. Attention layers
 take ``cfg.attn_window`` as their local-attention window:
 recurrentgemma-9b's are windowed.
 """
@@ -31,9 +36,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import attention, rglru, ssm
+from repro_torch.models import attention, mla, rglru, ssm
 from repro_torch.models.layers import (PSpec, init_params, rms_norm,
                                        swiglu_apply, swiglu_table)
+from repro_torch.models.moe import moe_apply, moe_table
 
 
 def effective_pattern(cfg):
@@ -42,29 +48,14 @@ def effective_pattern(cfg):
     return cfg.pattern
 
 
-BLOCK_TABLE = {"attn": attention.attn_table, "ssm": ssm.ssm_table,
-               "rglru": rglru.rglru_table}
-BLOCK_APPLY = {"attn": attention.attn_apply, "ssm": ssm.ssm_apply,
-               "rglru": rglru.rglru_apply}
+BLOCK_TABLE = {"attn": attention.attn_table, "mla": mla.mla_table,
+               "ssm": ssm.ssm_table, "rglru": rglru.rglru_table}
+BLOCK_APPLY = {"attn": attention.attn_apply, "mla": mla.mla_apply,
+               "ssm": ssm.ssm_apply, "rglru": rglru.rglru_apply}
 BLOCK_CACHE = {"attn": attention.attn_cache_spec,
+               "mla": mla.mla_cache_spec,
                "ssm": ssm.ssm_cache_spec,
                "rglru": rglru.rglru_cache_spec}
-
-# what the port does not run yet, and the ROADMAP item that ports it
-_NOT_PORTED = {"mla": "ROADMAP Queue 1, P12b (MLA)"}
-
-
-def unported_reason(cfg):
-    """None when the port runs ``cfg`` (a pattern drawn from {attn, ssm,
-    rglru}, no MoE; a prefix-LM mask and a frontend are ported), else
-    what is missing and where ROADMAP queues it."""
-    for bt in effective_pattern(cfg):
-        if bt not in BLOCK_TABLE:
-            return (f"{bt!r} layers "
-                    f"({_NOT_PORTED.get(bt, 'ROADMAP Queue 1, P12b')})")
-    if cfg.num_experts:
-        return "MoE layers (ROADMAP Queue 1, P12b (MoE))"
-    return None
 
 
 def resolve_device(device) -> torch.device:
@@ -88,9 +79,18 @@ def _layer_block_type(cfg, idx):
     return pat[(idx - n0) % len(pat)]
 
 
-def _layer_table(cfg, block_type):
+def _layer_uses_moe(cfg, idx):
+    return cfg.num_experts > 0 and idx >= cfg.first_dense_layers
+
+
+def _layer_table(cfg, block_type, use_moe):
+    """Head layers (``first_dense_layers``) take the dense MLP, the rest
+    the MoE block when the config has experts
+    (``repro/models/model.py:72-91``)."""
     t = {"mixer": BLOCK_TABLE[block_type](cfg)}
-    if cfg.d_ff:
+    if use_moe:
+        t["moe"] = moe_table(cfg)
+    elif cfg.d_ff:
         t["mlp"] = {"ln": PSpec((cfg.d_model,), (None,), "zeros"),
                     **swiglu_table(cfg.d_model, cfg.d_ff)}
     return t
@@ -98,12 +98,6 @@ def _layer_table(cfg, block_type):
 
 class Model:
     def __init__(self, cfg):
-        why = unported_reason(cfg)
-        if why is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the port does not run {why} yet; it runs "
-                f"patterns of attn, ssm and rglru layers, got pattern "
-                f"{effective_pattern(cfg)}")
         self.cfg = cfg
         self.pattern = effective_pattern(cfg)
         self.block_types = [_layer_block_type(cfg, i)
@@ -122,7 +116,8 @@ class Model:
         return t
 
     def layer_table(self, idx):
-        return _layer_table(self.cfg, self.block_types[idx])
+        return _layer_table(self.cfg, self.block_types[idx],
+                            _layer_uses_moe(self.cfg, idx))
 
     def cache_spec(self, batch, max_len):
         """Per layer, {name: shape} of the dense decode cache; attention
@@ -136,13 +131,16 @@ class Model:
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
         """A zeroed dense decode cache on ``device`` (None = the card): per
         layer an attention ``{"k", "v"}`` dict of (batch, W, Hkv, D)
-        tensors (W = max_len, or the window's ring) or an SSM / RG-LRU
-        ``{"conv", "h"}`` dict. ``h``, the recurrent state, is fp32 and
-        every other leaf ``dtype``, as the reference. An fp8 ``dtype``
-        (``float8_e4m3fn``, ``float8_e5m2``) adds fp32 ``k_scale``/
-        ``v_scale`` leaves of ones (batch, W, Hkv) beside an attention
-        layer's ``k``/``v``: K/V quantize on write with a
-        per-token-per-head scale (``attention._fp8_quantize``). Zeros, not
+        tensors (W = max_len, or the window's ring), an MLA ``{"ckr"}``
+        (batch, max_len, 1, kv_lora_rank + rope_head_dim) or an SSM /
+        RG-LRU ``{"conv", "h"}`` dict. ``h``, the recurrent state, is
+        fp32 and every other leaf ``dtype``, as the reference. An fp8
+        ``dtype`` (``float8_e4m3fn``, ``float8_e5m2``) adds fp32
+        ``k_scale``/``v_scale`` leaves of ones (batch, W, Hkv) beside an
+        attention layer's ``k``/``v``: K/V quantize on write with a
+        per-token-per-head scale (``attention._fp8_quantize``); an MLA
+        ``ckr`` gets no scale and is a plain cast, as the reference's
+        (scales sit only beside ``k``/``v``). Zeros, not
         empty memory: a masked slot multiplies p = 0 by what it holds, and
         uninitialised memory may hold NaN bits."""
         dev = resolve_device(device)
@@ -173,21 +171,31 @@ class Model:
     # ------------------------------------------------------------ forward
     def _apply_layer(self, bt, p, x, positions, mode, cache, block_table,
                      dst_page):
+        """One layer: the mixer, then the MoE block (its ``y`` added, its
+        aux loss returned) or the dense MLP. Returns (x, cache, aux or
+        None)."""
         # only attention reads the window and the paged pool's block table
         # and targets
         kw = (dict(window=self.cfg.attn_window, block_table=block_table,
                    dst_page=dst_page) if bt == "attn" else {})
         x, cache = BLOCK_APPLY[bt](self.cfg, p["mixer"], x, positions,
                                    mode=mode, cache=cache, **kw)
-        if "mlp" in p:
+        aux = None
+        if "moe" in p:
+            y, aux = moe_apply(self.cfg, p["moe"], x)
+            x = x + y
+        elif "mlp" in p:
             x = x + swiglu_apply(p["mlp"], rms_norm(x, p["mlp"]["ln"]))
-        return x, cache
+        return x, cache, aux
 
     def forward(self, params, *, tokens=None, embeddings=None, mode="full",
-                cache=None, pos=None, block_table=None, dst_page=None):
+                cache=None, pos=None, block_table=None, dst_page=None,
+                return_aux=False):
         """Returns (logits, cache); ``cache`` is the list of per-layer
-        cache dicts, updated in place, or None (the reference also returns
-        an MoE aux loss, which the port's models do not have).
+        cache dicts, updated in place, or None. With ``return_aux``,
+        (logits, cache, aux): the fp32 sum of every MoE layer's
+        load-balance loss (the reference's ``aux_total``; 0 without MoE
+        layers).
 
         mode='full': tokens (B, S) and/or embeddings (B, P, d) — a
         frontend's precomputed embeddings, alone or placed before the
@@ -222,18 +230,26 @@ class Model:
                 S, dtype=torch.int32, device=x.device)[None]
         else:
             positions = pos
+        aux_total = None
         for i, lp in enumerate(params["layers"]):
             c = cache[i] if cache is not None else None
-            x, c = self._apply_layer(self.block_types[i], lp, x, positions,
-                                     mode, c, block_table, dst_page)
+            x, c, aux = self._apply_layer(self.block_types[i], lp, x,
+                                          positions, mode, c, block_table,
+                                          dst_page)
             if cache is not None:
                 cache[i] = c
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
         x = rms_norm(x, params["final_norm"])
         if cfg.tie_embeddings:
             logits = torch.matmul(x, emb.t())
         else:
             logits = torch.matmul(x, params["lm_head"])
-        return logits, cache
+        if not return_aux:
+            return logits, cache
+        if aux_total is None:
+            aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, cache, aux_total
 
 
 def get_model(cfg) -> Model:

@@ -562,7 +562,7 @@ class _BatcherBase:
 def _write_slot(stacked, one, si):
     """Write a (1, ...) dense cache into row ``si`` of the stacked
     (num_slots, ...) cache, layer by layer and leaf by leaf (attention
-    ``k``/``v``, SSM ``conv``/``h``), in place."""
+    ``k``/``v``, MLA ``ckr``, SSM ``conv``/``h``), in place."""
     for st, o in zip(stacked, one):
         for name, t in st.items():
             t[si] = o[name][0].to(t.dtype)
@@ -653,7 +653,7 @@ class ContinuousBatcher(_BatcherBase):
         bit. False (the caller recomputes) when the payload is absent or
         any leaf's shape or element size, or ``max_len``, differs from
         this batcher's cache (an SSM row's conv tail and state, an
-        RG-LRU row's rings and state included)."""
+        RG-LRU row's rings and state, an MLA row's latents included)."""
         if t.dense is None or t.max_len != self.max_len or not t.generated:
             return False
         context = t.context_ids()

@@ -151,6 +151,13 @@ class PagePool:
         self.pages = None
         if model is not None:
             cfg = model.cfg
+            for layer in model.cache_spec(1, max_len):
+                for name in layer:
+                    if name not in ("k", "v"):
+                        raise ValueError(
+                            f"paged KV pool only supports attention "
+                            f"caches, got cache leaf {name!r} (use the "
+                            f"stacked batcher for ssm/rglru/mla patterns)")
             dev = resolve_device(device)
             shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
             self.pages = [{"k_pages": torch.zeros(shape, dtype=dtype,

@@ -21,7 +21,7 @@ from repro.models.model import get_model as jget_model
 from repro.serving.batcher import PagedContinuousBatcher as JBatcher
 from repro_torch import bridge
 from repro_torch.configs.base import get_config as tget_config
-from repro_torch.models.model import get_model, unported_reason
+from repro_torch.models.model import get_model
 from repro_torch.serving.batcher import PagedContinuousBatcher as TBatcher
 from repro_torch.serving.batcher import make_batcher
 
@@ -128,10 +128,12 @@ def test_backlog_and_telemetry_match_mid_run(weights):
 
 
 def test_unported_paths_refuse_clearly(weights):
-    """What the port still does not carry says so: MoE and MLA (for every
-    cache manager, at ``Model``, naming the ROADMAP item, P12b). Stochastic
-    sampling is ported: both batchers serve ``temperature=0.9``; so is the
-    prefix-LM mask, with or without its frontend."""
+    """Since P12b the port refuses no configuration of the catalog: MoE
+    (kimi) and MLA (deepseek) build and ``make_batcher(cache="auto")``
+    serves them, on the paged pool and the stacked batcher, as the
+    reference picks. Stochastic sampling is ported: both batchers serve
+    ``temperature=0.9``; so is the prefix-LM mask, with or without its
+    frontend. The name is the test's since PR 12."""
     _, tcfg, _, tparams, _ = weights
     for b in (TBatcher(tcfg, params=tparams, temperature=0.9, device="cpu"),
               make_batcher(tcfg, cache="stacked", params=tparams,
@@ -140,20 +142,21 @@ def test_unported_paths_refuse_clearly(weights):
         text = b.run_until_done()[rid]
         assert text is not None and b.stats["decode_tokens"] >= 3
     moe = tget_config("kimi-k2-1t-a32b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*P12b.*MoE"):
-        get_model(moe)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*P12b.*MoE"):
-        make_batcher(moe, cache="auto", device="cpu")
+    get_model(moe)
+    assert isinstance(make_batcher(moe, cache="auto", device="cpu"),
+                      TBatcher)
     mla = tget_config("deepseek-v2-lite-16b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*P12b.*MLA"):
-        make_batcher(mla, cache="auto", device="cpu")
+    b = make_batcher(mla, cache="auto", device="cpu")
+    assert not isinstance(b, TBatcher)
+    rid = b.submit("a latent-cache request", max_new_tokens=3, trust_tier=2)
+    assert b.run_until_done()[rid] is not None
     # a prefix-LM config without its frontend is served: the reference
     # attends the prefix both ways whatever the frontend, and so does the
     # port in mode="full"
     plm = dataclasses.replace(tget_config("paligemma-3b").reduced(),
                               frontend=None)
     assert plm.prefix_lm and plm.num_prefix_tokens
-    assert unported_reason(plm) is None
+    get_model(plm)
     b = make_batcher(plm, cache="auto", device="cpu")
     rid = b.submit("a prefix-LM request", max_new_tokens=3, trust_tier=2)
     assert b.run_until_done()[rid] is not None
@@ -164,5 +167,5 @@ def test_prefix_lm_is_named_with_its_frontend():
     port admits paligemma with its vision frontend as it admits it
     without, and musicgen with its audio frontend."""
     for arch in ("paligemma-3b", "musicgen-large"):
-        assert unported_reason(tget_config(arch).reduced()) is None
-        assert unported_reason(tget_config(arch)) is None
+        get_model(tget_config(arch).reduced())
+        get_model(tget_config(arch))

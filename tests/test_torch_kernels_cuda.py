@@ -1047,3 +1047,84 @@ def test_constant_shape_launches_one_split_per_kernel(card, monkeypatch):
     b.run_until_done()
     for name, splits in seen.items():
         assert splits and len(set(splits)) == 1, (name, sorted(set(splits)))
+
+
+# MoE and MLA blocks (P12b): torch ops, no kernel of K1-K6. fp32 on both
+# sides with TF32 off; the card sums the matmuls in other orders than the
+# CPU (measured gaps on the CPU against the reference: <= 6e-6)
+BLOCK_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _block_params(arch, seed=0):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import get_model
+    cfg = get_config(arch).reduced()
+    return cfg, get_model(cfg).init(seed=seed, device="cpu")
+
+
+def _to(tree, dev):
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("B,S", [(1, 1), (3, 16), (2, 300)])
+def test_moe_apply_on_the_card_matches_the_cpu(card, arch, B, S):
+    """``moe_apply`` (router, top-k, every expert on every token, shared
+    experts, the aux loss) at ``.reduced()`` on card tensors against the
+    same call on CPU tensors; the chosen experts agree where the k-th and
+    (k+1)-th probabilities are apart."""
+    from repro_torch.models import moe
+    cfg, params = _block_params(arch)
+    p = params["layers"][1]["moe"]
+    x = torch.randn(B, S, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(B * S))
+    y, aux = moe.moe_apply(cfg, p, x)
+    yd, auxd = moe.moe_apply(cfg, _to(p, card), x.to(card))
+    assert yd.device.type == "cuda"
+    torch.testing.assert_close(yd.cpu(), y, **BLOCK_TOL)
+    torch.testing.assert_close(auxd.cpu(), aux, **BLOCK_TOL)
+    x2 = x.reshape(-1, cfg.d_model)
+    from repro_torch.models.layers import rms_norm
+    h = rms_norm(x2, p["ln"])
+    _, idx, probs = moe._route(torch.matmul(h, p["router"]).float(),
+                               cfg.top_k)
+    _, idxd, _ = moe._route(torch.matmul(h.to(card), p["router"].to(card))
+                            .float(), cfg.top_k)
+    srt = probs.sort(-1, descending=True).values
+    apart = (srt[:, cfg.top_k - 1] - srt[:, cfg.top_k]) > 1e-5
+    assert torch.equal(idxd.cpu()[apart], idx[apart])
+
+
+@pytest.mark.parametrize("decode_mode", ["absorbed", "naive"])
+def test_mla_apply_on_the_card_matches_the_cpu(card, decode_mode):
+    """``mla_apply`` at ``.reduced()``: full mode into a bf16 latent cache
+    (S 40), then two decode steps at (B,) positions, on card tensors
+    against the same calls on CPU tensors; the latent caches within one
+    bf16 ulp."""
+    from repro_torch.models import mla
+    cfg, params = _block_params("deepseek-v2-lite-16b")
+    p = params["layers"][0]["mixer"]
+    g = torch.Generator().manual_seed(7)
+    B, S, W = 3, 40, 64
+    x = torch.randn(B, S + 2, cfg.d_model, generator=g)
+    width = cfg.kv_lora_rank + cfg.rope_head_dim
+    outs = {}
+    for dev in ("cpu", card):
+        pd = _to(p, dev)
+        cache = {"ckr": torch.zeros(B, W, 1, width, dtype=torch.bfloat16,
+                                    device=dev)}
+        pos = torch.arange(S, dtype=torch.int32, device=dev)
+        ys = [mla.mla_apply(cfg, pd, x[:, :S].to(dev), pos, mode="full",
+                            cache=cache)[0]]
+        for t in range(2):
+            posb = torch.tensor([S + t, S + t - 3, 5 + t], dtype=torch.int32,
+                                device=dev)
+            ys.append(mla.mla_apply(cfg, pd, x[:, S + t:S + t + 1].to(dev),
+                                    posb, mode="decode", cache=cache,
+                                    decode_mode=decode_mode)[0])
+        outs[str(dev)] = ([y.cpu() for y in ys], cache["ckr"].float().cpu())
+    (ycpu, ccpu), (ycard, ccard) = outs["cpu"], outs[str(card)]
+    for a, b in zip(ycard, ycpu):
+        torch.testing.assert_close(a, b, **BLOCK_TOL)
+    torch.testing.assert_close(ccard, ccpu, rtol=2 ** -7, atol=1e-4)

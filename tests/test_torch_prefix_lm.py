@@ -20,8 +20,9 @@ stub's embeddings) and musicgen-large (an audio stub's embeddings), at
   with its own full forward at the reference test's 2e-4, and every
   logit of the port agrees with the reference's at the same 2e-4 (fp32
   weights and caches on both sides; only summation order differs).
-* ``unported_reason`` admits the four P12a configs and still refuses
-  MoE and MLA, naming P12b.
+* The four P12a configs build; so do deepseek-v2-lite-16b and
+  kimi-k2-1t-a32b since P12b, and ``make_batcher(cache="auto")`` picks
+  the reference's cache manager for them.
 
 The module runs under ``_torch_parity.lean_cpu`` (one torch thread), so
 that its fp32 attention at 2,048 tokens does not spin against the other
@@ -42,7 +43,6 @@ from repro_torch.configs.base import get_config as tget_config
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.model import get_model as tget_model
-from repro_torch.models.model import unported_reason
 from repro_torch.models.steps import make_prefill_step
 
 pytestmark = pytest.mark.usefixtures("lean_cpu")
@@ -209,14 +209,31 @@ def test_embeddings_are_cast_to_the_table_dtype():
                                   "qwen3-4b", "glm4-9b"])
 def test_p12a_configs_are_admitted(arch):
     for cfg in (tget_config(arch), tget_config(arch).reduced()):
-        assert unported_reason(cfg) is None
-    tget_model(tget_config(arch).reduced())
+        tget_model(cfg)
 
 
 @pytest.mark.parametrize("arch,what", [("deepseek-v2-lite-16b", "MLA"),
                                        ("kimi-k2-1t-a32b", "MoE")])
 def test_moe_and_mla_still_refused_naming_p12b(arch, what):
-    why = unported_reason(tget_config(arch))
-    assert f"ROADMAP Queue 1, P12b ({what})" in why
-    with pytest.raises(NotImplementedError, match="P12b"):
-        tget_model(tget_config(arch).reduced())
+    """Since P12b the port refuses neither: both configs build at full
+    config and at ``.reduced()``, and ``make_batcher(cache="auto")``
+    picks the reference's cache manager: stacked for deepseek (MLA's
+    latent cache is not paged), the fused chunked paged pool for kimi
+    (MoE on GQA attention). The name is the test's since P12a."""
+    from repro.serving.batcher import make_batcher as jmake_batcher
+    from repro.serving.batcher import paged_supported as jpaged
+    from repro_torch.serving.batcher import make_batcher
+    for cfg in (tget_config(arch), tget_config(arch).reduced()):
+        model = tget_model(cfg)
+        assert ("mla" in model.block_types) == (what == "MLA")
+        assert model.layer_table(cfg.num_layers - 1).keys() == {"mixer",
+                                                                 "moe"}
+    b = make_batcher(tget_config(arch).reduced(), cache="auto", num_slots=2,
+                     max_len=64, device="cpu")
+    paged = jpaged(jget_config(arch).reduced())
+    assert paged == (what == "MoE")
+    assert type(b).__name__ == ("PagedContinuousBatcher" if paged
+                                else "ContinuousBatcher")
+    jb = jmake_batcher(jget_config(arch).reduced(), cache="auto",
+                       num_slots=2, max_len=64)
+    assert type(jb).__name__ == type(b).__name__

@@ -245,13 +245,18 @@ def test_port_init_follows_reference_tables(arch):
     ("qwen3-32b", None),
 ])
 def test_model_admits_attn_and_ssm_patterns_only(arch_id, names):
+    """Every case builds: attention-only configs since the first slice,
+    MoE (kimi) and MLA (deepseek) since P12b, whose layers after the
+    dense first one carry the MoE block. The name is the test's since
+    PR 13."""
     cfg = tget_config(arch_id).reduced()
-    if names is None:                              # attention-only: runs
-        tget_model(cfg)
+    model = tget_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    if names is None:                              # attention-only
+        assert all("mlp" in layer for layer in params["layers"])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-        tget_model(cfg)
-    assert names in str(err.value)
+    assert "moe" in params["layers"][-1]
+    assert ("mla" in model.block_types) == (names == "MLA")
 
 
 def test_hybrid_pattern_dispatches_each_layer():
