@@ -8,8 +8,8 @@ Phases (each raises on failure, and the script then exits non-zero):
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
    TF32 is switched off for matmuls and convolutions, so every fp32
    product runs in full fp32;
-2. build: the six hand-written CUDA kernels (``src/repro_torch/csrc``),
-   one nvcc per source, in parallel;
+2. build: the seven hand-written CUDA kernels (``src/repro_torch/csrc``:
+   K1-K6 and K4's backward), one nvcc per source, in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its serving path gives it (smollm-135m heads: H 9, Hkv 3,
    D 64), and K3/K4 also at qwen3-4b's head geometry (H 32, Hkv 8, D 128),
@@ -35,6 +35,14 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``bound_ms``; the K5/K6 rows carry each kernel's registers, shared
    memory, local bytes, resident blocks an SM and grid (K5: of its score
    and head passes), and the K5 phase lines each pass's device time;
+   K4's backward (``flash_attention_bwd``) against
+   ``ref.flash_attention_bwd`` at the train group's shapes (causal at
+   smollm's heads, B 8 x S 2048; paligemma's 256-token prefix at its
+   heads, B 2 x S 512; a window of 512 at recurrentgemma's heads, S
+   2048), each gradient within ``BWD_TOL`` of its largest, with its
+   device ms (CUDA events), the plain version's, SDPA's forward and
+   backward through autograd (a yardstick) and its bound (2.5x the
+   forward's flops at the TF32 rate), under K4's ``backward`` entry;
 4. serving paths, each on the quickstart mesh (laptop 6 slots, phone 1,
    home-nas 8) serving smollm-135m at its full published widths with
    seeded random weights through ``TickOrchestrator``, the launch counters
@@ -185,7 +193,30 @@ Phases (each raises on failure, and the script then exits non-zero):
    prefill and one decode step; the per-request path; and the
    card-vs-CPU replay on the stacked batcher at a 2-layer cut (the dense
    layer 0 and one MLA+MoE layer at full widths and vocabulary, 4.3 GB
-   of fp32).
+   of fp32);
+11. P14a, training, last, after a ``gc.collect()`` (the memory still
+   allocated is read out first): the train launcher
+   (``repro_torch.launch.train``: ``SyntheticLM``, AdamW, the cosine
+   schedule, checkpoints) at smollm-135m's full width, 20 steps of 8 x
+   2,048 tokens, each step timed and its launches counted (K4 and its
+   backward once a layer, no other kernel), the loss falling by a nat,
+   checkpoints at steps 10 and 20 and a resume from step 10 that ends on
+   the uninterrupted run's loss; one step's gradient with and without
+   ``remat`` (K4 60 launches against 30, the same loss and gradients, no
+   leaf without a gradient); paligemma-3b at full width (2.51 B
+   parameters, 40 GB of weights and fp32 AdamW state), 5 steps of 2 x
+   (256 image embeddings + 256 tokens), every K4 launch and its backward
+   with the 256-token prefix; kimi-k2-1t-a32b ``.reduced()`` through the
+   launcher (MoE and its aux loss under autograd); one step's loss,
+   gradient norm and every gradient leaf on the card and on the CPU at a
+   2-layer cut of smollm and of paligemma (full widths and vocabulary),
+   within ``TRAIN_*_TOL``; mamba2-370m and recurrentgemma-9b
+   (``.reduced()``), whose train step must raise at K5 and K6 (no
+   backward kernel yet) and leave the weights as they were; and MIST's
+   stage-2 classifier trained on the card and on the CPU, to the same
+   classes. Each train reading gives step ms, tokens/s, peak memory and
+   the model-flops share of 67 TFLOP/s fp32 beside the card's name and
+   power limit.
 
 The profile phases read the device spans from the profiler's raw
 events (parsing them into host-op trees takes ~60 s a main path run);
@@ -227,6 +258,10 @@ L2_BYTES = 50e6
 # and differ only in summation order and exp's last bits (~1e-6 on outputs
 # that are convex combinations of unit-scale V rows)
 KERNEL_TOL = 1e-4
+# K4's backward against its plain version on the same inputs: both sum
+# fp32 products in other orders over up to S x G terms, so each gradient
+# holds to 1e-4 of its largest magnitude (the card tests' bound)
+BWD_TOL = 1e-4
 # timed launches cycle through up to this many copies of a case's inputs,
 # enough for their bytes to exceed the 50 MB L2 three times over
 NCOPY = 32
@@ -557,6 +592,133 @@ def _check(name, out, want):
         raise AssertionError(f"{name}: max abs error {err} > "
                              f"{KERNEL_TOL} against the plain version")
     return err
+
+
+def event_ms(fn, reps=10):
+    """Device ms a call of ``fn``, eager, over ``reps`` calls between CUDA
+    events after one warm-up (for calls of a millisecond or more, whose
+    host issue time is far below their device time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bwd_kernel_rows(dev, gen):
+    """K4's backward (``flash_attention_bwd``, csrc/flash_attention_bwd.cu)
+    against ``ref.flash_attention_bwd`` on the card at the train group's
+    shapes: causal at smollm-135m's heads (B 8, S 2048: the train step's
+    K4 launches), paligemma-3b's 256-token prefix at its heads (B 2, S
+    512) and a window of 512 at recurrentgemma-9b's heads (S 2048). Each
+    gradient holds to BWD_TOL of its largest magnitude. Device ms (CUDA
+    events) of the kernel, the plain version and SDPA's forward and
+    backward through autograd (a yardstick the port never calls); the
+    least time is the backward's flops, 2.5x the forward's over the pairs
+    the mask allows, at the TF32 rate of fp32 operands. Returns the row
+    for K4's entry (smollm's case, the others beside it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    out = {}
+    for role, geom, kw in (
+            ("row", "smollm-135m train step (B 8, S 2048, 9 on 3 heads, "
+                    "D 64), causal", dict(B=8, S=2048)),
+            ("prefix_S512", "paligemma-3b train step (B 2, S 512, 8 on 1 "
+                            "heads, D 256), prefix 256",
+             dict(B=2, S=512, H=8, Hkv=1, D=256, prefix=256)),
+            ("window_512", "recurrentgemma-9b heads (S 2048, 16 on 1, D "
+                           "256), window 512",
+             dict(S=2048, H=16, Hkv=1, D=256, window=512))):
+        B = kw.pop("B", 1)
+        one, _, fflops, S = dense_prefill_case(dev, gen, **kw)
+        q, k, v = (torch.randn(B, *t.shape[1:], generator=gen, device=dev)
+                   for t in one)
+        del one
+        D, w, pre = q.shape[-1], kw.get("window"), kw.get("prefix", 0)
+        scale = D ** -0.5
+        o, lse = ref.flash_attention(q, k, v, scale, True, w, pre,
+                                     return_lse=True)
+        o, lse = o.contiguous(), lse.contiguous()
+        do = torch.randn(q.shape, generator=gen, device=dev)
+        bargs = (q, k, v, o, lse, do, scale, True, w, pre)
+        got = flash_attention_bwd(*bargs)
+        want = ref.flash_attention_bwd(*bargs)
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        for name, e, b in zip(("dq", "dk", "dv"), errs, want):
+            lim = BWD_TOL * float(b.abs().max()) + 1e-6
+            if not e <= lim:
+                raise AssertionError(f"flash_attention_bwd ({geom}): {name} "
+                                     f"max abs error {e} > {lim}")
+        del got, want
+        kms = event_ms(lambda: flash_attention_bwd(*bargs))
+        pms = event_ms(lambda: ref.flash_attention_bwd(*bargs), reps=3)
+        qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dd = do.transpose(1, 2).contiguous()
+        pos = torch.arange(S, device=dev)
+        mask = None
+        if w or pre:
+            mask = pos[None, :] <= pos[:, None]
+            if w:
+                mask &= pos[None, :] > pos[:, None] - w
+            mask |= pos[None, :] < pre
+
+        def sdpa_fwd_bwd():
+            y = (F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                enable_gqa=True)
+                 if mask is None else F.scaled_dot_product_attention(
+                     qq, kk, vv, attn_mask=mask, enable_gqa=True))
+            return torch.autograd.grad(y, (qq, kk, vv), dd)
+
+        lms = event_ms(sdpa_fwd_bwd, reps=3)
+        bflops = 2.5 * fflops * B
+        bound, by = _bound(4 * (4 * q.numel() + 4 * k.numel()
+                                + lse.numel()), bflops, TF32_FLOP_PER_S)
+        entry = {"route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "replaces": "none: the reference differentiates XLA's "
+                             "attention (src/repro/models/steps.py:38-39)",
+                 "max_abs_err": max(errs), "ms": kms, "plain_ms": pms,
+                 "bound_ms": bound, "bound_by": by, "library_ms": lms,
+                 "geometry": geom, "attrs": bwd_attrs(D)}
+        emit({"phase": "kernel", "name": "flash_attention_bwd", **entry,
+              "shape_q": list(q.shape), "shape_kv": list(k.shape),
+              "flops": bflops, "errors_dq_dk_dv": errs,
+              "tolerance": f"{BWD_TOL} of each gradient's largest"})
+        if role == "row":
+            out = dict(entry, launches=None)
+        else:
+            out[role] = entry
+        del q, k, v, o, lse, do, bargs, qq, kk, vv, dd, mask
+    return out
+
+
+def bwd_attrs(D):
+    """The dK/dV and dQ kernels' registers, dynamic shared memory, local
+    bytes, resident blocks an SM and tile at head_dim D (CUDA runtime)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    buf = (ctypes.c_int * 10)()
+    rc = _build.load_entry("flash_attention_bwd", "flash_attention_bwd_attrs",
+                           [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])(
+        D, buf)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd_attrs failed: {rc}")
+    keys = ("registers", "smem_bytes", "local_bytes", "blocks_per_sm",
+            "tile")
+    return {kern: dict(zip(keys, buf[5 * i:5 * i + 5]))
+            for i, kern in enumerate(("dkdv", "dq"))}
 
 
 def ssd_case(dev, gen, nc, Q, H=32, P=64, N=128):
@@ -938,6 +1100,7 @@ def kernel_phase(dev):
               "tolerance": KERNEL_TOL, "input_copies": n,
               "wrapper_host_us": host_us(lambda: wrapper(*args))})
         del args, out
+    rows["flash_attention"]["backward"] = bwd_kernel_rows(dev, gen)
     rows["ssd_chunk"] = ssd_kernel_rows(dev, gen)
     rows["rglru_scan"] = rglru_kernel_rows(dev, gen)
     # free the timed graphs' pools and the cuBLAS workspaces of the timing
@@ -1028,14 +1191,16 @@ def serving_stack(cfg, params, device, max_len, long_new=16, tracer=None,
 def kernel_fns():
     from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.rglru import rglru_scan
     from repro_torch.kernels.ssd import ssd_chunk
     return {f.__name__: f for f in (paged_decode_attention,
                                     chunked_prefill_attention,
                                     decode_attention, flash_attention,
-                                    ssd_chunk, rglru_scan)}
+                                    ssd_chunk, rglru_scan,
+                                    flash_attention_bwd)}
 
 
 def zero_launches():
@@ -1256,6 +1421,8 @@ def _kernel_family(name):
         return "ssd_chunk"
     if "rglru_scan_kernel" in name:
         return "rglru_scan"
+    if "flash_bwd_" in name:
+        return "flash_attention_bwd"
     for key, fam in (("gemm", "matmul"), ("gemv", "matmul"),
                      ("xmma", "matmul"), ("cutlass", "matmul"),
                      ("Memcpy", "memcpy"), ("Memset", "memset")):
@@ -3603,6 +3770,457 @@ def p12b_group(device, timed, rows):
     del runs, cut, params
 
 
+# --------------------------------------------------- P14a: training
+
+TRAIN = "smollm-135m"
+# the launcher's path at smollm-135m's published context: 20 steps of
+# batch 8 x 2048 tokens, checkpoints every 10 steps, then a resume from
+# step 10 that must end on the uninterrupted run's loss
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 2048, 20, 10
+# paligemma-3b: 5 steps of 2 rows of 256 image embeddings + 256 tokens
+PALI_TRAIN = "paligemma-3b"
+PALI_TRAIN_B, PALI_TRAIN_S, PALI_TRAIN_STEPS = 2, 512, 5
+# kimi-k2-1t-a32b at .reduced(): MoE and its aux loss under autograd
+KIMI_TRAIN_STEPS = 3
+# the families whose kernels (K5, K6) have no backward kernel yet: their
+# train step must raise on the card, never drop a gradient
+NO_BACKWARD = ("mamba2-370m", "recurrentgemma-9b")
+# card vs CPU, one step's gradient at a 2-layer cut (every width and the
+# whole vocabulary): smollm 2 x 512 tokens, paligemma 1 x (256 + 64)
+CUT_BATCH = {TRAIN: (2, 512), PALI_TRAIN: (1, 320)}
+# tolerances of the card-vs-CPU step. Both sides are fp32 (TF32 off) and
+# differ in summation order only (cuBLAS, K4's 3xTF32 walk and its
+# backward's FMA sums against the CPU's matmuls and the plain attention):
+# the loss and the gradient norm relative, each gradient leaf relative to
+# its largest magnitude. An H100 measured at most 7.5e-8, 1.2e-6 and
+# 7.2e-6 (paligemma's cut; smollm's 0, 8.2e-7, 3.8e-6): each tolerance is
+# 7-13x its reading
+TRAIN_LOSS_TOL = 1e-6
+TRAIN_GNORM_TOL = 1e-5
+TRAIN_GRAD_TOL = 5e-5
+# the resumed run's last loss against the uninterrupted run's, and the
+# remat step's loss and gradients against the plain step's (relative to
+# each leaf's largest magnitude): K4 and its backward are deterministic
+# (no float atomics) and the matmuls see the same shapes, so the same
+# bits are expected (the reading says whether they were); the tolerance
+# admits summation-order noise from a reduction outside the port's
+# kernels, which a rehearsal on a multi-threaded CPU showed at 1e-7
+RESUME_LOSS_TOL = 1e-6
+REMAT_TOL = 1e-6
+
+
+def _step_recorder():
+    """Wrap the train launcher's ``make_train_step`` so that every step is
+    timed (synchronized on both sides) and its kernel launches and MLA/MoE
+    calls counted. Returns (records, undo)."""
+    import torch
+
+    from repro_torch.launch import train
+    records, make = [], train.make_train_step
+
+    def made(model, ocfg, remat=False):
+        step = make(model, ocfg, remat=remat)
+
+        def timed_step(params, state, batch):
+            torch.cuda.synchronize()
+            zero_launches()
+            t0 = time.perf_counter()
+            out = step(params, state, batch)
+            torch.cuda.synchronize()
+            records.append({"s": time.perf_counter() - t0,
+                            **read_launches(), **read_blocks()})
+            return out
+        return timed_step
+
+    train.make_train_step = made
+
+    def undo():
+        train.make_train_step = make
+    return records, undo
+
+
+def _train_flops(model, n_params, B, S):
+    """Model flops of one train step: 6 N per token for the parameters,
+    plus three times the causal forward attention (QK^T and PV over the
+    pairs the mask allows) in every attention layer."""
+    cfg = model.cfg
+    P = cfg.num_prefix_tokens if cfg.prefix_lm else 0
+    pairs = sum(max(t + 1, min(P, S)) for t in range(S))
+    attn = 4 * cfg.num_heads * cfg.head_dim * pairs * B
+    return (6 * n_params * B * S
+            + 3 * attn * model.block_types.count("attn"))
+
+
+def train_readings(name, cfg, records, B, S, card):
+    """Step ms (the median of every step after the first, which builds
+    cuBLAS's plans), tokens/s, peak memory and the model-flops share of
+    the fp32 CUDA-core peak (TF32 is off for matmuls)."""
+    import torch
+
+    from repro_torch.models.model import get_model
+    from repro_torch.models.layers import _walk
+    model = get_model(cfg)
+    n = sum(math.prod(sp.shape) for _, sp in _walk(model.param_table()))
+    n += sum(math.prod(sp.shape) for i in range(cfg.num_layers)
+             for _, sp in _walk(model.layer_table(i)))
+    steps = sorted(r["s"] for r in records[1:]) or [records[0]["s"]]
+    med = steps[len(steps) // 2]
+    flops = _train_flops(model, n, B, S)
+    out = {"phase": f"train {name}", "card": card, "parameters": n,
+           "batch": B, "seq": S, "steps": len(records),
+           "step_ms_median": med * 1e3, "step_ms_first": records[0]["s"]
+           * 1e3, "step_ms_all": [r["s"] * 1e3 for r in records],
+           "tokens_per_s": B * S / med,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "model_flops_per_step": flops,
+           "model_flops_share_fp32": flops / med / FP32_FLOP_PER_S}
+    return out
+
+
+def _launch_counts(name, records, want):
+    """Every step's launches must be ``want`` (kernel -> count), the other
+    kernels none."""
+    for i, r in enumerate(records):
+        got = {k: r[k] for k in kernel_fns()}
+        exp = dict.fromkeys(kernel_fns(), 0) | want
+        if got != exp:
+            raise AssertionError(f"train {name} step {i + 1}: launches "
+                                 f"{got} != {exp}")
+
+
+def train_smollm_phase(device, card, ckpt_dir):
+    """The launcher at smollm-135m's full width: 20 steps (checkpoints at
+    10 and 20), then a resume from step 10; the loss falls, each step
+    launches K4 and its backward once a layer and no other kernel, and
+    the resumed run ends on the uninterrupted run's loss."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    cfg = get_config(TRAIN)
+    argv = ["--arch", TRAIN, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--log-every", "1",
+            "--ckpt-dir", str(ckpt_dir)]
+    torch.cuda.reset_peak_memory_stats()
+    records, undo = _step_recorder()
+    try:
+        hist = train.main(argv + ["--ckpt-every", str(TRAIN_CKPT_EVERY)])
+        reading = train_readings(TRAIN, cfg, records, TRAIN_B, TRAIN_S,
+                                 card)
+        _launch_counts(TRAIN, records, {"flash_attention": cfg.num_layers,
+                                        "flash_attention_bwd":
+                                            cfg.num_layers})
+        losses = [h["loss"] for h in hist]
+        if not losses[-1] < losses[0] - 1.0:
+            raise AssertionError(f"train {TRAIN}: the loss did not fall "
+                                 f"by a nat: {losses}")
+        shutil.rmtree(ckpt_dir / f"step_{TRAIN_STEPS:08d}")
+        records.clear()
+        resumed = train.main(argv + ["--resume"])
+    finally:
+        undo()
+    gap = abs(resumed[-1]["loss"] - losses[-1])
+    reading.update(loss=losses, grad_norm=[h["grad_norm"] for h in hist],
+                   resumed_from=TRAIN_CKPT_EVERY,
+                   resumed_steps=[h["step"] for h in resumed],
+                   resumed_last_loss=resumed[-1]["loss"],
+                   resume_loss_gap=gap,
+                   resume_bit_equal=resumed[-1]["loss"] == losses[-1],
+                   launches_per_step={"flash_attention": cfg.num_layers,
+                                      "flash_attention_bwd":
+                                          cfg.num_layers})
+    emit(reading)
+    if len(resumed) != TRAIN_STEPS - TRAIN_CKPT_EVERY or \
+            gap > RESUME_LOSS_TOL * losses[-1]:
+        raise AssertionError(f"train {TRAIN}: the resumed run ends at "
+                             f"{resumed[-1]['loss']}, the uninterrupted "
+                             f"at {losses[-1]}")
+    shutil.rmtree(ckpt_dir)
+    return reading
+
+
+def remat_phase(device):
+    """One step's gradient of smollm-135m at full width with and without
+    ``remat``: K4 runs twice a layer with it (the groups' forwards again
+    in the backward), its backward once a layer either way, the loss and
+    every gradient leaf within REMAT_TOL (bit-equality read out), and no
+    leaf without a gradient."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import get_model
+    from repro_torch.models.steps import value_and_grad
+    from repro_torch.training.optim import tree_leaves
+    cfg = get_config(TRAIN)
+    model = get_model(cfg)
+    params = model.init(seed=0, device=device)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
+        cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0).next_batch().items()}
+    runs = {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        loss, _, grads = value_and_grad(model, params, batch, remat=remat)
+        torch.cuda.synchronize()
+        runs[remat] = (loss, tree_leaves(grads), read_launches(),
+                       torch.cuda.max_memory_allocated())
+    L = cfg.num_layers
+    for remat, want in ((False, L), (True, 2 * L)):
+        got = runs[remat][2]
+        if got["flash_attention"] != want or \
+                got["flash_attention_bwd"] != L:
+            raise AssertionError(f"remat={remat}: launches {got}")
+    empty = [i for i, g in enumerate(runs[False][1]) if not bool(
+        (g != 0).any())]
+    gaps = [float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+            for a, b in zip(runs[False][1], runs[True][1])]
+    lgap = abs(float(runs[False][0]) - float(runs[True][0]))
+    result = {"phase": "train remat", "model": TRAIN,
+              "loss": float(runs[False][0]),
+              "loss_bit_equal": bool(torch.equal(runs[False][0],
+                                                 runs[True][0])),
+              "loss_gap": lgap, "grad_leaf_rel_gap_max": max(gaps),
+              "grads_bit_equal": max(gaps) == 0, "tolerance": REMAT_TOL,
+              "launches": {str(k): v[2] for k, v in runs.items()},
+              "peak_memory_bytes": {str(k): v[3] for k, v in runs.items()},
+              "leaves": len(gaps), "leaves_without_gradient": empty}
+    emit(result)
+    if lgap > REMAT_TOL * abs(result["loss"]) or max(gaps) > REMAT_TOL \
+            or empty:
+        raise AssertionError(f"remat: {result}")
+
+
+def train_pali_phase(device, card):
+    """The launcher at paligemma-3b's full width: 5 steps, every K4 launch
+    and its backward with the 256-token prefix, 18 of each a step."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    cfg = get_config(PALI_TRAIN)
+    torch.cuda.reset_peak_memory_stats()
+    records, undo = _step_recorder()
+    seen, undo_prefix = _record_prefix()
+    try:
+        hist = train.main(["--arch", PALI_TRAIN, "--steps",
+                           str(PALI_TRAIN_STEPS), "--batch",
+                           str(PALI_TRAIN_B), "--seq", str(PALI_TRAIN_S),
+                           "--log-every", "1"])
+    finally:
+        undo_prefix()
+        undo()
+    reading = train_readings(PALI_TRAIN, cfg, records, PALI_TRAIN_B,
+                             PALI_TRAIN_S, card)
+    L = cfg.num_layers
+    _launch_counts(PALI_TRAIN, records, {"flash_attention": L,
+                                         "flash_attention_bwd": L})
+    losses = [h["loss"] for h in hist]
+    reading.update(loss=losses, grad_norm=[h["grad_norm"] for h in hist],
+                   prefix_lens=sorted(set(seen)), k4_calls=len(seen),
+                   launches_per_step={"flash_attention": L,
+                                      "flash_attention_bwd": L})
+    emit(reading)
+    if set(seen) != {cfg.num_prefix_tokens} or \
+            len(seen) != L * PALI_TRAIN_STEPS:
+        raise AssertionError(f"train {PALI_TRAIN}: K4 prefixes {set(seen)}"
+                             f" in {len(seen)} calls")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {PALI_TRAIN}: losses {losses}")
+    return reading
+
+
+def train_kimi_phase(device):
+    """kimi-k2-1t-a32b at ``.reduced()`` through the launcher: the MoE
+    block and its aux loss under autograd (torch ops), K4 and its
+    backward at head_dim 32 once an attention layer a step; the router
+    and every expert get a gradient."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.model import get_model
+    from repro_torch.models.steps import value_and_grad
+    cfg = get_config(P12B_REDUCED).reduced()
+    records, undo = _step_recorder()
+    try:
+        hist = train.main(["--arch", P12B_REDUCED, "--smoke", "--steps",
+                           str(KIMI_TRAIN_STEPS), "--log-every", "1"])
+    finally:
+        undo()
+    model = get_model(cfg)
+    L = model.block_types.count("attn")
+    moe = cfg.num_layers - cfg.first_dense_layers
+    _launch_counts(P12B_REDUCED, records, {"flash_attention": L,
+                                           "flash_attention_bwd": L})
+    params = model.init(seed=0, device=device)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
+        cfg.vocab_size, 8, 128, seed=0).next_batch().items()}
+    _, parts, grads = value_and_grad(model, params, batch)
+    moe_grads = {k: bool((g != 0).any()) for lp in grads["layers"]
+                 if "moe" in lp for k, g in lp["moe"].items()
+                 if isinstance(g, torch.Tensor)}
+    result = {"phase": f"train {P12B_REDUCED} .reduced()",
+              "loss": [h["loss"] for h in hist],
+              "aux": [h["aux"] for h in hist],
+              "moe_calls_per_step": [r["moe_apply"] for r in records],
+              "moe_leaves_with_gradient": moe_grads,
+              "aux_grad_step": float(parts["aux"])}
+    emit(result)
+    if not all(math.isfinite(x) for x in result["loss"]) or \
+            not all(a > 0 for a in result["aux"]) or \
+            not all(moe_grads.values()) or \
+            result["moe_calls_per_step"] != [moe] * KIMI_TRAIN_STEPS:
+        raise AssertionError(f"train kimi: {result}")
+
+
+def train_replay_phase(arch, device):
+    """One step's loss, gradient norm and every gradient leaf on the card
+    and on the CPU from the same weights and batch, at a 2-layer cut of
+    ``arch`` (every width and the whole vocabulary)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import get_model
+    from repro_torch.models.steps import value_and_grad
+    from repro_torch.training.optim import global_norm, tree_leaves
+    cfg = get_config(arch)
+    ccfg = dataclasses.replace(cfg, num_layers=P12A_CUT_LAYERS)
+    model = get_model(ccfg)
+    params = model.init(seed=0, device=device)
+    B, S = CUT_BATCH[arch]
+    batch = SyntheticLM(cfg.vocab_size, B, S, seed=1, frontend=cfg.frontend,
+                        d_model=cfg.d_model,
+                        num_prefix=cfg.num_prefix_tokens).next_batch()
+    out = {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        p = params if side == "card" else params_to(params, dev)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, _, grads = value_and_grad(model, p, b)
+        out[side] = (float(loss), float(global_norm(grads)),
+                     [g.cpu() for g in tree_leaves(grads)])
+        del p, grads
+    (lc, nc, gc_), (lp, np_, gp) = out["card"], out["cpu"]
+    rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for a, b in zip(gc_, gp)]
+    result = {"phase": f"train replay {arch}", "layers": P12A_CUT_LAYERS,
+              "batch": B, "seq": S, "loss_card": lc, "loss_cpu": lp,
+              "loss_rel_gap": abs(lc - lp) / abs(lp),
+              "grad_norm_card": nc, "grad_norm_cpu": np_,
+              "grad_norm_rel_gap": abs(nc - np_) / np_,
+              "grad_leaf_rel_gap_max": max(rel), "leaves": len(rel),
+              "tolerances": {"loss": TRAIN_LOSS_TOL,
+                             "grad_norm": TRAIN_GNORM_TOL,
+                             "grad_leaf": TRAIN_GRAD_TOL}}
+    emit(result)
+    if result["loss_rel_gap"] > TRAIN_LOSS_TOL or \
+            result["grad_norm_rel_gap"] > TRAIN_GNORM_TOL or \
+            max(rel) > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train replay {arch}: {result}")
+    return result
+
+
+def no_backward_phase(device):
+    """mamba2-370m and recurrentgemma-9b (``.reduced()``) on the card: the
+    train step raises at the first SSD or RG-LRU kernel, naming it, and
+    leaves the weights as they were; a step that returned would have
+    dropped the gradient of everything before that kernel."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.model import get_model
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.training import optim
+    result = {"phase": "train refusal"}
+    for arch in NO_BACKWARD:
+        cfg = get_config(arch).reduced()
+        model = get_model(cfg)
+        params = model.init(seed=0, device=device)
+        before = [t.clone() for t in optim.tree_leaves(params)]
+        ocfg = optim.AdamWConfig()
+        step = make_train_step(model, ocfg, remat=False)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
+            cfg.vocab_size, 2, 64, seed=0).next_batch().items()}
+        try:
+            step(params, optim.init_state(ocfg, params), batch)
+        except RuntimeError as e:
+            msg = str(e)
+        else:
+            raise AssertionError(f"{arch}: the train step ran on the card "
+                                 f"through a kernel with no backward")
+        kernel = "ssd_chunk" if arch.startswith("mamba") else "rglru_scan"
+        same = all(torch.equal(a, b) for a, b in
+                   zip(before, optim.tree_leaves(params)))
+        result[arch] = {"raised": msg, "weights_unchanged": same}
+        if not msg.startswith(f"{kernel} has no backward kernel") or \
+                not same:
+            raise AssertionError(f"{arch}: {result[arch]}")
+    emit(result)
+
+
+def classifier_phase(device):
+    """MIST's stage-2 classifier trained on the card and on the CPU: the
+    same train accuracy and the same class for every corpus text."""
+    import torch
+
+    from repro_torch.core import mist_model
+    texts = [t for t, _ in mist_model.synth_corpus(200, 0)]
+    got = {}
+    for side, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        clf = mist_model.train_classifier(seed=0, device=dev)
+        got[side] = (clf.train_accuracy, [clf.classify(t) for t in texts],
+                     clf.params["w"].cpu())
+    same = got["card"][1] == got["cpu"][1]
+    result = {"phase": "train classifier",
+              "train_accuracy": {k: v[0] for k, v in got.items()},
+              "same_classes": same, "texts": len(texts),
+              "weight_max_gap": float((got["card"][2] - got["cpu"][2])
+                                      .abs().max())}
+    emit(result)
+    if not same or got["card"][0] != got["cpu"][0]:
+        raise AssertionError(f"classifier: {result}")
+
+
+def train_group(device, timed, rows, card):
+    """P14a on the card, after every serving group has freed its weights:
+    the train launcher at smollm-135m's and paligemma-3b's full widths,
+    remat, kimi .reduced(), the card-vs-CPU step at a 2-layer cut of both,
+    the refusal of the families without a backward kernel, and the MIST
+    classifier."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "memory before train",
+          "memory_allocated_bytes": torch.cuda.memory_allocated()})
+    t0 = time.perf_counter()
+    ckpt = ROOT / "build" / "chip_smoke_train"
+    reading = timed(f"train {TRAIN}", train_smollm_phase, device, card,
+                    ckpt)
+    rows["flash_attention"]["backward"]["launches"] = reading[
+        "launches_per_step"]["flash_attention_bwd"]
+    timed("train remat", remat_phase, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(f"train {PALI_TRAIN}", train_pali_phase, device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("train kimi", train_kimi_phase, device)
+    for arch in (TRAIN, PALI_TRAIN):
+        timed(f"train replay {arch}", train_replay_phase, arch, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    timed("train refusal", no_backward_phase, device)
+    timed("train classifier", classifier_phase, device)
+    emit({"phase": "train group", "card": card,
+          "seconds": time.perf_counter() - t0})
+
+
 def _tensors(tree):
     import torch
     if isinstance(tree, torch.Tensor):
@@ -3863,6 +4481,9 @@ def main() -> int:
     # P12b: kimi .reduced() on the paged main path, then
     # deepseek-v2-lite-16b at full width, the largest model of the script
     p12b_group(gpu, timed, rows)
+    # P14a: training on the card, last (paligemma's weights and AdamW
+    # state are 40 GB)
+    train_group(gpu, timed, rows, card)
     emit({"phase": "seconds", **seconds})
 
     print(card)

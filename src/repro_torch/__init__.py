@@ -63,9 +63,24 @@ and ``tests/test_torch_privacy_sched.py``. Dense KV caches may be fp8
 scales, quantized on write, dequantized to fp32 before the decode
 kernel), held by ``tests/test_torch_fp8_cache.py``.
 
+Training: ``models.steps.make_train_step`` (the next-token loss with
+the MoE aux loss, autograd, AdamW from ``training.optim``), checkpoints
+(``checkpoint``: the reference's on-disk layout), the data pipeline
+(``data.pipeline.SyntheticLM``) and ``python -m
+repro_torch.launch.train``. On the card the attention trains through K4
+and a seventh hand-written kernel, K4's backward
+(``kernels.flash_attention.flash_attention_bwd``); the other kernel
+wrappers raise under autograd on a CUDA tensor rather than drop a
+gradient, so the SSM and RG-LRU families train on the CPU only. MIST's
+stage-2 classifier (``core.mist_model``) trains with the same AdamW,
+behind the serve launcher's ``--train-classifier``. Their parity tests
+are ``tests/test_torch_train_substrate.py``,
+``tests/test_torch_train_step.py`` and ``tests/test_torch_flash_bwd.py``.
+
 Entry points (``TickOrchestrator``, ``build_island_batchers``, both
-batchers, ``LocalModelServer``, ``Model.init``) run on the card unless the
-caller passes ``device="cpu"``; asking for the card without one raises.
+batchers, ``LocalModelServer``, ``Model.init``, ``train_classifier``, the
+launchers) run on the card unless the caller passes ``device="cpu"``;
+asking for the card without one raises.
 
 The port imports ``torch`` and ``numpy``, never ``jax`` and nothing of
 ``repro``. The JAX-free modules it needs are verbatim copies of the
@@ -74,7 +89,8 @@ reference, with only their import paths changed (and, in
 change history):
 
 * ``configs/base.py`` and every ``configs/*.py`` data module;
-* ``data/tokenizer.py``;
+* ``data/tokenizer.py`` and ``data/pipeline.py`` (the synthetic LM data
+  the train launcher reads);
 * ``core/trust.py``, ``core/islands.py``, ``core/placeholder.py``,
   ``core/mist.py``, ``core/tide.py``, ``core/lighthouse.py`` and
   ``core/waves.py``;

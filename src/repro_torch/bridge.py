@@ -12,6 +12,10 @@ generic over a layer's leaves: an MoE layer's ``moe`` dict (the
 reference stacks its (E, d, f) experts to (G, E, d, f)), an MLA mixer,
 and the dense first layers (``head_{i}``) cross like any other.
 
+``opt_state_from_reference`` carries the reference's AdamW state (its
+``mu`` tree mirrors the reference's params) into the port's layout, so
+that a train step can resume from it and the tests can compare states.
+
 ``dense_cache_from_reference``/``dense_cache_to_reference`` do the same
 for a dense decode cache (the reference's ``init_cache`` tree, whose
 leaves sit under ``mixer``; the port's per-layer list of ``{"k", "v"}``
@@ -46,6 +50,9 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import effective_pattern
+# the leaves of a nested dict in ``jax.tree.leaves`` order (sorted keys,
+# depth first), and back
+from repro_torch.training.optim import tree_leaves, tree_unflatten
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -151,6 +158,40 @@ def _stack(trees):
             for k in first}
 
 
+def opt_state_from_reference(cfg, ref_state, device="cpu"):
+    """The reference's AdamW state (``{"mu": ..., "step": ...}``, numpy
+    leaves; ``mu`` mirrors its param tree with an ``{"m", "v"}`` dict at
+    every leaf) -> the port's (``mu`` mirroring the port's params), by
+    ``from_reference``'s layer order. A factored state (``vr``/``vc``) is
+    refused: the reference factors a pattern group's vectors across the
+    layers it stacks, and those statistics do not split by layer."""
+    mu = ref_state["mu"]
+    if any(k in ("vr", "vc") for k in _keys(mu)):
+        raise ValueError("opt_state_from_reference: a factored second "
+                         "moment does not split by layer")
+    top = {k: _map(v, lambda a: to_torch(a, device)) for k, v in mu.items()
+           if not (k.startswith(("head_", "tail_")) or k == "blocks")}
+    layers = []
+    for key, g in _layer_order(cfg, mu):
+        if g is None:
+            layers.append(_map(mu[key], lambda a: to_torch(a, device)))
+        else:
+            layers.append(_map(mu["blocks"][key],
+                               lambda a, g=g: to_torch(a[g], device)))
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"bridged {len(layers)} layers, config has "
+                         f"{cfg.num_layers}")
+    return {"mu": {**top, "layers": layers},
+            "step": to_torch(np.asarray(ref_state["step"]), device)}
+
+
+def _keys(tree):
+    for k, v in tree.items():
+        yield k
+        if isinstance(v, dict):
+            yield from _keys(v)
+
+
 def dense_cache_from_reference(cfg, ref_cache, device="cpu"):
     """The reference's dense cache tree (numpy leaves) -> the port's
     per-layer list of ``{"k", "v"}`` or ``{"conv", "h"}`` tensors."""
@@ -168,25 +209,6 @@ def dense_cache_to_reference(cfg, cache, like):
 # ------------------------------------------------------- migration payloads
 
 _INT_BITS = {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a nested dict in ``jax.tree.leaves`` order (sorted
-    keys, depth first)."""
-    if not isinstance(tree, dict):
-        return [tree]
-    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-
-
-def _unflatten(like, leaves):
-    it = iter(leaves)
-
-    def build(node):
-        if not isinstance(node, dict):
-            return next(it)
-        return {k: build(node[k]) for k in sorted(node)}
-
-    return build(like)
 
 
 def _payload_to_reference(cfg, arrays, like):
@@ -222,7 +244,7 @@ def page_data_from_reference(cfg, leaves, like) -> list:
     D) bf16) -> the port's raw-bits list (each layer's ``k_pages`` then
     ``v_pages``, (ps, Hkv, D) int16). ``like`` is the reference pool tree
     of one page."""
-    tree = _unflatten(like, leaves)
+    tree = tree_unflatten(like, leaves)
     out = []
     for key, g in _layer_order(cfg, like):
         mixer = _layer_of(tree, key, g)

@@ -44,7 +44,7 @@
 
 template <typename TQ, typename TKV, int DPL>
 static cudaError_t launch(const void* q, const void* k, const void* v,
-                          void* out, void* part_o, void* part_ml,
+                          void* out, void* part_o, void* part_ml, void* lse,
                           int n_split, int B, int Sq, int Sk, int H, int Hkv,
                           int causal, int window, int prefix, float scale,
                           cudaStream_t stream) {
@@ -55,14 +55,14 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
                                                 false, false>(
                                 q, k, v, rows, nullptr, out, part_o,
                                 part_ml, n_split, B, Sq, H, Hkv, Sk, 0, 0,
-                                scale, stream);
+                                scale, stream, lse);
     return window > 0
         ? launch_prefill_walk<TQ, TKV, DPL, DenseRows, true, true>(
               q, k, v, rows, nullptr, out, part_o, part_ml, n_split, B, Sq,
-              H, Hkv, Sk, window, prefix, scale, stream)
+              H, Hkv, Sk, window, prefix, scale, stream, lse)
         : launch_prefill_walk<TQ, TKV, DPL, DenseRows, true, false>(
               q, k, v, rows, nullptr, out, part_o, part_ml, n_split, B, Sq,
-              H, Hkv, Sk, 0, prefix, scale, stream);
+              H, Hkv, Sk, 0, prefix, scale, stream, lse);
 }
 
 template <typename TQ, typename TKV, int DPL>
@@ -79,19 +79,23 @@ static cudaError_t attrs(int causal, int window, int* out) {
 // for none, else >= 1 and causal; prefix >= 0 keys visible to every query
 // (a prefix-LM; 0 for none). n_split >= 1 key ranges; with more than
 // one, part_o (n_split, B, Sq, H, D) and part_ml (n_split, B, Sq, H, 2)
-// fp32 scratch. Returns the cudaError_t of the launches (0 = launched).
+// fp32 scratch. lse null, or (B, Sq, H) fp32 for each row's log-sum-exp
+// of its scaled scores (the backward's input, flash_attention_bwd.cu); it
+// changes no bit of out. Returns the cudaError_t of the launches (0 =
+// launched).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out,
                                       void* part_o, void* part_ml,
-                                      int n_split, int B, int Sq, int Sk,
-                                      int H, int Hkv, int D, int causal,
+                                      void* lse, int n_split, int B,
+                                      int Sq, int Sk, int H, int Hkv, int D,
+                                      int causal,
                                       int window, int prefix, float scale,
                                       int q_dtype, int kv_dtype,
                                       void* stream) {
     if (prefix < 0) return (int)cudaErrorInvalidValue;
     REPRO_DISPATCH_WIDE(launch, q_dtype, kv_dtype, D, q, k, v, out, part_o,
-                        part_ml, n_split, B, Sq, Sk, H, Hkv, causal, window,
-                        prefix, scale, (cudaStream_t)stream);
+                        part_ml, lse, n_split, B, Sq, Sk, H, Hkv, causal,
+                        window, prefix, scale, (cudaStream_t)stream);
 }
 
 // The walk instantiation's registers, dynamic shared memory bytes, local

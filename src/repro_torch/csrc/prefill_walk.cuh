@@ -124,7 +124,10 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 // are attended by every query. With n_split > 1, block
 // (.., .., b * n_split + s) walks range s of its q tile's key tiles and
 // writes part_o (n_split, B, T, H, D) and part_ml (n_split, B, T, H) of
-// (m, l) instead of out.
+// (m, l) instead of out. A non-null lse (B, T, H) fp32 takes each row's
+// log-sum-exp of its scaled scores, m + log(max(l, 1e-30)), where the row
+// is normalised (here unsplit, in the merge when split): K4's backward
+// reads it. A null lse writes nothing, and the output is the same.
 template <typename TQ, typename TKV, int DPL, typename Rows, bool CAUSAL,
           bool WINDOWED>
 __global__ void __launch_bounds__(PF_THREADS)
@@ -132,9 +135,9 @@ prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                     const TKV* __restrict__ v, Rows rows,
                     const int32_t* __restrict__ start_pos,
                     TQ* __restrict__ out, float* __restrict__ part_o,
-                    float2* __restrict__ part_ml, int n_split, int B, int T,
-                    int H, int Hkv, int cap, int window, int prefix,
-                    float scale) {
+                    float2* __restrict__ part_ml, float* __restrict__ lse,
+                    int n_split, int B, int T, int H, int Hkv, int cap,
+                    int window, int prefix, float scale) {
     constexpr int D = 32 * DPL;
     constexpr int KT = pf_kt<TKV, DPL>();
     constexpr int NT = KT / 8;          // 8-key n tiles of a score tile
@@ -350,6 +353,9 @@ prefill_walk_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
             for (int i = 0; i < DT; ++i)
                 store2(dst + i * 8, o[i][2 * half] * inv,
                        o[i][2 * half + 1] * inv);
+            if (lse != nullptr && tq == 0)
+                lse[((int64_t)b * T + t0 + tl) * H + h * G + g0 + g] =
+                    m + logf(fmaxf(l, 1e-30f));
         } else {
             const int64_t row =
                 (((int64_t)split * B + b) * T + t0 + tl) * H + h * G + g0 + g;
@@ -369,7 +375,7 @@ template <typename TQ, int DPL, typename Rows>
 __global__ void __launch_bounds__(256)
 prefill_merge_kernel(const float* __restrict__ part_o,
                      const float2* __restrict__ part_ml, TQ* __restrict__ out,
-                     int64_t nrows, int n_split) {
+                     float* __restrict__ lse, int64_t nrows, int n_split) {
     constexpr int D = 32 * DPL;
     const int64_t row = (int64_t)blockIdx.x * 8 + (threadIdx.x >> 5);
     const int lane = threadIdx.x & 31;
@@ -392,6 +398,7 @@ prefill_merge_kernel(const float* __restrict__ part_o,
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
         out[row * D + lane * DPL + e] = from_f32<TQ>(acc[e] * inv);
+    if (lse != nullptr && lane == 0) lse[row] = m + logf(fmaxf(l, 1e-30f));
 }
 
 // Query heads a block packs (of the G = H / Hkv that share a kv head) and
@@ -427,7 +434,8 @@ static cudaError_t launch_prefill_walk(const void* q, const void* k,
                                        int n_split, int B, int T, int H,
                                        int Hkv, int cap, int window,
                                        int prefix, float scale,
-                                       cudaStream_t stream) {
+                                       cudaStream_t stream,
+                                       void* lse = nullptr) {
     if (n_split < 1 || (n_split > 1 && (part_o == nullptr ||
                                         part_ml == nullptr)))
         return cudaErrorInvalidValue;
@@ -436,14 +444,14 @@ static cudaError_t launch_prefill_walk(const void* q, const void* k,
         prefill_walk_kernel<TQ, TKV, DPL, Rows, CAUSAL, WINDOWED>, grid,
         dim3(PF_THREADS), pf_smem<TKV, DPL>(), stream, (const TQ*)q,
         (const TKV*)k, (const TKV*)v, rows, (const int32_t*)start, (TQ*)out,
-        (float*)part_o, (float2*)part_ml, n_split, B, T, H, Hkv, cap,
-        window, prefix, scale);
+        (float*)part_o, (float2*)part_ml, (float*)lse, n_split, B, T, H, Hkv,
+        cap, window, prefix, scale);
     if (e != cudaSuccess || n_split == 1) return e;
     const int64_t nrows = (int64_t)B * T * H;
     prefill_merge_kernel<TQ, DPL, Rows>
         <<<(unsigned)((nrows + 7) / 8), 256, 0, stream>>>(
-            (const float*)part_o, (const float2*)part_ml, (TQ*)out, nrows,
-            n_split);
+            (const float*)part_o, (const float2*)part_ml, (TQ*)out,
+            (float*)lse, nrows, n_split);
     return cudaGetLastError();
 }
 

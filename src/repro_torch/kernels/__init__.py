@@ -1,10 +1,11 @@
-"""Hand-written Hopper kernels of the serving paths, with their plain
-PyTorch versions (``ref.py``).
+"""Hand-written Hopper kernels of the serving and training paths, with
+their plain PyTorch versions (``ref.py``).
 
 ``paged_attention.paged_decode_attention``,
 ``chunked_prefill.chunked_prefill_attention``,
 ``decode_attention.decode_attention``,
-``flash_attention.flash_attention``, ``ssd.ssd_chunk`` (Mamba-2's
+``flash_attention.flash_attention`` (and its backward,
+``flash_attention.flash_attention_bwd``), ``ssd.ssd_chunk`` (Mamba-2's
 SSD chunk pieces) and ``rglru.rglru_scan`` (the RG-LRU recurrence)
 launch CUDA C++ kernels (``csrc/*.cu``, built by ``_build`` at first
 use) for CUDA tensors and call their plain version for CPU tensors. There is no switch: the device of the tensors

@@ -20,7 +20,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("paged_attention", "chunked_prefill", "decode_attention",
-           "flash_attention", "ssd_chunk", "rglru_scan")
+           "flash_attention", "ssd_chunk", "rglru_scan",
+           "flash_attention_bwd")
 # the attention kernels' (K1-K4) compiled head_dim variants: those of the
 # configs the port runs (smollm-135m, musicgen-large 64; qwen3, glm4 128;
 # recurrentgemma-9b, paligemma-3b 256; their .reduced() widths 32)
@@ -91,6 +92,21 @@ def build_all(names=KERNELS):
             for n, log in failed.items() if log is not None]
     if logs:
         raise RuntimeError("\n".join(logs))
+
+
+def refuse_grad(name, tensors, when):
+    """Raise where autograd would differentiate kernel ``name``: a CUDA
+    launch fills its output through a raw pointer, so the output carries
+    no ``grad_fn`` and every gradient before it would be dropped without
+    a word. ``when`` says where its backward kernel comes, if anywhere.
+    The plain versions (CPU tensors) stay differentiable."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel on the card ({when}); an input "
+            f"requires grad, and its gradient would be dropped silently. "
+            f"Run it under torch.no_grad(), or train on the CPU")
 
 
 def check_paged_args(q, k_pages, v_pages, block_table, lens, q_rank):

@@ -45,6 +45,8 @@ def chunked_prefill_attention(q, k_pages, v_pages, block_table, start_pos,
     if q.device.type != "cuda":
         raise ValueError(f"chunked_prefill_attention: no kernel for device "
                          f"{q.device}")
+    _build.refuse_grad("chunked_prefill_attention", (q, k_pages, v_pages),
+                       "no training path differentiates it")
     qc, kc = _build.check_paged_args(q, k_pages, v_pages, block_table,
                                      start_pos, q_rank=4)
     if q.data_ptr() % 16:

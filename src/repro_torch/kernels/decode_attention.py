@@ -37,6 +37,8 @@ def decode_attention(q, k, v, valid_len, scale=None):
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device "
                          f"{q.device}")
+    _build.refuse_grad("decode_attention", (q, k, v),
+                       "no training path differentiates it")
     lens = torch.as_tensor(valid_len, device=q.device)
     if lens.dim() == 0:
         lens = lens.to(torch.int32).expand(B).contiguous()

@@ -41,6 +41,8 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, valid_lens,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
+    _build.refuse_grad("paged_decode_attention", (q, k_pages, v_pages),
+                       "no training path differentiates it")
     qc, kc = _build.check_paged_args(q, k_pages, v_pages, block_table,
                                      valid_lens, q_rank=3)
     out = torch.empty_like(q)

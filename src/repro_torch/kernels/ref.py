@@ -3,13 +3,15 @@
 Each function keeps the signature and the tensor layouts of the kernel it
 stands beside (``paged_attention.py``, ``chunked_prefill.py``,
 ``decode_attention.py``, ``flash_attention.py``, ``ssd.py``,
-``rglru.py``); the math is fp32 throughout. Attention masks with the
-finite ``NEG_INF``, so a fully masked position contributes an exact zero
-(``-inf - -inf`` would be NaN); the SSD decay masks with ``-inf`` before
-its exp, whose exact zero is what keeps the overflowing upper triangle
-out. ``ssd_full`` and ``ssd_carry`` add the inter-chunk recurrence
-(``models/ssm.py`` runs it). The wrappers call these for CPU tensors, and
-``chip_smoke.py`` holds each CUDA kernel against them on the card.
+``rglru.py``; ``flash_attention_bwd`` beside K4's backward, the second
+kernel of ``flash_attention.py``); the math is fp32 throughout. Attention
+masks with the finite ``NEG_INF``, so a fully masked position contributes
+an exact zero (``-inf - -inf`` would be NaN); the SSD decay masks with
+``-inf`` before its exp, whose exact zero is what keeps the overflowing
+upper triangle out. ``ssd_full`` and ``ssd_carry`` add the inter-chunk
+recurrence (``models/ssm.py`` runs it). The wrappers call these for CPU
+tensors, and ``chip_smoke.py`` holds each CUDA kernel against them on the
+card.
 """
 from __future__ import annotations
 
@@ -18,30 +20,75 @@ import torch
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
 
+def _prefill_mask(Sq, Sk, causal, window, prefix_len, device):
+    """(Sq, Sk) bool: query t may attend key j (None: every pair)."""
+    if not causal:
+        return None
+    kpos = torch.arange(Sk, device=device)[None, :]
+    qpos = torch.arange(Sq, device=device)[:, None]
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    if prefix_len:
+        mask = mask | (kpos < prefix_len)
+    return mask
+
+
 def flash_attention(q, k, v, scale, causal=True, window=None,
-                    prefix_len=0):
+                    prefix_len=0, return_lse=False):
     """q (B, Sq, H, D); k/v (B, Sk, Hkv, D), H a multiple of Hkv. Causal
     masking is aligned at the top left: query t attends keys 0..t, and
     with a local-attention ``window`` only keys t-window+1..t; keys below
     ``prefix_len`` (a prefix-LM's prefix) are visible to every query (the
-    reference's ``allowed_mask``: (causal and window) or key < prefix)."""
+    reference's ``allowed_mask``: (causal and window) or key < prefix).
+    With ``return_lse`` also the log-sum-exp of each row's scaled scores,
+    (B, Sq, H) fp32, which the backward reads."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     qg = q.reshape(B, Sq, Hkv, G, D).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    if causal:
-        kpos = torch.arange(Sk, device=q.device)[None, :]
-        qpos = torch.arange(Sq, device=q.device)[:, None]
-        mask = kpos <= qpos
-        if window:
-            mask &= kpos > qpos - window
-        if prefix_len:
-            mask = mask | (kpos < prefix_len)
+    mask = _prefill_mask(Sq, Sk, causal, window, prefix_len, q.device)
+    if mask is not None:
         s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, H, D).to(q.dtype)
+    o = o.reshape(B, Sq, H, D).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)                    # (B, Hkv, G, Sq)
+    return o, lse.permute(0, 3, 1, 2).reshape(B, Sq, H)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale, causal=True,
+                        window=None, prefix_len=0):
+    """The gradients (dq, dk, dv) of ``flash_attention`` at its output
+    ``o`` and log-sum-exp ``lse`` (B, Sq, H), for the output gradient
+    ``do`` (B, Sq, H, D), from the formulas: P = exp(S - lse) (S the
+    scaled scores, 0 where masked), dV = P^T dO, dP = dO V^T, D =
+    rowsum(dO * O), dS = P * (dP - D), dQ = scale dS K, dK = scale dS^T Q;
+    dK and dV sum the G query heads of each kv head. Each in its input's
+    dtype."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, Sq, Hkv, G, D).float()
+    dog = do.reshape(B, Sq, Hkv, G, D).float()
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    lse_g = lse.reshape(B, Sq, Hkv, G).permute(0, 2, 3, 1)[..., None]
+    p = torch.exp(s - lse_g)
+    mask = _prefill_mask(Sq, Sk, causal, window, prefix_len, q.device)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros_like(p))
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    dsum = (dog * o.reshape(B, Sq, Hkv, G, D).float()).sum(-1)
+    ds = p * (dp - dsum.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def decode_attention(q, k, v, valid_len, scale):

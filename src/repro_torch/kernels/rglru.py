@@ -49,6 +49,8 @@ def rglru_scan(a, b, h0=None):
         return ref.rglru_scan(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
+    _build.refuse_grad("rglru_scan", (a, b, h0),
+                       "its backward waits for ROADMAP P14b")
     _check_args(a, b, h0)
     if h0 is not None:
         h0 = h0.float().contiguous()

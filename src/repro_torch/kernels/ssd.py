@@ -85,6 +85,8 @@ def ssd_chunk(x, dt, a, B_, C_):
         return ref.ssd_chunk(x, dt, a, B_, C_)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
+    _build.refuse_grad("ssd_chunk", (x, dt, a, B_, C_),
+                       "its backward waits for ROADMAP P14b")
     _check_args(x, dt, a, B_, C_)
     Bsz, nc, Q, H, P = x.shape
     N = B_.shape[-1]

@@ -26,8 +26,8 @@ journal as Chrome-trace/Perfetto JSON: islands as processes, decode
 slots as tracks, migrations as flow arrows. Load it at ui.perfetto.dev
 or chrome://tracing.
 
-Not offered yet: the reference's ``--train-classifier`` (MIST's JAX
-stage-2 classifier).
+``--train-classifier`` first trains MIST's stage-2 classifier
+(``core.mist_model``) on ``--device`` and hands it to MIST.
 """
 from __future__ import annotations
 
@@ -45,7 +45,7 @@ from repro_torch.core.workload import healthcare_workload
 from repro_torch.serving.engine import InferenceEngine, LocalModelServer
 
 
-def build_mesh(policy=None, buffer="moderate"):
+def build_mesh(policy=None, buffer="moderate", classifier=None):
     reg = IslandRegistry()
     for isl in [
         personal_island("laptop", latency_ms=120, capacity_units=3.0,
@@ -59,7 +59,7 @@ def build_mesh(policy=None, buffer="moderate"):
         cloud_island("claude-api", privacy=0.5, cost=0.015, latency_ms=800),
     ]:
         reg.register(isl, reg.attestation_token(isl.island_id))
-    mist = MIST()
+    mist = MIST(classifier=classifier)
     tide = TIDE(reg, buffer=buffer)
     lh = Lighthouse(reg)
     for i in reg.all():
@@ -99,6 +99,8 @@ def main(argv=None):
                     help="paged-pool prefill policy: prefix-aware chunked "
                          "admission or the monolithic full-prompt dispatch "
                          "(--batched only)")
+    ap.add_argument("--train-classifier", action="store_true",
+                    help="train the MIST stage-2 classifier first")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write the request-span journal as Chrome-trace/"
                          "Perfetto JSON (implies --batched; operator-view "
@@ -108,7 +110,14 @@ def main(argv=None):
         print("--trace implies --batched: enabling the tick orchestrator")
         args.batched = True
 
-    reg, waves = build_mesh(Policy(mode=args.mode), args.buffer)
+    clf = None
+    if args.train_classifier:
+        from repro_torch.core.mist_model import train_classifier
+        clf = train_classifier(seed=args.seed, device=args.device)
+        print(f"MIST stage-2 classifier trained "
+              f"(train acc {clf.train_accuracy:.3f})")
+
+    reg, waves = build_mesh(Policy(mode=args.mode), args.buffer, clf)
     cfg = get_config(args.arch).reduced()
     wl = healthcare_workload(args.requests, seed=args.seed)
     tracer = None

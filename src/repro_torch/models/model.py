@@ -35,6 +35,7 @@ recurrentgemma-9b's are windowed.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention, mla, rglru, ssm
 from repro_torch.models.layers import (PSpec, init_params, rms_norm,
@@ -119,6 +120,20 @@ class Model:
         return _layer_table(self.cfg, self.block_types[idx],
                             _layer_uses_moe(self.cfg, idx))
 
+    def layer_spans(self):
+        """[(lo, hi, grouped)]: the layers in depth order as the reference
+        segments them (``repro/models/model.py:60-69``): each head layer
+        alone, each repeating pattern group (``grouped``: the reference
+        stacks these along a leading dim and scans them), each tail layer
+        alone."""
+        n0, L, P = self.cfg.first_dense_layers, self.cfg.num_layers, \
+            len(self.pattern)
+        n_groups = (L - n0) // P
+        end = n0 + n_groups * P
+        return ([(i, i + 1, False) for i in range(n0)]
+                + [(lo, lo + P, True) for lo in range(n0, end, P)]
+                + [(i, i + 1, False) for i in range(end, L)])
+
     def cache_spec(self, batch, max_len):
         """Per layer, {name: shape} of the dense decode cache; attention
         layers hold ``min(cfg.attn_window, max_len)`` slots when
@@ -188,14 +203,37 @@ class Model:
             x = x + swiglu_apply(p["mlp"], rms_norm(x, p["mlp"]["ln"]))
         return x, cache, aux
 
+    def _run_layers(self, lo, hi, layers, x, positions, mode, cache,
+                    block_table, dst_page):
+        """Layers lo..hi-1 (``layers`` their params): (x, summed aux or
+        None)."""
+        aux_total = None
+        for i, lp in zip(range(lo, hi), layers):
+            c = cache[i] if cache is not None else None
+            x, c, aux = self._apply_layer(self.block_types[i], lp, x,
+                                          positions, mode, c, block_table,
+                                          dst_page)
+            if cache is not None:
+                cache[i] = c
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return x, aux_total
+
     def forward(self, params, *, tokens=None, embeddings=None, mode="full",
                 cache=None, pos=None, block_table=None, dst_page=None,
-                return_aux=False):
+                return_aux=False, remat=False, triangular=True):
         """Returns (logits, cache); ``cache`` is the list of per-layer
         cache dicts, updated in place, or None. With ``return_aux``,
         (logits, cache, aux): the fp32 sum of every MoE layer's
         load-balance loss (the reference's ``aux_total``; 0 without MoE
         layers).
+
+        ``remat`` recomputes each repeating pattern group in the backward
+        (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of
+        its scanned group body), so a group's activations are not kept.
+        ``triangular`` is the reference's switch between its attention
+        paths; it changes nothing here: K4 skips the key tiles its mask
+        hides at every length.
 
         mode='full': tokens (B, S) and/or embeddings (B, P, d) — a
         frontend's precomputed embeddings, alone or placed before the
@@ -231,13 +269,15 @@ class Model:
         else:
             positions = pos
         aux_total = None
-        for i, lp in enumerate(params["layers"]):
-            c = cache[i] if cache is not None else None
-            x, c, aux = self._apply_layer(self.block_types[i], lp, x,
-                                          positions, mode, c, block_table,
-                                          dst_page)
-            if cache is not None:
-                cache[i] = c
+        layers = params["layers"]
+        for lo, hi, grouped in self.layer_spans():
+            args = (lo, hi, layers[lo:hi], x, positions, mode, cache,
+                    block_table, dst_page)
+            if remat and grouped:
+                x, aux = checkpoint(self._run_layers, *args,
+                                    use_reentrant=False)
+            else:
+                x, aux = self._run_layers(*args)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         x = rms_norm(x, params["final_norm"])

@@ -1,9 +1,18 @@
-"""Step functions of the serving paths.
+"""Step functions: the train step and the serving paths' steps.
 
-Port of the serving builders of ``repro/models/steps.py``. The reference
-jits each step and donates the cache; here each step is a plain function
-that runs eagerly on the device of its tensors and updates the cache (a
-dense cache or the pool pages), ``last_tok`` and ``gen_buf`` in place.
+Port of ``repro/models/steps.py``. The reference jits each step and
+donates the cache; here each step is a plain function that runs eagerly
+on the device of its tensors and updates the cache (a dense cache or the
+pool pages), ``last_tok`` and ``gen_buf`` in place.
+
+Training (``cross_entropy``, ``loss_fn``, ``make_train_step``): the loss
+of ``Model.forward(mode="full")`` differentiated by autograd, the
+attention through K4 and its backward kernel (``kernels.flash_attention``)
+where the reference's ``jax.value_and_grad`` differentiates XLA's
+attention. The train step updates the parameters and the AdamW state in
+place (``training.optim.apply_updates_``): one copy of each, where the
+reference returns new arrays. The reference's ``shard`` of the batch is
+the identity without a mesh and is left out.
 
 Device-resident sampling state (``last_tok`` (num_slots + 1,),
 ``gen_buf`` (num_slots + 1, max_len)) carries ONE extra row at index
@@ -17,6 +26,103 @@ from __future__ import annotations
 import torch
 
 from repro_torch.serving.sampling import sample
+from repro_torch.training import optim as _optim
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token cross-entropy in fp32. labels (B,S); mask optional."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(model, params, batch, remat=False):
+    """(loss, {"ce", "aux"}) of a batch dict of tensors: ``tokens`` and
+    ``labels`` (B, S); an audio frontend's ``embeddings`` (B, S, d) in
+    place of the tokens, a vision frontend's (B, P, d) before them, with
+    no loss on that prefix; an optional ``mask``. The loss is the
+    next-token cross-entropy plus ``router_aux_coef`` times the summed
+    MoE load-balance loss."""
+    cfg = model.cfg
+    kw = {}
+    if cfg.frontend == "audio":
+        kw["embeddings"] = batch["embeddings"]
+    elif cfg.frontend == "vision":
+        kw["embeddings"] = batch["embeddings"]
+        kw["tokens"] = batch["tokens"]
+    else:
+        kw["tokens"] = batch["tokens"]
+    logits, _, aux = model.forward(params, mode="full", remat=remat,
+                                   triangular=False, return_aux=True, **kw)
+    labels = batch["labels"]
+    P = logits.shape[1] - labels.shape[1]
+    if P > 0:  # vlm: no loss on the image prefix
+        logits = logits[:, P:]
+    loss = cross_entropy(logits[:, :-1], labels[:, 1:], batch.get("mask"))
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"ce": loss, "aux": aux}
+
+
+def value_and_grad(model, params, batch, remat=False):
+    """(loss, {"ce", "aux"}, grads): the loss of ``loss_fn`` and its
+    gradient with respect to every parameter, a tree like ``params``
+    (zeros for a parameter the loss does not read, as ``jax.grad``
+    gives). ``params`` is not changed and needs no ``requires_grad``."""
+    live = _optim.tree_map(lambda p: p.detach().requires_grad_(True),
+                           params)
+    leaves = _optim.tree_leaves(live)
+    with torch.enable_grad():
+        loss, parts = loss_fn(model, live, batch, remat=remat)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = _optim.tree_unflatten(live, [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(leaves, grads)])
+    return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+
+def reference_ranks(model, params):
+    """The rank each parameter has in the reference's layout, a tree like
+    ``params``: a layer of a repeating pattern group is stacked there
+    along a leading dim, one more than the port's per-layer tensor
+    (``training.optim`` decays leaves of rank 2 or more)."""
+    grouped = {i for lo, hi, g in model.layer_spans() if g
+               for i in range(lo, hi)}
+    out = {k: _optim.tree_map(lambda p: p.dim(), v)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = [_optim.tree_map(lambda p, e=int(i in grouped):
+                                     p.dim() + e, lp)
+                     for i, lp in enumerate(params["layers"])]
+    return out
+
+
+def make_train_step(model, opt_cfg: _optim.AdamWConfig, remat=True):
+    """train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): one AdamW step on the gradient of ``loss_fn``, written into
+    ``params`` and ``opt_state`` in place (both returned; the parameters
+    never require grad, so the serving paths can take them as they are).
+    ``metrics``: ``loss``, ``ce``, ``aux``, ``lr`` and ``grad_norm``,
+    0-d tensors on the parameters' device. The factored second moment is
+    refused: the reference factors a grouped layer's vectors across the
+    layers it stacks, which the port's per-layer tensors do not hold."""
+    if opt_cfg.factored:
+        raise ValueError("make_train_step: the factored second moment "
+                         "spans a pattern group's stacked layers in the "
+                         "reference; the port keeps one tensor a layer "
+                         "and does not train with it")
+
+    def train_step(params, opt_state, batch):
+        loss, parts, grads = value_and_grad(model, params, batch, remat)
+        params, opt_state, stats = _optim.apply_updates_(
+            opt_cfg, params, grads, opt_state,
+            ranks=reference_ranks(model, params))
+        return params, opt_state, {"loss": loss, **parts, **stats}
+
+    return train_step
 
 
 def make_prefill_step(model):

@@ -33,7 +33,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "serving.session", "core.carbon", "core.audit",
                 "core.tracegen", "core.workload", "launch.serve",
                 "obs.trace", "obs.export", "obs.profile", "privacy",
-                "privacy.adversary", "privacy.leakage"):
+                "privacy.adversary", "privacy.leakage", "data.pipeline",
+                "training.optim", "checkpoint", "models.steps",
+                "launch.train", "core.mist_model"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
@@ -67,6 +69,7 @@ COPIES = ["data/tokenizer.py", "core/trust.py", "core/islands.py",
           "obs/trace.py", "obs/export.py", "core/carbon.py", "core/audit.py",
           "serving/session.py"]
 COPIES.append("privacy/leakage.py")
+COPIES.append("data/pipeline.py")
 
 
 def test_copied_modules_match_the_reference():

@@ -42,6 +42,20 @@ without a window, split and unsplit, fp32 and bf16; keys past every
 early query's causal end and the prefix are never used, and the prefix
 walk repeats bit for bit.
 
+K4's backward (``flash_attention_bwd``, ``csrc/flash_attention_bwd.cu``)
+runs against ``ref.flash_attention_bwd`` on the same q, k, v, output,
+log-sum-exp and output gradient: causal, full, windows of 1, 33, 100 and
+512, prefixes of 33, 256 and 5,000 (past the prompt), a window with a
+prefix, head_dim 32/64/128/256, G 1 to 16, Sq != Sk both ways and ragged
+S (65, 127, 130, 257, 300, 1000); each gradient holds to 1e-4 of its
+largest magnitude (fp32 FMA sums against the plain version's einsums),
+and repeated launches give the same bits (no float atomics). Through
+autograd (``FlashAttention``) the forward and the backward launch once
+each; K4's forward with its ``lse`` output gives the same bits in ``out``
+as without it, split or not, and an ``lse`` within 1e-5 of the plain
+version's; K1-K3, K5 and K6 raise under autograd on CUDA tensors rather
+than drop a gradient.
+
 The RG-LRU scan (``rglru_scan``, K6) runs ragged S and C, with and
 without h0, fp32 and bf16 inputs, at recurrentgemma-9b's prefill width
 (C 4096), through both of its copy paths (16-byte chunks where C and the
@@ -70,7 +84,9 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels import ssd as ssd_mod
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.kernels.ssd import error_bound, ssd_chunk
@@ -1128,3 +1144,171 @@ def test_mla_apply_on_the_card_matches_the_cpu(card, decode_mode):
     for a, b in zip(ycard, ycpu):
         torch.testing.assert_close(a, b, **BLOCK_TOL)
     torch.testing.assert_close(ccard, ccpu, rtol=2 ** -7, atol=1e-4)
+
+
+# ------------------------------------------------------------ K4 backward
+
+# (B, Sq, Sk, H, Hkv, D, causal, window, prefix)
+BWD_CASES = [
+    (2, 127, 127, 9, 3, 64, True, None, 0),      # smollm heads, ragged
+    (1, 2048, 2048, 9, 3, 64, True, None, 0),    # smollm's S 2048
+    (1, 65, 65, 4, 4, 32, True, None, 0),        # D 32, G 1, one past a tile
+    (1, 300, 300, 32, 8, 128, True, None, 0),    # qwen3-4b, G 4
+    (1, 80, 80, 32, 2, 64, True, None, 0),       # G 16
+    (2, 512, 512, 8, 1, 256, True, None, 256),   # paligemma-3b: prefix 256
+    (1, 300, 300, 8, 1, 256, True, None, 33),    # a prefix inside a tile
+    (1, 300, 300, 4, 2, 64, True, None, 5000),   # prefix past the prompt
+    (1, 1000, 1000, 16, 1, 256, True, 512, 0),   # recurrentgemma, window
+    (1, 200, 200, 6, 3, 64, True, 1, 0),         # window of 1
+    (1, 130, 130, 6, 3, 64, True, 33, 0),        # a ragged window
+    (1, 257, 257, 8, 2, 128, True, 100, 40),     # window and prefix
+    (2, 100, 37, 8, 2, 64, False, None, 0),      # full, Sk < Sq
+    (1, 70, 200, 6, 3, 64, True, None, 0),       # causal, Sk > Sq
+    (1, 200, 70, 6, 3, 64, True, None, 0),       # causal, Sq > Sk
+]
+
+
+def _bwd_inputs(card, seed, B, Sq, Sk, H, Hkv, D, causal, window, prefix):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(B, Sq, H, D, generator=g, device=card)
+    k, v = (torch.randn(B, Sk, Hkv, D, generator=g, device=card)
+            for _ in range(2))
+    do = torch.randn(B, Sq, H, D, generator=g, device=card)
+    o, lse = ref.flash_attention(q, k, v, D ** -0.5, causal, window, prefix,
+                                 return_lse=True)
+    return q, k, v, o.contiguous(), lse.contiguous(), do
+
+
+def _close_grad(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item() + 1e-6, err
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,D,causal,window,prefix", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(card, B, Sq, Sk, H, Hkv, D, causal,
+                                        window, prefix):
+    args = _bwd_inputs(card, Sq + Sk + D, B, Sq, Sk, H, Hkv, D, causal,
+                       window, prefix)
+    mask = (D ** -0.5, causal, window, prefix)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd(*args, *mask)
+    assert flash_attention_bwd.launches == n0 + 1
+    want = ref.flash_attention_bwd(*args, *(mask[:2]),
+                                   window if window and window < Sq
+                                   else None, prefix)
+    for a, b in zip(got, want):
+        _close_grad(a, b)
+
+
+def test_flash_bwd_kernel_is_deterministic(card):
+    args = _bwd_inputs(card, 21, 2, 512, 512, 8, 1, 256, True, None, 256)
+    first = flash_attention_bwd(*args, 256 ** -0.5, True, None, 256)
+    again = flash_attention_bwd(*args, 256 ** -0.5, True, None, 256)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_autograd_launches_both_kernels(card, dt):
+    """Through autograd K4 runs once forward (with its lse) and its
+    backward once, and the gradients are the plain backward's."""
+    q, k, v, _, _, do = _bwd_inputs(card, 22, 2, 300, 300, 9, 3, 64, True,
+                                    None, 0)
+    q, k, v = (t.to(dt).requires_grad_(True) for t in (q, k, v))
+    f0, b0 = flash_attention.launches, flash_attention_bwd.launches
+    out = flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), do.to(dt))
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        f0 + 1, b0 + 1)
+    qf, kf, vf = (t.detach().float() for t in (q, k, v))
+    o, lse = ref.flash_attention(qf, kf, vf, 64 ** -0.5, True,
+                                 return_lse=True)
+    want = ref.flash_attention_bwd(qf, kf, vf, out.detach().float(), lse,
+                                   do.to(dt).float(), 64 ** -0.5)
+    for a, b in zip(got, want):
+        assert a.dtype == dt
+        if dt == torch.float32:
+            _close_grad(a, b)
+        else:   # one bf16 rounding of each gradient
+            err = (a.float() - b).abs().max().item()
+            assert err <= 1e-2 * b.abs().max().item(), err
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,prefix", [
+    (1, 64, 4, 2, 64, None, 0),         # a short prompt: split walk
+    (8, 2048, 9, 3, 64, None, 0),       # smollm's train shape: unsplit
+    (2, 512, 8, 1, 256, None, 256),     # paligemma's prefix
+    (1, 1000, 16, 1, 256, 512, 0),      # a window
+])
+def test_flash_lse_output_changes_no_bit(card, B, S, H, Hkv, D, window,
+                                         prefix):
+    g = torch.Generator(device=card).manual_seed(S + D)
+    q = torch.randn(B, S, H, D, generator=g, device=card)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=card)
+            for _ in range(2))
+    plain = flash_attention(q, k, v, window=window, prefix_len=prefix)
+    split = flash_attention.last_split
+    out, lse = fa_mod._forward(q, k, v, D ** -0.5, True, window, prefix,
+                               True)
+    assert flash_attention.last_split == split
+    assert torch.equal(out, plain)
+    _, want = ref.flash_attention(q, k, v, D ** -0.5, True, window, prefix,
+                                  return_lse=True)
+    torch.cuda.synchronize()
+    assert (lse - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def _refusing_calls(card):
+    g = torch.Generator(device=card).manual_seed(23)
+    r = lambda *s: torch.randn(*s, generator=g, device=card)
+    pages = r(8, 16, 2, 64)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=card)
+    lens = torch.full((2,), 5, dtype=torch.int32, device=card)
+    return {
+        "paged_decode_attention": lambda q: paged_decode_attention(
+            q(2, 4, 64), pages, pages, bt, lens),
+        "chunked_prefill_attention": lambda q: chunked_prefill_attention(
+            q(2, 16, 4, 64), pages, pages, bt,
+            torch.zeros(2, dtype=torch.int32, device=card)),
+        "decode_attention": lambda q: decode_attention(
+            q(2, 4, 64), r(2, 32, 2, 64), r(2, 32, 2, 64), lens),
+        "ssd_chunk": lambda q: ssd_chunk(
+            q(1, 1, 16, 2, 16), r(1, 1, 16, 2).abs(), -torch.ones(
+                2, device=card), r(1, 1, 16, 16), r(1, 1, 16, 16)),
+        "rglru_scan": lambda q: rglru_scan(q(1, 8, 32), r(1, 8, 32)),
+    }
+
+
+@pytest.mark.parametrize("name", ["paged_decode_attention",
+                                  "chunked_prefill_attention",
+                                  "decode_attention", "ssd_chunk",
+                                  "rglru_scan"])
+def test_kernels_without_backward_refuse_autograd(card, name):
+    """A CUDA launch fills its output through a raw pointer (no grad_fn):
+    under autograd the wrapper raises instead of dropping the gradient,
+    and under no_grad it launches as before."""
+    call = _refusing_calls(card)[name]
+    g = torch.Generator(device=card).manual_seed(24)
+    leaf = lambda *s: torch.randn(*s, generator=g,
+                                  device=card).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        call(leaf)
+    with torch.no_grad():
+        call(leaf)
+
+
+def test_flash_bwd_head_split_matches_the_unsplit_walk(card, monkeypatch):
+    """paligemma's one kv head leaves the dK/dV grid short of the card:
+    its 8 query heads split across blocks, merged in group order, give the
+    unsplit walk's gradients within 1e-4 of their largest (the heads sum in
+    another grouping) and dQ bit for bit."""
+    args = _bwd_inputs(card, 25, 2, 512, 512, 8, 1, 256, True, None, 256)
+    split = flash_attention_bwd(*args, 256 ** -0.5, True, None, 256)
+    assert flash_attention_bwd.last_split == 8
+    monkeypatch.setattr(fa_mod, "bwd_split", lambda blocks, G, sms: 1)
+    whole = flash_attention_bwd(*args, 256 ** -0.5, True, None, 256)
+    assert flash_attention_bwd.last_split == 1
+    assert torch.equal(split[0], whole[0])
+    for a, b in zip(split[1:], whole[1:]):
+        _close_grad(a, b)
