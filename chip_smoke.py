@@ -8,8 +8,9 @@ Phases (each raises on failure, and the script then exits non-zero):
 1. device: the card's name and power limit (nvidia-smi) and torch's view;
    TF32 is switched off for matmuls and convolutions, so every fp32
    product runs in full fp32;
-2. build: the seven hand-written CUDA kernels (``src/repro_torch/csrc``:
-   K1-K6 and K4's backward), one nvcc per source, in parallel;
+2. build: the nine hand-written CUDA kernels (``src/repro_torch/csrc``:
+   K1-K6 and the backward kernels of K4, K5 and K6), one nvcc per source,
+   in parallel;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the shapes its serving path gives it (smollm-135m heads: H 9, Hkv 3,
    D 64), and K3/K4 also at qwen3-4b's head geometry (H 32, Hkv 8, D 128),
@@ -38,11 +39,21 @@ Phases (each raises on failure, and the script then exits non-zero):
    K4's backward (``flash_attention_bwd``) against
    ``ref.flash_attention_bwd`` at the train group's shapes (causal at
    smollm's heads, B 8 x S 2048; paligemma's 256-token prefix at its
-   heads, B 2 x S 512; a window of 512 at recurrentgemma's heads, S
-   2048), each gradient within ``BWD_TOL`` of its largest, with its
+   heads, B 2 x S 512; recurrentgemma's train step, B 1 x S 2048 with
+   its window of 2048 (the causal walk), and a window of 512 at its
+   heads), each gradient within ``BWD_TOL`` of its largest, with its
    device ms (CUDA events), the plain version's, SDPA's forward and
    backward through autograd (a yardstick) and its bound (2.5x the
-   forward's flops at the TF32 rate), under K4's ``backward`` entry;
+   forward's flops at the TF32 rate), a row of its own; K5's backward
+   (``ssd_chunk_bwd``) against ``ref.ssd_chunk_bwd`` at mamba2-370m's
+   train shape (8 x 2,048 tokens: 64 chunks of 256; K5's forward held to
+   ``kernels.ssd.error_bound`` there first, and its cum fed on), each
+   gradient within ``kernels.ssd.bwd_error_bound`` and two launches
+   bit-equal, with its
+   five passes' attributes and times; K6's backward (``rglru_scan_bwd``)
+   bit-equal to ``ref.rglru_scan_bwd`` at recurrentgemma-9b's train shape
+   (1 x 2,048, C 4,096), each with device ms, the plain version's and its
+   bound (bytes over HBM; no single PyTorch call computes either);
 4. serving paths, each on the quickstart mesh (laptop 6 slots, phone 1,
    home-nas 8) serving smollm-135m at its full published widths with
    seeded random weights through ``TickOrchestrator``, the launch counters
@@ -194,7 +205,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    card-vs-CPU replay on the stacked batcher at a 2-layer cut (the dense
    layer 0 and one MLA+MoE layer at full widths and vocabulary, 4.3 GB
    of fp32);
-11. P14a, training, last, after a ``gc.collect()`` (the memory still
+11. P14a and P14b, training, last, after a ``gc.collect()`` (the memory still
    allocated is read out first): the train launcher
    (``repro_torch.launch.train``: ``SyntheticLM``, AdamW, the cosine
    schedule, checkpoints) at smollm-135m's full width, 20 steps of 8 x
@@ -210,13 +221,23 @@ Phases (each raises on failure, and the script then exits non-zero):
    launcher (MoE and its aux loss under autograd); one step's loss,
    gradient norm and every gradient leaf on the card and on the CPU at a
    2-layer cut of smollm and of paligemma (full widths and vocabulary),
-   within ``TRAIN_*_TOL``; mamba2-370m and recurrentgemma-9b
-   (``.reduced()``), whose train step must raise at K5 and K6 (no
-   backward kernel yet) and leave the weights as they were; and MIST's
-   stage-2 classifier trained on the card and on the CPU, to the same
-   classes. Each train reading gives step ms, tokens/s, peak memory and
-   the model-flops share of 67 TFLOP/s fp32 beside the card's name and
-   power limit.
+   within ``TRAIN_*_TOL``; then P14b: mamba2-370m at full width and
+   depth (368 M parameters), 8 launcher steps of 8 x 2,048 tokens with
+   remat (K5 twice and its backward once a layer a step, no other
+   kernel), the loss falling, and one step's gradient with and without
+   remat at 2 x 2,048 (bit-equality read out); recurrentgemma-9b cut to
+   its first 8 layers (2.64 B parameters, every width), 5 launcher steps
+   of 1 x 2,048 with remat at lr 3e-4 (K6 and its backward on the 6
+   RG-LRU layers, K4 and its backward on the 2 attention layers, the
+   forwards of the 6 layers of its two pattern groups twice); the
+   card-vs-CPU step at a 2-layer cut of mamba2 and one pattern cycle of
+   recurrentgemma (full widths and vocabulary) within ``TRAIN_*_TOL``;
+   K1-K3 under autograd on the card, each of which must raise rather
+   than drop a gradient; and
+   MIST's stage-2 classifier trained on the card and on the CPU, to the
+   same classes. Each train reading gives step ms, tokens/s, peak memory
+   and the model-flops share of 67 TFLOP/s fp32 beside the card's name
+   and power limit.
 
 The profile phases read the device spans from the profiler's raw
 events (parsing them into host-op trees takes ~60 s a main path run);
@@ -616,8 +637,10 @@ def bwd_kernel_rows(dev, gen):
     against ``ref.flash_attention_bwd`` on the card at the train group's
     shapes: causal at smollm-135m's heads (B 8, S 2048: the train step's
     K4 launches), paligemma-3b's 256-token prefix at its heads (B 2, S
-    512) and a window of 512 at recurrentgemma-9b's heads (S 2048). Each
-    gradient holds to BWD_TOL of its largest magnitude. Device ms (CUDA
+    512), recurrentgemma-9b's train step (B 1, S 2048, its window of 2048
+    covering every key, so the wrapper takes the causal walk) and a
+    window of 512 at its heads (S 2048). Each gradient holds to BWD_TOL
+    of its largest magnitude. Device ms (CUDA
     events) of the kernel, the plain version and SDPA's forward and
     backward through autograd (a yardstick the port never calls); the
     least time is the backward's flops, 2.5x the forward's over the pairs
@@ -635,6 +658,9 @@ def bwd_kernel_rows(dev, gen):
             ("prefix_S512", "paligemma-3b train step (B 2, S 512, 8 on 1 "
                             "heads, D 256), prefix 256",
              dict(B=2, S=512, H=8, Hkv=1, D=256, prefix=256)),
+            ("window_2048", "recurrentgemma-9b train step (B 1, S 2048, "
+                            "16 on 1 heads, D 256), window 2048 (causal)",
+             dict(S=2048, H=16, Hkv=1, D=256, window=2048)),
             ("window_512", "recurrentgemma-9b heads (S 2048, 16 on 1, D "
                            "256), window 512",
              dict(S=2048, H=16, Hkv=1, D=256, window=512))):
@@ -768,6 +794,37 @@ def pass_ms(fn, kernels, reps=20):
     return out
 
 
+def hold_ssd_chunk(args, label):
+    """K5's four outputs on ``args`` against the plain version's, each
+    within ``kernels.ssd.error_bound``, and cum bit-equal (both sides sum
+    it in order in fp32: ``ref.prefix_sum``). Returns (the kernel's
+    outputs, the largest gap, the largest gap over its bound, the cum
+    gap dc)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import error_bound, ssd_chunk
+    got = ssd_chunk(*args)
+    want = ref.ssd_chunk(*args)
+    torch.cuda.synchronize()
+    bounds, dc = error_bound(*args, got[3], want[3])
+    err, ratio = 0.0, 0.0
+    for name, g, w, b in zip(("y_intra", "state", "decay", "cum"), got, want,
+                             bounds):
+        gap = (g - w).abs()
+        if not torch.isfinite(g).all() or bool((gap > b).any()):
+            raise AssertionError(
+                f"ssd_chunk {name} ({label}): max gap {float(gap.max())} "
+                f"exceeds its bound (max gap/bound "
+                f"{float((gap / b).max())})")
+        err = max(err, float(gap.max()))
+        ratio = max(ratio, float((gap / b).max()))
+    if not torch.equal(got[3], want[3]):
+        raise AssertionError(f"ssd_chunk cum ({label}) is not bit-equal to "
+                             f"the plain version's")
+    return got, err, ratio, dc
+
+
 def ssd_kernel_rows(dev, gen):
     """K5 against its plain version at mamba2-370m's prefill shapes: six
     chunks of 256 (a ~1,500-token note) and one ragged chunk of 37 (a
@@ -778,31 +835,12 @@ def ssd_kernel_rows(dev, gen):
     import torch
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd import error_bound, kernel_attrs, ssd_chunk
+    from repro_torch.kernels.ssd import kernel_attrs, ssd_chunk
     row = None
     for nc, Q in ((6, 256), (1, 37)):
         args, nbytes, flops = ssd_case(dev, gen, nc, Q)
-        got = ssd_chunk(*args)
-        want = ref.ssd_chunk(*args)
-        torch.cuda.synchronize()
-        bounds, dc = error_bound(*args, got[3], want[3])
-        err, ratio = 0.0, 0.0
-        for name, g, w, b in zip(("y_intra", "state", "decay", "cum"),
-                                 got, want, bounds):
-            gap = (g - w).abs()
-            if not torch.isfinite(g).all() or bool((gap > b).any()):
-                raise AssertionError(
-                    f"ssd_chunk {name} (nc {nc}, Q {Q}): max gap "
-                    f"{float(gap.max())} exceeds its bound "
-                    f"(max gap/bound {float((gap / b).max())})")
-            err = max(err, float(gap.max()))
-            ratio = max(ratio, float((gap / b).max()))
-        # both sides sum cum in order in fp32 (torch.cumsum along a
-        # non-innermost dimension is a serial loop on the card)
-        if not torch.equal(got[3], want[3]):
-            raise AssertionError(f"ssd_chunk cum (nc {nc}, Q {Q}) is not "
-                                 f"bit-equal to the plain version's")
-        del got, want, bounds
+        got, err, ratio, dc = hold_ssd_chunk(args, f"nc {nc}, Q {Q}")
+        del got
         n = max(2, min(NCOPY, int(3 * L2_BYTES // nbytes) + 1))
         copies = [tuple(t.clone() for t in args) for _ in range(n)]
         kms = graph_ms([lambda c=c: ssd_chunk(*c) for c in copies])
@@ -894,6 +932,160 @@ def rglru_kernel_rows(dev, gen):
               "wrapper_host_us": host_us(lambda: rglru_scan(*args))})
         row = row or r
         del args
+    return row
+
+
+# the train shapes of the two scan families: mamba2-370m's 8 x 2,048
+# tokens (64 chunks of 256, H 32, P 64, N 128) and recurrentgemma-9b's
+# 1 x 2,048 at lru_width 4,096
+SSD_TRAIN = dict(Bsz=8, nc=8, Q=256, H=32, P=64, N=128)
+RGLRU_TRAIN = dict(B=1, S=2048, C=4096)
+
+
+def ssd_bwd_case(dev, gen, Bsz, nc, Q, H, P, N):
+    """K5's backward at a mamba2-370m train step: the forward's inputs at
+    the model's init (``ssd_case``'s draws, ``Bsz`` rows), the cum that K5
+    saves there (its forward held to the plain version first,
+    ``hold_ssd_chunk``), and unit-normal gradients of its four outputs. Bytes: every input read
+    once (x, dt, a, B, C, cum and the four gradients) and every output
+    written once (gx, gdt, ga, gB, gC). Flops, over the causal pairs
+    (Q(Q+1)/2 a chunk): G = gy.x^T and M^T.gy per head, the scores C.B^T
+    and the two head-summed products S_bar.B and S_bar^T.C once a chunk,
+    and per head the state's products B.gstate^T and (w x)^T.gstate."""
+    import torch
+    (x, dt, a, B_, C_), _, _ = ssd_case(dev, gen, Bsz * nc, Q, H, P, N)
+    x, dt, B_, C_ = (t.reshape(Bsz, nc, *t.shape[2:]).contiguous()
+                     for t in (x, dt, B_, C_))
+    out, err, ratio, dc = hold_ssd_chunk(
+        (x, dt, a, B_, C_), f"the train shape {Bsz} x {nc} x {Q}")
+    cum = out[3]
+    del out
+    emit({"phase": "kernel ssd_chunk train shape",
+          "shape_x": list(x.shape), "max_abs_err": err,
+          "max_gap_over_bound": ratio, "cum_gap": float(dc.max()),
+          "cum_bit_equal": True, "tolerance": "kernels.ssd.error_bound"})
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    grads = (rn(*x.shape), rn(Bsz, nc, H, P, N), rn(Bsz, nc, H),
+             rn(*dt.shape))
+    args = (x, dt, a, B_, C_, cum, *grads)
+    n_in = sum(t.numel() for t in args)
+    n_out = x.numel() + dt.numel() + a.numel() + B_.numel() + C_.numel()
+    pairs = Q * (Q + 1) // 2
+    BC = Bsz * nc
+    flops = 2 * BC * (2 * H * pairs * P + 3 * pairs * N + 2 * H * Q * P * N)
+    return args, 4 * (n_in + n_out), flops
+
+
+def ssd_bwd_kernel_rows(dev, gen):
+    """K5's backward (``ssd_chunk_bwd``, csrc/ssd_chunk_bwd.cu) against
+    ``ref.ssd_chunk_bwd`` at mamba2-370m's train shape, each gradient
+    within ``kernels.ssd.bwd_error_bound``, two launches bit-equal (no
+    float atomics); device ms (CUDA events) of the kernel and the plain
+    version, each pass's time, and the least time (bytes over HBM, or the
+    flops at the TF32 rate of fp32 operands). No single PyTorch call
+    computes it (library_ms null)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd import (bwd_error_bound, bwd_kernel_attrs,
+                                         ssd_chunk_bwd)
+    args, nbytes, flops = ssd_bwd_case(dev, gen, **SSD_TRAIN)
+    got = ssd_chunk_bwd(*args)
+    again = ssd_chunk_bwd(*args)
+    want = ref.ssd_chunk_bwd(*args)
+    bounds = bwd_error_bound(*args)
+    torch.cuda.synchronize()
+    err, ratio, gaps = 0.0, 0.0, {}
+    for name, g, w, b, g2 in zip(("gx", "gdt", "ga", "gB", "gC"), got, want,
+                                 bounds, again):
+        gap = (g - w).abs()
+        if not torch.isfinite(g).all() or bool((gap > b).any()):
+            raise AssertionError(
+                f"ssd_chunk_bwd {name}: max gap {float(gap.max())} exceeds "
+                f"its bound (max gap/bound {float((gap / b).max())})")
+        if not torch.equal(g, g2):
+            raise AssertionError(f"ssd_chunk_bwd {name}: two launches on "
+                                 f"the same inputs differ")
+        gaps[name] = float(gap.max())
+        err = max(err, gaps[name])
+        ratio = max(ratio, float((gap / b).max()))
+    del got, again, want, bounds
+    kms = event_ms(lambda: ssd_chunk_bwd(*args), reps=5)
+    pms = event_ms(lambda: ref.ssd_chunk_bwd(*args), reps=2)
+    bound, by = _bound(nbytes, flops, TF32_FLOP_PER_S)
+    row = {"name": "ssd_chunk_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/ssd_chunk_bwd.cu",
+           "replaces": "none: the reference differentiates ssd_chunked "
+                       "through XLA (src/repro/models/ssm.py:58-110)",
+           "launches": None, "max_abs_err": err, "ms": kms, "plain_ms": pms,
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "geometry": "mamba2-370m train step (8 x 2048 tokens: 64 chunks "
+                       "of 256, H 32, P 64, N 128)",
+           "kernel_attrs": bwd_kernel_attrs(args[0], args[3])}
+    emit({"phase": "kernel", **row, "shape_x": list(args[0].shape),
+          "bytes": nbytes, "flops": flops,
+          "bound_ms_fp32_cuda_cores": flops / FP32_FLOP_PER_S * 1e3,
+          "max_gap_over_bound": ratio, "max_gaps": gaps,
+          "deterministic": True, "tolerance": "kernels.ssd.bwd_error_bound",
+          "pass_ms_warm_l2": pass_ms(lambda: ssd_chunk_bwd(*args),
+                                     ("ssd_bwd_pair_kernel",
+                                      "ssd_bwd_head_kernel",
+                                      "ssd_bwd_bc_kernel",
+                                      "ssd_bwd_vec_kernel",
+                                      "ssd_bwd_ga_kernel"), reps=3)})
+    return row
+
+
+def rglru_bwd_kernel_rows(dev, gen):
+    """K6's backward (``rglru_scan_bwd``, csrc/rglru_scan_bwd.cu) against
+    ``ref.rglru_scan_bwd`` at recurrentgemma-9b's train shape (1 x 2,048
+    at C 4,096, fp32, no h0: the train step starts from zeros), bit-equal;
+    device ms over input copies that exceed the L2 (CUDA graphs), the
+    plain version's, and the least time: a, h and gh read and ga, gb
+    written once over HBM (3 flops a step at the fp32 rate)."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru import (bwd_kernel_attrs, rglru_scan,
+                                           rglru_scan_bwd)
+    (a, b, _), _, _ = rglru_case(dev, gen, RGLRU_TRAIN["S"],
+                                 RGLRU_TRAIN["C"])
+    h = rglru_scan(a, b)
+    gh = torch.randn(h.shape, generator=gen, device=dev)
+    args = (a, h, None, gh)
+    got = rglru_scan_bwd(*args)
+    want = ref.rglru_scan_bwd(*args)
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2]))
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError(f"rglru_scan_bwd: not bit-equal to the plain "
+                             f"version (max abs error {err})")
+    del got, want
+    nbytes = 4 * 5 * a.numel()
+    n = max(2, min(NCOPY, int(3 * L2_BYTES // nbytes) + 1))
+    copies = [(a.clone(), h.clone(), None, gh.clone()) for _ in range(n)]
+    kms = graph_ms([lambda c=c: rglru_scan_bwd(*c) for c in copies])
+    pms = graph_ms([lambda c=c: ref.rglru_scan_bwd(*c) for c in copies[:2]],
+                   reps=2)
+    del copies
+    flops = 3 * a.numel()
+    bound, by = _bound(nbytes, flops, FP32_FLOP_PER_S)
+    row = {"name": "rglru_scan_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/rglru_scan_bwd.cu",
+           "replaces": "none: the reference differentiates lru_scan "
+                       "through XLA (src/repro/models/rglru.py:76-85)",
+           "launches": None, "max_abs_err": err, "ms": kms, "plain_ms": pms,
+           "bound_ms": bound, "bound_by": by, "library_ms": None,
+           "geometry": "recurrentgemma-9b train step (1 x 2048, C 4096)",
+           "kernel_attrs": bwd_kernel_attrs(a, h, gh)}
+    emit({"phase": "kernel", **row, "shape": list(a.shape), "bytes": nbytes,
+          "flops": flops, "bit_exact_with_plain": True,
+          "tolerance": "bit-equal", "input_copies": n,
+          "achieved_bytes_per_s": nbytes / kms * 1e3,
+          "wrapper_host_us": host_us(lambda: rglru_scan_bwd(*args))})
     return row
 
 
@@ -1100,9 +1292,12 @@ def kernel_phase(dev):
               "tolerance": KERNEL_TOL, "input_copies": n,
               "wrapper_host_us": host_us(lambda: wrapper(*args))})
         del args, out
-    rows["flash_attention"]["backward"] = bwd_kernel_rows(dev, gen)
+    rows["flash_attention_bwd"] = dict(name="flash_attention_bwd",
+                                      **bwd_kernel_rows(dev, gen))
     rows["ssd_chunk"] = ssd_kernel_rows(dev, gen)
     rows["rglru_scan"] = rglru_kernel_rows(dev, gen)
+    rows["ssd_chunk_bwd"] = ssd_bwd_kernel_rows(dev, gen)
+    rows["rglru_scan_bwd"] = rglru_bwd_kernel_rows(dev, gen)
     # free the timed graphs' pools and the cuBLAS workspaces of the timing
     # streams (one per stream that ran a matmul) now, so that they do not
     # sit in the serving paths' memory readings
@@ -1194,13 +1389,14 @@ def kernel_fns():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.rglru import rglru_scan
-    from repro_torch.kernels.ssd import ssd_chunk
+    from repro_torch.kernels.rglru import rglru_scan, rglru_scan_bwd
+    from repro_torch.kernels.ssd import ssd_chunk, ssd_chunk_bwd
     return {f.__name__: f for f in (paged_decode_attention,
                                     chunked_prefill_attention,
                                     decode_attention, flash_attention,
                                     ssd_chunk, rglru_scan,
-                                    flash_attention_bwd)}
+                                    flash_attention_bwd, ssd_chunk_bwd,
+                                    rglru_scan_bwd)}
 
 
 def zero_launches():
@@ -3782,19 +3978,51 @@ PALI_TRAIN = "paligemma-3b"
 PALI_TRAIN_B, PALI_TRAIN_S, PALI_TRAIN_STEPS = 2, 512, 5
 # kimi-k2-1t-a32b at .reduced(): MoE and its aux loss under autograd
 KIMI_TRAIN_STEPS = 3
-# the families whose kernels (K5, K6) have no backward kernel yet: their
-# train step must raise on the card, never drop a gradient
-NO_BACKWARD = ("mamba2-370m", "recurrentgemma-9b")
-# card vs CPU, one step's gradient at a 2-layer cut (every width and the
-# whole vocabulary): smollm 2 x 512 tokens, paligemma 1 x (256 + 64)
-CUT_BATCH = {TRAIN: (2, 512), PALI_TRAIN: (1, 320)}
+# the scan families through the launcher, both with remat: mamba2's
+# step at 2 x 2,048 peaks at 33.7 GB without it and 8.0 GB with it (the
+# remat phase below, PERF.md), so 8 x 2,048 does not fit an 80 GB card
+# without it; recurrentgemma's cut peaks at 71.7 GB with it.
+# mamba2-370m at full width and depth, 8 steps of 8 x 2,048 tokens (its
+# published context; ~2 s a step on an H100, and the loss's fall and the
+# per-step launch counts need no more steps); recurrentgemma-9b cut to its first 8 layers (two
+# (rglru, rglru, attn) cycles and the two trailing RG-LRU layers, as the
+# 38-layer model ends; every width kept: 2.64 B parameters, 42.3 GB of
+# fp32 weights, gradients and AdamW moments, where the full model's 137
+# GB does not fit one card), 5 steps of 1 x 2,048 at lr 3e-4: the
+# launcher's 3e-3 moves each weight by ~20% of its init scale (1/64 at
+# d_model 4,096) a step, where paligemma-3b's loss (d_model 2,048) rises
+# at 3e-3 (PERF.md)
+MAMBA2_TRAIN = "mamba2-370m"
+MAMBA2_TRAIN_B, MAMBA2_TRAIN_S, MAMBA2_TRAIN_STEPS = 8, 2048, 8
+RG_TRAIN = "recurrentgemma-9b"
+RG_TRAIN_LAYERS, RG_TRAIN_B, RG_TRAIN_S, RG_TRAIN_STEPS = 8, 1, 2048, 5
+RG_TRAIN_LR = 3e-4
+# the kernels that have no backward kernel (K1-K3, the decode and chunked
+# prefill walks of the serving paths): under autograd on the card each
+# must raise, never drop a gradient
+NO_BACKWARD = ("paged_decode_attention", "chunked_prefill_attention",
+               "decode_attention")
+# card vs CPU, one step's gradient at a cut (every width and the whole
+# vocabulary): smollm 2 x 512 tokens, paligemma 1 x (256 + 64), mamba2
+# 2 x 512 (two chunks of 256) at 2 layers, recurrentgemma 1 x 256 at one
+# pattern cycle (3 layers: its attention layer included)
+CUT_BATCH = {TRAIN: (2, 512), PALI_TRAIN: (1, 320), MAMBA2_TRAIN: (2, 512),
+             RG_TRAIN: (1, 256)}
+CUT_LAYERS = {RG_TRAIN: 3}
 # tolerances of the card-vs-CPU step. Both sides are fp32 (TF32 off) and
 # differ in summation order only (cuBLAS, K4's 3xTF32 walk and its
 # backward's FMA sums against the CPU's matmuls and the plain attention):
 # the loss and the gradient norm relative, each gradient leaf relative to
 # its largest magnitude. An H100 measured at most 7.5e-8, 1.2e-6 and
-# 7.2e-6 (paligemma's cut; smollm's 0, 8.2e-7, 3.8e-6): each tolerance is
-# 7-13x its reading
+# 7.2e-6 at paligemma's cut (smollm's 0, 8.2e-7, 3.8e-6; recurrentgemma's
+# 7.2e-8, 3.3e-7, 9.9e-6): each tolerance 5-13x its reading. mamba2's
+# cut reads 0, 1.4e-7 and 4.4e-5, its worst leaf dt_bias at 88% of the
+# leaf tolerance: the dt path's leaves (dt_bias, A_log, wdt) sum over
+# every row with heavy cancellation, so any one-ulp change upstream moves
+# them by ~1e-5 to 1e-4 of their largest (tests/test_torch_scan_bwd.py:
+# the cum's summation order alone moves them by 6.2e-5 at a 2-layer
+# cut); the reading stayed at 4.4e-5 when the CPU's cum was made
+# bit-equal to the kernel's, so it comes from the matmuls' order
 TRAIN_LOSS_TOL = 1e-6
 TRAIN_GNORM_TOL = 1e-5
 TRAIN_GRAD_TOL = 5e-5
@@ -3877,6 +4105,21 @@ def train_readings(name, cfg, records, B, S, card):
     return out
 
 
+def train_launches(model, remat=False):
+    """Kernel launches of one train step of ``model``: each layer's
+    forward kernel once (twice in a pattern group under ``remat``, whose
+    forward runs again in the backward) and its backward kernel once."""
+    fwd = {"attn": "flash_attention", "ssm": "ssd_chunk",
+           "rglru": "rglru_scan"}
+    want = {}
+    for lo, hi, grouped in model.layer_spans():
+        for bt in model.block_types[lo:hi]:
+            k = fwd[bt]
+            want[k] = want.get(k, 0) + (2 if remat and grouped else 1)
+            want[f"{k}_bwd"] = want.get(f"{k}_bwd", 0) + 1
+    return want
+
+
 def _launch_counts(name, records, want):
     """Every step's launches must be ``want`` (kernel -> count), the other
     kernels none."""
@@ -3941,12 +4184,12 @@ def train_smollm_phase(device, card, ckpt_dir):
     return reading
 
 
-def remat_phase(device):
-    """One step's gradient of smollm-135m at full width with and without
-    ``remat``: K4 runs twice a layer with it (the groups' forwards again
-    in the backward), its backward once a layer either way, the loss and
-    every gradient leaf within REMAT_TOL (bit-equality read out), and no
-    leaf without a gradient."""
+def remat_phase(device, arch=TRAIN, B=TRAIN_B, S=TRAIN_S):
+    """One step's gradient of ``arch`` at full width with and without
+    ``remat``: each layer's forward kernel runs twice with it (the groups'
+    forwards again in the backward), its backward once a layer either
+    way, the loss and every gradient leaf within REMAT_TOL (bit-equality
+    read out), and no leaf without a gradient."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -3954,11 +4197,11 @@ def remat_phase(device):
     from repro_torch.models.model import get_model
     from repro_torch.models.steps import value_and_grad
     from repro_torch.training.optim import tree_leaves
-    cfg = get_config(TRAIN)
+    cfg = get_config(arch)
     model = get_model(cfg)
     params = model.init(seed=0, device=device)
     batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
-        cfg.vocab_size, TRAIN_B, TRAIN_S, seed=0).next_batch().items()}
+        cfg.vocab_size, B, S, seed=0).next_batch().items()}
     runs = {}
     for remat in (False, True):
         torch.cuda.synchronize()
@@ -3968,18 +4211,19 @@ def remat_phase(device):
         torch.cuda.synchronize()
         runs[remat] = (loss, tree_leaves(grads), read_launches(),
                        torch.cuda.max_memory_allocated())
-    L = cfg.num_layers
-    for remat, want in ((False, L), (True, 2 * L)):
+    for remat in (False, True):
         got = runs[remat][2]
-        if got["flash_attention"] != want or \
-                got["flash_attention_bwd"] != L:
-            raise AssertionError(f"remat={remat}: launches {got}")
+        if got != dict.fromkeys(kernel_fns(), 0) | train_launches(model,
+                                                                  remat):
+            raise AssertionError(f"{arch} remat={remat}: launches {got}")
     empty = [i for i, g in enumerate(runs[False][1]) if not bool(
         (g != 0).any())]
     gaps = [float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
             for a, b in zip(runs[False][1], runs[True][1])]
     lgap = abs(float(runs[False][0]) - float(runs[True][0]))
-    result = {"phase": "train remat", "model": TRAIN,
+    result = {"phase": "train remat" if arch == TRAIN
+              else f"train remat {arch}", "model": arch, "batch": B,
+              "seq": S,
               "loss": float(runs[False][0]),
               "loss_bit_equal": bool(torch.equal(runs[False][0],
                                                  runs[True][0])),
@@ -3992,6 +4236,7 @@ def remat_phase(device):
     if lgap > REMAT_TOL * abs(result["loss"]) or max(gaps) > REMAT_TOL \
             or empty:
         raise AssertionError(f"remat: {result}")
+    del params, runs
 
 
 def train_pali_phase(device, card):
@@ -4078,10 +4323,22 @@ def train_kimi_phase(device):
         raise AssertionError(f"train kimi: {result}")
 
 
+def _leaf_paths(tree, prefix=""):
+    """The paths of a parameter tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in _leaf_paths(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
 def train_replay_phase(arch, device):
     """One step's loss, gradient norm and every gradient leaf on the card
-    and on the CPU from the same weights and batch, at a 2-layer cut of
-    ``arch`` (every width and the whole vocabulary)."""
+    and on the CPU from the same weights and batch, at a cut of ``arch``
+    (``CUT_LAYERS``, else 2 layers; every width and the whole
+    vocabulary)."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -4090,7 +4347,8 @@ def train_replay_phase(arch, device):
     from repro_torch.models.steps import value_and_grad
     from repro_torch.training.optim import global_norm, tree_leaves
     cfg = get_config(arch)
-    ccfg = dataclasses.replace(cfg, num_layers=P12A_CUT_LAYERS)
+    layers = CUT_LAYERS.get(arch, P12A_CUT_LAYERS)
+    ccfg = dataclasses.replace(cfg, num_layers=layers)
     model = get_model(ccfg)
     params = model.init(seed=0, device=device)
     B, S = CUT_BATCH[arch]
@@ -4108,12 +4366,14 @@ def train_replay_phase(arch, device):
     (lc, nc, gc_), (lp, np_, gp) = out["card"], out["cpu"]
     rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
            for a, b in zip(gc_, gp)]
-    result = {"phase": f"train replay {arch}", "layers": P12A_CUT_LAYERS,
+    worst = _leaf_paths(params)[rel.index(max(rel))]
+    result = {"phase": f"train replay {arch}", "layers": layers,
               "batch": B, "seq": S, "loss_card": lc, "loss_cpu": lp,
               "loss_rel_gap": abs(lc - lp) / abs(lp),
               "grad_norm_card": nc, "grad_norm_cpu": np_,
               "grad_norm_rel_gap": abs(nc - np_) / np_,
-              "grad_leaf_rel_gap_max": max(rel), "leaves": len(rel),
+              "grad_leaf_rel_gap_max": max(rel), "grad_leaf_worst": worst,
+              "leaves": len(rel),
               "tolerances": {"loss": TRAIN_LOSS_TOL,
                              "grad_norm": TRAIN_GNORM_TOL,
                              "grad_leaf": TRAIN_GRAD_TOL}}
@@ -4126,42 +4386,92 @@ def train_replay_phase(arch, device):
 
 
 def no_backward_phase(device):
-    """mamba2-370m and recurrentgemma-9b (``.reduced()``) on the card: the
-    train step raises at the first SSD or RG-LRU kernel, naming it, and
-    leaves the weights as they were; a step that returned would have
-    dropped the gradient of everything before that kernel."""
+    """K1-K3 on the card under autograd: each raises, naming itself,
+    rather than drop the gradient of everything before it (a launch fills
+    its output through a raw pointer, with no grad_fn); under no_grad
+    each launches as before."""
     import torch
 
-    from repro_torch.configs.base import get_config
-    from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.models.model import get_model
-    from repro_torch.models.steps import make_train_step
-    from repro_torch.training import optim
+    from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    gen = torch.Generator(device=device).manual_seed(23)
+
+    def r(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    pages = r(8, 16, 2, 64)
+    bt = torch.zeros(2, 2, dtype=torch.int32, device=device)
+    lens = torch.full((2,), 5, dtype=torch.int32, device=device)
+    calls = {
+        "paged_decode_attention": lambda q: paged_decode_attention(
+            q(2, 4, 64), pages, pages, bt, lens),
+        "chunked_prefill_attention": lambda q: chunked_prefill_attention(
+            q(2, 16, 4, 64), pages, pages, bt,
+            torch.zeros(2, dtype=torch.int32, device=device)),
+        "decode_attention": lambda q: decode_attention(
+            q(2, 4, 64), r(2, 32, 2, 64), r(2, 32, 2, 64), lens)}
     result = {"phase": "train refusal"}
-    for arch in NO_BACKWARD:
-        cfg = get_config(arch).reduced()
-        model = get_model(cfg)
-        params = model.init(seed=0, device=device)
-        before = [t.clone() for t in optim.tree_leaves(params)]
-        ocfg = optim.AdamWConfig()
-        step = make_train_step(model, ocfg, remat=False)
-        batch = {k: torch.from_numpy(v).to(device) for k, v in SyntheticLM(
-            cfg.vocab_size, 2, 64, seed=0).next_batch().items()}
+    for name in NO_BACKWARD:
+        leaf = (lambda *shape: r(*shape).requires_grad_(True))
         try:
-            step(params, optim.init_state(ocfg, params), batch)
+            calls[name](leaf)
         except RuntimeError as e:
             msg = str(e)
         else:
-            raise AssertionError(f"{arch}: the train step ran on the card "
-                                 f"through a kernel with no backward")
-        kernel = "ssd_chunk" if arch.startswith("mamba") else "rglru_scan"
-        same = all(torch.equal(a, b) for a, b in
-                   zip(before, optim.tree_leaves(params)))
-        result[arch] = {"raised": msg, "weights_unchanged": same}
-        if not msg.startswith(f"{kernel} has no backward kernel") or \
-                not same:
-            raise AssertionError(f"{arch}: {result[arch]}")
+            raise AssertionError(f"{name} ran under autograd on the card")
+        with torch.no_grad():
+            out = calls[name](leaf)
+        torch.cuda.synchronize()
+        result[name] = {"raised": msg,
+                        "no_grad_output_finite": bool(
+                            torch.isfinite(out).all())}
+        if not msg.startswith(f"{name} has no backward kernel") or \
+                not result[name]["no_grad_output_finite"]:
+            raise AssertionError(f"{name}: {result[name]}")
     emit(result)
+
+
+def train_scan_phase(arch, device, card, B, S, steps, layers=None,
+                     remat=False, lr=None):
+    """The launcher on ``arch`` (its first ``layers`` layers, every width
+    kept): ``steps`` steps of B x S tokens, each timed, each launching
+    exactly ``train_launches`` (K5/K6, K4 on the attention layers, and
+    their backward kernels) and no other kernel; the loss falls."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import get_model
+    cfg = get_config(arch)
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S), "--log-every", "1"]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+        argv += ["--layers", str(layers)]
+    if remat:
+        argv.append("--remat")
+    if lr is not None:
+        argv += ["--lr", str(lr)]
+    torch.cuda.reset_peak_memory_stats()
+    records, undo = _step_recorder()
+    try:
+        hist = train.main(argv)
+    finally:
+        undo()
+    want = train_launches(get_model(cfg), remat)
+    reading = train_readings(arch, cfg, records, B, S, card)
+    _launch_counts(arch, records, want)
+    losses = [h["loss"] for h in hist]
+    reading.update(layers=cfg.num_layers, remat=remat, lr=lr, loss=losses,
+                   grad_norm=[h["grad_norm"] for h in hist],
+                   launches_per_step=want)
+    emit(reading)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train {arch}: the loss did not fall: "
+                             f"{losses}")
+    return reading
 
 
 def classifier_phase(device):
@@ -4188,11 +4498,13 @@ def classifier_phase(device):
 
 
 def train_group(device, timed, rows, card):
-    """P14a on the card, after every serving group has freed its weights:
-    the train launcher at smollm-135m's and paligemma-3b's full widths,
-    remat, kimi .reduced(), the card-vs-CPU step at a 2-layer cut of both,
-    the refusal of the families without a backward kernel, and the MIST
-    classifier."""
+    """P14a and P14b on the card, after every serving group has freed its
+    weights: the train launcher at smollm-135m's and paligemma-3b's full
+    widths, remat, kimi .reduced(), the card-vs-CPU step at a 2-layer cut
+    of both; then mamba2-370m at full width and recurrentgemma-9b at its
+    8-layer cut through the launcher, mamba2's remat, the card-vs-CPU
+    step of both at a cut; the refusal of the kernels without a backward
+    kernel (K1-K3), and the MIST classifier."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4202,7 +4514,7 @@ def train_group(device, timed, rows, card):
     ckpt = ROOT / "build" / "chip_smoke_train"
     reading = timed(f"train {TRAIN}", train_smollm_phase, device, card,
                     ckpt)
-    rows["flash_attention"]["backward"]["launches"] = reading[
+    rows["flash_attention_bwd"]["launches"] = reading[
         "launches_per_step"]["flash_attention_bwd"]
     timed("train remat", remat_phase, device)
     gc.collect()
@@ -4212,6 +4524,31 @@ def train_group(device, timed, rows, card):
     torch.cuda.empty_cache()
     timed("train kimi", train_kimi_phase, device)
     for arch in (TRAIN, PALI_TRAIN):
+        timed(f"train replay {arch}", train_replay_phase, arch, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the scan families (P14b): K5, K6 and their backward kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    reading = timed(f"train {MAMBA2_TRAIN}", train_scan_phase, MAMBA2_TRAIN,
+                    device, card, MAMBA2_TRAIN_B, MAMBA2_TRAIN_S,
+                    MAMBA2_TRAIN_STEPS, remat=True)
+    rows["ssd_chunk_bwd"]["launches"] = reading["launches_per_step"][
+        "ssd_chunk_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed(f"train remat {MAMBA2_TRAIN}", remat_phase, device, MAMBA2_TRAIN,
+          2, MAMBA2_TRAIN_S)
+    gc.collect()
+    torch.cuda.empty_cache()
+    reading = timed(f"train {RG_TRAIN}", train_scan_phase, RG_TRAIN, device,
+                    card, RG_TRAIN_B, RG_TRAIN_S, RG_TRAIN_STEPS,
+                    layers=RG_TRAIN_LAYERS, remat=True, lr=RG_TRAIN_LR)
+    rows["rglru_scan_bwd"]["launches"] = reading["launches_per_step"][
+        "rglru_scan_bwd"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in (MAMBA2_TRAIN, RG_TRAIN):
         timed(f"train replay {arch}", train_replay_phase, arch, device)
         gc.collect()
         torch.cuda.empty_cache()

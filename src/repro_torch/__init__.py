@@ -67,15 +67,17 @@ Training: ``models.steps.make_train_step`` (the next-token loss with
 the MoE aux loss, autograd, AdamW from ``training.optim``), checkpoints
 (``checkpoint``: the reference's on-disk layout), the data pipeline
 (``data.pipeline.SyntheticLM``) and ``python -m
-repro_torch.launch.train``. On the card the attention trains through K4
-and a seventh hand-written kernel, K4's backward
-(``kernels.flash_attention.flash_attention_bwd``); the other kernel
-wrappers raise under autograd on a CUDA tensor rather than drop a
-gradient, so the SSM and RG-LRU families train on the CPU only. MIST's
+repro_torch.launch.train``. Every family trains on the card, through
+three hand-written backward kernels under ``torch.autograd.Function``s:
+K4's (``kernels.flash_attention.flash_attention_bwd``), K5's
+(``kernels.ssd.ssd_chunk_bwd``) and K6's
+(``kernels.rglru.rglru_scan_bwd``); K1-K3, which no train step runs,
+raise under autograd on a CUDA tensor rather than drop a gradient. MIST's
 stage-2 classifier (``core.mist_model``) trains with the same AdamW,
 behind the serve launcher's ``--train-classifier``. Their parity tests
 are ``tests/test_torch_train_substrate.py``,
-``tests/test_torch_train_step.py`` and ``tests/test_torch_flash_bwd.py``.
+``tests/test_torch_train_step.py``, ``tests/test_torch_flash_bwd.py`` and
+``tests/test_torch_scan_bwd.py``.
 
 Entry points (``TickOrchestrator``, ``build_island_batchers``, both
 batchers, ``LocalModelServer``, ``Model.init``, ``train_classifier``, the

@@ -4,10 +4,11 @@ their plain PyTorch versions (``ref.py``).
 ``paged_attention.paged_decode_attention``,
 ``chunked_prefill.chunked_prefill_attention``,
 ``decode_attention.decode_attention``,
-``flash_attention.flash_attention`` (and its backward,
-``flash_attention.flash_attention_bwd``), ``ssd.ssd_chunk`` (Mamba-2's
-SSD chunk pieces) and ``rglru.rglru_scan`` (the RG-LRU recurrence)
-launch CUDA C++ kernels (``csrc/*.cu``, built by ``_build`` at first
-use) for CUDA tensors and call their plain version for CPU tensors. There is no switch: the device of the tensors
-decides.
+``flash_attention.flash_attention``, ``ssd.ssd_chunk`` (Mamba-2's SSD
+chunk pieces) and ``rglru.rglru_scan`` (the RG-LRU recurrence), and the
+backward of the last three (``flash_attention.flash_attention_bwd``,
+``ssd.ssd_chunk_bwd``, ``rglru.rglru_scan_bwd``) launch CUDA C++
+kernels (``csrc/*.cu``, built by ``_build`` at first use) for CUDA
+tensors and call their plain version for CPU tensors. There is no
+switch: the device of the tensors decides.
 """

@@ -21,7 +21,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNELS = ("paged_attention", "chunked_prefill", "decode_attention",
            "flash_attention", "ssd_chunk", "rglru_scan",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "ssd_chunk_bwd", "rglru_scan_bwd")
 # the attention kernels' (K1-K4) compiled head_dim variants: those of the
 # configs the port runs (smollm-135m, musicgen-large 64; qwen3, glm4 128;
 # recurrentgemma-9b, paligemma-3b 256; their .reduced() widths 32)

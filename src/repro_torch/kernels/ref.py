@@ -3,8 +3,10 @@
 Each function keeps the signature and the tensor layouts of the kernel it
 stands beside (``paged_attention.py``, ``chunked_prefill.py``,
 ``decode_attention.py``, ``flash_attention.py``, ``ssd.py``,
-``rglru.py``; ``flash_attention_bwd`` beside K4's backward, the second
-kernel of ``flash_attention.py``); the math is fp32 throughout. Attention
+``rglru.py``; ``flash_attention_bwd``, ``ssd_chunk_bwd`` and
+``rglru_scan_bwd`` beside the backward kernels of ``flash_attention.py``,
+``ssd.py`` and ``rglru.py``, in closed form); the math is fp32
+throughout. Attention
 masks with the finite ``NEG_INF``, so a fully masked position contributes
 an exact zero (``-inf - -inf`` would be NaN); the SSD decay masks with
 ``-inf`` before its exp, whose exact zero is what keeps the overflowing
@@ -161,29 +163,111 @@ def chunked_prefill_attention(q, k_pages, v_pages, block_table, start_pos,
     return o.reshape(B, T, H, D).to(q.dtype)
 
 
+def prefix_sum(v):
+    """The inclusive prefix sum of v (B, nc, Q, H) along Q, one rounded
+    add a row in row order, in v's dtype: K5's order (``csrc/ssd_chunk.cu``)
+    and that of ``torch.cumsum`` along a non-innermost axis on the card.
+    On the CPU ``torch.cumsum`` accumulates fp32 in fp64 and rounds each
+    prefix once, another result: at |cum| ~ 8,000 one ulp is 5e-4 of a
+    decay factor, and a train step's ``A_log`` and ``dt_bias`` gradients,
+    sums with heavy cancellation, move with it
+    (tests/test_torch_scan_bwd.py)."""
+    if v.shape[2] == 0:
+        return v.clone()
+    acc = v[:, :, 0]
+    rows = [acc]
+    for i in range(1, v.shape[2]):
+        acc = acc + v[:, :, i]
+        rows.append(acc)
+    return torch.stack(rows, dim=2)
+
+
 def ssd_chunk(x, dt, a, B_, C_):
     """Per-chunk Mamba-2 SSD pieces (no inter-chunk recurrence).
 
     x (B, nc, Q, H, P), dt (B, nc, Q, H) fp32 post-softplus, a (H,) fp32
     negative, B_/C_ (B, nc, Q, N) fp32. Returns y_intra (B, nc, Q, H, P),
     state (B, nc, H, P, N), decay_total (B, nc, H) and cum (B, nc, Q, H),
-    all fp32. ``cum`` is the inclusive prefix sum of dt * a along Q; the
-    decay matrix is masked BEFORE exp, so its upper triangle is an exact
-    zero (exp of the positive upper triangle overflows)."""
+    all fp32. ``cum`` is the inclusive prefix sum of dt * a along Q
+    (``prefix_sum``: the kernel's order on every device); the decay
+    matrix is masked BEFORE exp, so its upper triangle is an exact zero
+    (exp of the positive upper triangle overflows)."""
     Q = x.shape[2]
     dA = dt * a                                          # (B, nc, Q, H)
-    cum = torch.cumsum(dA, dim=2)
+    cum = prefix_sum(dA)
     dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Qt,Qs,H)
     tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
     L = torch.exp(torch.where(tri[None, None, :, :, None], dec,
                               torch.full_like(dec, float("-inf"))))
     sc = torch.einsum("bcqn,bckn->bcqk", C_, B_)
     att = sc[..., None] * L * dt[:, :, None, :, :]
-    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", att, x.float())
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", att, x)
     total = cum[:, :, -1, :]
     w_s = torch.exp(total[:, :, None, :] - cum) * dt
-    state = torch.einsum("bcqh,bcqn,bcqhp->bchpn", w_s, B_, x.float())
+    state = torch.einsum("bcqh,bcqn,bcqhp->bchpn", w_s, B_, x)
     return y_intra, state, torch.exp(total), cum
+
+
+def ssd_chunk_bwd(x, dt, a, B_, C_, cum, gy, gstate, gdecay, gcum):
+    """The gradients (gx, gdt, ga, gB, gC) of ``ssd_chunk(x, dt, a, B_,
+    C_)``, whose ``cum`` output was ``cum``, for the gradients of its four
+    outputs: gy (B, nc, Q, H, P), gstate (B, nc, H, P, N), gdecay (B, nc,
+    H) and gcum (B, nc, Q, H); any of them None for zeros. All fp32.
+
+    Per (batch, chunk, head), with s <= t: L_ts = exp(cum_t - cum_s), S =
+    C.B^T (no head axis), M_ts = S_ts L_ts dt_s, y = M.x; w_s =
+    exp(cum_{Q-1} - cum_s) dt_s, state = sum_s w_s x_s B_s^T, decay =
+    exp(cum_{Q-1}). With G_ts = gy_t.x_s and R = G o M:
+      gx_s   = sum_t M_ts gy_t + w_s gstate.B_s
+      S_bar  = sum over heads of G o L o dt_s (summed BEFORE the products
+               with B and C: one Q^2 N product a chunk, not one a head)
+      gC     = S_bar.B;  gB = S_bar^T.C + sum_h w_s gstate^T.x_s
+      wbar_s = x_s.gstate.B_s
+      gdt_s  = sum_t G_ts S_ts L_ts + wbar_s exp(cum_{Q-1} - cum_s)
+      gcum'  = gcum + rowsum(R) - colsum(R) - wbar o w, and at row Q-1
+               also sum_s wbar_s w_s + gdecay decay
+      gdA    = the reverse cumsum of gcum' along Q; gdt += gdA a, and
+               ga = sum over (batch, chunk, row) of gdA dt.
+    L is masked BEFORE its exp, as in the forward: the upper triangle's
+    exp overflows, and inf * 0 would be NaN."""
+    Q = x.shape[2]
+    tri = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
+    dec = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Qt,Qs,H)
+    L = torch.exp(torch.where(tri[None, None, :, :, None], dec,
+                              torch.full_like(dec, float("-inf"))))
+    total = cum[:, :, -1, :]
+    e = torch.exp(total[:, :, None, :] - cum)           # (B, nc, Q, H)
+    w = e * dt
+    gx = torch.zeros_like(x)
+    gdt = torch.zeros_like(dt)
+    gB, gC = torch.zeros_like(B_), torch.zeros_like(C_)
+    gc = gcum.clone() if gcum is not None else torch.zeros_like(cum)
+    if gy is not None:
+        S = torch.einsum("bcqn,bckn->bcqk", C_, B_)
+        LD = L * dt[:, :, None, :, :]                    # L_ts dt_s
+        gx = torch.einsum("bcts,bctsh,bcthp->bcshp", S, LD, gy)
+        G = torch.einsum("bcthp,bcshp->bctsh", gy, x)
+        S_bar = (G * LD).sum(-1)                         # over the heads
+        gC = torch.einsum("bcts,bcsn->bctn", S_bar, B_)
+        gB = torch.einsum("bcts,bctn->bcsn", S_bar, C_)
+        GSL = G * S[..., None] * L
+        gdt = GSL.sum(2)
+        R = GSL * dt[:, :, None, :, :]
+        gc = gc + R.sum(3) - R.sum(2)
+    if gstate is not None:
+        V = torch.einsum("bchpn,bcsn->bcshp", gstate, B_)
+        gx = gx + w[..., None] * V
+        wbar = (x * V).sum(-1)                           # (B, nc, Q, H)
+        gB = gB + torch.einsum("bcsh,bchpn,bcshp->bcsn", w, gstate, x)
+        gdt = gdt + wbar * e
+        gc = gc - wbar * w
+        gc[:, :, -1] += (wbar * w).sum(2)
+    if gdecay is not None:
+        gc[:, :, -1] += gdecay * torch.exp(total)
+    gdA = torch.flip(torch.cumsum(torch.flip(gc, (2,)), 2), (2,))
+    gdt = gdt + gdA * a
+    ga = (gdA * dt).sum((0, 1, 2))
+    return gx, gdt, ga, gB, gC
 
 
 def ssd_full(x, dt, a, B_, C_, chunk):
@@ -220,11 +304,35 @@ def rglru_scan(a, b, h0=None):
     from h0 (B, C) or zeros: a, b (B, S, C) fp32 or bf16. Returns h
     (B, S, C) fp32. One step at a time, each a rounded multiply then a
     rounded add, as the kernel takes them."""
-    a, b = a.float(), b.float()
-    h = (h0.float() if h0 is not None
+    dtype = torch.promote_types(a.dtype, torch.float32)   # bf16 -> fp32
+    a, b = a.to(dtype), b.to(dtype)
+    h = (h0.to(dtype) if h0 is not None
          else torch.zeros_like(a[:, 0]))
     out = torch.empty_like(a)
     for t in range(a.shape[1]):
         h = a[:, t] * h + b[:, t]
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd(a, h, h0, gh):
+    """The gradients (ga, gb, gh0) of ``rglru_scan(a, b, h0)``, whose
+    output was ``h`` (B, S, C) fp32, for its gradient ``gh`` (B, S, C):
+    the reverse scan g_t = gh_t + a_{t+1} g_{t+1} from g_S = 0, each step
+    a rounded multiply then a rounded add, as the kernel takes them; gb =
+    g, ga_t = g_t h_{t-1} with h_{-1} = h0 (zeros where None), gh0 =
+    a_0 g_0 (None where h0 is None). ga and gb come back in a's dtype
+    (b's, which the forward requires to be the same), gh0 in h0's."""
+    dtype = torch.promote_types(a.dtype, torch.float32)   # bf16 -> fp32
+    af, gh = a.to(dtype), gh.to(dtype)
+    g = torch.zeros_like(gh[:, 0])
+    a_next = torch.zeros_like(g)
+    gs = torch.empty_like(gh)
+    for t in range(gh.shape[1] - 1, -1, -1):
+        g = gh[:, t] + a_next * g
+        gs[:, t] = g
+        a_next = af[:, t]
+    start = (h0.to(dtype) if h0 is not None else torch.zeros_like(g))[:, None]
+    ga = gs * torch.cat([start, h.to(dtype)], dim=1)[:, :-1]
+    gh0 = (a_next * g).to(h0.dtype) if h0 is not None else None
+    return ga.to(a.dtype), gs.to(a.dtype), gh0

@@ -6,14 +6,20 @@ Port of ``repro/launch/train.py``. Runs the substrate end to end: config
 with the same flags and the same ``hist`` (one metrics dict each
 ``--log-every`` steps and at the last). ``--smoke`` trains the reduced
 config. ``--device`` picks where the model trains: the card by default,
-``cpu`` for the kernels' plain versions. The attention families train on
-the card (K4 and its backward kernel); an SSM or RG-LRU config raises
-there, as its kernels have no backward kernel yet. ``--mesh`` is
-refused: a local device mesh waits for the distributed slice.
+``cpu`` for the kernels' plain versions. Every family trains on the
+card: attention through K4 and its backward kernel, Mamba-2's SSD through
+K5 and its backward, the RG-LRU recurrence through K6 and its backward.
+Two options the reference does not have: ``--remat`` recomputes each
+pattern group's forward in the backward (``Model.forward(remat=True)``,
+as the reference's train step can), and ``--layers N`` trains the
+config's first N layers (its pattern continued, every width kept: a cut
+of a model too large for one card). ``--mesh`` is refused: a local
+device mesh waits for the distributed slice.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from pathlib import Path
 
@@ -42,6 +48,11 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each layer group's forward in the "
+                         "backward")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="train the config's first N layers")
     ap.add_argument("--mesh", default=None,
                     help="dxm local mesh (not offered yet)")
     ap.add_argument("--device", default=None,
@@ -57,6 +68,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if args.layers is not None:
+        if not 0 < args.layers <= cfg.num_layers:
+            raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
+                             f"{cfg.num_layers}")
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = get_model(cfg)
     ocfg = optim.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                              total_steps=args.steps)
@@ -78,7 +94,7 @@ def main(argv=None):
             data.seek(start)
             print(f"resumed from step {s}")
 
-    step_fn = make_train_step(model, ocfg, remat=False)
+    step_fn = make_train_step(model, ocfg, remat=args.remat)
     hist = []
     t0 = time.time()
     for i in range(start, args.steps):

@@ -7,9 +7,10 @@ pool pages), ``last_tok`` and ``gen_buf`` in place.
 
 Training (``cross_entropy``, ``loss_fn``, ``make_train_step``): the loss
 of ``Model.forward(mode="full")`` differentiated by autograd, the
-attention through K4 and its backward kernel (``kernels.flash_attention``)
-where the reference's ``jax.value_and_grad`` differentiates XLA's
-attention. The train step updates the parameters and the AdamW state in
+attention through K4 and its backward kernel (``kernels.flash_attention``),
+Mamba-2's SSD through K5 and its backward (``kernels.ssd``) and the
+RG-LRU recurrence through K6 and its backward (``kernels.rglru``), where
+the reference's ``jax.value_and_grad`` differentiates XLA's ops. The train step updates the parameters and the AdamW state in
 place (``training.optim.apply_updates_``): one copy of each, where the
 reference returns new arrays. The reference's ``shard`` of the batch is
 the identity without a mesh and is left out.

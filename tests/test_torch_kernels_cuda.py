@@ -53,8 +53,8 @@ and repeated launches give the same bits (no float atomics). Through
 autograd (``FlashAttention``) the forward and the backward launch once
 each; K4's forward with its ``lse`` output gives the same bits in ``out``
 as without it, split or not, and an ``lse`` within 1e-5 of the plain
-version's; K1-K3, K5 and K6 raise under autograd on CUDA tensors rather
-than drop a gradient.
+version's; K1-K3 raise under autograd on CUDA tensors rather than drop a
+gradient.
 
 The RG-LRU scan (``rglru_scan``, K6) runs ragged S and C, with and
 without h0, fp32 and bf16 inputs, at recurrentgemma-9b's prefill width
@@ -76,6 +76,20 @@ change e^(2 dc) - 1 that a gap dc between the two sides' ``cum`` makes in
 every decay factor; ``cum`` itself is bit-equal to the plain version's
 (both sum in order in fp32 on the card). A score scratch poisoned with
 NaN changes no output bit, and repeated launches give the same bits.
+
+K5's backward (``ssd_chunk_bwd``, ``csrc/ssd_chunk_bwd.cu``) runs against
+``ref.ssd_chunk_bwd`` on the same inputs and saved ``cum`` at chunk
+lengths 1, 37, 64, 65, 256 and 1024, head_dim and state across
+``WIDTHS``, 2 to 33 heads, with a strongly decaying head, and with
+upstream gradients left out (None: zeros); each gradient holds to
+``kernels.ssd.bwd_error_bound`` (each output's longest chain of fp32
+sums, twice, times the sum of its terms' magnitudes), and repeated
+launches give the same bits (no float atomics). K6's backward
+(``rglru_scan_bwd``, ``csrc/rglru_scan_bwd.cu``) equals
+``ref.rglru_scan_bwd`` bit for bit at ragged S and C, with and without
+h0, fp32 and bf16, through both copy paths. Through autograd
+(``SsdChunk``, ``RglruScan``) every input that requires a gradient gets
+one, and the forward and the backward launch once each.
 """
 import pytest
 import torch
@@ -88,8 +102,9 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.paged_attention import paged_decode_attention
-from repro_torch.kernels.rglru import rglru_scan
-from repro_torch.kernels.ssd import error_bound, ssd_chunk
+from repro_torch.kernels.rglru import rglru_scan, rglru_scan_bwd
+from repro_torch.kernels.ssd import (bwd_error_bound, error_bound, ssd_chunk,
+                                     ssd_chunk_bwd)
 
 pytestmark = pytest.mark.cuda
 
@@ -1159,6 +1174,7 @@ BWD_CASES = [
     (1, 300, 300, 8, 1, 256, True, None, 33),    # a prefix inside a tile
     (1, 300, 300, 4, 2, 64, True, None, 5000),   # prefix past the prompt
     (1, 1000, 1000, 16, 1, 256, True, 512, 0),   # recurrentgemma, window
+    (1, 2048, 2048, 16, 1, 256, True, 2048, 0),  # its train step: causal
     (1, 200, 200, 6, 3, 64, True, 1, 0),         # window of 1
     (1, 130, 130, 6, 3, 64, True, 33, 0),        # a ragged window
     (1, 257, 257, 8, 2, 128, True, 100, 40),     # window and prefix
@@ -1273,17 +1289,12 @@ def _refusing_calls(card):
             torch.zeros(2, dtype=torch.int32, device=card)),
         "decode_attention": lambda q: decode_attention(
             q(2, 4, 64), r(2, 32, 2, 64), r(2, 32, 2, 64), lens),
-        "ssd_chunk": lambda q: ssd_chunk(
-            q(1, 1, 16, 2, 16), r(1, 1, 16, 2).abs(), -torch.ones(
-                2, device=card), r(1, 1, 16, 16), r(1, 1, 16, 16)),
-        "rglru_scan": lambda q: rglru_scan(q(1, 8, 32), r(1, 8, 32)),
     }
 
 
 @pytest.mark.parametrize("name", ["paged_decode_attention",
                                   "chunked_prefill_attention",
-                                  "decode_attention", "ssd_chunk",
-                                  "rglru_scan"])
+                                  "decode_attention"])
 def test_kernels_without_backward_refuse_autograd(card, name):
     """A CUDA launch fills its output through a raw pointer (no grad_fn):
     under autograd the wrapper raises instead of dropping the gradient,
@@ -1312,3 +1323,134 @@ def test_flash_bwd_head_split_matches_the_unsplit_walk(card, monkeypatch):
     assert torch.equal(split[0], whole[0])
     for a, b in zip(split[1:], whole[1:]):
         _close_grad(a, b)
+
+
+# ------------------------------------------- K5's and K6's backward kernels
+
+def _ssd_grads(card, seed, shapes, given=(1, 1, 1, 1)):
+    """Upstream gradients of K5's four outputs (unit normals; None where
+    ``given`` leaves one out)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(*s, generator=g, device=card) if k else None
+            for s, k in zip(shapes, given)]
+
+
+def _ssd_bwd_case(card, seed, Bsz, nc, Q, H, P, N, strong=False,
+                  given=(1, 1, 1, 1)):
+    inputs = _ssd_inputs(card, seed, Bsz, nc, Q, H, P, N, strong)
+    cum = ref.ssd_chunk(*inputs)[3]
+    grads = _ssd_grads(card, seed + 1, [
+        (Bsz, nc, Q, H, P), (Bsz, nc, H, P, N), (Bsz, nc, H),
+        (Bsz, nc, Q, H)], given)
+    return (*inputs, cum, *grads)
+
+
+@pytest.mark.parametrize("Bsz,nc,Q,H,P,N,strong,given", [
+    (1, 1, 1, 2, 16, 16, False, (1, 1, 1, 1)),      # one row
+    (1, 1, 37, 32, 64, 128, False, (1, 1, 1, 1)),   # ragged, full width
+    (2, 3, 64, 4, 16, 128, True, (1, 1, 1, 1)),     # one tile, a = -32
+    (1, 2, 65, 33, 32, 32, False, (1, 1, 1, 1)),    # a tile and a row
+    (1, 4, 256, 32, 64, 128, True, (1, 1, 1, 1)),   # mamba2-370m's chunk
+    (2, 2, 256, 8, 128, 64, False, (1, 0, 1, 1)),   # no state gradient
+    (1, 2, 200, 4, 32, 16, True, (0, 1, 0, 0)),     # the state's alone
+    (1, 1, 1024, 4, 64, 128, True, (1, 1, 0, 1)),   # QMAX
+    (2, 3, 16, 32, 16, 16, False, (1, 1, 1, 1)),    # mamba2 .reduced()
+])
+def test_ssd_chunk_bwd_kernel_matches_plain(card, Bsz, nc, Q, H, P, N,
+                                            strong, given):
+    args = _ssd_bwd_case(card, Q + H + P, Bsz, nc, Q, H, P, N, strong,
+                         given)
+    n0 = ssd_chunk_bwd.launches
+    got = ssd_chunk_bwd(*args)
+    assert ssd_chunk_bwd.launches == n0 + 1
+    want = ref.ssd_chunk_bwd(*args)
+    bounds = bwd_error_bound(*args)
+    torch.cuda.synchronize()
+    for name, g, w, b in zip(("gx", "gdt", "ga", "gB", "gC"), got, want,
+                             bounds):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert torch.isfinite(g).all(), name
+        excess = ((g - w).abs() - b).max().item()
+        assert excess <= 0, (name, excess)
+
+
+def test_ssd_chunk_bwd_kernel_is_deterministic(card):
+    args = _ssd_bwd_case(card, 31, 2, 4, 256, 32, 64, 128, True)
+    first = ssd_chunk_bwd(*args)
+    for _ in range(2):
+        for g, w in zip(ssd_chunk_bwd(*args), first):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,C,with_h0", [
+    (1, 2048, 4096, False),               # recurrentgemma-9b's train shape
+    (1, 37, 4096, True),
+    (3, 1, 100, True),                    # one step, ragged channels
+    (2, 33, 31, False),                   # S and C both ragged
+    (2, 300, 256, True),                  # .reduced() width
+    (2, 257, 4096, True),                 # a ring stage past a whole one
+])
+def test_rglru_scan_bwd_kernel_is_bit_equal_to_plain(card, B, S, C, with_h0,
+                                                     dt):
+    g = torch.Generator(device=card).manual_seed(S + C + 1)
+    a = torch.sigmoid(torch.randn(B, S, C, generator=g, device=card)).to(dt)
+    b = torch.randn(B, S, C, generator=g, device=card).to(dt)
+    h0 = (torch.randn(B, C, generator=g, device=card) if with_h0 else None)
+    h = rglru_scan(a, b, h0)
+    gh = torch.randn(B, S, C, generator=g, device=card)
+    n0 = rglru_scan_bwd.launches
+    got = rglru_scan_bwd(a, h, h0, gh)
+    assert rglru_scan_bwd.launches == n0 + 1
+    want = ref.rglru_scan_bwd(a, h, h0, gh)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dt and got[1].dtype == dt
+    assert (got[2] is None) == (h0 is None)
+    for x, y in zip(got, want):
+        if y is not None:
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_rglru_scan_bwd_kernel_takes_the_word_path_bit_equal(card, dt):
+    """a one element into its storage (bf16: not 4-byte aligned) and gh at
+    an odd offset: every lane copies the word holding its element."""
+    g = torch.Generator(device=card).manual_seed(10)
+    a = torch.rand(2 * 257 * 4096 + 1, generator=g, device=card).to(dt)
+    a = a[1:].view(2, 257, 4096)
+    h = torch.randn(2, 257, 4096, generator=g, device=card)
+    gh = torch.randn(2 * 257 * 4096 + 1, generator=g, device=card)[1:].view(
+        2, 257, 4096)
+    h0 = torch.randn(2, 4096, generator=g, device=card)
+    for x, y in zip(rglru_scan_bwd(a, h, h0, gh),
+                    ref.rglru_scan_bwd(a, h, h0, gh)):
+        assert torch.equal(x, y)
+
+
+def test_scan_kernels_train_under_autograd(card):
+    """K5 and K6 under autograd on CUDA tensors: the forward and the
+    backward kernel launch once each, every input that requires a
+    gradient gets one, and it is the backward kernel's."""
+    args = _ssd_inputs(card, 40, 1, 2, 64, 4, 16, 16, True)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    n0, b0 = ssd_chunk.launches, ssd_chunk_bwd.launches
+    outs = ssd_chunk(*leaves)
+    ups = _ssd_grads(card, 41, [o.shape for o in outs])
+    grads = torch.autograd.grad(outs, leaves, ups)
+    assert (ssd_chunk.launches, ssd_chunk_bwd.launches) == (n0 + 1, b0 + 1)
+    want = ssd_chunk_bwd(*args, outs[3].detach(), *ups)
+    for g, w in zip(grads, want):
+        assert g is not None and torch.equal(g, w)
+
+    gen = torch.Generator(device=card).manual_seed(42)
+    a = torch.sigmoid(torch.randn(2, 50, 96, generator=gen, device=card))
+    b = torch.randn(2, 50, 96, generator=gen, device=card)
+    h0 = torch.randn(2, 96, generator=gen, device=card)
+    leaves = [t.clone().requires_grad_(True) for t in (a, b, h0)]
+    n0, b0 = rglru_scan.launches, rglru_scan_bwd.launches
+    h = rglru_scan(*leaves)
+    gh = torch.randn(h.shape, generator=gen, device=card)
+    grads = torch.autograd.grad(h, leaves, gh)
+    assert (rglru_scan.launches, rglru_scan_bwd.launches) == (n0 + 1, b0 + 1)
+    for g, w in zip(grads, ref.rglru_scan_bwd(a, h.detach(), h0, gh)):
+        assert g is not None and torch.equal(g, w)

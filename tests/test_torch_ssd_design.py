@@ -26,10 +26,10 @@ CPU checks its arithmetic:
 (c) The serial ``cum``. On the card ``torch.cumsum`` along a
     non-innermost dimension is a serial fp32 loop, so the kernel's cum is
     bit-equal to the plain version's there (tests/test_torch_kernels_cuda.py
-    and ``chip_smoke.py`` check it). On the CPU ``torch.cumsum`` sums in
-    fp64 and rounds each prefix, so here the serial sum is checked bit for
-    bit against numpy's fp32 accumulation, and against the plain version
-    only within the bound's cum term.
+    and ``chip_smoke.py`` check it). The plain version sums in that order
+    on every device (``ref.prefix_sum``; on the CPU ``torch.cumsum`` would
+    accumulate in fp64), so here the serial sum is checked bit for bit
+    against numpy's fp32 accumulation and against the plain version.
 
 (d) The scratch the wrapper allocates, from the shapes alone.
 """
@@ -197,11 +197,10 @@ def test_serial_cum_is_fp32_in_row_order(Q, strong):
     want = np.cumsum((dt[0, 0] * a).astype(np.float32), axis=0,
                      dtype=np.float32)
     assert np.array_equal(cs, want)
-    # the CPU plain version sums in fp64: within the bound's cum term
+    # the plain version sums in the same order on the CPU too
     plain = tref.ssd_chunk(*(torch.from_numpy(v.copy()) for v in
                              _draw(Q, 1, 1, Q, 3, 16, 16, strong)))[3]
-    worst = 2 * (Q - 1) * 2.0 ** -24 * np.abs(cs).max(axis=0)
-    assert np.all(np.abs(plain[0, 0].numpy() - cs) <= worst + 1e-6)
+    assert np.array_equal(plain[0, 0].numpy(), cs)
 
 
 @pytest.mark.parametrize("BC,Q,want", [
