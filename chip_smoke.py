@@ -98,8 +98,8 @@ Phases (each raises on failure, and the script then exits non-zero):
      layer of every dispatch, one prefill and one decode geometry per
      batcher, one K1 and one K2 key-walk split per island (each launch's
      ``last_split``), streams under the near-tie rule, the work clock
-     within 1.25x; then the main path default, constant, constant,
-     default for wall tokens/s, and one profiled constant run for its
+     within 1.25x; then the main path default and constant once each for
+     wall tokens/s, and one profiled constant run for its
      device busy time against ``profile main_path``'s;
    - fp8 smollm: an fp32 and a ``float8_e4m3fn`` dense cache through
      ``Model.forward`` (4 rows, a 1,024-token prompt, 32 decode steps;
@@ -154,8 +154,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``build_island_batchers(cache="auto")`` (stacked batchers: K6 on the
    26 RG-LRU layers and K4 on the 12 attention layers of every prefill
    dispatch, K3 on the 12 attention layers of every decode step), a
-   profile of it (with the matmul time and rate split by prefill and
-   decode dispatch), the per-request path, and the card-vs-CPU replay on
+   profile of it (device busy time and idle share), the per-request path, and the card-vs-CPU replay on
    the stacked batcher, cut to one pattern cycle (3 layers at full
    width: 34 GB of fp32 weights and 26 TFLOP prefills do not replay on
    a CPU), once as served and once with every cache leaf in fp32; then
@@ -204,8 +203,26 @@ Phases (each raises on failure, and the script then exits non-zero):
    prefill and one decode step; the per-request path; and the
    card-vs-CPU replay on the stacked batcher at a 2-layer cut (the dense
    layer 0 and one MLA+MoE layer at full widths and vocabulary, 4.3 GB
-   of fp32);
-11. P14a and P14b, training, last, after a ``gc.collect()`` (the memory still
+   of fp32); deepseek's one-process decode (4 rows, a 512-token prompt,
+   8 steps) is kept for the distributed group;
+11. P13a, distributed (``dist_group``): a world-1 NCCL group and
+   ``make_local_mesh(1, 1)`` (kimi ``.reduced()``'s expert-parallel MoE
+   against its dense branch at capacity_factor 8; smollm-135m under the
+   mesh equal to no mesh, launch for launch); then, on two gloo ranks on
+   the one card (NCCL refuses two ranks on one device; gloo stages CUDA
+   tensors through the host), smollm-135m at full width on a 1x2 mesh
+   (3 KV heads: every layer decodes sequence-sharded; 8 rows, a 1,024-
+   token prompt, max_len 2,048, 16 decode steps) with its gathered logits
+   held to the one-process run's, each rank's cache half the bytes, K4
+   once a layer of the prefill, K3 never, three all-reduces a layer a
+   step; deepseek-v2-lite-16b at full width and depth on 1x2 (the latent
+   cache sequence-sharded, 32 experts a rank, no token dropped) with its
+   logits held to the one-process run's and its MLA/MoE calls exact; and
+   the train launcher under ``--mesh 2x1 --backend gloo`` (smollm-135m,
+   3 steps of 8 x 2,048 tokens, 4 x 2,048 a rank) with every step's loss
+   and gradient norm held to the one-process launcher's and K4 and its
+   backward once a layer a step on each rank;
+12. P14a and P14b, training, last, after a ``gc.collect()`` (the memory still
    allocated is read out first): the train launcher
    (``repro_torch.launch.train``: ``SyntheticLM``, AdamW, the cosine
    schedule, checkpoints) at smollm-135m's full width, 20 steps of 8 x
@@ -241,8 +258,8 @@ Phases (each raises on failure, and the script then exits non-zero):
 
 The profile phases read the device spans from the profiler's raw
 events (parsing them into host-op trees takes ~60 s a main path run);
-only recurrentgemma's matmul split parses them, and deepseek's block
-split parses the events of one prefill and one decode step.
+only deepseek's block split parses the events of one prefill and one
+decode step.
 
 It prints one JSON object per phase (with its seconds), then the card's
 name and power limit, the kernel table, and last
@@ -1627,26 +1644,6 @@ def _kernel_family(name):
     return "other (elementwise, reductions, indexing)"
 
 
-DISPATCH_RANGES = {"_prefill": "prefill dispatch",
-                   "_decode_all": "decode dispatch"}
-
-
-def _label_dispatches(batchers):
-    """Wrap each stacked batcher's prefill and decode dispatch in a
-    ``record_function`` range, so that a profile can tell which dispatch
-    launched a kernel."""
-    from torch.profiler import record_function
-    for b in batchers.values():
-        for attr, label in DISPATCH_RANGES.items():
-            fn = getattr(b, attr)
-
-            def ranged(*args, fn=fn, label=label, **kw):
-                with record_function(label):
-                    return fn(*args, **kw)
-
-            setattr(b, attr, ranged)
-
-
 BLOCK_RANGES = {"mla": "mla block", "moe": "moe block", "mlp": "dense mlp"}
 
 
@@ -1694,7 +1691,7 @@ def _gemm_flops(op, shapes):
     return None
 
 
-def _dispatch_matmuls(events, kinds=None, outside="outside a dispatch"):
+def _dispatch_matmuls(events, kinds, outside):
     """Device time and flops of the matmul kernels by the dispatch that
     launched them: each kernel belongs to the aten op that launched it,
     and that op to its innermost enclosing dispatch range (or, with
@@ -1702,7 +1699,7 @@ def _dispatch_matmuls(events, kinds=None, outside="outside a dispatch"):
     rest). Flops come from the ops' recorded input shapes, so the rate is
     this trace's."""
     from torch.autograd import DeviceType
-    kinds = set(DISPATCH_RANGES.values()) if kinds is None else set(kinds)
+    kinds = set(kinds)
     out: dict = {}
     for e in events:
         if e.device_type != DeviceType.CPU or not e.kernels:
@@ -1732,15 +1729,13 @@ def _dispatch_matmuls(events, kinds=None, outside="outside a dispatch"):
 
 
 def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
-                  split_dispatches=False, streams=False, tracer=None, **bkw):
+                  streams=False, tracer=None, **bkw):
     """A serving path's workload once more, on fresh batchers, under
     ``torch.profiler``: device busy time as the union of kernel
     intervals, device time by kernel family, and the device-to-host
     copies. The busy time does not depend on the profiler's host
     overhead, so the idle share is read against the unprofiled run's wall
-    time. With ``split_dispatches`` (stacked batchers) the host ops are
-    recorded too, with their input shapes, and the matmul time and rate
-    are split by prefill and decode dispatch. With ``streams`` (fused
+    time. With ``streams`` (fused
     paged batchers) the run's streams are recorded; ``tracer`` goes to
     the orchestrator. Returns the run (streams, work clocks, launches,
     copies) for the traced phase to compare."""
@@ -1749,19 +1744,15 @@ def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
     orch, batchers, rids, flags = serving_stack(cfg, params, device, max_len,
                                                 tracer=tracer, **bkw)
     captured = _orch_streams(orch, batchers) if streams else None
-    acts = [ProfilerActivity.CUDA]
-    if split_dispatches:
-        _label_dispatches(batchers)
-        acts.append(ProfilerActivity.CPU)
     torch.cuda.synchronize()
     zero_launches()
     t0 = time.perf_counter()
-    with profile(activities=acts, record_shapes=split_dispatches) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         orch.run_until_done(max_ticks=4000)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    spans, events = _device_spans(prof, split_dispatches)
+    spans, _ = _device_spans(prof)
     dtoh = sum(1 for _s, _e, kname in spans if "Memcpy DtoH" in kname)
     if not spans:
         raise AssertionError("the profiler recorded no device activity")
@@ -1780,9 +1771,7 @@ def profile_phase(name, cfg, params, device, wall_unprofiled, max_len=2048,
           "device_ms_by_family": {k: round(v[0], 3) for k, v in
                                   sorted(fam.items(), key=lambda x: -x[1][0])},
           "launches_by_family": {k: v[1] for k, v in fam.items()},
-          "dtoh_copies": dtoh,
-          **({"matmul_by_dispatch": _dispatch_matmuls(events)}
-             if split_dispatches else {})})
+          "dtoh_copies": dtoh})
     return {"orch": orch, "batchers": batchers, "rids": rids,
             "flags": flags, "streams": captured,
             "work": {k: b.work_clock for k, b in batchers.items()},
@@ -2721,7 +2710,7 @@ def _device_spans(prof, parsed=False):
     without parsing every host op (``prof.events()``: ~50 s a main path
     run)."""
     from torch.autograd import DeviceType
-    labels = set(DISPATCH_RANGES.values()) | set(BLOCK_RANGES.values())
+    labels = set(BLOCK_RANGES.values())
     if parsed:
         events = prof.events()
         return sorted((int(e.time_range.start * 1000),
@@ -3412,9 +3401,9 @@ def constant_shape_phase(cfg, params, device, main_busy_s):
     streams, the work clock within 1.25x, one prefill and one decode
     shape), (b) the main path's traffic with ``constant_shape`` on every
     island. Both: ``_shape_ab``. Then (b)'s card cost: wall tokens/s of
-    the serving path (launches checked by ``serve_path``) run default,
-    constant, constant, default back to back (host walls drift within a
-    call), and device busy seconds from one profiled rerun, against
+    the serving path (launches checked by ``serve_path``) run default
+    then constant (one pair: host walls drift within a call, so the
+    ratio is a rough reading), and device busy seconds from one profiled rerun, against
     ``profile main_path``'s (``main_busy_s``)."""
     out, faults = {}, []
     for label, main in (("constant_shape_ab", False), ("main_path", True)):
@@ -3426,14 +3415,14 @@ def constant_shape_phase(cfg, params, device, main_busy_s):
         faults.append("constant_shape_ab: work clock over 1.25x")
     walls = {"default": [], "constant": []}
     tps = {"default": [], "constant": []}
-    for constant in (False, True, True, False):
+    for constant in (False, True):
         label = "constant" if constant else "default"
         _, wall, result = serve_path(f"main_path {label} (A/B)", cfg,
                                      params, device,
                                      constant_shape=constant)
         walls[label].append(wall)
         tps[label].append(result["tokens_per_s"])
-    wall = sum(walls["constant"]) / 2
+    wall = walls["constant"][0]
     prof = profile_phase("main_path constant_shape", cfg, params, device,
                          wall, constant_shape=True)
     out["cost"] = {
@@ -3963,7 +3952,406 @@ def p12b_group(device, timed, rows):
           lambda dev, p: ContinuousBatcher(
               ccfg, params=p, num_slots=4, max_len=256, device=dev),
           _capture_stacked)
-    del runs, cut, params
+    del runs, cut
+    # the one-process run the distributed group's deepseek phase is held to
+    want = timed(f"dist want {P12B}", ds_dist_want, cfg, params, device)
+    del params
+    return want
+
+
+# ---------------------------------- P13a: distributed, gloo ranks on one card
+
+# smollm-135m at full width on a 1x2 mesh: 3 KV heads do not split over 2
+# model ranks, so every layer decodes sequence-sharded (each rank holds
+# 1,024 of the 2,048 slots)
+DIST_ARCH = "smollm-135m"
+DIST_B, DIST_S, DIST_L, DIST_T = 8, 1024, 2048, 16
+# deepseek-v2-lite-16b at full width and depth on 1x2: the latent cache
+# sequence-sharded, 32 of the 64 experts a rank. capacity_factor E / k
+# gives a capacity of every local token, so no token is dropped and the
+# dense single-process run is the comparison
+DS_DIST_B, DS_DIST_S, DS_DIST_L, DS_DIST_T = 4, 512, 1024, 8
+# gathered logits against the one-process card run (fp32 caches): smollm
+# at the reference's own tolerance for this comparison
+# (tests/test_system.py, rtol/atol 3e-4); the sharded decode's plain fp32
+# softmax merge against K3's 3xTF32 walk, over 30 layers. deepseek: 27
+# layers whose MoE sums 6 of 64 experts through a gathered buffer in
+# another order than the dense path's broadcasting matmuls, so 1e-3
+DIST_LOGIT_TOL = 3e-4
+DS_DIST_LOGIT_TOL = 1e-3
+# the launcher under --mesh 2x1: smollm-135m at full width, 8 x 2,048
+# tokens a step (4 x 2,048 a rank), against the one-process launcher.
+# Step 1 holds to TRAIN_LOSS_TOL / TRAIN_GNORM_TOL (the same weights;
+# two half-batch gradients summed against one). Later steps start from
+# weights one AdamW update apart: eps 1e-8 divides the summation-order
+# noise of eps-sized gradient elements into differences of up to a step
+# of lr on them, so they hold to 1e-5 (loss) and 1e-4 (norm), relative
+DIST_TRAIN_STEPS = 3
+DIST_LATER_LOSS_TOL, DIST_LATER_GNORM_TOL = 1e-5, 1e-4
+# a spawned group's join timeout (seconds)
+DIST_JOIN_S = 900
+
+
+def _dist_tokens(cfg, B, n, seed=11):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, n)).astype(np.int32))
+
+
+def _decode_run(model, params, toks, S, T, L, device):
+    """A prefill of ``S`` tokens and ``T`` decode steps through the serve
+    steps on an fp32 dense cache: (logits (B, T + 1, V) fp32 on the host,
+    the cache, each decode step's ms). fp32, as the reference's own
+    sharded-decode check: in a bf16 cache the ~1e-7 gaps of another
+    summation order (the merged softmax, the expert-parallel MoE) flip
+    some stored values by a bf16 ulp (4e-3 relative), which the
+    comparison would then measure instead of the sharded path."""
+    import torch
+
+    from repro_torch.models.steps import make_prefill_step, make_serve_step
+    prefill, serve = make_prefill_step(model), make_serve_step(model)
+    toks = toks.to(device)
+    cache = model.init_cache(toks.shape[0], L, dtype=torch.float32,
+                             device=device)
+    lg, cache = prefill(params, cache, tokens=toks[:, :S])
+    out, ms = [lg.float().cpu()], []
+    for t in range(T):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = serve(params, cache, toks[:, S + t:S + t + 1], S + t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(lg.float().cpu())
+    return torch.stack(out, 1), cache, ms
+
+
+def _cache_bytes(cache):
+    return sum(t.numel() * t.element_size() for layer in cache
+               for t in layer.values())
+
+
+def _rank_setup():
+    """A spawned rank: the card, fp32 matmuls without TF32 (as the
+    parent), and a 1x2 mesh over the gloo group."""
+    import torch
+
+    from repro_torch.launch.mesh import make_local_mesh, rank_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(None)
+    torch.cuda.reset_peak_memory_stats(dev)
+    return dev, make_local_mesh(1, 2)
+
+
+def _dist_decode_rank(arch, changes, B, S, T, L):
+    """One rank of a 1x2 gloo group on the card: the model at full width
+    under the mesh (``Model.init`` keeps this rank's experts), a prefill
+    and T decode steps; its gathered logits and counts."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.decode_sharded import seq_sharded_decode
+    from repro_torch.models.model import get_model
+    from repro_torch.models.moe import moe_apply
+    dev, mesh = _rank_setup()
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    model = get_model(cfg)
+    with sharding.axis_rules(mesh):
+        params = model.init(seed=0, device=dev)
+        weights = tensor_bytes(params)
+        toks = _dist_tokens(cfg, B, S + T)
+        zero_launches()
+        seq_sharded_decode.calls = seq_sharded_decode.all_reduces = 0
+        moe_apply.all_reduces = 0
+        logits, cache, ms = _decode_run(model, params, toks, S, T, L, dev)
+        out = {"logits": logits.numpy(), "launches": read_launches(),
+               "blocks": read_blocks(),
+               "seq_decode_calls": seq_sharded_decode.calls,
+               "seq_decode_all_reduces": seq_sharded_decode.all_reduces,
+               "moe_all_reduces": moe_apply.all_reduces,
+               "cache_bytes": _cache_bytes(cache), "weight_bytes": weights,
+               "decode_ms": ms,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+               "backend": torch.distributed.get_backend()}
+    return out
+
+
+def _dist_train_rank(argv):
+    """One rank of the train launcher under ``--mesh`` (inside the group
+    it uses it): every step's time and launches, and the hist."""
+    import torch
+    dev, _ = _rank_setup()
+    from repro_torch.launch import train
+    records, undo = _step_recorder()
+    try:
+        hist = train.main(argv)
+    finally:
+        undo()
+    return {"hist": hist, "records": records,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def _run_gloo_ranks(fn, args):
+    from repro_torch.launch.mesh import run_ranks
+    return run_ranks(fn, 2, backend="gloo", args=args, timeout=DIST_JOIN_S)
+
+
+def dist_world1_phase(device, card):
+    """A world-1 NCCL group on the card and ``make_local_mesh(1, 1)``:
+    kimi-k2-1t-a32b ``.reduced()``'s MoE block on the expert-parallel
+    branch (capacity_factor 8: nothing dropped) against the dense one,
+    and smollm-135m at full width under the mesh against no mesh, logits
+    and launches equal."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.model import get_model
+    from repro_torch.models.moe import moe_apply
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_local_mesh(1, 1)
+            kcfg = dataclasses.replace(get_config(P12B_REDUCED).reduced(),
+                                       capacity_factor=8.0)
+            kp = get_model(kcfg).init(seed=0, device=device)["layers"][1]
+            gen = torch.Generator(device=device).manual_seed(5)
+            x = torch.randn(4, 8, kcfg.d_model, generator=gen, device=device)
+            y_d, aux_d = moe_apply(kcfg, kp["moe"], x)
+            with sharding.axis_rules(mesh):
+                y_e, aux_e = moe_apply(kcfg, kp["moe"], x)
+            moe_gap = float((y_e - y_d).abs().max())
+            aux_gap = abs(float(aux_e) - float(aux_d)) / float(aux_d)
+            cfg = get_config(DIST_ARCH)
+            model = get_model(cfg)
+            params = model.init(seed=0, device=device)
+            toks = _dist_tokens(cfg, 2, 260)
+            zero_launches()
+            plain, _, _ = _decode_run(model, params, toks, 256, 4, 512,
+                                      device)
+            want = read_launches()
+            zero_launches()
+            with sharding.axis_rules(mesh):
+                meshed, _, _ = _decode_run(model, params, toks, 256, 4, 512,
+                                           device)
+            got = read_launches()
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    emit({"phase": "dist world-1", "card": card, "backend": backend,
+          "moe_ep_vs_dense_max_abs": moe_gap, "moe_aux_rel": aux_gap,
+          "smollm_mesh_equal": bool(torch.equal(plain, meshed)),
+          "launches": got})
+    if moe_gap > 3e-4 or aux_gap > 1e-3:
+        raise AssertionError(f"dist world-1: expert-parallel MoE {moe_gap}, "
+                             f"aux {aux_gap}")
+    if not torch.equal(plain, meshed) or got != want:
+        raise AssertionError(f"dist world-1: smollm under a 1x1 mesh "
+                             f"differs: launches {got} vs {want}")
+
+
+def _hold_ranks(name, outs, want, tol):
+    import numpy as np
+    gaps = [float(np.abs(o["logits"] - want).max()) for o in outs]
+    if max(gaps) > tol:
+        raise AssertionError(f"{name}: gathered logits {gaps} over {tol}")
+    return gaps
+
+
+def dist_smollm_phase(device, card):
+    """smollm-135m at full width on a 1x2 mesh of two gloo ranks on the
+    card: every layer decodes sequence-sharded. Its gathered logits
+    against the one-process card run, each rank's cache bytes half the
+    one-process cache's, K4 once a layer of the prefill, K3 never, three
+    all-reduces a layer of every decode step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import get_model
+    cfg = get_config(DIST_ARCH)
+    model = get_model(cfg)
+    params = model.init(seed=0, device=device)
+    zero_launches()
+    want, cache, ms = _decode_run(model, params, _dist_tokens(
+        cfg, DIST_B, DIST_S + DIST_T), DIST_S, DIST_T, DIST_L, device)
+    full_bytes = _cache_bytes(cache)
+    del params, cache
+    outs = _run_gloo_ranks(_dist_decode_rank, (DIST_ARCH, {}, DIST_B,
+                                               DIST_S, DIST_T, DIST_L))
+    gaps = _hold_ranks("dist smollm", outs, want.numpy(), DIST_LOGIT_TOL)
+    L = cfg.num_layers
+    for r, o in enumerate(outs):
+        lw = dict.fromkeys(kernel_fns(), 0) | {"flash_attention": L}
+        faults = []
+        if o["launches"] != lw:
+            faults.append(f"launches {o['launches']} != {lw}")
+        if o["seq_decode_all_reduces"] != 3 * L * DIST_T or \
+                o["seq_decode_calls"] != L * DIST_T:
+            faults.append(f"{o['seq_decode_calls']} seq-sharded decodes, "
+                          f"{o['seq_decode_all_reduces']} all-reduces")
+        if 2 * o["cache_bytes"] != full_bytes:
+            faults.append(f"cache {o['cache_bytes']} of {full_bytes}")
+        if faults:
+            raise AssertionError(f"dist smollm rank {r}: " + "; ".join(faults))
+    emit({"phase": "dist smollm 1x2", "card": card,
+          "backend": outs[0]["backend"], "ranks": 2, "batch": DIST_B,
+          "prompt": DIST_S, "max_len": DIST_L, "decode_steps": DIST_T,
+          "logit_max_abs_gap": gaps, "tol": DIST_LOGIT_TOL,
+          "cache_bytes_rank": [o["cache_bytes"] for o in outs],
+          "cache_bytes_one_process": full_bytes,
+          "launches_rank": [o["launches"] for o in outs],
+          "all_reduces_per_step": outs[0]["seq_decode_all_reduces"]
+          / DIST_T,
+          "decode_step_ms_median": {
+              "one_process": sorted(ms)[len(ms) // 2],
+              "ranks": [sorted(o["decode_ms"])[len(o["decode_ms"]) // 2]
+                        for o in outs]},
+          "peak_memory_bytes_rank": [o["peak_memory_bytes"] for o in outs]})
+    return outs[0]["launches"]
+
+
+def ds_dist_config(cfg):
+    """deepseek's config for the distributed run: a capacity of every
+    local token (capacity_factor E / k), so nothing is dropped."""
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+
+
+def ds_dist_want(cfg, params, device):
+    """The one-process card run the 1x2 deepseek phase is held to (the
+    dense MoE path ignores the capacity factor)."""
+    model = __import__("repro_torch.models.model",
+                       fromlist=["get_model"]).get_model(ds_dist_config(cfg))
+    logits, _, ms = _decode_run(model, params, _dist_tokens(
+        cfg, DS_DIST_B, DS_DIST_S + DS_DIST_T), DS_DIST_S, DS_DIST_T,
+        DS_DIST_L, device)
+    return logits.numpy(), ms
+
+
+def dist_deepseek_phase(card, want):
+    """deepseek-v2-lite-16b at full width and depth on a 1x2 mesh of two
+    gloo ranks on the card: MLA's sequence-sharded latent decode and the
+    expert-parallel MoE, 32 experts a rank. Gathered logits against the
+    one-process run (``want``: logits, decode ms), MLA and MoE calls
+    exact, each rank's peak memory."""
+    from repro_torch.configs.base import get_config
+    cfg = ds_dist_config(get_config(P12B))
+    changes = {"capacity_factor": cfg.capacity_factor}
+    logits, ms = want
+    outs = _run_gloo_ranks(_dist_decode_rank, (P12B, changes, DS_DIST_B,
+                                               DS_DIST_S, DS_DIST_T,
+                                               DS_DIST_L))
+    gaps = _hold_ranks("dist deepseek", outs, logits, DS_DIST_LOGIT_TOL)
+    L = cfg.num_layers
+    n_moe = L - cfg.first_dense_layers
+    fwd = 1 + DS_DIST_T
+    for r, o in enumerate(outs):
+        want_blocks = {"mla_apply": L * fwd, "moe_apply": n_moe * fwd}
+        if o["blocks"] != want_blocks or any(o["launches"].values()) or \
+                o["seq_decode_calls"] != L * DS_DIST_T or \
+                o["moe_all_reduces"] != n_moe * fwd:
+            raise AssertionError(
+                f"dist deepseek rank {r}: blocks {o['blocks']} (want "
+                f"{want_blocks}), launches {o['launches']}, seq-sharded "
+                f"decodes {o['seq_decode_calls']}, MoE all-reduces "
+                f"{o['moe_all_reduces']}")
+    emit({"phase": "dist deepseek 1x2", "card": card,
+          "backend": outs[0]["backend"], "ranks": 2, "batch": DS_DIST_B,
+          "prompt": DS_DIST_S, "max_len": DS_DIST_L,
+          "decode_steps": DS_DIST_T, "capacity_factor": cfg.capacity_factor,
+          "logit_max_abs_gap": gaps, "tol": DS_DIST_LOGIT_TOL,
+          "blocks_rank": [o["blocks"] for o in outs],
+          "weight_bytes_rank": [o["weight_bytes"] for o in outs],
+          "cache_bytes_rank": [o["cache_bytes"] for o in outs],
+          "decode_step_ms_median": {
+              "one_process": sorted(ms)[len(ms) // 2],
+              "ranks": [sorted(o["decode_ms"])[len(o["decode_ms"]) // 2]
+                        for o in outs]},
+          "peak_memory_bytes_rank": [o["peak_memory_bytes"] for o in outs]})
+
+
+def dist_train_phase(card):
+    """The train launcher with ``--mesh 2x1 --backend gloo`` on the card
+    (two ranks, each 4 of the 8 rows a step) against the one-process
+    launcher: the first step's loss and gradient norm within
+    ``TRAIN_LOSS_TOL``/``TRAIN_GNORM_TOL`` (relative), later steps' within
+    ``DIST_LATER_*_TOL``, and on every rank
+    K4 and its backward once a layer a step and no other kernel."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.model import get_model
+    argv = ["--arch", TRAIN, "--steps", str(DIST_TRAIN_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--log-every", "1"]
+    import torch
+    records, undo = _step_recorder()
+    try:
+        one = train.main(argv)
+    finally:
+        undo()
+    # the one-process run's weights, state and activations stay in this
+    # process's allocator cache: the two ranks need the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = _run_gloo_ranks(_dist_train_rank,
+                           (argv + ["--mesh", "2x1", "--backend", "gloo"],))
+    want = train_launches(get_model(get_config(TRAIN)))
+    faults = []
+    for r, o in enumerate(outs):
+        _launch_counts(f"{TRAIN} --mesh 2x1 rank {r}", o["records"], want)
+        for a, b in zip(one, o["hist"]):
+            lt, gt = ((TRAIN_LOSS_TOL, TRAIN_GNORM_TOL) if a["step"] == 1
+                      else (DIST_LATER_LOSS_TOL, DIST_LATER_GNORM_TOL))
+            if abs(a["loss"] - b["loss"]) > lt * abs(a["loss"]):
+                faults.append(f"rank {r} step {a['step']} loss {b['loss']}"
+                              f" vs {a['loss']}")
+            if abs(a["grad_norm"] - b["grad_norm"]) > \
+                    gt * abs(a["grad_norm"]):
+                faults.append(f"rank {r} step {a['step']} grad norm "
+                              f"{b['grad_norm']} vs {a['grad_norm']}")
+    med = lambda rs: sorted(x["s"] for x in rs[1:])[len(rs[1:]) // 2] * 1e3
+    emit({"phase": "dist train --mesh 2x1", "card": card, "backend": "gloo",
+          "batch": TRAIN_B, "seq": TRAIN_S, "steps": DIST_TRAIN_STEPS,
+          "loss": {"one_process": [h["loss"] for h in one],
+                   "ranks": [[h["loss"] for h in o["hist"]] for o in outs]},
+          "grad_norm": {"one_process": [h["grad_norm"] for h in one],
+                        "ranks": [[h["grad_norm"] for h in o["hist"]]
+                                  for o in outs]},
+          "step_ms_median": {"one_process": med(records),
+                             "ranks": [med(o["records"]) for o in outs]},
+          "launches_per_step": want,
+          "peak_memory_bytes_rank": [o["peak_memory_bytes"] for o in outs],
+          "faults": faults})
+    if faults:
+        raise AssertionError("dist train: " + "; ".join(faults))
+
+
+def dist_group(device, timed, card, ds_want, rows):
+    """P13a on the card: the world-1 NCCL check, then smollm-135m and
+    deepseek-v2-lite-16b on two gloo ranks (NCCL takes one rank a card;
+    gloo stages CUDA tensors through the host, so these are correctness
+    gates, not speed claims), then the launcher under --mesh 2x1. The
+    kernel rows of K3 and K4 take a rank's launches in the smollm run."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("dist world-1", dist_world1_phase, device, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = timed("dist smollm 1x2", dist_smollm_phase, device, card)
+    for k in ("decode_attention", "flash_attention"):
+        rows[k]["launches_p13a"] = {"smollm-135m 1x2, a rank": launches[k]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("dist deepseek 1x2", dist_deepseek_phase, card, ds_want)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("dist train --mesh 2x1", dist_train_phase, card)
 
 
 # --------------------------------------------------- P14a: training
@@ -4787,7 +5175,7 @@ def main() -> int:
     for k in ("decode_attention", "flash_attention", "rglru_scan"):
         rows[k]["launches"] = launches[k]
     timed("profile recurrentgemma", profile_phase, "recurrentgemma", rcfg,
-          rparams, gpu, wall, split_dispatches=True)
+          rparams, gpu, wall)
     timed("per_request recurrentgemma", per_request_phase, rcfg, rparams,
           gpu, name="per_request recurrentgemma")
     # the replay at full width, cut to one pattern cycle: its weights are
@@ -4817,7 +5205,9 @@ def main() -> int:
     timed("route_batch", route_batch_phase, gpu, card)
     # P12b: kimi .reduced() on the paged main path, then
     # deepseek-v2-lite-16b at full width, the largest model of the script
-    p12b_group(gpu, timed, rows)
+    ds_want = p12b_group(gpu, timed, rows)
+    # P13a: the distributed slice on gloo ranks on the card
+    dist_group(gpu, timed, card, ds_want, rows)
     # P14a: training on the card, last (paligemma's weights and AdamW
     # state are 40 GB)
     train_group(gpu, timed, rows, card)

@@ -79,6 +79,17 @@ are ``tests/test_torch_train_substrate.py``,
 ``tests/test_torch_train_step.py``, ``tests/test_torch_flash_bwd.py`` and
 ``tests/test_torch_scan_bwd.py``.
 
+Distributed (P13a): ``sharding`` (the logical-axis rules, resolved onto a
+``torch.distributed`` ``DeviceMesh``), ``launch.mesh`` (the local
+(data, model) mesh and spawned gloo or NCCL ranks), ``launch.specs``,
+the sequence-sharded decode (``models.decode_sharded``), the
+expert-parallel MoE (``models.moe``) and the train launcher's ``--mesh``:
+each rank runs the model on its local tensors, with the reference's two
+``shard_map`` regions as per-rank code and explicit all-reduces. Their
+tests are ``tests/test_torch_sharding.py`` and
+``tests/test_torch_distributed.py`` (gloo groups of 1, 2 and 4 ranks on
+the CPU).
+
 Entry points (``TickOrchestrator``, ``build_island_batchers``, both
 batchers, ``LocalModelServer``, ``Model.init``, ``train_classifier``, the
 launchers) run on the card unless the caller passes ``device="cpu"``;

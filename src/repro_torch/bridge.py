@@ -12,6 +12,10 @@ generic over a layer's leaves: an MoE layer's ``moe`` dict (the
 reference stacks its (E, d, f) experts to (G, E, d, f)), an MLA mixer,
 and the dense first layers (``head_{i}``) cross like any other.
 
+``shard_params`` takes the reference's parameters to this rank's local
+slices under a mesh (the leaves ``sharding.LOCAL_RULES`` splits: an MoE
+block's experts), as ``Model.init`` under the mesh keeps them.
+
 ``opt_state_from_reference`` carries the reference's AdamW state (its
 ``mu`` tree mirrors the reference's params) into the port's layout, so
 that a train step can resume from it and the tests can compare states.
@@ -124,6 +128,18 @@ def from_reference(cfg, ref_params, device="cpu"):
         raise ValueError(f"bridged {len(layers)} layers, config has "
                          f"{cfg.num_layers}")
     return out
+
+
+def shard_params(cfg, ref_params, mesh, device="cpu"):
+    """The reference's numpy param tree -> this rank's local slices of
+    the port's params under ``mesh`` (sliced on the host, then moved)."""
+    from repro_torch import sharding
+    from repro_torch.models.model import get_model
+    from repro_torch.training.optim import tree_map
+    full = from_reference(cfg, ref_params, "cpu")
+    return tree_map(
+        lambda t, ax: sharding.local_slice(t, ax, mesh).to(device), full,
+        get_model(cfg).axes())
 
 
 def to_reference(cfg, params, like):

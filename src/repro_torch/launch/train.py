@@ -13,24 +13,75 @@ Two options the reference does not have: ``--remat`` recomputes each
 pattern group's forward in the backward (``Model.forward(remat=True)``,
 as the reference's train step can), and ``--layers N`` trains the
 config's first N layers (its pattern continued, every width kept: a cut
-of a model too large for one card). ``--mesh`` is refused: a local
-device mesh waits for the distributed slice.
+of a model too large for one card).
+
+``--mesh dxm`` trains under a (data, model) mesh (``launch.mesh``): the
+global batch is split over "data", an MoE block's experts over "model"
+(the train step's data-parallel gradient reduction and the
+expert-parallel MoE, ``models.steps``, ``models.moe``). Outside a process
+group the launcher starts the d * m ranks itself (spawned, joined
+through a ``FileStore``), so the reference's command line works
+unchanged; it then returns rank 0's ``hist``, and only rank 0 prints.
+``--backend`` is gloo on the CPU and NCCL on the card (one rank a card)
+by default; gloo on the card runs several ranks on one card. Checkpoints
+are written in the global layout (every shard gathered, rank 0 writes),
+so a run with ``--mesh`` resumes one without it, and the reverse.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import sys
 import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
-from repro_torch import checkpoint
+from repro_torch import checkpoint, sharding
 from repro_torch.configs.base import ARCH_IDS, get_config
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.mesh import (default_backend, make_local_mesh,
+                                     rank_device, run_ranks)
 from repro_torch.models.model import get_model, resolve_device
 from repro_torch.models.steps import make_train_step
 from repro_torch.training import optim
+
+# the spawned ranks' join timeout (seconds)
+RANK_TIMEOUT = 3600.0
+
+
+def parse_mesh(text):
+    """'dxm' -> (d, m)."""
+    try:
+        d, m = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh {text!r}: expected dxm, e.g. 2x1") from None
+    if d < 1 or m < 1:
+        raise SystemExit(f"--mesh {text!r}: both sizes must be >= 1")
+    return d, m
+
+
+def _global(tree, axes, shapes, mesh):
+    """Every shard gathered: the tree in the global layout."""
+    return optim.tree_map(
+        lambda t, ax, s: sharding.gather_global(t, ax, s.shape, mesh),
+        tree, axes, shapes)
+
+
+def _local(tree, axes, like):
+    """This rank's slices of a global tree, on ``like``'s devices."""
+    return optim.tree_map(
+        lambda t, ax, l: sharding.local_slice(t, ax).to(l.device), tree,
+        axes, like)
+
+
+def _state_layout(ocfg, model):
+    """(axes, global shapes) of the AdamW state beside the params."""
+    ax = optim.state_axes(ocfg, model.axes())
+    shapes = optim.tree_map(lambda s: {"m": s, "v": s}, model.abstract())
+    return ax["mu"], shapes
 
 
 def main(argv=None):
@@ -54,17 +105,40 @@ def main(argv=None):
     ap.add_argument("--layers", type=int, default=None,
                     help="train the config's first N layers")
     ap.add_argument("--mesh", default=None,
-                    help="dxm local mesh (not offered yet)")
+                    help="dxm local mesh, e.g. 2x1: d * m ranks")
+    ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
+                    help="the mesh's process-group backend (default: "
+                         "nccl on the card, gloo on the CPU)")
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the card; "
                          "'cpu' runs the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit("--mesh: a local device mesh waits for the "
-                         "distributed slice (ROADMAP P13); train on one "
-                         "device without it")
 
-    device = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        d, m = parse_mesh(args.mesh)
+        if not dist.is_initialized():
+            backend = args.backend or default_backend(args.device)
+            if backend == "nccl" and torch.cuda.is_available() and \
+                    torch.cuda.device_count() < d * m:
+                raise SystemExit(
+                    f"--mesh {args.mesh}: NCCL takes one rank a card and "
+                    f"{torch.cuda.device_count()} cards are visible; pass "
+                    f"--backend gloo to run the ranks on shared cards")
+            return run_ranks(main, d * m, backend=backend,
+                             args=(sys.argv[1:] if argv is None else argv,),
+                             timeout=RANK_TIMEOUT)[0]
+        mesh = make_local_mesh(d, m, args.device)
+        device = rank_device(args.device)
+    else:
+        device = resolve_device(args.device)
+    with (sharding.axis_rules(mesh) if mesh is not None
+          else contextlib.nullcontext()):
+        return _train(args, device, mesh)
+
+
+def _train(args, device, mesh):
+    lead = mesh is None or dist.get_rank() == 0
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
@@ -83,16 +157,39 @@ def main(argv=None):
                        frontend=cfg.frontend, d_model=cfg.d_model,
                        num_prefix=cfg.num_prefix_tokens)
 
+    pax, shapes = model.axes(), model.abstract()
+    sax, sshapes = _state_layout(ocfg, model)
+
+    def save(step):       # the global layout: every shard gathered
+        checkpoint_tree = {
+            "params": _global(params, pax, shapes, mesh),
+            "state": {"mu": _global(state["mu"], sax, sshapes, mesh),
+                      "step": state["step"]}}
+        if lead:
+            checkpoint.save(args.ckpt_dir, checkpoint_tree, step=step)
+        if mesh is not None:
+            dist.barrier()
+
     start = 0
     if args.resume and args.ckpt_dir:
         s = checkpoint.latest_step(args.ckpt_dir)
         if s is not None:
-            ck = checkpoint.restore(Path(args.ckpt_dir) / f"step_{s:08d}",
-                                    {"params": params, "state": state})
-            params, state = ck["params"], ck["state"]
+            # read the global layout on the host, keep this rank's slices
+            like = optim.tree_map(
+                lambda t, g: torch.empty(g.shape, dtype=t.dtype),
+                {"params": params, "mu": state["mu"]},
+                {"params": shapes, "mu": sshapes})
+            g = checkpoint.restore(
+                Path(args.ckpt_dir) / f"step_{s:08d}",
+                {"params": like["params"],
+                 "state": {"mu": like["mu"], "step": state["step"].cpu()}})
+            params = _local(g["params"], pax, params)
+            state = {"mu": _local(g["state"]["mu"], sax, state["mu"]),
+                     "step": g["state"]["step"].to(device)}
             start = s
             data.seek(start)
-            print(f"resumed from step {s}")
+            if lead:
+                print(f"resumed from step {s}")
 
     step_fn = make_train_step(model, ocfg, remat=args.remat)
     hist = []
@@ -104,17 +201,16 @@ def main(argv=None):
         if (i + 1) % args.log_every == 0 or i == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             hist.append({"step": i + 1, **m})
-            print(f"step {i+1:5d} loss={m['loss']:.4f} ce={m['ce']:.4f} "
-                  f"lr={m['lr']:.2e} gnorm={m['grad_norm']:.2f} "
-                  f"({(time.time()-t0)/(i+1-start):.2f}s/step)")
+            if lead:
+                print(f"step {i+1:5d} loss={m['loss']:.4f} "
+                      f"ce={m['ce']:.4f} lr={m['lr']:.2e} "
+                      f"gnorm={m['grad_norm']:.2f} "
+                      f"({(time.time()-t0)/(i+1-start):.2f}s/step)")
         if args.ckpt_every and args.ckpt_dir and \
                 (i + 1) % args.ckpt_every == 0:
-            checkpoint.save(args.ckpt_dir,
-                            {"params": params, "state": state},
-                            step=i + 1)
+            save(i + 1)
     if args.ckpt_dir:
-        checkpoint.save(args.ckpt_dir, {"params": params, "state": state},
-                        step=args.steps)
+        save(args.steps)
     return hist
 
 

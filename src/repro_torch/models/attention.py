@@ -38,7 +38,19 @@ ways (ROADMAP R8), and a full-mode re-prefill of a generated stream that
 is still inside the prefix attends those tokens both ways too (R9). The
 port reproduces both, path for path.
 
-Not ported yet: the sequence-sharded decode.
+Under a mesh (``sharding.axis_rules``) whose model axis kv_heads does
+not divide, the dense cache is sequence-sharded: each rank holds its
+slot range (``attn_cache_spec``'s ``kv_seq`` axis), a full prefill
+writes only that range of the prompt's K/V (the reference writes a global
+array and lets XLA slice it), and decode runs
+``decode_sharded.seq_sharded_decode`` (plain torch ops and three
+all-reduces, no K3), as the reference's decode branch does. An fp8 cache
+keeps the seq-sharded layout but, as in the reference (which skips the
+seq-sharded decode for a quantized cache), decodes over the whole cache:
+the owning rank writes the token and its scales, every rank dequantizes
+its slots, the slots are gathered (``decode_sharded.gather_seq``) and
+K3 runs on the global fp32 cache. Otherwise a rank's cache holds every
+slot and head and decodes through K3 as without a mesh.
 """
 from __future__ import annotations
 
@@ -48,7 +60,13 @@ from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.models.decode_sharded import (gather_seq, local_seq,
+                                               seq_shard_axes,
+                                               seq_sharded_decode,
+                                               slot_and_fill, use_seq_sharded,
+                                               write_owned, write_prompt)
 from repro_torch.models.layers import PSpec, apply_rope, rms_norm
+from repro_torch.sharding import current_mesh
 
 
 def _fp8_quantize(x, dt):
@@ -89,6 +107,38 @@ def attend_decode(q, k_cache, v_cache, valid_len, scale):
                             valid_len, scale)[:, None]
 
 
+def _decode_seq_sharded(cfg, q, k, v, positions, cache, window, scale):
+    """Decode one token against this rank's slots of a seq-sharded dense
+    cache (updated in place): q/k/v (B, 1, *, D) before RoPE. A plain
+    cache takes ``seq_sharded_decode``; an fp8 one is written by its
+    owning rank, gathered as fp32 and attended by K3 whole, as the
+    reference decodes a quantized cache without the seq-sharded path."""
+    B = q.shape[0]
+    posb = (torch.zeros(B, dtype=torch.int32, device=q.device)
+            + positions).to(torch.int32)
+    q = apply_rope(q, posb[:, None], cfg.rope_theta)
+    k = apply_rope(k, posb[:, None], cfg.rope_theta)
+    if "k_scale" not in cache:
+        _, _, o = seq_sharded_decode(cache["k"], cache["v"],
+                                     k.to(cache["k"].dtype),
+                                     v.to(cache["v"].dtype), q, posb,
+                                     window, scale)
+        return o
+    group = current_mesh().get_group("model")
+    rank, n = local_seq(cfg.num_kv_heads, cache["k"].shape[1])
+    slot, valid = slot_and_fill(posb, B, cache["k"].shape[1] * n, window,
+                                q.device)
+    for name, t in (("k", k), ("v", v)):
+        td, ts = _fp8_quantize(t[:, 0], cache[name].dtype)
+        write_owned(cache[name], td, slot, rank)
+        write_owned(cache[name + "_scale"], ts, slot, rank)
+    k_att = gather_seq(cache["k"].float() * cache["k_scale"][..., None],
+                       group, rank, n)
+    v_att = gather_seq(cache["v"].float() * cache["v_scale"][..., None],
+                       group, rank, n)
+    return attend_decode(q, k_att, v_att, valid.to(torch.int32), scale)
+
+
 # ------------------------------------------------------------------- block
 
 def attn_table(cfg):
@@ -107,11 +157,17 @@ def attn_table(cfg):
 
 
 def attn_cache_spec(cfg, batch, max_len, window=None):
-    """{name: shape} of this block's dense decode cache: ``max_len``
-    slots, or ``min(window, max_len)`` for a windowed layer."""
+    """{name: (global shape, logical axes)} of this block's dense decode
+    cache: ``max_len`` slots, or ``min(window, max_len)`` for a windowed
+    layer. Mesh-aware: when kv_heads don't divide the model axis, the
+    sequence dim is sharded instead (the seq-sharded decode)."""
     S = min(window, max_len) if window else max_len
     sh = (batch, S, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": sh, "v": sh}
+    if use_seq_sharded(cfg.num_kv_heads, S):
+        ax = seq_shard_axes()
+    else:
+        ax = ("batch", None, "kv_heads", None)
+    return {"k": (sh, ax), "v": (sh, ax)}
 
 
 def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
@@ -149,6 +205,7 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
                             prefix_len=prefix_len)
         if cache is not None:
             W = cache["k"].shape[1]
+            shards = local_seq(Hkv, W)
             new = {}
             if "k_scale" in cache:       # fp8 cache: quantize on write
                 new["k"], new["k_scale"] = _fp8_quantize(k, cache["k"].dtype)
@@ -156,10 +213,16 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
             else:
                 new["k"], new["v"] = k, v
             for name, val in new.items():
-                if W >= S:
+                if shards is not None:   # this rank's slots only
+                    write_prompt(cache[name], val, *shards)
+                elif W >= S:
                     cache[name][:, :S] = val.to(cache[name].dtype)
                 else:        # windowed ring: keep the last W tokens
                     cache[name].copy_(val[:, -W:])
+    elif mode == "decode" and "k" in cache and local_seq(
+            Hkv, cache["k"].shape[1]) is not None:
+        o = _decode_seq_sharded(cfg, q, k, v, positions, cache, window,
+                                scale)
     elif mode == "decode" and "k" in cache:   # one token, dense cache
         W = cache["k"].shape[1]
         posb = (torch.zeros(B, dtype=torch.int32, device=x.device)

@@ -9,6 +9,12 @@ embedding's 0.02, Mamba-2's ``dt_bias``/``a_log``/``ones``, the RG-LRU's
 ``lambda_init``). The draws are the port's own: a ``torch.Generator``
 gives other numbers than ``jax.random`` for the same seed, so parity tests
 move the reference's weights across with ``repro_torch.bridge`` instead.
+
+``param_axes`` and ``abstract_params`` derive a table's logical axes and
+its abstract (meta-device) tensors, so that real params, abstract params
+and sharding specs come from one table. Under a mesh ``init_params``
+takes ``keep``, which maps each whole drawn leaf to what this rank keeps
+(its local shard): every rank draws the same numbers as one process.
 """
 from __future__ import annotations
 
@@ -42,9 +48,11 @@ def _walk(table, prefix=()):
             yield from _walk(v, prefix + (k,))
 
 
-def init_params(table, generator: torch.Generator, dtype, device):
+def init_params(table, generator: torch.Generator, dtype, device,
+                keep=None):
     """Real tensors for every leaf of ``table``, drawn in flattening order
-    from ``generator`` (which must live on ``device``)."""
+    from ``generator`` (which must live on ``device``). ``keep(spec, w)``,
+    when given, replaces each whole leaf by what to keep of it."""
     out: dict = {}
     for path, spec in _walk(table):
         if spec.init == "zeros":
@@ -82,11 +90,28 @@ def init_params(table, generator: torch.Generator, dtype, device):
         else:
             raise ValueError(f"init {spec.init!r} belongs to a block family "
                              f"the port does not carry yet")
+        if keep is not None:
+            w = keep(spec, w)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
         node[path[-1]] = w
     return out
+
+
+def _map_table(table, fn):
+    return {k: (fn(v) if isinstance(v, PSpec) else _map_table(v, fn))
+            for k, v in table.items()}
+
+
+def abstract_params(table, dtype):
+    """Meta tensors of every leaf's shape and ``dtype``: no storage."""
+    return _map_table(table, lambda s: torch.empty(s.shape, dtype=dtype,
+                                                   device="meta"))
+
+
+def param_axes(table):
+    return _map_table(table, lambda s: s.axes)
 
 
 # ---------------------------------------------------------------- primitives

@@ -29,8 +29,14 @@ scale: the reference adds scales only beside attention's ``k``/``v``.
 
 The reference computes all of this with XLA einsums and no Pallas
 kernel, and so does the port with torch ops: the port's K3/K4 take one
-D up to 256 for q, k and v, and MLA needs 192/128 and 576/512. The
-sequence-sharded decode waits for ROADMAP P13.
+D up to 256 for q, k and v, and MLA needs 192/128 and 576/512.
+
+Under a mesh with a model axis of more than one rank the latent cache
+(which has no kv-head dim) is sequence-sharded (``mla_cache_spec``):
+a full prefill writes this rank's slot range, and decode is the
+absorbed query against ``decode_sharded.seq_sharded_decode`` with
+``ckr`` as the keys and its first ``kv_lora_rank`` lanes as the values
+(MQA over the latent), whatever ``decode_mode`` says, as the reference.
 
 ``mla_apply`` counts its calls in ``mla_apply.calls``, as the kernel
 wrappers count ``.launches``.
@@ -39,6 +45,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.decode_sharded import (local_seq, seq_shard_axes,
+                                               seq_sharded_decode,
+                                               use_seq_sharded, write_prompt)
 from repro_torch.models.layers import PSpec, apply_rope, rms_norm
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -60,10 +69,14 @@ def mla_table(cfg):
     }
 
 
-def mla_cache_spec(cfg, batch, max_len):
-    """{name: shape} of this block's dense decode cache: one latent of
-    ``kv_lora_rank + rope_head_dim`` a slot, no kv-head dim."""
-    return {"ckr": (batch, max_len, 1, cfg.kv_lora_rank + cfg.rope_head_dim)}
+def mla_cache_spec(cfg, batch, max_len, window=None):
+    """{name: (global shape, logical axes)} of this block's dense decode
+    cache: one latent of ``kv_lora_rank + rope_head_dim`` a slot, no
+    kv-head dim, its slots sharded over the model axis under a mesh."""
+    sh = (batch, max_len, 1, cfg.kv_lora_rank + cfg.rope_head_dim)
+    if use_seq_sharded(0, max_len):  # latent cache has no kv-head dim
+        return {"ckr": (sh, seq_shard_axes())}
+    return {"ckr": (sh, ("batch", None, None, None))}
 
 
 def _project_q(cfg, p, h, B):
@@ -84,6 +97,29 @@ def _attend_causal(q, k, v, scale):
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     pr = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", pr, v.float()).to(q.dtype)
+
+
+def _absorbed_query(cfg, p, q_nope, q_rope, dtype):
+    """q' = [q_nope @ W_uk^T, q_rope] (B, 1, H, r + rd) in ``dtype``."""
+    H, nd, r = cfg.num_heads, cfg.nope_head_dim, cfg.kv_lora_rank
+    wuk = p["w_uk"].reshape(r, H, nd)
+    q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), wuk.float())
+    return torch.cat([q_lat, q_rope.float()], dim=-1).to(dtype)
+
+
+def _decode_seq_sharded(cfg, p, x, q_nope, q_rope, c, k_rope_t, ckr, posb,
+                        scale):
+    """The absorbed decode against this rank's slots of a seq-sharded
+    latent cache (updated in place). Returns o (B, 1, H, v_head_dim)."""
+    B, H, r, vd = x.shape[0], cfg.num_heads, cfg.kv_lora_rank, \
+        cfg.v_head_dim
+    new = torch.cat([c, k_rope_t], dim=-1)[:, :, None, :].to(ckr.dtype)
+    q_abs = _absorbed_query(cfg, p, q_nope, q_rope, x.dtype)
+    _, _, o_lat = seq_sharded_decode(ckr, ckr[..., :r], new, new[..., :r],
+                                     q_abs, posb, None, scale)
+    wuv = p["w_uv"].reshape(r, H, vd)
+    return torch.einsum("bthr,rhv->bthv", o_lat.float(),
+                        wuv.float()).to(x.dtype)
 
 
 def mla_apply(cfg, p, x, positions, *, mode, cache=None,
@@ -116,8 +152,12 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
         k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
         o = _attend_causal(q, k, v, scale)
         if cache is not None:
-            ckr = torch.cat([c, k_rope[:, :, 0, :]], dim=-1)
-            cache["ckr"][:, :S] = ckr[:, :, None, :].to(cache["ckr"].dtype)
+            ckr = torch.cat([c, k_rope[:, :, 0, :]], dim=-1)[:, :, None, :]
+            shards = local_seq(0, cache["ckr"].shape[1])
+            if shards is not None:       # this rank's slots only
+                write_prompt(cache["ckr"], ckr, *shards)
+            else:
+                cache["ckr"][:, :S] = ckr.to(cache["ckr"].dtype)
     elif mode == "decode":
         posb = (torch.zeros(B, dtype=torch.int32, device=x.device)
                 + positions).to(torch.int32)       # scalar or (B,)
@@ -126,6 +166,11 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
                               cfg.rope_theta)[:, :, 0, :]
         ckr = cache["ckr"]
         S = ckr.shape[1]
+        if local_seq(0, S) is not None:
+            o = _decode_seq_sharded(cfg, p, x, q_nope, q_rope, c, k_rope_t,
+                                    ckr, posb, scale)
+            y = torch.matmul(o.reshape(B, 1, H * vd), p["wo"])
+            return x + y, cache
         rows = torch.arange(B, device=x.device)
         slot = torch.clamp(posb, max=S - 1).long()
         ckr[rows, slot] = torch.cat([c, k_rope_t], dim=-1)[:, 0, None, :].to(
@@ -134,11 +179,7 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
                  < (posb.long() + 1)[:, None])[:, None, :]     # (B, 1, S)
         kk = ckr[:, :, 0, :].float()                           # (B, S, r+rd)
         if decode_mode == "absorbed":
-            # absorbed query: q' = [q_nope @ W_uk^T, q_rope]  (B, 1, H, r+rd)
-            wuk = p["w_uk"].reshape(r, H, nd)
-            q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(),
-                                 wuk.float())
-            q_abs = torch.cat([q_lat, q_rope.float()], dim=-1).to(x.dtype)
+            q_abs = _absorbed_query(cfg, p, q_nope, q_rope, x.dtype)
             s = torch.einsum("bthd,bsd->bhs", q_abs.float(), kk) * scale
             s = torch.where(valid, s, torch.full_like(s, NEG_INF))
             pr = torch.softmax(s, dim=-1)

@@ -31,15 +31,29 @@ RG-LRU recurrence go through ``repro_torch.kernels``; MLA and MoE are
 torch ops, as the reference's are XLA einsums. Attention layers
 take ``cfg.attn_window`` as their local-attention window:
 recurrentgemma-9b's are windowed.
+
+``axes()``, ``abstract()``, ``cache_spec()`` and ``cache_axes()`` give
+the logical sharding axes, meta-device stand-ins and cache layout in the
+port's per-layer layout (the reference's per-layer entries, without its
+stacked "layers" dim). Under a mesh (``sharding.axis_rules``)
+``init`` keeps this rank's slice of each leaf the port shards (an MoE
+block's experts, ``sharding.LOCAL_RULES``), drawing every leaf whole as
+one process would, and ``init_cache`` allocates this rank's slice of the
+cache (its batch rows over the data axes; a sequence-sharded layer's
+slot range). ``forward`` then runs on this rank's local tensors: the
+MoE block and the sequence-sharded decode add their collectives.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.models import attention, mla, rglru, ssm
-from repro_torch.models.layers import (PSpec, init_params, rms_norm,
-                                       swiglu_apply, swiglu_table)
+from repro_torch.models.decode_sharded import use_seq_sharded
+from repro_torch.models.layers import (PSpec, abstract_params, init_params,
+                                       param_axes, rms_norm, swiglu_apply,
+                                       swiglu_table)
 from repro_torch.models.moe import moe_apply, moe_table
 
 
@@ -134,14 +148,54 @@ class Model:
                 + [(lo, lo + P, True) for lo in range(n0, end, P)]
                 + [(i, i + 1, False) for i in range(end, L)])
 
+    def axes(self):
+        """The logical axes of every parameter, in the params' layout."""
+        out = param_axes(self.param_table())
+        out["layers"] = [param_axes(self.layer_table(i))
+                         for i in range(self.cfg.num_layers)]
+        return out
+
+    def abstract(self, dtype=torch.float32):
+        """Meta tensors of every parameter's global shape: no storage."""
+        out = abstract_params(self.param_table(), dtype)
+        out["layers"] = [abstract_params(self.layer_table(i), dtype)
+                         for i in range(self.cfg.num_layers)]
+        return out
+
     def cache_spec(self, batch, max_len):
-        """Per layer, {name: shape} of the dense decode cache; attention
-        layers hold ``min(cfg.attn_window, max_len)`` slots when
-        windowed."""
+        """Per layer, {name: (global shape, logical axes)} of the dense
+        decode cache; attention layers hold ``min(cfg.attn_window,
+        max_len)`` slots when windowed. Mesh-aware, as the reference's:
+        a layer whose kv heads the model axis does not divide (MLA: any
+        model axis) shards its slots over it."""
         w = self.cfg.attn_window
         return [BLOCK_CACHE[bt](self.cfg, batch, max_len, w) if bt == "attn"
                 else BLOCK_CACHE[bt](self.cfg, batch, max_len)
                 for bt in self.block_types]
+
+    def cache_axes(self, batch, max_len):
+        return [{n: sa[1] for n, sa in layer.items()}
+                for layer in self.cache_spec(batch, max_len)]
+
+    def _check_cache_mesh(self, max_len):
+        """Refuse a cache the reference would replicate where a
+        seq-sharded one fits (kv heads the model axis does not divide,
+        slots it does not divide): the port decides a layer's decode from
+        its local slots, and cannot tell such a cache from a split one."""
+        mesh = sharding.current_mesh()
+        n = sharding.mesh_shape(mesh).get("model", 1) if mesh else 1
+        for i, (layer, bt) in enumerate(zip(self.cache_spec(1, max_len),
+                                            self.block_types)):
+            if bt not in ("attn", "mla"):
+                continue
+            kv = self.cfg.num_kv_heads if bt == "attn" else 0
+            S = next(iter(layer.values()))[0][1]
+            if use_seq_sharded(kv) and S % n:
+                raise ValueError(
+                    f"init_cache: layer {i} ({bt}) has {S} cache slots, "
+                    f"which do not split over the mesh's model axis of "
+                    f"{n}; the port decodes such a layer only "
+                    f"sequence-sharded (pick a max_len that {n} divides)")
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
         """A zeroed dense decode cache on ``device`` (None = the card): per
@@ -157,11 +211,16 @@ class Model:
         ``ckr`` gets no scale and is a plain cast, as the reference's
         (scales sit only beside ``k``/``v``). Zeros, not
         empty memory: a masked slot multiplies p = 0 by what it holds, and
-        uninitialised memory may hold NaN bits."""
+        uninitialised memory may hold NaN bits. Under a mesh, this rank's
+        slice of each leaf (``cache_spec``'s axes under
+        ``sharding.LOCAL_RULES``): a seq-sharded layer holds
+        ``max_len / model`` slots."""
         dev = resolve_device(device)
-        out = [{n: torch.zeros(sh, dtype=torch.float32 if n == "h"
-                               else dtype, device=dev)
-                for n, sh in layer.items()}
+        self._check_cache_mesh(max_len)
+        out = [{n: torch.zeros(sharding.local_shape(sh, ax),
+                               dtype=torch.float32 if n == "h" else dtype,
+                               device=dev)
+                for n, (sh, ax) in layer.items()}
                for layer in self.cache_spec(batch, max_len)]
         if dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
             for layer in out:
@@ -174,12 +233,19 @@ class Model:
 
     def init(self, seed=0, dtype=torch.float32, device=None):
         """Seeded random weights at the config's widths, drawn on
-        ``device`` (None = the card) from one ``torch.Generator``."""
+        ``device`` (None = the card) from one ``torch.Generator``. Under
+        a mesh each leaf is drawn whole and this rank keeps its slice of
+        the leaves the port shards (``sharding.LOCAL_RULES``)."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        params = init_params(self.param_table(), gen, dtype, dev)
-        params["layers"] = [init_params(self.layer_table(i), gen, dtype, dev)
+        keep = None
+        if sharding.current_mesh() is not None:
+            def keep(spec, w):
+                return sharding.local_slice(w, spec.axes)
+        params = init_params(self.param_table(), gen, dtype, dev, keep)
+        params["layers"] = [init_params(self.layer_table(i), gen, dtype,
+                                        dev, keep)
                             for i in range(self.cfg.num_layers)]
         return params
 

@@ -52,10 +52,11 @@ def rglru_table(cfg):
 
 
 def rglru_cache_spec(cfg, batch, max_len=None):
-    """{name: shape} of this block's decode cache (its size does not
-    depend on ``max_len``)."""
+    """{name: (shape, logical axes)} of this block's decode cache (its
+    size does not depend on ``max_len``)."""
     r, W = cfg.lru_width, cfg.conv_width
-    return {"conv": (batch, W - 1, r), "h": (batch, r)}
+    return {"conv": ((batch, W - 1, r), ("batch", None, "lru")),
+            "h": ((batch, r), ("batch", "lru"))}
 
 
 def _gate(u, w):

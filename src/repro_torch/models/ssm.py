@@ -57,11 +57,12 @@ def ssm_table(cfg):
 
 
 def ssm_cache_spec(cfg, batch, max_len=None):
-    """{name: shape} of this block's decode cache (its size does not
-    depend on ``max_len``)."""
+    """{name: (shape, logical axes)} of this block's decode cache (its
+    size does not depend on ``max_len``)."""
     inner, N, W = cfg.ssm_inner, cfg.ssm_state, cfg.conv_width
-    return {"conv": (batch, W - 1, inner + 2 * N),
-            "h": (batch, cfg.ssm_heads, cfg.ssm_head_dim, N)}
+    return {"conv": ((batch, W - 1, inner + 2 * N), ("batch", None, None)),
+            "h": ((batch, cfg.ssm_heads, cfg.ssm_head_dim, N),
+                  ("batch", "ssm_heads", None, None))}
 
 
 def ssd_chunked(x, dt, a, B_, C_, chunk):

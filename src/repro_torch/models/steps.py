@@ -12,8 +12,20 @@ Mamba-2's SSD through K5 and its backward (``kernels.ssd``) and the
 RG-LRU recurrence through K6 and its backward (``kernels.rglru``), where
 the reference's ``jax.value_and_grad`` differentiates XLA's ops. The train step updates the parameters and the AdamW state in
 place (``training.optim.apply_updates_``): one copy of each, where the
-reference returns new arrays. The reference's ``shard`` of the batch is
-the identity without a mesh and is left out.
+reference returns new arrays.
+
+Under a mesh (``sharding.axis_rules``) the train step takes the global
+batch and splits it over the data axes (the reference's ``shard`` of the
+batch, ``steps.py:53``), which must divide it; the model runs on the
+rank's rows, with its MoE blocks expert-parallel over "model". Each
+rank's objective is its cross-entropy weighted by its share of the
+global labelled tokens plus the aux loss (global already, and
+differentiated only through the rank's own statistics), so an
+all-reduce SUM of the gradients over "data" gives the gradient of the
+global-batch loss. Replicated leaves then hold the single-device
+gradient on every rank, an expert leaf this rank's slice of it; the
+clip norm sums the slices' squares over "model", and AdamW updates each
+rank's local leaves.
 
 Device-resident sampling state (``last_tok`` (num_slots + 1,),
 ``gen_buf`` (num_slots + 1, max_len)) carries ONE extra row at index
@@ -25,7 +37,9 @@ index.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding
 from repro_torch.serving.sampling import sample
 from repro_torch.training import optim as _optim
 
@@ -73,17 +87,103 @@ def value_and_grad(model, params, batch, remat=False):
     """(loss, {"ce", "aux"}, grads): the loss of ``loss_fn`` and its
     gradient with respect to every parameter, a tree like ``params``
     (zeros for a parameter the loss does not read, as ``jax.grad``
-    gives). ``params`` is not changed and needs no ``requires_grad``."""
+    gives). ``params`` is not changed and needs no ``requires_grad``.
+    Under a mesh ``batch`` is the global batch and the loss and gradients
+    are the global batch's (see the module docstring); an expert leaf's
+    gradient is this rank's slice."""
+    mesh = sharding.current_mesh()
+    data_n = sharding.mesh_shape(mesh).get("data", 1) if mesh else 1
+    if mesh is not None:
+        batch = split_batch(batch)
     live = _optim.tree_map(lambda p: p.detach().requires_grad_(True),
                            params)
     leaves = _optim.tree_leaves(live)
     with torch.enable_grad():
         loss, parts = loss_fn(model, live, batch, remat=remat)
+        if data_n > 1:
+            share = _token_share(batch, mesh.get_group("data"))
+            loss = share * parts["ce"] + \
+                model.cfg.router_aux_coef * parts["aux"]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = _optim.tree_unflatten(live, [
-        torch.zeros_like(p) if g is None else g
-        for p, g in zip(leaves, grads)])
-    return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    parts = {k: v.detach() for k, v in parts.items()}
+    if data_n > 1:
+        group = mesh.get_group("data")
+        grads = _all_reduce_flat(grads, group)
+        ce = (share * parts["ce"]).detach().clone()
+        dist.all_reduce(ce, group=group)
+        parts["ce"] = ce
+        loss = ce + model.cfg.router_aux_coef * parts["aux"]
+    return (loss.detach(), parts, _optim.tree_unflatten(live, grads))
+
+
+def split_batch(batch):
+    """This rank's rows of a global batch dict under the current mesh
+    (the reference's ``shard(v, "batch", ...)``); the data axes must
+    divide the batch."""
+    n = sharding.mesh_shape(sharding.current_mesh()).get("data", 1)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"train step: a global batch of {v.shape[0]} "
+                             f"does not split over {n} data ranks")
+        out[k] = sharding.local_slice(v, ("batch",) + (None,) * (v.dim()
+                                                                 - 1))
+    return out
+
+
+def _token_share(batch, group):
+    """This rank's weight in the global mean cross-entropy: its labelled
+    tokens over the global batch's (a ``mask`` counts its ones; the
+    loss floors a denominator at 1)."""
+    mask = batch.get("mask")
+    if mask is None:
+        n = torch.tensor(float(batch["labels"][:, 1:].numel()),
+                         device=batch["labels"].device)
+    else:
+        n = mask.float().sum()
+    total = n.clone()
+    dist.all_reduce(total, group=group)
+    return torch.clamp(n, min=1.0) / torch.clamp(total, min=1.0)
+
+
+def _all_reduce_flat(tensors, group):
+    """All-reduce SUM a list of tensors over ``group`` through one flat
+    fp32 buffer; returns new tensors in the inputs' dtypes."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, group=group)
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))
+        i += t.numel()
+    return out
+
+
+def grad_norm(model, grads):
+    """The global norm of ``grads`` under the current mesh: replicated
+    leaves once, the sharded leaves' squares summed over "model"."""
+    mesh = sharding.current_mesh()
+    if mesh is None:
+        return _optim.global_norm(grads)
+    rep, split = [], []
+    for g, s in zip(_optim.tree_leaves(grads), sharded_leaves(model)):
+        (split if s else rep).append(torch.sum(torch.square(g.float())))
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=_optim.tree_leaves(grads)[0].device)
+    sq_split = sum(split, zero)
+    if split:
+        sq_split = sq_split.clone()
+        dist.all_reduce(sq_split, group=mesh.get_group("model"))
+    return torch.sqrt(sum(rep, zero) + sq_split)
+
+
+def sharded_leaves(model) -> list:
+    """For each parameter leaf (``tree_leaves`` order), whether this
+    rank holds only a slice of it under the current mesh."""
+    return _optim.tree_leaves(_optim.tree_map(
+        lambda s, a: sharding.is_sharded(s.shape, a), model.abstract(),
+        model.axes()))
 
 
 def reference_ranks(model, params):
@@ -120,7 +220,8 @@ def make_train_step(model, opt_cfg: _optim.AdamWConfig, remat=True):
         loss, parts, grads = value_and_grad(model, params, batch, remat)
         params, opt_state, stats = _optim.apply_updates_(
             opt_cfg, params, grads, opt_state,
-            ranks=reference_ranks(model, params))
+            ranks=reference_ranks(model, params),
+            grad_norm=grad_norm(model, grads))
         return params, opt_state, {"loss": loss, **parts, **stats}
 
     return train_step

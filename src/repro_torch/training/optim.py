@@ -14,8 +14,10 @@ or more.
 ``apply_updates_`` writes the same values into the parameters and the
 state in place, which keeps a step at one copy of each (paligemma-3b's
 fp32 weights and AdamW state are 40 GB: a second copy would not fit
-beside them on an 80 GB card). ``state_axes`` maps logical sharding axes
-and waits for the distributed slice.
+beside them on an 80 GB card). ``state_axes`` maps the parameters'
+logical sharding axes onto the state. A train step over a mesh, whose
+ranks hold shards of some leaves, passes the global gradient norm in
+(``grad_norm=``): a rank's own leaves would give only part of it.
 
 In the reference a layer inside the repeating pattern groups is stacked
 along a leading dim, so its 1-D leaves (norm weights) have rank 2 there
@@ -121,12 +123,32 @@ def init_state(cfg: AdamWConfig, params):
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def _scalars(cfg, grads, state):
+def state_axes(cfg: AdamWConfig, params_axes):
+    """Logical axes for the optimizer state mirroring the param axes (a
+    tree of tuples beside the params)."""
+    def one(ax):
+        ax = tuple(ax)
+        if cfg.factored and len(ax) >= 2:
+            return {"m": ax, "vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
+        return {"m": ax, "v": ax}
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return one(node)
+
+    return {"mu": walk(params_axes), "step": ()}
+
+
+def _scalars(cfg, grads, state, gnorm=None):
     """(step, lr, clip scale, bias corrections 1 and 2, grad norm) of the
     update that follows ``state``: 0-d tensors."""
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     sf = step.to(torch.float32)
@@ -177,11 +199,14 @@ def apply_updates(cfg: AdamWConfig, params, grads, state, ranks=None):
 
 
 @torch.no_grad()
-def apply_updates_(cfg: AdamWConfig, params, grads, state, ranks=None):
+def apply_updates_(cfg: AdamWConfig, params, grads, state, ranks=None,
+                   grad_norm=None):
     """``apply_updates`` in place: the same values written into
-    ``params`` and ``state``, one leaf at a time. Returns (params, state,
-    {"lr", "grad_norm"})."""
-    step, lr, scale, bc1, bc2, gnorm = _scalars(cfg, grads, state)
+    ``params`` and ``state``, one leaf at a time. ``grad_norm``: the
+    gradients' global norm when ``grads`` hold only this rank's shards.
+    Returns (params, state, {"lr", "grad_norm"})."""
+    step, lr, scale, bc1, bc2, gnorm = _scalars(cfg, grads, state,
+                                                grad_norm)
 
     def one(p, g, s, r):
         new_p, new_s = _update(cfg, p, g, s, r, lr, scale, bc1, bc2)

@@ -35,7 +35,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "obs.trace", "obs.export", "obs.profile", "privacy",
                 "privacy.adversary", "privacy.leakage", "data.pipeline",
                 "training.optim", "checkpoint", "models.steps",
-                "launch.train", "core.mist_model"):
+                "launch.train", "core.mist_model", "sharding",
+                "launch.mesh", "launch.specs", "models.decode_sharded"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"
