@@ -41,10 +41,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    smollm's heads, B 8 x S 2048; paligemma's 256-token prefix at its
    heads, B 2 x S 512; recurrentgemma's train step, B 1 x S 2048 with
    its window of 2048 (the causal walk), and a window of 512 at its
-   heads), each gradient within ``BWD_TOL`` of its largest, with its
-   device ms (CUDA events), the plain version's, SDPA's forward and
-   backward through autograd (a yardstick) and its bound (2.5x the
-   forward's flops at the TF32 rate), a row of its own; K5's backward
+   heads), each gradient within ``BWD_TOL`` of its largest and two
+   launches bit-equal, with its device ms (CUDA events), the plain
+   version's, SDPA's backward alone (``torch.autograd.grad`` on a graph
+   built outside the timing; a yardstick, with the backend that ran) and
+   its forward and backward together, its bound (2.5x the forward's
+   flops at the TF32 rate) and its two kernels' registers, shared memory,
+   spills, blocks an SM, tile and walk step, a row of its own; K5's backward
    (``ssd_chunk_bwd``) against ``ref.ssd_chunk_bwd`` at mamba2-370m's
    train shape (8 x 2,048 tokens: 64 chunks of 256; K5's forward held to
    ``kernels.ssd.error_bound`` there first, and its cum fed on), each
@@ -658,11 +661,14 @@ def bwd_kernel_rows(dev, gen):
     covering every key, so the wrapper takes the causal walk) and a
     window of 512 at its heads (S 2048). Each gradient holds to BWD_TOL
     of its largest magnitude. Device ms (CUDA
-    events) of the kernel, the plain version and SDPA's forward and
-    backward through autograd (a yardstick the port never calls); the
-    least time is the backward's flops, 2.5x the forward's over the pairs
-    the mask allows, at the TF32 rate of fp32 operands. Returns the row
-    for K4's entry (smollm's case, the others beside it)."""
+    events) of the kernel, the plain version and SDPA (a yardstick the
+    port never calls): ``library_ms`` its backward alone, through
+    ``torch.autograd.grad`` on a graph built once outside the timing (the
+    same function as the kernel), with the backend that ran, and its
+    forward and backward together beside it; the least time is the
+    backward's flops, 2.5x the forward's over the pairs the mask allows,
+    at the TF32 rate of fp32 operands. Returns the row for K4's entry
+    (smollm's case, the others beside it)."""
     import torch
     import torch.nn.functional as F
 
@@ -694,15 +700,20 @@ def bwd_kernel_rows(dev, gen):
         do = torch.randn(q.shape, generator=gen, device=dev)
         bargs = (q, k, v, o, lse, do, scale, True, w, pre)
         got = flash_attention_bwd(*bargs)
+        again = flash_attention_bwd(*bargs)
         want = ref.flash_attention_bwd(*bargs)
         torch.cuda.synchronize()
         errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
-        for name, e, b in zip(("dq", "dk", "dv"), errs, want):
+        for name, e, b, g, g2 in zip(("dq", "dk", "dv"), errs, want, got,
+                                     again):
             lim = BWD_TOL * float(b.abs().max()) + 1e-6
             if not e <= lim:
                 raise AssertionError(f"flash_attention_bwd ({geom}): {name} "
                                      f"max abs error {e} > {lim}")
-        del got, want
+            if not torch.equal(g, g2):
+                raise AssertionError(f"flash_attention_bwd ({geom}): two "
+                                     f"launches differ in {name}")
+        del got, again, want
         kms = event_ms(lambda: flash_attention_bwd(*bargs))
         pms = event_ms(lambda: ref.flash_attention_bwd(*bargs), reps=3)
         qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_(True)
@@ -716,14 +727,23 @@ def bwd_kernel_rows(dev, gen):
                 mask &= pos[None, :] > pos[:, None] - w
             mask |= pos[None, :] < pre
 
-        def sdpa_fwd_bwd():
-            y = (F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
-                                                enable_gqa=True)
-                 if mask is None else F.scaled_dot_product_attention(
-                     qq, kk, vv, attn_mask=mask, enable_gqa=True))
-            return torch.autograd.grad(y, (qq, kk, vv), dd)
+        def sdpa_fwd():
+            return (F.scaled_dot_product_attention(qq, kk, vv, is_causal=True,
+                                                   enable_gqa=True)
+                    if mask is None else F.scaled_dot_product_attention(
+                        qq, kk, vv, attn_mask=mask, enable_gqa=True))
 
-        lms = event_ms(sdpa_fwd_bwd, reps=3)
+        lfb = event_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qq, kk, vv),
+                                                   dd), reps=3)
+        # SDPA's backward alone: its graph built once, outside the timing
+        y = sdpa_fwd()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(y, (qq, kk, vv), dd, retain_graph=True)
+
+        lms = event_ms(sdpa_bwd, reps=3)
+        backend = sdpa_backend(sdpa_bwd)
+        del y
         bflops = 2.5 * fflops * B
         bound, by = _bound(4 * (4 * q.numel() + 4 * k.numel()
                                 + lse.numel()), bflops, TF32_FLOP_PER_S)
@@ -733,10 +753,12 @@ def bwd_kernel_rows(dev, gen):
                              "attention (src/repro/models/steps.py:38-39)",
                  "max_abs_err": max(errs), "ms": kms, "plain_ms": pms,
                  "bound_ms": bound, "bound_by": by, "library_ms": lms,
+                 "library_fwd_bwd_ms": lfb, "library_backend": backend,
                  "geometry": geom, "attrs": bwd_attrs(D)}
         emit({"phase": "kernel", "name": "flash_attention_bwd", **entry,
               "shape_q": list(q.shape), "shape_kv": list(k.shape),
               "flops": bflops, "errors_dq_dk_dv": errs,
+              "deterministic": True,
               "tolerance": f"{BWD_TOL} of each gradient's largest"})
         if role == "row":
             out = dict(entry, launches=None)
@@ -746,21 +768,42 @@ def bwd_kernel_rows(dev, gen):
     return out
 
 
+def sdpa_backend(fn):
+    """The SDPA backend one call of ``fn`` ran, read from the names of the
+    device kernels it launched (torch.profiler): cudnn, flash, efficient
+    (the memory-efficient kernels) or math (no fused attention kernel),
+    with the three kernels that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
+                 key=lambda e: -e.device_time_total)
+    names = " ".join(e.key for e in evs).lower()
+    kind = ("cudnn" if "cudnn" in names else "flash" if "flash" in names
+            else "efficient" if "efficient" in names or "fmha" in names
+            else "math")
+    return {"backend": kind, "top_kernels": [e.key for e in evs[:3]]}
+
+
 def bwd_attrs(D):
     """The dK/dV and dQ kernels' registers, dynamic shared memory, local
-    bytes, resident blocks an SM and tile at head_dim D (CUDA runtime)."""
+    bytes, resident blocks an SM, tile and walk step at head_dim D (CUDA
+    runtime)."""
     import ctypes
 
     from repro_torch.kernels import _build
-    buf = (ctypes.c_int * 10)()
+    buf = (ctypes.c_int * 12)()
     rc = _build.load_entry("flash_attention_bwd", "flash_attention_bwd_attrs",
                            [ctypes.c_int, ctypes.POINTER(ctypes.c_int)])(
         D, buf)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd_attrs failed: {rc}")
     keys = ("registers", "smem_bytes", "local_bytes", "blocks_per_sm",
-            "tile")
-    return {kern: dict(zip(keys, buf[5 * i:5 * i + 5]))
+            "tile", "step")
+    return {kern: dict(zip(keys, buf[6 * i:6 * i + 6]))
             for i, kern in enumerate(("dkdv", "dq"))}
 
 
@@ -1032,6 +1075,10 @@ def ssd_bwd_kernel_rows(dev, gen):
     del got, again, want, bounds
     kms = event_ms(lambda: ssd_chunk_bwd(*args), reps=5)
     pms = event_ms(lambda: ref.ssd_chunk_bwd(*args), reps=2)
+    passes = pass_ms(lambda: ssd_chunk_bwd(*args),
+                     ("ssd_bwd_pair_kernel", "ssd_bwd_head_kernel",
+                      "ssd_bwd_bc_kernel", "ssd_bwd_vec_kernel",
+                      "ssd_bwd_ga_kernel"), reps=3)
     bound, by = _bound(nbytes, flops, TF32_FLOP_PER_S)
     row = {"name": "ssd_chunk_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/ssd_chunk_bwd.cu",
@@ -1041,18 +1088,13 @@ def ssd_bwd_kernel_rows(dev, gen):
            "bound_ms": bound, "bound_by": by, "library_ms": None,
            "geometry": "mamba2-370m train step (8 x 2048 tokens: 64 chunks "
                        "of 256, H 32, P 64, N 128)",
-           "kernel_attrs": bwd_kernel_attrs(args[0], args[3])}
+           "kernel_attrs": bwd_kernel_attrs(args[0], args[3]),
+           "pass_ms_warm_l2": passes}
     emit({"phase": "kernel", **row, "shape_x": list(args[0].shape),
           "bytes": nbytes, "flops": flops,
           "bound_ms_fp32_cuda_cores": flops / FP32_FLOP_PER_S * 1e3,
           "max_gap_over_bound": ratio, "max_gaps": gaps,
-          "deterministic": True, "tolerance": "kernels.ssd.bwd_error_bound",
-          "pass_ms_warm_l2": pass_ms(lambda: ssd_chunk_bwd(*args),
-                                     ("ssd_bwd_pair_kernel",
-                                      "ssd_bwd_head_kernel",
-                                      "ssd_bwd_bc_kernel",
-                                      "ssd_bwd_vec_kernel",
-                                      "ssd_bwd_ga_kernel"), reps=3)})
+          "deterministic": True, "tolerance": "kernels.ssd.bwd_error_bound"})
     return row
 
 

@@ -1,9 +1,10 @@
 // Shared helpers for the attention kernels' two walks (decode_walk.cuh,
-// prefill_walk.cuh): element conversion for the two supported storage
-// types, warp reductions, the finite mask value, the split TF32 tensor-core
-// product (3xTF32) both walks run, pair loads and stores, the cp.async copy
-// ring's primitives, and a launch helper that lifts the 48 KB dynamic
-// shared memory default when needed.
+// prefill_walk.cuh) and the backward kernels: element conversion for the
+// two supported storage types, warp reductions, the finite mask value, the
+// split TF32 tensor-core product (3xTF32) and two fragment-level products
+// built on it, pair loads and stores, the cp.async copy ring's primitives,
+// and a launch helper that lifts the 48 KB dynamic shared memory default
+// when needed.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -74,6 +75,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+// d = a.b: the product alone, on zero
+__device__ __forceinline__ void mma_tf32_z(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.f));
+}
 // d += a.b from split operands, the small terms (none for an exact side)
 // into ds: a second accumulator halves the chain of dependent products
 // where registers allow it, else ds is d and they go first
@@ -86,6 +97,99 @@ __device__ __forceinline__ void mma_split(float (&d)[4], float (&ds)[4],
     if constexpr (!AX) mma_tf32(ds, alo, bhi[0], bhi[1]);
     if constexpr (!BX) mma_tf32(ds, ahi, blo[0], blo[1]);
     mma_tf32(d, ahi, bhi[0], bhi[1]);
+}
+// d += a.b from split fp32 operands, the three products summed on the
+// tensor cores from zero and that sum added to d in fp32. The tensor
+// cores' fp32 accumulation does not round to nearest: a chain of
+// thousands of products accumulated there (a gradient summed over a
+// walk) drifts far past fp32's rounding, where adds that round to
+// nearest do not
+__device__ __forceinline__ void mma_split_rn(float (&d)[4],
+                                             const uint32_t (&ahi)[4],
+                                             const uint32_t (&alo)[4],
+                                             const uint32_t (&bhi)[2],
+                                             const uint32_t (&blo)[2]) {
+    float t[4];
+    mma_tf32_z(t, alo, bhi[0], bhi[1]);
+    mma_tf32(t, ahi, blo[0], blo[1]);
+    mma_tf32(t, ahi, bhi[0], bhi[1]);
+    d[0] += t[0];
+    d[1] += t[1];
+    d[2] += t[2];
+    d[3] += t[3];
+}
+
+template <int NT>
+__device__ __forceinline__ void frag_zero(float (&c)[NT][4]) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
+}
+
+// c (16 x 8 NT) += a . b^T in 3xTF32, each 8-wide k step added in fp32
+// (mma_split_rn): a (16 x K) and b (8 NT x K), fp32 rows in shared memory
+// at a stride of RS floats (RS = 4 mod 16, so that every fragment load is
+// free of bank conflicts): the A fragment takes rows g, g + 8 and columns
+// t, t + 4, the B fragment row g of each 8-row tile and columns t, t + 4;
+// each operand is split where it is read
+template <int K, int NT, int RS>
+__device__ __forceinline__ void mma_abt(float (&c)[NT][4], const float* a,
+                                        const float* b, int gq, int tq) {
+#pragma unroll 2
+    for (int kk = 0; kk < K; kk += 8) {
+        const float* a0 = a + gq * RS + kk + tq;
+        uint32_t ahi[4], alo[4];
+        tf32_split<false>(a0[0], ahi[0], alo[0]);
+        tf32_split<false>(a0[8 * RS], ahi[1], alo[1]);
+        tf32_split<false>(a0[4], ahi[2], alo[2]);
+        tf32_split<false>(a0[8 * RS + 4], ahi[3], alo[3]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            const float* b0 = b + (8 * n + gq) * RS + kk + tq;
+            uint32_t bhi[2], blo[2];
+            tf32_split<false>(b0[0], bhi[0], blo[0]);
+            tf32_split<false>(b0[4], bhi[1], blo[1]);
+            mma_split_rn(c[n], ahi, alo, bhi, blo);
+        }
+    }
+}
+// acc (16 x 8 DT) += s . b in 3xTF32: s (16 x 8 NT) in mma accumulator
+// fragments, b (8 NT x 8 DT) fp32 rows in shared memory at a stride of RS
+// floats (RS = 4 mod 16). Each 8-wide k step takes the fragment's own
+// order (k indices t, t + 4 are its columns 2t, 2t + 1) and reads b's rows
+// in that order, so the accumulators are the A operand in place. Each
+// output tile's NT k steps are summed on the tensor cores from zero and
+// added to acc in fp32 (the rounding mma_split_rn gives, once a call)
+template <int NT, int DT, int RS>
+__device__ __forceinline__ void mma_fb(float (&acc)[DT][4],
+                                       const float (&s)[NT][4],
+                                       const float* b, int gq, int tq) {
+    uint32_t ahi[NT][4], alo[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+        tf32_split<false>(s[n][0], ahi[n][0], alo[n][0]);
+        tf32_split<false>(s[n][2], ahi[n][1], alo[n][1]);
+        tf32_split<false>(s[n][1], ahi[n][2], alo[n][2]);
+        tf32_split<false>(s[n][3], ahi[n][3], alo[n][3]);
+    }
+    const float* b0 = b + 2 * tq * RS + gq;
+#pragma unroll
+    for (int i = 0; i < DT; ++i) {
+        float t[4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            uint32_t bhi[2], blo[2];
+            tf32_split<false>(b0[8 * n * RS + 8 * i], bhi[0], blo[0]);
+            tf32_split<false>(b0[(8 * n + 1) * RS + 8 * i], bhi[1], blo[1]);
+            if (n == 0) mma_tf32_z(t, alo[0], bhi[0], bhi[1]);
+            else mma_tf32(t, alo[n], bhi[0], bhi[1]);
+            mma_tf32(t, ahi[n], blo[0], blo[1]);
+            mma_tf32(t, ahi[n], bhi[0], bhi[1]);
+        }
+        acc[i][0] += t[0];
+        acc[i][1] += t[1];
+        acc[i][2] += t[2];
+        acc[i][3] += t[3];
+    }
 }
 
 // two consecutive elements (8 / 4 aligned bytes) -> two floats

@@ -19,60 +19,122 @@
 //   D = rowsum(dO * O);  dS = P * (dP - D);  dQ = scale dS K;
 //   dK = scale dS^T Q;  dK and dV sum the G query heads of their kv head.
 //
-// What bounds it on this card: the four products of the backward (and the
-// two score products that it recomputes) are ~2.5x the forward's flops
-// over the pairs the mask allows, some 100-400 flops for every byte it
-// reads: operations. The least time is those flops over the TF32 rate of
-// fp32 operands (494 TFLOP/s).
+// What bounds it on this card: the backward's products, five at least,
+// seven here (the dQ kernel recomputes S and dP: a dQ summed without
+// atomics from kept dS tiles would need a partial per key tile, ~1.2 GB at
+// smollm-135m's train shape), some 100-400 flops for every byte read:
+// operations. Its least time is five products over the TF32 rate of fp32
+// operands (494 TFLOP/s); with seven products taken in three TF32 passes
+// (below) the design's own ceiling is 7/5 x 3 = 4.2 times that.
 //
-// What the design does about it: it is right first. Three launches, no
-// float atomics, so two launches on the same inputs give the same bits
-// (as K4's split merge, prefill_walk.cuh):
+// What the design does about it. Every product runs on the tensor cores,
+// as mma.sync m16n8k8 TF32 with each fp32 operand split into hi + lo and
+// three passes (lo.hi' + hi.lo' + hi.hi', common.cuh: tf32_split,
+// mma_split), as K4's forward walk (prefill_walk.cuh). One TF32 pass
+// keeps ~1e-3 of a score, ten times the 1e-4 the gradients are held to.
+// Three launches and a merge, no float atomics, so two launches on the
+// same inputs give the same bits (as K4's split merge):
 // - flash_bwd_dot_kernel: D, one warp a (b, t, h) row;
-// - flash_bwd_dkdv_kernel: one block per (key tile, kv head, batch row).
-//   It keeps its K and V tile in shared memory and dK, dV in registers,
-//   and walks exactly the q tiles whose mask reaches the key tile (causal:
+// - flash_bwd_dkdv_kernel: one block of 8 warps per (64 keys, kv head,
+//   batch row, head group). Warp w takes keys 16 (w % 4) .. +16 and one
+//   role: warps 0-3 compute S^T = K.Q^T, P^T and dV += P^T.dO; warps 4-7
+//   dP^T = V.dO^T, dS^T = P^T o (dP^T - D) and dK += dS^T.Q. P^T passes
+//   from a role-0 warp to its role-1 partner through shared memory, in the
+//   mma accumulator's own layout (a lane a word, no bank conflict). The
+//   two roles do two products each, and a warp holds one output (16 keys
+//   x D: D/2 accumulators a lane, 128 at D 256, under the 255-register
+//   cap). Rows are keys, so the score fragment is the A operand of the
+//   dV/dK product in place: its query k order is permuted to the
+//   accumulator's (k indices (t, t+4) are queries (2t, 2t+1)) and dO's and
+//   Q's rows are read in that order, as prefill_walk.cuh does for P.V.
+//   K and V stay in shared memory; the steps of QS query rows (Q, dO, lse
+//   and D of one query head) arrive through a two-stage cp.async ring. The
+//   walk takes exactly the steps whose mask reaches the key tile (causal:
 //   q >= its first key; a window: q <= its last key + W - 1; a tile with
-//   a key below the prefix: every q), each for the G query heads of its kv
-//   head, so the group's sum happens inside the block. Where key tiles x
-//   kv heads x rows leave the card short of two blocks an SM (one kv head,
-//   as paligemma-3b's and recurrentgemma-9b's), the wrapper splits the G
-//   heads into n_split groups, one block each: the groups' partial dK and
-//   dV go to fp32 scratch, and flash_bwd_merge_kernel sums them in group
-//   order;
-// - flash_bwd_dq_kernel: one block per (q tile, query head, batch row),
-//   walking the key tiles the forward walks (to the larger of its causal
-//   end and the prefix, from the first tile of its window), the longest
-//   walks first.
-// Every product is a plain fp32 FMA over tiles in shared memory, each of
-// a 16 x 16 thread grid's threads owning a strided micro-tile (rows
-// ty + 16a, columns tx + 16c), with rows padded by one word so that the
-// 16 rows a half-warp reads sit in 16 banks. A masked pair's P is set to
-// 0 outright, so it adds exactly nothing. Tensor cores (3xTF32 mma.sync or
-// wgmma, as the forward) are later work.
+//   a key below the prefix: every q), each for the G query heads of its
+//   kv head in order, so the group's sum happens inside the block. Where
+//   key tiles x kv heads x rows leave the card short of two blocks an SM
+//   (one kv head, as paligemma-3b's and recurrentgemma-9b's), the wrapper
+//   splits the G heads into n_split groups, one block each: the groups'
+//   partial dK and dV go to fp32 scratch, and flash_bwd_merge_kernel sums
+//   them in group order;
+// - flash_bwd_dq_kernel: one block of 8 warps per (64 query rows, query
+//   head, batch row), walking the key steps of KS keys that the forward
+//   walks (to the larger of its causal end and the prefix, from the step
+//   that holds its first row's first window key), the longest walks first.
+//   Warps w and w + 4 share query rows 16 (w % 4) .. +16: the first
+//   computes S = Q.K^T and P, the second dP = dO.V^T; each hands its
+//   fragment to the other through shared memory, both form the same dS
+//   (the same operations on the same values: the same bits), and each
+//   adds dS.K into its half of dQ's columns (D/4 accumulators a lane).
+//   Q, dO, lse and D stay in shared memory; K and V steps arrive through
+//   a two-stage cp.async ring.
+// Every operand an mma reads from shared memory sits in rows padded to
+// D + 4 floats, so that each fragment load (rows g and columns t, or rows
+// 2t and columns g) is free of bank conflicts. The hi/lo split is taken in
+// registers where an operand is read: split once into shared memory, it
+// would double the shared-memory reads. The tensor cores' fp32
+// accumulation does not round to nearest, and a gradient summed there
+// over a 2,048-query walk drifted close to the 1e-4 it is held to: each
+// score's k steps and each step's dV, dK or dQ products are summed on
+// the tensor cores from zero and added in fp32 (mma_split_rn, mma_abt,
+// mma_fb in common.cuh). A masked pair's P is set to 0 outright, so it
+// adds exactly nothing.
+//
+// Resources (flash_attention_bwd_attrs on an H100; 0 local bytes at every
+// head dim), dK/dV then dQ: D 32 and 64, two blocks an SM each (steps of
+// 32; 123-128 registers, 45-87 KB); D 128, one dK/dV block (218
+// registers) and two dQ blocks (steps of 16); D 256, one block an SM each
+// (254 and 188 registers, 204 and 208 KB: K and V of 64 keys, or Q and
+// dO of 64 rows, take 133 KB).
+//
+// What bounds it now (chip_smoke.py's kernel phase, PERF.md): neither the
+// tensor cores nor the bytes. Each three-pass product issues some seven
+// other instructions (fragment loads, hi/lo splits, fp32 adds), and with
+// 16 warps an SM (8 at D 256) and three barriers a step the warps mostly
+// wait: about a fifth of the design's three-pass ceiling at smollm-135m's
+// train shape. 16 warps a block at D 256 (two splitting each score's D
+// reduction) was no faster; wgmma from operands split once per tile is
+// the follow-up (ROADMAP).
 
 #include "common.cuh"
 
-constexpr int BW_THREADS = 256;  // a 16 x 16 grid of threads
+constexpr int BW_WARPS = 8;
+constexpr int BW_THREADS = BW_WARPS * 32;
+constexpr int BW_ROWS = 64;  // keys a dK/dV block, query rows a dQ block
 
-// query rows (BQ) and keys (BK) a tile, by head_dim
+// QS: query rows a dK/dV walk step; KS: keys a dQ walk step; MKV, MQ:
+// blocks an SM the dK/dV and dQ kernels are compiled for: two where their
+// shared memory and 128 registers a thread (no spill) allow it
 template <int D> struct BwdTiles;
-template <> struct BwdTiles<32> { static constexpr int BQ = 64, BK = 64; };
-template <> struct BwdTiles<64> { static constexpr int BQ = 64, BK = 64; };
-template <> struct BwdTiles<128> { static constexpr int BQ = 32, BK = 64; };
-template <> struct BwdTiles<256> { static constexpr int BQ = 32, BK = 32; };
+template <> struct BwdTiles<32> {
+    static constexpr int QS = 32, KS = 32, MKV = 2, MQ = 2;
+};
+template <> struct BwdTiles<64> {
+    static constexpr int QS = 32, KS = 32, MKV = 2, MQ = 2;
+};
+template <> struct BwdTiles<128> {
+    static constexpr int QS = 16, KS = 16, MKV = 1, MQ = 2;
+};
+template <> struct BwdTiles<256> {
+    static constexpr int QS = 16, KS = 16, MKV = 1, MQ = 1;
+};
 
+// floats of each kernel's dynamic shared memory
+template <int D> __host__ __device__ constexpr int bwd_dkdv_stage() {
+    return 2 * BwdTiles<D>::QS * (D + 4) + 2 * BwdTiles<D>::QS;
+}
 template <int D>
 __host__ __device__ constexpr size_t bwd_smem_dkdv() {
-    constexpr int BQ = BwdTiles<D>::BQ, BK = BwdTiles<D>::BK;
-    return sizeof(float) *
-           (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BQ * (BK + 1) + 2 * BQ);
+    constexpr int QS = BwdTiles<D>::QS;
+    return sizeof(float) * (2 * BW_ROWS * (D + 4) + 2 * bwd_dkdv_stage<D>() +
+                            4 * 16 * QS);
 }
 template <int D>
 __host__ __device__ constexpr size_t bwd_smem_dq() {
-    constexpr int BQ = BwdTiles<D>::BQ, BK = BwdTiles<D>::BK;
-    return sizeof(float) *
-           (2 * BK * (D + 1) + 2 * BQ * (D + 1) + BQ * (BK + 1) + 2 * BQ);
+    constexpr int KS = BwdTiles<D>::KS;
+    return sizeof(float) * (2 * BW_ROWS * (D + 4) + 2 * BW_ROWS +
+                            2 * 2 * KS * (D + 4) + 4 * 2 * 16 * KS);
 }
 
 // the forward's mask: query t may attend key j
@@ -85,101 +147,16 @@ __device__ __forceinline__ bool bwd_allowed(int t, int j, int Sq, int Sk,
 }
 
 // ROWS rows of D fp32 values, src row r at src + r * rs (16-byte
-// aligned), into shared memory at a stride of D + 1; rows at or past
-// nvalid are zeros. Each thread issues all of its 16-byte loads before
-// its first store, so they are in flight together
+// aligned), into shared memory at a stride of D + 4, by cp.async; rows at
+// or past nvalid are zeros (and not read)
 template <int D, int ROWS>
-__device__ __forceinline__ void bwd_load_rows(float* dst, const float* src,
-                                              int64_t rs, int nvalid) {
-    constexpr int V = D / 4;                     // 16-byte chunks a row
-    constexpr int PER = ROWS * V / BW_THREADS;   // chunks a thread
-    static_assert(ROWS * V % BW_THREADS == 0, "whole chunks a thread");
-    float4 buf[PER];
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-        const int i = threadIdx.x + u * BW_THREADS;
-        const int r = i / V, c = (i - r * V) * 4;
-        buf[u] = r < nvalid ? *reinterpret_cast<const float4*>(
-                                  src + (int64_t)r * rs + c)
-                            : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int u = 0; u < PER; ++u) {
-        const int i = threadIdx.x + u * BW_THREADS;
-        const int r = i / V, c = (i - r * V) * 4;
-        float* d = dst + r * (D + 1) + c;
-        d[0] = buf[u].x;
-        d[1] = buf[u].y;
-        d[2] = buf[u].z;
-        d[3] = buf[u].w;
-    }
-}
-
-// the tile's rows' lse and D, zeros past nvalid; row i of the tile is
-// (b, t0 + i, h)
-template <int BQ>
-__device__ __forceinline__ void bwd_load_stats(float* ls, float* dsm,
-                                               const float* lse,
-                                               const float* dsum,
-                                               int64_t row0, int H,
-                                               int nvalid) {
-    for (int i = threadIdx.x; i < BQ; i += BW_THREADS) {
-        const int64_t r = row0 + (int64_t)i * H;
-        ls[i] = i < nvalid ? lse[r] : 0.f;
-        dsm[i] = i < nvalid ? dsum[r] : 0.f;
-    }
-}
-
-// S = Q K^T and dP = dO V^T for the thread's rows ty + 16a and keys
-// tx + 16c, then P and dS: P into p (and, when ps is not null, shared
-// memory), dS into dss
-template <int D, int BQ, int BK>
-__device__ __forceinline__ void bwd_scores(
-        const float* qs, const float* dos, const float* ks, const float* vs,
-        const float* ls, const float* dsm, float* ps, float* dss, int t0,
-        int k0, int Sq, int Sk, int causal, int window, int prefix,
-        float scale) {
-    constexpr int DS = D + 1, PS = BK + 1;
-    constexpr int MA = BQ / 16, NC = BK / 16;
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    float s[MA][NC], dp[MA][NC];
-#pragma unroll
-    for (int a = 0; a < MA; ++a)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) s[a][c] = dp[a][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-        float qa[MA], oa[MA], kb[NC], vb[NC];
-#pragma unroll
-        for (int a = 0; a < MA; ++a) {
-            qa[a] = qs[(ty + 16 * a) * DS + d];
-            oa[a] = dos[(ty + 16 * a) * DS + d];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            kb[c] = ks[(tx + 16 * c) * DS + d];
-            vb[c] = vs[(tx + 16 * c) * DS + d];
-        }
-#pragma unroll
-        for (int a = 0; a < MA; ++a)
-#pragma unroll
-            for (int c = 0; c < NC; ++c) {
-                s[a][c] = fmaf(qa[a], kb[c], s[a][c]);
-                dp[a][c] = fmaf(oa[a], vb[c], dp[a][c]);
-            }
-    }
-#pragma unroll
-    for (int a = 0; a < MA; ++a) {
-        const int i = ty + 16 * a;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-            const int j = tx + 16 * c;
-            const float p = bwd_allowed(t0 + i, k0 + j, Sq, Sk, causal,
-                                        window, prefix)
-                                ? expf(s[a][c] * scale - ls[i]) : 0.f;
-            if (ps != nullptr) ps[i * PS + j] = p;
-            dss[i * PS + j] = p * (dp[a][c] - dsm[i]);
-        }
+__device__ __forceinline__ void bwd_fetch_rows(float* dst, const float* src,
+                                               int64_t rs, int nvalid) {
+    for (int i = threadIdx.x; i < ROWS * (D / 4); i += BW_THREADS) {
+        const int r = i / (D / 4), c = (i - r * (D / 4)) * 4;
+        const bool live = r < nvalid;
+        cp_async16(dst + r * (D + 4) + c,
+                   src + (live ? (int64_t)r * rs + c : 0), live);
     }
 }
 
@@ -202,9 +179,9 @@ flash_bwd_dot_kernel(const float* __restrict__ o,
     if (lane == 0) dsum[row] = acc;
 }
 
-// dK, dV of one key tile of one kv head of one batch row
+// dK, dV of 64 keys of one kv head of one batch row (one head group)
 template <int D>
-__global__ void __launch_bounds__(BW_THREADS)
+__global__ void __launch_bounds__(BW_THREADS, BwdTiles<D>::MKV)
 flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       const float* __restrict__ k,
                       const float* __restrict__ v,
@@ -215,30 +192,31 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
                       float* __restrict__ part_dv, int n_split, int Sq,
                       int Sk, int H, int Hkv, int causal, int window,
                       int prefix, float scale) {
-    constexpr int BQ = BwdTiles<D>::BQ, BK = BwdTiles<D>::BK;
-    constexpr int DS = D + 1, PS = BK + 1;
-    constexpr int JA = BK / 16, DC = D / 16;
+    constexpr int QS = BwdTiles<D>::QS, RS = D + 4;
+    constexpr int NQ = QS / 8;          // 8-query n tiles of a step
+    constexpr int DT = D / 8;           // 8-dim tiles of dK or dV
+    constexpr int STAGE = bwd_dkdv_stage<D>();
     extern __shared__ __align__(16) float smem_bw[];
-    float* ks = smem_bw;          // (BK, DS)
-    float* vs = ks + BK * DS;     // (BK, DS)
-    float* qs = vs + BK * DS;     // (BQ, DS)
-    float* dos = qs + BQ * DS;    // (BQ, DS)
-    float* ps = dos + BQ * DS;    // (BQ, PS): P
-    float* dss = ps + BQ * PS;    // (BQ, PS): dS
-    float* ls = dss + BQ * PS;    // (BQ): lse
-    float* dsm = ls + BQ;         // (BQ): D
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    const int k0 = blockIdx.x * BK, hk = blockIdx.y;
+    float* ks = smem_bw;                // (64, RS)
+    float* vs = ks + BW_ROWS * RS;      // (64, RS)
+    float* ring = vs + BW_ROWS * RS;    // 2 x [Q, dO (QS, RS); lse, D (QS)]
+    float* pex = ring + 2 * STAGE;      // 4 x (NQ * 4, 32): P^T fragments
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int kg = warp & 3;            // keys 16 kg .. 16 kg + 15
+    const bool pv = warp < 4;           // S, P, dV; else dP, dS, dK
+    const int k0 = blockIdx.x * BW_ROWS, hk = blockIdx.y;
     const int b = blockIdx.z / n_split, split = blockIdx.z - b * n_split;
     const int G = H / Hkv;
     // this block's query heads of the kv head: group `split` of n_split
     const int per = (G + n_split - 1) / n_split;
     const int g_lo = min(G, split * per), g_hi = min(G, g_lo + per);
-    const int nk = min(BK, Sk - k0);
+    const int ng = g_hi - g_lo;
+    const int nk = min(BW_ROWS, Sk - k0);
     const int64_t kvrow = (int64_t)Hkv * D, qrow = (int64_t)H * D;
     const int64_t kvbase = ((int64_t)b * Sk + k0) * kvrow + (int64_t)hk * D;
-    bwd_load_rows<D, BK>(ks, k + kvbase, kvrow, nk);
-    bwd_load_rows<D, BK>(vs, v + kvbase, kvrow, nk);
+    bwd_fetch_rows<D, BW_ROWS>(ks, k + kvbase, kvrow, nk);
+    bwd_fetch_rows<D, BW_ROWS>(vs, v + kvbase, kvrow, nk);
 
     // the query rows some key of this tile is visible to: every row where
     // the tile holds a prefix key (or without causal masking), else from
@@ -248,70 +226,98 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
         qlo = min(k0, Sq);
         if (window > 0) qhi = min(Sq, k0 + nk - 1 + window);
     }
-    const int qt_lo = qlo / BQ;
-    const int qt_hi = qhi > qlo ? (qhi + BQ - 1) / BQ : qt_lo;
+    const int qt_lo = qlo / QS;
+    const int qt_hi = qhi > qlo ? (qhi + QS - 1) / QS : qt_lo;
+    const int nsteps = (qt_hi - qt_lo) * ng;
 
-    float ak[JA][DC], av[JA][DC];
-#pragma unroll
-    for (int a = 0; a < JA; ++a)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) ak[a][c] = av[a][c] = 0.f;
-
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
-        const int t0 = qt * BQ, nq = min(BQ, Sq - t0);
-        for (int g = g_lo; g < g_hi; ++g) {
-            const int h = hk * G + g;
-            __syncthreads();  // the last tile's operands are consumed
-            const int64_t qbase =
-                ((int64_t)b * Sq + t0) * qrow + (int64_t)h * D;
-            bwd_load_rows<D, BQ>(qs, q + qbase, qrow, nq);
-            bwd_load_rows<D, BQ>(dos, dout + qbase, qrow, nq);
-            bwd_load_stats<BQ>(ls, dsm, lse, dsum,
-                               ((int64_t)b * Sq + t0) * H + h, H, nq);
-            __syncthreads();
-            bwd_scores<D, BQ, BK>(qs, dos, ks, vs, ls, dsm, ps, dss, t0, k0,
-                                  Sq, Sk, causal, window, prefix, scale);
-            __syncthreads();
-            // dV += P^T dO and dK += dS^T Q over the tile's query rows
-#pragma unroll 2
-            for (int i = 0; i < BQ; ++i) {
-                float pa[JA], sa[JA], ob[DC], qb[DC];
-#pragma unroll
-                for (int a = 0; a < JA; ++a) {
-                    pa[a] = ps[i * PS + ty + 16 * a];
-                    sa[a] = dss[i * PS + ty + 16 * a];
-                }
-#pragma unroll
-                for (int c = 0; c < DC; ++c) {
-                    ob[c] = dos[i * DS + tx + 16 * c];
-                    qb[c] = qs[i * DS + tx + 16 * c];
-                }
-#pragma unroll
-                for (int a = 0; a < JA; ++a)
-#pragma unroll
-                    for (int c = 0; c < DC; ++c) {
-                        av[a][c] = fmaf(pa[a], ob[c], av[a][c]);
-                        ak[a][c] = fmaf(sa[a], qb[c], ak[a][c]);
-                    }
-            }
+    // step `it`: q tile qt_lo + it / ng of query head g_lo + it % ng
+    auto fetch = [&](int it, int st) {
+        const int t0 = (qt_lo + it / ng) * QS, h = hk * G + g_lo + it % ng;
+        float* qd = ring + st * STAGE;
+        float* ld = qd + 2 * QS * RS;
+        const int64_t row0 = (int64_t)b * Sq + t0;
+        const int64_t qbase = row0 * qrow + (int64_t)h * D;
+        bwd_fetch_rows<D, QS>(qd, q + qbase, qrow, Sq - t0);
+        bwd_fetch_rows<D, QS>(qd + QS * RS, dout + qbase, qrow, Sq - t0);
+        for (int i = threadIdx.x; i < QS; i += BW_THREADS) {
+            const bool live = t0 + i < Sq;
+            const int64_t off = live ? (row0 + i) * H + h : 0;
+            cp_async4(ld + i, lse + off, live);
+            cp_async4(ld + QS + i, dsum + off, live);
         }
+        cp_async_commit();
+    };
+    if (nsteps > 0) fetch(0, 0);  // one group with K and V
+    else cp_async_commit();
+
+    // this warp's role: its score product's A rows (K or V), its B rows
+    // (Q or dO), and the B rows of its output's product (dO or Q)
+    const float* arows = (pv ? ks : vs) + 16 * kg * RS;
+    const int ja = k0 + 16 * kg + gq, jb = ja + 8;   // this lane's keys
+    float* pmine = pex + kg * NQ * 4 * 32 + lane;
+    float acc[DT][4];
+    frag_zero(acc);
+
+    for (int it = 0; it < nsteps; ++it) {
+        const int st = it & 1;
+        if (it + 1 < nsteps) fetch(it + 1, st ^ 1);
+        else cp_async_commit();  // an empty group keeps the count
+        cp_async_wait1();
+        __syncthreads();         // this step (and K, V) landed for all
+        const float* qd = ring + st * STAGE;
+        const float* dod = qd + QS * RS;
+        const float* ld = dod + QS * RS;
+        const float* dd = ld + QS;
+        const int t0 = (qt_lo + it / ng) * QS;
+        // S^T = K.Q^T or dP^T = V.dO^T: rows keys, columns the step's
+        // queries; s[n][e] is key (e < 2 ? ja : jb), query t0 + 8n + 2tq +
+        // (e & 1)
+        float s[NQ][4];
+        frag_zero(s);
+        mma_abt<D, NQ, RS>(s, arows, pv ? qd : dod, gq, tq);
+        if (pv) {
+#pragma unroll
+            for (int n = 0; n < NQ; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int i = 8 * n + 2 * tq + (e & 1);
+                    const bool ok = bwd_allowed(t0 + i, e < 2 ? ja : jb, Sq,
+                                                Sk, causal, window, prefix);
+                    s[n][e] = ok ? expf(s[n][e] * scale - ld[i]) : 0.f;
+                    pmine[(n * 4 + e) * 32] = s[n][e];
+                }
+        }
+        __syncthreads();         // P^T is in shared memory
+        if (!pv) {
+#pragma unroll
+            for (int n = 0; n < NQ; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int i = 8 * n + 2 * tq + (e & 1);
+                    s[n][e] = pmine[(n * 4 + e) * 32] * (s[n][e] - dd[i]);
+                }
+        }
+        // dV += P^T.dO or dK += dS^T.Q over the step's queries
+        mma_fb<NQ, DT, RS>(acc, s, pv ? dod : qd, gq, tq);
+        __syncthreads();         // the stage and P^T are consumed
     }
+    cp_async_wait<0>();
     // a split writes its group's partial sums to scratch laid out as
     // (n_split, B, Sk, Hkv, D)
     const int64_t part = (int64_t)split * (gridDim.z / n_split) * Sk * kvrow;
-    float* odk = n_split == 1 ? dk : part_dk + part;
-    float* odv = n_split == 1 ? dv : part_dv + part;
+    float* out = pv ? (n_split == 1 ? dv : part_dv + part)
+                    : (n_split == 1 ? dk : part_dk + part);
+    const float mul = pv ? 1.f : scale;
 #pragma unroll
-    for (int a = 0; a < JA; ++a) {
-        const int j = ty + 16 * a;
+    for (int half = 0; half < 2; ++half) {
+        const int j = (half ? jb : ja) - k0;
         if (j >= nk) continue;
-        const int64_t base =
-            ((int64_t)b * Sk + k0 + j) * kvrow + (int64_t)hk * D;
+        float* dst = out + ((int64_t)b * Sk + k0 + j) * kvrow +
+                     (int64_t)hk * D + 2 * tq;
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-            odk[base + tx + 16 * c] = ak[a][c] * scale;
-            odv[base + tx + 16 * c] = av[a][c];
-        }
+        for (int i = 0; i < DT; ++i)
+            store2(dst + 8 * i, acc[i][2 * half] * mul,
+                   acc[i][2 * half + 1] * mul);
     }
 }
 
@@ -333,9 +339,9 @@ flash_bwd_merge_kernel(const float* __restrict__ part_dk,
     dv[i] = c;
 }
 
-// dQ of one q tile of one query head of one batch row
+// dQ of 64 query rows of one query head of one batch row
 template <int D>
-__global__ void __launch_bounds__(BW_THREADS)
+__global__ void __launch_bounds__(BW_THREADS, BwdTiles<D>::MQ)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
@@ -343,75 +349,118 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ dsum, float* __restrict__ dq,
                     int Sq, int Sk, int H, int Hkv, int causal, int window,
                     int prefix, float scale) {
-    constexpr int BQ = BwdTiles<D>::BQ, BK = BwdTiles<D>::BK;
-    constexpr int DS = D + 1, PS = BK + 1;
-    constexpr int MA = BQ / 16, DC = D / 16;
+    constexpr int KS = BwdTiles<D>::KS, RS = D + 4;
+    constexpr int NK = KS / 8;          // 8-key n tiles of a step
+    constexpr int DT = D / 16;          // 8-dim tiles of a warp's half of dQ
+    constexpr int STAGE = 2 * KS * RS;
     extern __shared__ __align__(16) float smem_bw[];
-    float* qs = smem_bw;          // (BQ, DS)
-    float* dos = qs + BQ * DS;    // (BQ, DS)
-    float* ks = dos + BQ * DS;    // (BK, DS)
-    float* vs = ks + BK * DS;     // (BK, DS)
-    float* dss = vs + BK * DS;    // (BQ, PS): dS
-    float* ls = dss + BQ * PS;    // (BQ): lse
-    float* dsm = ls + BQ;         // (BQ): D
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    const int t0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // long walks first
+    float* qs = smem_bw;                // (64, RS)
+    float* dos = qs + BW_ROWS * RS;     // (64, RS)
+    float* ls = dos + BW_ROWS * RS;     // (64): lse
+    float* dsm = ls + BW_ROWS;          // (64): D
+    float* ring = dsm + BW_ROWS;        // 2 x [K, V (KS, RS)]
+    float* pex = ring + 2 * STAGE;      // 4 x 2 x (NK * 4, 32): P, dP
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int gq = lane >> 2, tq = lane & 3;
+    const int qg = warp & 3;            // query rows 16 qg .. 16 qg + 15
+    const int hf = warp >> 2;           // 0: S and P; 1: dP. dQ's half
+    const int t0 = (gridDim.x - 1 - blockIdx.x) * BW_ROWS;  // long first
     const int h = blockIdx.y, b = blockIdx.z;
     const int hk = h / (H / Hkv);
-    const int nq = min(BQ, Sq - t0);
+    const int nq = min(BW_ROWS, Sq - t0);
     const int64_t kvrow = (int64_t)Hkv * D, qrow = (int64_t)H * D;
     const int64_t qbase = ((int64_t)b * Sq + t0) * qrow + (int64_t)h * D;
-    bwd_load_rows<D, BQ>(qs, q + qbase, qrow, nq);
-    bwd_load_rows<D, BQ>(dos, dout + qbase, qrow, nq);
-    bwd_load_stats<BQ>(ls, dsm, lse, dsum, ((int64_t)b * Sq + t0) * H + h,
-                       H, nq);
+    bwd_fetch_rows<D, BW_ROWS>(qs, q + qbase, qrow, nq);
+    bwd_fetch_rows<D, BW_ROWS>(dos, dout + qbase, qrow, nq);
+    for (int i = threadIdx.x; i < BW_ROWS; i += BW_THREADS) {
+        const bool live = i < nq;
+        const int64_t off = live ? ((int64_t)b * Sq + t0 + i) * H + h : 0;
+        cp_async4(ls + i, lse + off, live);
+        cp_async4(dsm + i, dsum + off, live);
+    }
 
     // the keys some row of this tile attends: to the larger of its last
     // row's causal end and the prefix; with a window (and no prefix) from
-    // the key tile that holds its first row's first key
+    // the key step that holds its first row's first key
     const int kend = causal ? min(Sk, max(t0 + nq, prefix)) : Sk;
     const int kbeg = causal && window > 0 && prefix == 0
-                         ? max(0, t0 - window + 1) / BK * BK : 0;
-
-    float acc[MA][DC];
-#pragma unroll
-    for (int a = 0; a < MA; ++a)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[a][c] = 0.f;
-
-    for (int k0 = kbeg; k0 < kend; k0 += BK) {
+                         ? max(0, t0 - window + 1) / KS * KS : 0;
+    const int nsteps = kend > kbeg ? (kend - kbeg + KS - 1) / KS : 0;
+    auto fetch = [&](int kt, int st) {
+        const int k0 = kbeg + kt * KS;
         const int64_t kvbase =
             ((int64_t)b * Sk + k0) * kvrow + (int64_t)hk * D;
-        __syncthreads();  // the last key tile is consumed
-        bwd_load_rows<D, BK>(ks, k + kvbase, kvrow, min(BK, Sk - k0));
-        bwd_load_rows<D, BK>(vs, v + kvbase, kvrow, min(BK, Sk - k0));
-        __syncthreads();
-        bwd_scores<D, BQ, BK>(qs, dos, ks, vs, ls, dsm, nullptr, dss, t0, k0,
-                              Sq, Sk, causal, window, prefix, scale);
-        __syncthreads();
-        // dQ += dS K over the tile's keys
-#pragma unroll 2
-        for (int j = 0; j < BK; ++j) {
-            float sa[MA], kb[DC];
+        float* kd = ring + st * STAGE;
+        bwd_fetch_rows<D, KS>(kd, k + kvbase, kvrow, kend - k0);
+        bwd_fetch_rows<D, KS>(kd + KS * RS, v + kvbase, kvrow, kend - k0);
+        cp_async_commit();
+    };
+    if (nsteps > 0) fetch(0, 0);  // one group with Q, dO, lse and D
+    else cp_async_commit();
+
+    const int ra = 16 * qg + gq, rb = ra + 8;   // this lane's rows
+    const float* arows = (hf ? dos : qs) + 16 * qg * RS;
+    float* pmine = pex + (qg * 2 + hf) * NK * 4 * 32 + lane;
+    const float* pother = pex + (qg * 2 + (hf ^ 1)) * NK * 4 * 32 + lane;
+    float acc[DT][4];
+    frag_zero(acc);
+
+    for (int kt = 0; kt < nsteps; ++kt) {
+        const int st = kt & 1;
+        if (kt + 1 < nsteps) fetch(kt + 1, st ^ 1);
+        else cp_async_commit();  // an empty group keeps the count
+        cp_async_wait1();
+        __syncthreads();         // this step (and Q, dO, lse, D) landed
+        const float* kd = ring + st * STAGE;
+        const int k0 = kbeg + kt * KS;
+        // S = Q.K^T or dP = dO.V^T: rows queries, columns the step's
+        // keys; s[n][e] is row (e < 2 ? ra : rb), key k0 + 8n + 2tq +
+        // (e & 1)
+        float s[NK][4];
+        frag_zero(s);
+        mma_abt<D, NK, RS>(s, arows, hf ? kd + KS * RS : kd, gq, tq);
+        if (!hf) {
+            const float la = ls[ra], lb = ls[rb];
 #pragma unroll
-            for (int a = 0; a < MA; ++a) sa[a] = dss[(ty + 16 * a) * PS + j];
+            for (int n = 0; n < NK; ++n)
 #pragma unroll
-            for (int c = 0; c < DC; ++c) kb[c] = ks[j * DS + tx + 16 * c];
-#pragma unroll
-            for (int a = 0; a < MA; ++a)
-#pragma unroll
-                for (int c = 0; c < DC; ++c)
-                    acc[a][c] = fmaf(sa[a], kb[c], acc[a][c]);
+                for (int e = 0; e < 4; ++e) {
+                    const bool ok = bwd_allowed(
+                        t0 + (e < 2 ? ra : rb), k0 + 8 * n + 2 * tq + (e & 1),
+                        Sq, Sk, causal, window, prefix);
+                    s[n][e] = ok ? expf(s[n][e] * scale - (e < 2 ? la : lb))
+                                 : 0.f;
+                }
         }
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pmine[(n * 4 + e) * 32] = s[n][e];
+        __syncthreads();         // P and dP are in shared memory
+        // dS = P (dP - D), the same operations in both warps of the pair
+        const float da = dsm[ra], db = dsm[rb];
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float o = pother[(n * 4 + e) * 32];
+                const float p = hf ? o : s[n][e], dp = hf ? s[n][e] : o;
+                s[n][e] = p * (dp - (e < 2 ? da : db));
+            }
+        // dQ[:, half] += dS.K[:, half] over the step's keys
+        mma_fb<NK, DT, RS>(acc, s, kd + hf * (D / 2), gq, tq);
+        __syncthreads();         // the stage and the fragments are consumed
     }
+    cp_async_wait<0>();
 #pragma unroll
-    for (int a = 0; a < MA; ++a) {
-        const int i = ty + 16 * a;
-        if (i >= nq) continue;
-        const int64_t base = qbase + (int64_t)i * qrow;
+    for (int half = 0; half < 2; ++half) {
+        const int r = half ? rb : ra;
+        if (r >= nq) continue;
+        float* dst = dq + qbase + (int64_t)r * qrow + hf * (D / 2) + 2 * tq;
 #pragma unroll
-        for (int c = 0; c < DC; ++c)
-            dq[base + tx + 16 * c] = acc[a][c] * scale;
+        for (int i = 0; i < DT; ++i)
+            store2(dst + 8 * i, acc[i][2 * half] * scale,
+                   acc[i][2 * half + 1] * scale);
     }
 }
 
@@ -423,14 +472,14 @@ static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
                               float* part_dv, int n_split, int B, int Sq,
                               int Sk, int H, int Hkv, int causal, int window,
                               int prefix, float scale, cudaStream_t stream) {
-    constexpr int BQ = BwdTiles<D>::BQ, BK = BwdTiles<D>::BK;
     const int64_t nrows = (int64_t)B * Sq * H;
     flash_bwd_dot_kernel<D><<<(unsigned)((nrows + 7) / 8), 256, 0, stream>>>(
         o, dout, dsum, nrows);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     e = launch_with_smem(flash_bwd_dkdv_kernel<D>,
-                         dim3((Sk + BK - 1) / BK, Hkv, B * n_split),
+                         dim3((Sk + BW_ROWS - 1) / BW_ROWS, Hkv,
+                              B * n_split),
                          dim3(BW_THREADS), bwd_smem_dkdv<D>(), stream, q, k,
                          v, dout, lse, (const float*)dsum, dk, dv, part_dk,
                          part_dv, n_split, Sq, Sk, H, Hkv, causal, window,
@@ -445,10 +494,10 @@ static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
         if (e != cudaSuccess) return e;
     }
     return launch_with_smem(flash_bwd_dq_kernel<D>,
-                            dim3((Sq + BQ - 1) / BQ, H, B), dim3(BW_THREADS),
-                            bwd_smem_dq<D>(), stream, q, k, v, dout, lse,
-                            (const float*)dsum, dq, Sq, Sk, H, Hkv, causal,
-                            window, prefix, scale);
+                            dim3((Sq + BW_ROWS - 1) / BW_ROWS, H, B),
+                            dim3(BW_THREADS), bwd_smem_dq<D>(), stream, q, k,
+                            v, dout, lse, (const float*)dsum, dq, Sq, Sk, H,
+                            Hkv, causal, window, prefix, scale);
 }
 
 // q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D); lse and
@@ -490,6 +539,7 @@ static cudaError_t bwd_attrs(int* out) {
     const void* kerns[2] = {(const void*)flash_bwd_dkdv_kernel<D>,
                             (const void*)flash_bwd_dq_kernel<D>};
     const size_t smem[2] = {bwd_smem_dkdv<D>(), bwd_smem_dq<D>()};
+    const int step[2] = {BwdTiles<D>::QS, BwdTiles<D>::KS};
     for (int i = 0; i < 2; ++i) {
         cudaError_t e = cudaFuncSetAttribute(
             kerns[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -502,11 +552,12 @@ static cudaError_t bwd_attrs(int* out) {
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
             &blocks, kerns[i], BW_THREADS, smem[i]);
         if (e != cudaSuccess) return e;
-        out[5 * i + 0] = a.numRegs;
-        out[5 * i + 1] = (int)smem[i];
-        out[5 * i + 2] = (int)a.localSizeBytes;
-        out[5 * i + 3] = blocks;
-        out[5 * i + 4] = i == 0 ? BwdTiles<D>::BK : BwdTiles<D>::BQ;
+        out[6 * i + 0] = a.numRegs;
+        out[6 * i + 1] = (int)smem[i];
+        out[6 * i + 2] = (int)a.localSizeBytes;
+        out[6 * i + 3] = blocks;
+        out[6 * i + 4] = BW_ROWS;
+        out[6 * i + 5] = step[i];
     }
     return cudaSuccess;
 }
@@ -515,19 +566,16 @@ static cudaError_t bwd_attrs(int* out) {
 // launcher's own grid: the wrapper chooses n_split from it.
 extern "C" int flash_attention_bwd_grid(int D, int B, int Sk, int Hkv,
                                         int* out) {
-    const int bk = D == 32    ? BwdTiles<32>::BK
-                   : D == 64  ? BwdTiles<64>::BK
-                   : D == 128 ? BwdTiles<128>::BK
-                   : D == 256 ? BwdTiles<256>::BK
-                              : 0;
-    if (bk == 0) return (int)cudaErrorInvalidValue;
-    out[0] = (Sk + bk - 1) / bk * Hkv * B;
+    if (D != 32 && D != 64 && D != 128 && D != 256)
+        return (int)cudaErrorInvalidValue;
+    out[0] = (Sk + BW_ROWS - 1) / BW_ROWS * Hkv * B;
     return 0;
 }
 
 // The dK/dV and dQ kernels' registers, dynamic shared memory bytes, local
-// bytes, resident blocks an SM and tile (keys a dK/dV block, query rows a
-// dQ block), into out[0..4] and out[5..9].
+// bytes, resident blocks an SM, tile (keys a dK/dV block, query rows a dQ
+// block) and walk step (query rows a dK/dV step, keys a dQ step), into
+// out[0..5] and out[6..11].
 extern "C" int flash_attention_bwd_attrs(int D, int* out) {
     switch (D) {
         case 32: return (int)bwd_attrs<32>(out);

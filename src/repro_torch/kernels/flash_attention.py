@@ -21,8 +21,8 @@ Training: with grad enabled and an input that requires it, the call runs
 ``FlashAttention``, a ``torch.autograd.Function`` whose forward launches
 K4 with its log-sum-exp output and whose backward launches K4's
 backward, ``flash_attention_bwd`` (CUDA C++ for ``sm_90a``,
-``csrc/flash_attention_bwd.cu``; counted in
-``flash_attention_bwd.launches``). The plain backward
+``csrc/flash_attention_bwd.cu``, on tensor cores in 3xTF32 as the
+forward; counted in ``flash_attention_bwd.launches``). The plain backward
 (``ref.flash_attention_bwd``) takes CPU tensors, as every plain version.
 """
 from __future__ import annotations
@@ -130,11 +130,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale, causal=True,
     causal, window, prefix_len)`` whose output was ``o`` (B, Sq, H, D) and
     log-sum-exp ``lse`` (B, Sq, H), for the output gradient ``do``. On a
     CUDA tensor the hand-written backward (``csrc/flash_attention_bwd.cu``:
-    three launches, counted as one in ``flash_attention_bwd.launches``)
-    on fp32 q/k/v/o/do, each kv head's query heads split across dK/dV
-    blocks where the grid is short of two blocks an SM (``bwd_split``;
-    ``flash_attention_bwd.last_split``); on a CPU tensor its plain
-    version, ``ref.flash_attention_bwd``."""
+    D, then dK/dV and dQ with every product on the tensor cores in
+    3xTF32, no atomics; its launches counted as one in
+    ``flash_attention_bwd.launches``) on fp32 q/k/v/o/do, each kv head's
+    query heads split across dK/dV blocks where the grid is short of two
+    blocks an SM (``bwd_split``; ``flash_attention_bwd.last_split``); on a
+    CPU tensor its plain version, ``ref.flash_attention_bwd``."""
     window = _check_mask(q.shape[1], causal, window, prefix_len)
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, o, lse, do, scale, causal,

@@ -17,7 +17,8 @@ Training: with grad enabled and an input that requires it, the call runs
 ``SsdChunk``, a ``torch.autograd.Function`` whose forward launches K5 and
 whose backward launches K5's backward, ``ssd_chunk_bwd`` (CUDA C++ for
 ``sm_90a``, ``csrc/ssd_chunk_bwd.cu``: five launches counted as one in
-``ssd_chunk_bwd.launches``); the plain backward (``ref.ssd_chunk_bwd``)
+``ssd_chunk_bwd.launches``, the products of three of them on tensor cores
+in 3xTF32); the plain backward (``ref.ssd_chunk_bwd``)
 takes CPU tensors. So every family trains on the card.
 
 ``error_bound`` and ``bwd_error_bound`` give the tolerances a kernel
@@ -148,8 +149,10 @@ def ssd_chunk_bwd(x, dt, a, B_, C_, cum, gy, gstate, gdecay=None,
     C_)``, whose ``cum`` output was ``cum``, for the gradients of its four
     outputs (any of them None for zeros). On a CUDA tensor the
     hand-written backward (``csrc/ssd_chunk_bwd.cu``: five launches,
-    counted as one in ``ssd_chunk_bwd.launches``), on a CPU tensor its
-    plain version, ``ref.ssd_chunk_bwd``."""
+    counted as one in ``ssd_chunk_bwd.launches``; the pair, head and chunk
+    passes take their products on tensor cores in 3xTF32, each sum in a
+    fixed order, no atomics), on a CPU tensor its plain version,
+    ``ref.ssd_chunk_bwd``."""
     if x.device.type == "cpu":
         return ref.ssd_chunk_bwd(x, dt, a, B_, C_, cum, gy, gstate, gdecay,
                                  gcum)

@@ -14,9 +14,17 @@ reference's train step differentiates.
 * The formulas against autograd through the plain forward, with and
   without causal masking, and with Sq != Sk.
 * The kernel's walks (``csrc/flash_attention_bwd.cu``), modelled here tile
-  for tile: the q tiles a dK/dV block walks and the key tiles a dQ block
-  walks cover every pair the mask allows, and each tile walked holds at
-  least one such pair, at every tile size the kernel compiles.
+  for tile: the query steps a dK/dV block walks and the key steps a dQ
+  block walks cover every pair the mask allows, and each step of the
+  dK/dV walk holds at least one such pair, at every tile size the kernel
+  compiles.
+* The kernel's arithmetic: its seven products in 3xTF32 (fp32 operands
+  split into TF32 hi and lo, lo.hi' + hi.lo' + hi.hi', each k step added
+  in fp32), modelled with ``split_product`` of
+  tests/test_torch_prefill_split.py, hold ``chip_smoke.py``'s BWD_TOL
+  (1e-4 of each gradient's largest) against the plain version at
+  smollm-135m's, paligemma-3b's and recurrentgemma-9b's head dims and
+  masks; one TF32 pass misses it.
 """
 import itertools
 
@@ -30,6 +38,7 @@ from repro.models.attention import attend_naive
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
+from test_torch_prefill_split import split_product
 
 # (B, S, H, Hkv, D, window, prefix)
 CASES = [
@@ -127,8 +136,11 @@ def test_bf16_gradients_come_back_in_bf16():
 
 # ---------------------------------------------- the kernel's walks, modelled
 
-# (BQ, BK) by head_dim, as BwdTiles in csrc/flash_attention_bwd.cu
-TILES = {32: (64, 64), 64: (64, 64), 128: (32, 64), 256: (32, 32)}
+# by head_dim, as BwdTiles and BW_ROWS in csrc/flash_attention_bwd.cu:
+# (keys a dK/dV block, query rows a dK/dV step, query rows a dQ block,
+# keys a dQ step)
+TILES = {32: (64, 32, 64, 32), 64: (64, 32, 64, 32), 128: (64, 16, 64, 16),
+         256: (64, 16, 64, 16)}
 
 
 def _allowed(Sq, Sk, causal, window, prefix):
@@ -162,37 +174,44 @@ def _dq_key_tiles(t0, nq, Sk, BK, causal, window, prefix):
     return range(kbeg // BK, -(-kend // BK) if kend > kbeg else kbeg // BK)
 
 
+def _tiles_allowed(ok, rows, cols):
+    """Which (rows x cols) tiles of the pair mask ``ok`` hold an allowed
+    pair."""
+    nr, nc = -(-ok.shape[0] // rows), -(-ok.shape[1] // cols)
+    return np.array([[ok[r * rows:(r + 1) * rows,
+                         c * cols:(c + 1) * cols].any()
+                      for c in range(nc)] for r in range(nr)], bool)
+
+
 @pytest.mark.parametrize("D", sorted(TILES))
 def test_kernel_walks_cover_exactly_the_allowed_tiles(D):
-    BQ, BK = TILES[D]
+    KB, QS, QB, KS = TILES[D]
     for Sq, Sk, causal, window, prefix in itertools.product(
-            (1, 31, 32, 33, 64, 65, 127, 200), (1, 33, 64, 130, 200),
+            (1, 15, 17, 31, 32, 33, 64, 65, 127, 200),
+            (1, 17, 33, 64, 130, 200),
             (True, False), (None, 1, 20, 64, 100), (0, 1, 33, 64, 300)):
         if window and not causal:
             continue
         ok = _allowed(Sq, Sk, causal, window, prefix)
-        nqt, nkt = -(-Sq // BQ), -(-Sk // BK)
-        tile_ok = np.zeros((nqt, nkt), bool)
-        for qt in range(nqt):
-            for kt in range(nkt):
-                tile_ok[qt, kt] = ok[qt * BQ:(qt + 1) * BQ,
-                                     kt * BK:(kt + 1) * BK].any()
+        case = (D, Sq, Sk, causal, window, prefix)
+        # the dK/dV walk: query steps of QS rows for blocks of KB keys
+        tile_ok = _tiles_allowed(ok, QS, KB)
         by_key = np.zeros_like(tile_ok)
-        for kt in range(nkt):
-            for qt in _dkdv_q_tiles(kt * BK, min(BK, Sk - kt * BK), Sq, BQ,
+        for kt in range(tile_ok.shape[1]):
+            for qt in _dkdv_q_tiles(kt * KB, min(KB, Sk - kt * KB), Sq, QS,
                                     causal, window, prefix):
                 by_key[qt, kt] = True
+        # every allowed pair's tile is walked, and no tile without one
+        assert not (tile_ok & ~by_key).any(), case
+        assert not (by_key & ~tile_ok).any(), case
+        # the dQ walk: key steps of KS keys for blocks of QB query rows
+        tile_ok = _tiles_allowed(ok, QB, KS)
         by_q = np.zeros_like(tile_ok)
-        for qt in range(nqt):
-            for kt in _dq_key_tiles(qt * BQ, min(BQ, Sq - qt * BQ), Sk, BK,
+        for qt in range(tile_ok.shape[0]):
+            for kt in _dq_key_tiles(qt * QB, min(QB, Sq - qt * QB), Sk, KS,
                                     causal, window, prefix):
                 by_q[qt, kt] = True
-        case = (D, Sq, Sk, causal, window, prefix)
-        # every allowed pair's tile is walked by both kernels
-        assert not (tile_ok & ~by_key).any(), case
         assert not (tile_ok & ~by_q).any(), case
-        # and the dK/dV walk takes no tile without an allowed pair
-        assert not (by_key & ~tile_ok).any(), case
 
 
 @pytest.mark.parametrize("blocks,G,sms,want", [
@@ -207,3 +226,59 @@ def test_kernel_walks_cover_exactly_the_allowed_tiles(D):
 def test_backward_head_split_plan(blocks, G, sms, want):
     from repro_torch.kernels.flash_attention import bwd_split
     assert bwd_split(blocks, G, sms) == want
+
+
+# ------------------------------------------ the kernel's arithmetic, modelled
+
+# chip_smoke.py's BWD_TOL: each gradient to 1e-4 of its largest magnitude
+BWD_TOL = 1e-4
+
+
+def _split_backward(q, k, v, o, lse, do, scale, window, prefix, passes):
+    """The backward kernel's arithmetic on one batch row, causal: q, o, do
+    (S, H, D), k, v (S, Hkv, D), lse (S, H). Every product (S, dP, dV, dK,
+    dQ) through ``split_product`` at ``passes`` TF32 passes; P, D and dS
+    in fp32, as the kernel holds them."""
+    S, H, _ = q.shape
+    G = H // k.shape[1]
+    ok = _allowed(S, S, True, window, prefix)
+    dq, dk, dv = np.zeros_like(q), np.zeros_like(k), np.zeros_like(v)
+    for h in range(H):
+        qh, kh, vh, doh = q[:, h], k[:, h // G], v[:, h // G], do[:, h]
+        s = split_product(qh, kh.T, False, False, passes).astype(np.float32)
+        p = np.where(ok, np.exp(s * np.float32(scale) - lse[:, h, None]),
+                     0).astype(np.float32)
+        dsum = (doh * o[:, h]).sum(-1, dtype=np.float32)
+        dp = split_product(doh, vh.T, False, False, passes).astype(
+            np.float32)
+        ds = (p * (dp - dsum[:, None])).astype(np.float32)
+        dv[:, h // G] += split_product(p.T, doh, False, False, passes)
+        dk[:, h // G] += split_product(ds.T, qh, False, False,
+                                       passes) * scale
+        dq[:, h] = split_product(ds, kh, False, False, passes) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("S,H,Hkv,D,window,prefix", [
+    (80, 3, 1, 64, None, 0),       # smollm-135m's heads (G 3), causal
+    (48, 2, 1, 256, None, 16),     # paligemma-3b's: D 256, a prefix
+    (40, 4, 1, 256, 20, 0),        # recurrentgemma-9b's: a window
+])
+def test_split_tf32_backward_holds_bwd_tol(S, H, Hkv, D, window, prefix):
+    q, k, v, do = (a[0] for a in _inputs(S + D, 1, S, H, Hkv, D))
+    scale = D ** -0.5
+    tq, tk, tv, tdo = (torch.from_numpy(a)[None] for a in (q, k, v, do))
+    o, lse = ref.flash_attention(tq, tk, tv, scale, True, window, prefix,
+                                 return_lse=True)
+    want = [w[0].numpy() for w in ref.flash_attention_bwd(
+        tq, tk, tv, o, lse, tdo, scale, True, window, prefix)]
+    errs = {}
+    for passes in (3, 1):
+        got = _split_backward(q, k, v, o[0].numpy(), lse[0].numpy(), do,
+                              scale, window, prefix, passes)
+        errs[passes] = [float(np.abs(g - w).max()) / float(np.abs(w).max())
+                        for g, w in zip(got, want)]
+    # three passes: each gradient within a tenth of the tolerance
+    assert max(errs[3]) < BWD_TOL / 10, errs[3]
+    # one pass (operands rounded to TF32): ~1e-3 of each gradient
+    assert min(errs[1]) > BWD_TOL, errs[1]

@@ -1181,6 +1181,17 @@ BWD_CASES = [
     (2, 100, 37, 8, 2, 64, False, None, 0),      # full, Sk < Sq
     (1, 70, 200, 6, 3, 64, True, None, 0),       # causal, Sk > Sq
     (1, 200, 70, 6, 3, 64, True, None, 0),       # causal, Sq > Sk
+    # the tile edges: 64 keys a dK/dV block and 64 query rows a dQ block;
+    # steps of 32 query rows (dK/dV) and 32 keys (dQ) at D 64, 16 at D 256
+    (1, 31, 31, 9, 3, 64, True, None, 0),        # one short of a step
+    (1, 33, 33, 9, 3, 64, True, None, 0),        # one past a step
+    (1, 63, 63, 9, 3, 64, True, None, 0),        # one short of a block
+    (2, 65, 65, 16, 1, 64, True, None, 0),       # one past, G 16 on 1
+    (1, 33, 65, 4, 2, 64, False, None, 0),       # full, both ragged
+    (1, 15, 15, 8, 1, 256, True, None, 0),       # D 256: one short of a step
+    (1, 17, 17, 16, 1, 256, True, None, 0),      # one past, G 16 on 1
+    (1, 63, 63, 16, 1, 256, True, 20, 0),        # one short of a block
+    (1, 65, 65, 8, 1, 256, True, None, 33),      # one past, a prefix
 ]
 
 
@@ -1216,6 +1227,42 @@ def test_flash_bwd_kernel_matches_plain(card, B, Sq, Sk, H, Hkv, D, causal,
                                    else None, prefix)
     for a, b in zip(got, want):
         _close_grad(a, b)
+
+
+def _bwd_fp64(q, k, v, o, do, scale, window):
+    """dq and dk of causal attention with a window, from the backward's
+    formulas in fp64 on the same (fp32) inputs."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    qg, dog, og = (t.double().reshape(B, S, Hkv, H // Hkv, D)
+                   for t in (q, do, o))
+    kd, vd = k.double(), v.double()
+    t = torch.arange(S, device=q.device)
+    ok = (t[None, :] <= t[:, None]) & (t[None, :] > t[:, None] - window)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kd) * scale
+    p = torch.softmax(torch.where(ok, s, torch.full_like(s, -1e300)), -1)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vd)
+    ds = p * (dp - (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kd) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return dq.reshape(q.shape), dk
+
+
+def test_flash_bwd_window_one_is_within_fp32_noise(card):
+    """A window of 1: each query attends only itself, P is 1 and the exact
+    dQ and dK are 0; dS = dP - D is fp32 rounding noise on both sides (dP
+    and D are sums of 64 products of order 1). The kernel's dQ and dK stay
+    within twice the plain version's own distance from the fp64 values,
+    which is what either fp32 computation can promise there."""
+    args = _bwd_inputs(card, 464, 1, 200, 200, 6, 3, 64, True, 1, 0)
+    got = flash_attention_bwd(*args, 64 ** -0.5, True, 1, 0)
+    want = ref.flash_attention_bwd(*args, 64 ** -0.5, True, 1, 0)
+    exact = _bwd_fp64(*args[:4], args[5], 64 ** -0.5, 1)
+    torch.cuda.synchronize()
+    for g, w, e in zip(got[:2], want[:2], exact):
+        kernel = (g.double() - e).abs().max().item()
+        plain = (w.double() - e).abs().max().item()
+        assert kernel <= 2 * plain, (kernel, plain)
 
 
 def test_flash_bwd_kernel_is_deterministic(card):
@@ -1355,6 +1402,10 @@ def _ssd_bwd_case(card, seed, Bsz, nc, Q, H, P, N, strong=False,
     (1, 2, 200, 4, 32, 16, True, (0, 1, 0, 0)),     # the state's alone
     (1, 1, 1024, 4, 64, 128, True, (1, 1, 0, 1)),   # QMAX
     (2, 3, 16, 32, 16, 16, False, (1, 1, 1, 1)),    # mamba2 .reduced()
+    # ragged chunks around the 64-row tiles of the mma passes
+    (2, 1, 37, 4, 128, 32, True, (1, 1, 1, 1)),     # one ragged tile, P 128
+    (1, 2, 255, 8, 64, 128, False, (1, 1, 1, 1)),   # one short of 4 tiles
+    (1, 2, 257, 8, 64, 128, True, (1, 1, 1, 1)),    # one past
 ])
 def test_ssd_chunk_bwd_kernel_matches_plain(card, Bsz, nc, Q, H, P, N,
                                             strong, given):

@@ -32,6 +32,14 @@ CPU checks its arithmetic:
     against numpy's fp32 accumulation and against the plain version.
 
 (d) The scratch the wrapper allocates, from the shapes alone.
+
+(e) The backward (``src/repro_torch/csrc/ssd_chunk_bwd.cu``): its pair,
+    head and chunk passes take every product (S = C.B^T, G = gy.x^T, V =
+    B.gstate^T, M^T.gy, S_bar.B, S_bar^T.C and the heads' (w x).gstate) in
+    3xTF32, the rest in fp32. Modelled here with ``split_product``, the
+    gradients hold to ``kernels.ssd.bwd_error_bound`` against the port's
+    plain backward at ragged and whole chunks with a strongly decaying
+    head; one TF32 pass misses it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -225,3 +233,84 @@ def test_scratch_holds_every_tile_the_model_reads():
     assert all(t.shape == shape[1:] for t in tiles)
     # the 1,500-token note's scratch stays under 1 MB (L2 holds 50 MB)
     assert 4 * np.prod(tssd.scratch_shape(6, 256)) == 983040
+
+
+# ------------------------------------------------ (e) the backward's products
+
+def model_ssd_chunk_bwd(x, dt, a, B_, C_, cum, gy, gstate, gdecay, gcum,
+                        passes=3):
+    """K5's backward in numpy, ``ref.ssd_chunk_bwd``'s formulas with every
+    product of the kernel's pair, head and chunk passes through
+    ``split_product`` at ``passes`` TF32 passes, and the elementwise terms,
+    the sums over the heads and the reverse cumsum in fp32. Returns (gx,
+    gdt, ga, gB, gC)."""
+    Bsz, nc, Q, H, P = x.shape
+    f32 = np.float32
+    tri = np.tril(np.ones((Q, Q), bool))
+    gx, gdt = np.zeros_like(x), np.zeros_like(dt)
+    gB, gC = np.zeros_like(B_), np.zeros_like(C_)
+    ga = np.zeros(H, f32)
+
+    def mm(u, v):
+        return split_product(u.astype(f32), v.astype(f32), False, False,
+                             passes).astype(f32)
+
+    for b in range(Bsz):
+        for c in range(nc):
+            Bc, Cc, cs = B_[b, c], C_[b, c], cum[b, c]
+            S = mm(Cc, Bc.T)
+            S_bar = np.zeros((Q, Q), f32)
+            for h in range(H):
+                xh, gyh, d = x[b, c, :, h], gy[b, c, :, h], dt[b, c, :, h]
+                dec = np.where(tri, cs[:, h, None] - cs[None, :, h], -np.inf)
+                L = np.exp(dec.astype(f32))
+                LD = (L * d[None, :]).astype(f32)
+                G = mm(gyh, xh.T)
+                e = np.exp(cs[-1, h] - cs[:, h]).astype(f32)
+                w = (e * d).astype(f32)
+                V = mm(Bc, gstate[b, c, h].T)
+                gx[b, c, :, h] = mm((S * LD).T, gyh) + w[:, None] * V
+                wbar = (xh * V).sum(-1, dtype=f32)
+                S_bar += G * LD
+                GSL = (G * S * L).astype(f32)
+                R = (GSL * d[None, :]).astype(f32)
+                g = gcum[b, c, :, h] + R.sum(1) - R.sum(0) - wbar * w
+                g[-1] += (wbar * w).sum() + gdecay[b, c, h] * np.exp(
+                    cs[-1, h])
+                gdA = np.cumsum(g[::-1].astype(f32), dtype=f32)[::-1]
+                gdt[b, c, :, h] = GSL.sum(0) + wbar * e + gdA * a[h]
+                ga[h] += (gdA * d).sum(dtype=f32)
+                gB[b, c] += mm(w[:, None] * xh, gstate[b, c, h])
+            gC[b, c] = mm(S_bar, Bc)
+            gB[b, c] += mm(S_bar.T, Cc)
+    return gx, gdt, ga, gB, gC
+
+
+@pytest.mark.parametrize("Bsz,nc,Q,H,P,N,strong", [
+    (1, 1, 37, 2, 16, 32, False),      # one ragged tile
+    (1, 2, 64, 3, 16, 16, True),       # a whole tile, a = -32
+    (1, 1, 100, 2, 32, 32, True),      # two tiles, the second ragged
+])
+def test_split_backward_holds_the_backward_bound(Bsz, nc, Q, H, P, N,
+                                                 strong):
+    arrs = _draw(Q + H + 5, Bsz, nc, Q, H, P, N, strong)
+    inputs = [torch.from_numpy(v.copy()) for v in arrs]
+    cum = tref.ssd_chunk(*inputs)[3]
+    rng = np.random.default_rng(Q)
+    grads = [rng.standard_normal(sh).astype(np.float32) for sh in (
+        (Bsz, nc, Q, H, P), (Bsz, nc, H, P, arrs[3].shape[-1]),
+        (Bsz, nc, H), (Bsz, nc, Q, H))]
+    args = (*inputs, cum, *map(torch.from_numpy, grads))
+    want = tref.ssd_chunk_bwd(*args)
+    bounds = tssd.bwd_error_bound(*args)
+
+    def excess(passes):
+        got = model_ssd_chunk_bwd(*arrs, cum.numpy(), *grads, passes=passes)
+        return [float((np.abs(g - w.numpy()) - bd.numpy()).max())
+                for g, w, bd in zip(got, want, bounds)]
+
+    assert all(e <= 0 for e in excess(3)), excess(3)
+    # one pass: each product's terms carry ~2^-11 of themselves, far past
+    # the bound's (n + 8) 2^-23 of the terms' magnitudes, in gx, gB and gC
+    one = excess(1)
+    assert one[0] > 0 and one[3] > 0 and one[4] > 0, one
