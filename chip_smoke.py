@@ -74,6 +74,11 @@ Phases (each raises on failure, and the script then exits non-zero):
      ``DispatchProfiler`` on every batcher, each orchestrator tick timed:
      host_plan / bucket / dispatch_submit / device_sync per island and
      the orchestrator's own share, both runs' streams the profile's;
+   - the phases that hold the scheduling to the CPU's or to a second
+     card run (degradation, trace harness, leakage, the constant-shape
+     A/B, the oversubscribed pool, churn, stochastic) serve
+     smollm-135m's first ``SCHED_LAYERS`` (8) layers at its full widths:
+     none of their checks depends on the depth;
    - degradation: ``benchmarks/degradation.py`` (ported here) fault-free
      and under its fault plan (a slowed laptop, two bursts, stale
      telemetry, the desktop drained then killed), held to the
@@ -101,8 +106,8 @@ Phases (each raises on failure, and the script then exits non-zero):
      layer of every dispatch, one prefill and one decode geometry per
      batcher, one K1 and one K2 key-walk split per island (each launch's
      ``last_split``), streams under the near-tie rule, the work clock
-     within 1.25x; then the main path default and constant once each for
-     wall tokens/s, and one profiled constant run for its
+     within 1.25x; then, at full depth, the main path default and
+     constant once each for wall tokens/s, and one profiled constant run for its
      device busy time against ``profile main_path``'s;
    - fp8 smollm: an fp32 and a ``float8_e4m3fn`` dense cache through
      ``Model.forward`` (4 rows, a 1,024-token prompt, 32 decode steps;
@@ -143,9 +148,10 @@ Phases (each raises on failure, and the script then exits non-zero):
 7. mamba2: mamba2-370m at its full published widths (48 layers, d_model
    1024, 32 SSM heads of 64, state 128, chunk 256, vocab 50280) with
    seeded random fp32 weights, a bf16 conv tail and an fp32 SSM state:
-   the quickstart traffic through ``build_island_batchers(cache="auto")``
-   (stacked batchers: K5 on all 48 layers of every prefill dispatch, no
-   attention kernel), a profile of it, the per-request path, and the
+   at its first ``SERVE_LAYERS`` (8) layers, the quickstart traffic
+   through ``build_island_batchers(cache="auto")`` (stacked batchers: K5
+   on every layer of every prefill dispatch, no attention kernel), a
+   profile of it and the per-request path; at full depth, the
    card-vs-CPU replay on the stacked batcher, once as served (bf16 conv
    tail) and once with an fp32 conv tail, held tighter;
 8. recurrentgemma: recurrentgemma-9b at its full published widths and
@@ -153,11 +159,13 @@ Phases (each raises on failure, and the script then exits non-zero):
    4096, lru_width 4096 in 16 gate blocks, 16 heads of 256 on one kv
    head, window 2048, d_ff 12288, vocab 256000; 8.6 B parameters) with
    seeded random fp32 weights, bf16 K/V and conv tail, fp32 state, after
-   the earlier models are freed: the quickstart traffic through
+   the earlier models are freed: at its first 9 layers (three pattern
+   cycles), the quickstart traffic through
    ``build_island_batchers(cache="auto")`` (stacked batchers: K6 on the
-   26 RG-LRU layers and K4 on the 12 attention layers of every prefill
-   dispatch, K3 on the 12 attention layers of every decode step), a
-   profile of it (device busy time and idle share), the per-request path, and the card-vs-CPU replay on
+   6 RG-LRU layers and K4 on the 3 attention layers of every prefill
+   dispatch, K3 on the 3 attention layers of every decode step), a
+   profile of it (device busy time and idle share) and the per-request
+   path; the card-vs-CPU replay on
    the stacked batcher, cut to one pattern cycle (3 layers at full
    width: 34 GB of fp32 weights and 26 TFLOP prefills do not replay on
    a CPU), once as served and once with every cache leaf in fp32; then
@@ -169,13 +177,15 @@ Phases (each raises on failure, and the script then exits non-zero):
    qwen3-4b (36 layers, 32 heads on 8 kv heads of 128, qk_norm) and
    glm4-9b (40 layers, 32 heads on 2 kv heads of 128: G 16) at their
    full published widths and depths with seeded random fp32 weights, one
-   at a time, each freed before the next: the quickstart traffic through
+   at a time, each freed before the next: at the first
+   ``SERVE_LAYERS`` (8) layers, the quickstart traffic through
    ``build_island_batchers(cache="auto")`` (fused chunked paged
-   batchers: K2 and K1 once per layer of every dispatch), a profile of
-   it, and the card-vs-CPU replay on the fused paged batcher cut to the
+   batchers: K2 and K1 once per layer of every dispatch) and a profile
+   of it; the card-vs-CPU replay on the fused paged batcher cut to the
    first two layers (every width and the whole vocabulary kept);
    paligemma also on the stacked, paged ``prefill="full"`` and
-   per-request paths, every K4 launch carrying its 256-token prefix, and
+   per-request paths at the same cut, every K4 launch carrying its
+   256-token prefix, and
    paligemma and musicgen through ``Model.forward`` with their
    frontends' ``embeddings`` (tests/test_models.py::
    test_prefill_decode_matches_full's inputs at full width: the card at
@@ -228,10 +238,10 @@ Phases (each raises on failure, and the script then exits non-zero):
 12. P14a and P14b, training, last, after a ``gc.collect()`` (the memory still
    allocated is read out first): the train launcher
    (``repro_torch.launch.train``: ``SyntheticLM``, AdamW, the cosine
-   schedule, checkpoints) at smollm-135m's full width, 20 steps of 8 x
+   schedule, checkpoints) at smollm-135m's full width, 10 steps of 8 x
    2,048 tokens, each step timed and its launches counted (K4 and its
    backward once a layer, no other kernel), the loss falling by a nat,
-   checkpoints at steps 10 and 20 and a resume from step 10 that ends on
+   checkpoints at steps 5 and 10 and a resume from step 5 that ends on
    the uninterrupted run's loss; one step's gradient with and without
    ``remat`` (K4 60 launches against 30, the same loss and gradients, no
    leaf without a gradient); paligemma-3b at full width (2.51 B
@@ -1104,7 +1114,9 @@ def rglru_bwd_kernel_rows(dev, gen):
     at C 4,096, fp32, no h0: the train step starts from zeros), bit-equal;
     device ms over input copies that exceed the L2 (CUDA graphs), the
     plain version's, and the least time: a, h and gh read and ga, gb
-    written once over HBM (3 flops a step at the fp32 rate)."""
+    written once over HBM (3 flops a step at the fp32 rate), with the
+    share of it reached and the design's layout (producer and consumer
+    warps, ring stages, steps a stage and a batch) in ``kernel_attrs``."""
     import torch
 
     from repro_torch.kernels import ref
@@ -1144,6 +1156,7 @@ def rglru_bwd_kernel_rows(dev, gen):
           "flops": flops, "bit_exact_with_plain": True,
           "tolerance": "bit-equal", "input_copies": n,
           "achieved_bytes_per_s": nbytes / kms * 1e3,
+          "share_of_bound": bound / kms,
           "wrapper_host_us": host_us(lambda: rglru_scan_bwd(*args))})
     return row
 
@@ -2659,12 +2672,13 @@ def _capture_sampled(b, store):
     _wrap_sample_ready(b, store, lambda rid: rid)
 
 
-def stochastic_phase(cfg, params, device, runs_on):
+def stochastic_phase(cfg, params, device, replay_cfg, runs_on):
     """The quickstart traffic through the fused paged batchers at
-    ``temperature`` 0.8, ``seed`` 7: two runs give identical streams; a
-    run with ``drain_island("laptop")`` after tick 2 gives the same
-    streams under the near-tie rule (held on the perturbed scores); and
-    the card and CPU replay of the four queries agree under it."""
+    ``temperature`` 0.8, ``seed`` 7, serving ``cfg``: two runs give
+    identical streams; a run with ``drain_island("laptop")`` after tick 2
+    gives the same streams under the near-tie rule (held on the perturbed
+    scores); and the card and CPU replay of the four queries
+    (``replay_cfg`` on ``runs_on``) agree under it."""
     import torch
     faults, runs = [], []
     for drain in (False, False, True):
@@ -2703,6 +2717,7 @@ def stochastic_phase(cfg, params, device, runs_on):
                       f"{st}")
     st["frozen_while_queued"] = len(runs[2]["frozen"]["queued"])
     emit({"phase": "stochastic", "model": cfg.name,
+          "layers": cfg.num_layers,
           "temperature": TEMPERATURE, "seed": SAMPLE_SEED,
           "streams": len(runs[0]["streams"]),
           "repeat_identical": runs[0]["streams"] == runs[1]["streams"],
@@ -2714,9 +2729,9 @@ def stochastic_phase(cfg, params, device, runs_on):
     if faults:
         raise AssertionError("stochastic: " + "; ".join(faults))
     from repro_torch.serving.batcher import PagedContinuousBatcher
-    replay("replay stochastic", cfg, runs_on,
+    replay("replay stochastic", replay_cfg, runs_on,
            lambda dev, p: PagedContinuousBatcher(
-               cfg, params=p, num_slots=4, max_len=256, device=dev,
+               replay_cfg, params=p, num_slots=4, max_len=256, device=dev,
                temperature=TEMPERATURE, seed=SAMPLE_SEED),
            _capture_sampled, tol=REPLAY_LOGIT_TOL / TEMPERATURE,
            first_tol=REPLAY_LOGIT_TOL)
@@ -2884,6 +2899,23 @@ def host_split_phase(cfg, params, device, base):
           "tick_wall_ms_unprofiled": sum(plain_ns) / 1e6,
           "streams_identical": True})
 
+
+# the depth of the smollm phases held to the port's scheduling on the
+# CPU or to a second run on the card, not to the served model's numbers
+# (degradation, trace harness, leakage, the constant-shape A/B, the
+# oversubscribed pool, churn, stochastic): its first 8 of 30 layers at
+# full widths. Those checks depend on neither the depth nor the
+# weights, and at full depth the phases took ~280 s of the script's
+# time limit
+SCHED_LAYERS = 8
+# the serving paths of the configs after smollm (mamba2, recurrentgemma
+# and the P12a four: the auto path, its profile, the per-request path,
+# paligemma's prefix paths) serve their first 8 layers at full widths
+# (recurrentgemma 9: three whole pattern cycles); a layer's launches and
+# device time repeat, and their full depths (18-48 layers) took ~230 s
+# of the script's time limit. Their replays and the kernel phase keep
+# their own shapes
+SERVE_LAYERS = 8
 
 # benchmarks/degradation.py's scenario (ported here: it imports the JAX
 # package). DEADLINE_WORK is above the fault-free run's total mesh work,
@@ -3174,7 +3206,8 @@ def trace_harness_phase(cfg, params, device, n=TRACE_N):
         out[arm] = dict(card, cpu_wall_s=ref["wall_s"])
     att = {arm: out[arm]["slo"]["interactive"].get("ttft_attainment")
            for arm in out}
-    emit({"phase": "trace harness", "model": cfg.name, "n": n,
+    emit({"phase": "trace harness", "model": cfg.name,
+          "layers": cfg.num_layers, "n": n,
           **out, "interactive_ttft_attainment": att})
     if faults:
         raise AssertionError("trace harness: " + "; ".join(faults))
@@ -3306,7 +3339,8 @@ def leakage_phase(cfg, params, device):
             r.accuracy <= r.chance + LEAK_SLACK for r in on.values()),
         "card_equals_cpu": not faults,
     }
-    emit({"phase": "leakage", "model": cfg.name, **out, "checks": checks,
+    emit({"phase": "leakage", "model": cfg.name,
+          "layers": cfg.num_layers, **out, "checks": checks,
           "faults": faults})
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -3437,20 +3471,22 @@ def _shape_ab(label, base, const):
         "work_overhead": const["work"] / max(base["work"], 1), **st}
 
 
-def constant_shape_phase(cfg, params, device, main_busy_s):
+def constant_shape_phase(cfg, params, device, main_busy_s, sched):
     """Constant-shape dispatch against the default on the card, at full
     width: (a) benchmarks/leakage.py's ``constant_shape_ab`` (its checks:
     streams, the work clock within 1.25x, one prefill and one decode
     shape), (b) the main path's traffic with ``constant_shape`` on every
-    island. Both: ``_shape_ab``. Then (b)'s card cost: wall tokens/s of
+    island. Both: ``_shape_ab``, serving ``sched`` (the config and
+    weights of the served model's first ``SCHED_LAYERS`` layers). Then
+    (b)'s card cost at full depth: wall tokens/s of
     the serving path (launches checked by ``serve_path``) run default
     then constant (one pair: host walls drift within a call, so the
     ratio is a rough reading), and device busy seconds from one profiled rerun, against
     ``profile main_path``'s (``main_busy_s``)."""
     out, faults = {}, []
     for label, main in (("constant_shape_ab", False), ("main_path", True)):
-        base = shape_run(cfg, params, device, False, main)
-        const = shape_run(cfg, params, device, True, main)
+        base = shape_run(*sched, device, False, main)
+        const = shape_run(*sched, device, True, main)
         f, out[label] = _shape_ab(label, base, const)
         faults += f
     if out["constant_shape_ab"]["work_overhead"] > 1.25:
@@ -3611,15 +3647,15 @@ P12A_CUT_LAYERS = 2
 EMBED_TOL = 2e-4
 
 
-def cut_model(cfg, params, layers=P12A_CUT_LAYERS):
+def cut_model(cfg, params, layers=P12A_CUT_LAYERS, phase="replay cut"):
     """The config and the served weights cut to their first ``layers``
     layers, at full widths with the full vocabulary (the embedding table,
-    the final norm and an untied head kept)."""
+    the final norm and an untied head kept); a ``phase`` line says so."""
     from repro_torch.models.model import effective_pattern
     ccfg = dataclasses.replace(cfg, num_layers=layers)
     cut = {k: v for k, v in params.items() if k != "layers"}
     cut["layers"] = params["layers"][:layers]
-    emit({"phase": "replay cut", "model": cfg.name, "layers": layers,
+    emit({"phase": phase, "model": cfg.name, "layers": layers,
           "of": cfg.num_layers, "pattern": list(effective_pattern(cfg)),
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
           "weight_bytes": tensor_bytes(cut)})
@@ -3766,11 +3802,12 @@ def embeddings_phase(name, cfg, params, device, ccfg, cut):
 
 
 def p12a_group(arch, device, timed, rows):
-    """One P12a config at full width: (a) the auto path (the paged main
-    path) on the quickstart traffic with exact launch counts, and a
-    profile of it (device busy time and idle share); paligemma
-    also on the stacked, paged prefill="full" and per-request paths, each
-    with K4 running its prefix; (b) the replay of the card against the
+    """One P12a config at full width: (a) at its first
+    ``SERVE_LAYERS`` layers, the auto path (the paged main path) on
+    the quickstart traffic with exact launch counts, and a profile of it
+    (device busy time and idle share); paligemma also on the stacked,
+    paged prefill="full" and per-request paths, each with K4 running its
+    prefix; (b) the replay of the card against the
     CPU at the cut; paligemma and musicgen the Model.forward phase with
     embeddings. Its seconds go to ``timed``'s record; its launches to the
     kernel rows."""
@@ -3786,22 +3823,25 @@ def p12a_group(arch, device, timed, rows):
     cfg = get_config(arch)
     params = timed(f"init {arch}", get_model(cfg).init, seed=0,
                    device=device)
-    launches, wall, _ = timed(arch, serve_path, arch, cfg, params, device)
+    scfg, served = cut_model(cfg, params, SERVE_LAYERS, "serve cut")
+    launches, wall, _ = timed(arch, serve_path, arch, scfg, served, device)
     for k in ("paged_decode_attention", "chunked_prefill_attention"):
         rows[k].setdefault("launches_p12a", {})[arch] = launches[k]
-    timed(f"profile {arch}", profile_phase, arch, cfg, params, device, wall)
+    timed(f"profile {arch}", profile_phase, arch, scfg, served, device,
+          wall)
     if cfg.prefix_lm:
         P = cfg.num_prefix_tokens
         for label, kw in ((f"{arch} stacked", dict(cache="stacked")),
                           (f"{arch} paged_prefill_full",
                            dict(prefill="full"))):
             got, _, _ = timed(label, prefix_path, label, P, serve_path,
-                              label, cfg, params, device, **kw)
+                              label, scfg, served, device, **kw)
             rows["flash_attention"].setdefault("launches_prefix", {})[
                 label] = got["flash_attention"]
         label = f"per_request {arch}"
-        timed(label, prefix_path, label, P, per_request_phase, cfg, params,
-              device, name=label)
+        timed(label, prefix_path, label, P, per_request_phase, scfg,
+              served, device, name=label)
+    del served
     ccfg, cut = cut_model(cfg, params)
     cpu = torch.device("cpu")
     runs = [(device, cut), (cpu, params_to(cut, cpu))]
@@ -4399,10 +4439,11 @@ def dist_group(device, timed, card, ds_want, rows):
 # --------------------------------------------------- P14a: training
 
 TRAIN = "smollm-135m"
-# the launcher's path at smollm-135m's published context: 20 steps of
-# batch 8 x 2048 tokens, checkpoints every 10 steps, then a resume from
-# step 10 that must end on the uninterrupted run's loss
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 2048, 20, 10
+# the launcher's path at smollm-135m's published context: 10 steps of
+# batch 8 x 2048 tokens (the loss falls by a nat within 3), checkpoints
+# every 5 steps, then a resume from step 5 that must end on the
+# uninterrupted run's loss
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 2048, 10, 5
 # paligemma-3b: 5 steps of 2 rows of 256 image embeddings + 256 tokens
 PALI_TRAIN = "paligemma-3b"
 PALI_TRAIN_B, PALI_TRAIN_S, PALI_TRAIN_STEPS = 2, 512, 5
@@ -5139,12 +5180,13 @@ def main() -> int:
     timed("profile host split", host_split_phase, cfg, params, gpu, base)
     main_busy_s = base["busy_s"]
     del base
-    timed("degradation", degradation_phase, cfg, params, gpu)
-    timed("trace harness", trace_harness_phase, cfg, params, gpu)
+    scfg, sched = cut_model(cfg, params, SCHED_LAYERS, "schedule cut")
+    timed("degradation", degradation_phase, scfg, sched, gpu)
+    timed("trace harness", trace_harness_phase, scfg, sched, gpu)
     timed("serve --trace", serve_trace_phase)
-    timed("leakage", leakage_phase, cfg, params, gpu)
+    timed("leakage", leakage_phase, scfg, sched, gpu)
     timed("constant shape", constant_shape_phase, cfg, params, gpu,
-          main_busy_s)
+          main_busy_s, (scfg, sched))
     timed("fp8 smollm", fp8_phase, "fp8 smollm", cfg, params, gpu, B=4,
           S=1024, T=32)
     _, wall, _ = timed("stacked", serve_path, "stacked", cfg, params, gpu,
@@ -5155,8 +5197,8 @@ def main() -> int:
           params, gpu, prefill="full")
     timed("paged_unfused", serve_path, "paged_unfused", cfg, params, gpu,
           fused=False)
-    _, _, over = timed("oversubscribed", serve_path, "oversubscribed", cfg,
-                       params, gpu, **OVERSUBSCRIBED)
+    _, _, over = timed("oversubscribed", serve_path, "oversubscribed",
+                       scfg, sched, gpu, **OVERSUBSCRIBED)
     if over["preemptions"] == 0:
         raise AssertionError("oversubscribed pool: no preemption")
     timed("per_request", per_request_phase, cfg, params, gpu)
@@ -5171,11 +5213,11 @@ def main() -> int:
           lambda dev, p: ContinuousBatcher(
               cfg, params=p, num_slots=4, max_len=256, device=dev),
           _capture_stacked)
-    timed("churn", churn_phase, cfg, params, gpu)
-    timed("churn downhill", churn_downhill_phase, cfg, params, gpu)
-    timed("churn stacked", churn_stacked_phase, cfg, params, gpu)
-    timed("stochastic", stochastic_phase, cfg, params, gpu, runs_on)
-    del runs_on, params
+    timed("churn", churn_phase, scfg, sched, gpu)
+    timed("churn downhill", churn_downhill_phase, scfg, sched, gpu)
+    timed("churn stacked", churn_stacked_phase, scfg, sched, gpu)
+    timed("stochastic", stochastic_phase, scfg, sched, gpu, cfg, runs_on)
+    del runs_on, params, sched
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "memory before mamba2",
@@ -5184,13 +5226,15 @@ def main() -> int:
     # mamba2-370m at full width: stacked batchers (cache="auto"), K5 only
     mcfg = get_config("mamba2-370m")
     mparams = get_model(mcfg).init(seed=0, device=gpu)
-    launches, wall, _ = timed("mamba2", serve_path, "mamba2", mcfg, mparams,
-                              gpu)
+    mscfg, mserved = cut_model(mcfg, mparams, SERVE_LAYERS, "serve cut")
+    launches, wall, _ = timed("mamba2", serve_path, "mamba2", mscfg,
+                              mserved, gpu)
     rows["ssd_chunk"]["launches"] = launches["ssd_chunk"]
-    timed("profile mamba2", profile_phase, "mamba2", mcfg, mparams, gpu,
+    timed("profile mamba2", profile_phase, "mamba2", mscfg, mserved, gpu,
           wall)
-    timed("per_request mamba2", per_request_phase, mcfg, mparams, gpu,
+    timed("per_request mamba2", per_request_phase, mscfg, mserved, gpu,
           name="per_request mamba2")
+    del mserved
     mruns = [(gpu, mparams), (cpu, params_to(mparams, cpu))]
     timed("replay mamba2", replay, "replay mamba2", mcfg, mruns,
           lambda dev, p: ContinuousBatcher(
@@ -5207,19 +5251,23 @@ def main() -> int:
     emit({"phase": "memory before recurrentgemma",
           "memory_allocated_bytes": torch.cuda.memory_allocated()})
 
-    # recurrentgemma-9b at full width and depth: stacked batchers
-    # (cache="auto"): K6 and K4 at prefill, K3 at decode
+    # recurrentgemma-9b at full width: stacked batchers (cache="auto"):
+    # K6 and K4 at prefill, K3 at decode
     rcfg = get_config("recurrentgemma-9b")
     rparams = timed("init recurrentgemma", get_model(rcfg).init, seed=0,
                     device=gpu)
+    cycle = len(rcfg.pattern)
+    rscfg, rserved = cut_model(rcfg, rparams,
+                               -(-SERVE_LAYERS // cycle) * cycle, "serve cut")
     launches, wall, _ = timed("recurrentgemma", serve_path,
-                              "recurrentgemma", rcfg, rparams, gpu)
+                              "recurrentgemma", rscfg, rserved, gpu)
     for k in ("decode_attention", "flash_attention", "rglru_scan"):
         rows[k]["launches"] = launches[k]
-    timed("profile recurrentgemma", profile_phase, "recurrentgemma", rcfg,
-          rparams, gpu, wall)
-    timed("per_request recurrentgemma", per_request_phase, rcfg, rparams,
+    timed("profile recurrentgemma", profile_phase, "recurrentgemma", rscfg,
+          rserved, gpu, wall)
+    timed("per_request recurrentgemma", per_request_phase, rscfg, rserved,
           gpu, name="per_request recurrentgemma")
+    del rserved
     # the replay at full width, cut to one pattern cycle: its weights are
     # the first three layers of the served model's
     ccfg, cut = cut_model(rcfg, rparams, len(rcfg.pattern))

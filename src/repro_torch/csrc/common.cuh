@@ -3,8 +3,8 @@
 // two supported storage types, warp reductions, the finite mask value, the
 // split TF32 tensor-core product (3xTF32) and two fragment-level products
 // built on it, pair loads and stores, the cp.async copy ring's primitives,
-// and a launch helper that lifts the 48 KB dynamic shared memory default
-// when needed.
+// mbarriers for a producer/consumer ring, and a launch helper that lifts
+// the 48 KB dynamic shared memory default when needed.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -230,6 +230,48 @@ __device__ __forceinline__ void cp_async_wait1() {
 // wait until at most N of this thread's committed groups are in flight
 template <int N> __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers (sm_90), 64-bit words in shared memory. A phase completes
+// when `count` arrivals (mbar_init) have come; mbar_wait(bar, p) returns
+// once the phase of parity p has completed (a barrier starts in phase 0),
+// with acquire semantics; an arrival releases the thread's earlier
+// accesses.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                     smem_addr(bar)),
+                 "r"(count)
+                 : "memory");
+}
+// release the barriers' initialisation to every later arrival (cp.async
+// arrivals included), before the __syncthreads that follows it
+__device__ __forceinline__ void mbar_fence_init() {
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, "
+                 "[%0];\n}\n" ::"r"(smem_addr(bar))
+                 : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::"
+                     "cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done)
+                     : "r"(smem_addr(bar)), "r"(parity)
+                     : "memory");
+    } while (!done);
+}
+// one arrival on `bar` once this thread's earlier cp.async copies have
+// landed (counted in mbar_init's count: .noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                     "r"(smem_addr(bar))
+                 : "memory");
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`

@@ -16,42 +16,59 @@
 //
 // What bounds it on this card: bytes. Each step reads a, h and gh and
 // writes ga and gx, 20 bytes in fp32 for 3 flops: the least time is those
-// bytes over 3.35 TB/s (0.05 ms at recurrentgemma-9b's train shape, 1 x
-// 2,048 x 4,096). The serial chain of 2,048 dependent multiply-adds is
-// ~10 us. This first design reaches about a quarter of the byte rate
-// there, where K6's forward walk reaches two thirds (chip_smoke.py's
-// kernel rows, PERF.md): one warp an SM issues its three ring reads, two
-// stores and the copies of three tensors for every step, walking the
-// sequence from its end (ROADMAP, Queue 2).
+// bytes over 3.35 TB/s (0.050 ms at recurrentgemma-9b's train shape, 1 x
+// 2,048 x 4,096, whose 128 strips leave one an SM). The serial chain of
+// 2,048 dependent multiply-then-adds is ~10 us. At the byte rate an SM
+// moves ~14.5 bytes a cycle, so a strip's step, 640 bytes, may take ~45
+// cycles: a warp that issued the ring's copies itself and then, step by
+// step, three shared loads whose latency fell between the chain and two
+// global stores took ~150-180 on an H100.
 //
-// The design is K6's, walked the other way: a block is one warp, a lane
-// a channel, over a strip of 32 neighbouring channels, and the strip's a,
-// h and gh stream through a shared-memory ring of RB_STAGES stages of
-// RB_STEPS steps each, filled with cp.async from the END of the sequence,
-// RB_STAGES - 1 stages in flight. Where C and the pointers allow it the
-// copies are 16-byte chunks of a step's strip; otherwise each lane copies
-// the aligned 4-byte word holding its own element (as K6 does: for bf16
-// that word may reach 2 bytes past the tensor's ends, within the same
-// 4-byte granule of its allocation). A lane keeps g and a[t+1] in
-// registers; ga[t+1] = g[t+1] * h[t] is written when step t is read.
+// The design: a block is two warps over a strip of 32 neighbouring
+// channels. A producer warp fills a shared-memory ring of RB_STAGES stages
+// of RB_STEPS steps of a, h and gh with cp.async, from the END of the
+// sequence; the consumer warp, a lane a channel, only reads it. Each stage
+// has a full and an empty mbarrier: a producer lane arrives on the full one
+// once its copies have landed (cp.async.mbarrier.arrive), a consumer lane
+// on the empty one once it has read the stage. Where C and the pointers
+// allow it the copies are 16-byte chunks of a step's strip; otherwise each
+// producer lane copies the aligned 4-byte word holding its channel's
+// element (as K6 does: for bf16 that word may reach 2 bytes past the
+// tensor's ends, within the same 4-byte granule of its allocation). A
+// step's strip of a tensor is one contiguous 128 bytes, but 1-D bulk
+// copies of it (cp.async.bulk, completing on the barrier) ran far slower
+// on an H100: each small bulk copy costs the block a fixed time, three a
+// step. Stages are aligned to step 0, so only the first stage walked, the
+// top of the sequence, is ragged: the consumer takes it one step at a
+// time up to whole batches. Every later stage is
+// RB_STEPS / RB_BATCH batches of RB_BATCH steps: a batch's 3 x RB_BATCH
+// shared loads issue together under one latency, then its dependent
+// multiply-adds run, then its 2 x RB_BATCH coalesced stores (a 128-byte
+// line a warp in fp32). A lane keeps g and a[t+1] in registers; ga[t+1] =
+// g[t+1] * h[t] is written once h[t] is read. Three stages of 64 steps
+// (two in flight while one is read) ran faster on an H100 than deeper
+// rings or longer or shorter stages.
 //
 // Rounding: each step is an explicit fp32 multiply then add
 // (__fmul_rn/__fadd_rn, which nvcc does not contract into an FMA), the
 // order and rounding of the plain version (kernels/ref.py,
 // rglru_scan_bwd), so the two agree bit for bit; ga and gx are rounded
-// to bf16 (round to nearest even) as torch's cast does.
+// to bf16 (round to nearest even) as torch's cast does. The order over S
+// stays serial: a chunked two-pass scan would change the bits.
 
 #include "common.cuh"
 
-constexpr int RB_THREADS = 32;  // one warp a block, a lane a channel
+constexpr int RB_THREADS = 64;  // the consumer warp (0), the producer (1)
 constexpr int RB_STEPS = 64;    // steps a ring stage
-constexpr int RB_STAGES = 4;    // ring depth: RB_STAGES - 1 stages in flight
+constexpr int RB_STAGES = 3;    // ring depth
+constexpr int RB_BATCH = 16;    // steps a consumer batch
+static_assert(RB_STEPS % RB_BATCH == 0, "a stage is whole batches");
 
 // bytes of one step's strip of a tensor of E in the ring: the 32
 // channels' elements (16-byte chunks), or a 4-byte word a lane
 template <typename E, bool VEC>
 __host__ __device__ constexpr int rb_row_bytes() {
-    return VEC ? RB_THREADS * (int)sizeof(E) : RB_THREADS * 4;
+    return VEC ? 32 * (int)sizeof(E) : 32 * 4;
 }
 // a stage: RB_STEPS rows of a (T), then of h and of gh (fp32)
 template <typename T, bool VEC>
@@ -59,33 +76,36 @@ __host__ __device__ constexpr int rb_stage_bytes() {
     return RB_STEPS *
            (rb_row_bytes<T, VEC>() + 2 * rb_row_bytes<float, VEC>());
 }
+// the ring, then a full and an empty barrier a stage
 template <typename T, bool VEC>
 __host__ __device__ constexpr int rb_smem_bytes() {
-    return RB_STAGES * rb_stage_bytes<T, VEC>();
+    return RB_STAGES * rb_stage_bytes<T, VEC>() + 2 * RB_STAGES * 8;
 }
 
-// copy the strip's rows [t0, t0 + RB_STEPS) of src (B, S, C) into dst
+// copy the strip's rows [t0, t0 + n) of src (B, S, C), from (b, 0, 0) at
+// `base`, into ring rows [0, n): 16-byte chunks spread over the lanes, or
+// the aligned 4-byte word holding the lane's own element
 template <typename E, bool VEC>
-__device__ __forceinline__ void rb_fetch(unsigned char* dst,
-                                         const E* __restrict__ src,
-                                         int64_t base, int t0, int c0,
-                                         int lane, int S, int C) {
+__device__ __forceinline__ void rb_fill(unsigned char* dst,
+                                        const E* __restrict__ src,
+                                        int64_t base, int t0, int n, int c0,
+                                        int lane, int C) {
     constexpr int RB = rb_row_bytes<E, VEC>();
     if constexpr (VEC) {
         constexpr int EPC = 16 / (int)sizeof(E);   // elements a chunk
-        constexpr int CH = RB_THREADS / EPC;       // chunks a row
-        for (int i = lane; i < RB_STEPS * CH; i += RB_THREADS) {
+        constexpr int CH = 32 / EPC;               // chunks a row
+        for (int i = lane; i < n * CH; i += 32) {
             const int r = i / CH, k = i - r * CH;
-            const bool live = t0 + r >= 0 && t0 + r < S && c0 + k * EPC < C;
+            const bool live = c0 + k * EPC < C;
             const int64_t off =
                 live ? base + (int64_t)(t0 + r) * C + c0 + k * EPC : 0;
             cp_async16(dst + r * RB + 16 * k, src + off, live);
         }
     } else {
-        const int c = c0 + lane;
-        for (int r = 0; r < RB_STEPS; ++r) {
-            const bool live = t0 + r >= 0 && t0 + r < S && c < C;
-            const int64_t off = live ? base + (int64_t)(t0 + r) * C + c : 0;
+        const bool live = c0 + lane < C;
+        int64_t off = live ? base + (int64_t)t0 * C + c0 + lane : 0;
+        const int64_t step = live ? C : 0;
+        for (int r = 0; r < n; ++r, off += step) {
             const uintptr_t p = (uintptr_t)(src + off) & ~(uintptr_t)3;
             cp_async4(dst + r * RB + 4 * lane, (const void*)p, live);
         }
@@ -104,6 +124,45 @@ __device__ __forceinline__ float rb_read(const unsigned char* row, int lane,
     return to_f32(w[0]);
 }
 
+// N steps of a lane's channel, from ring row r of a stage down to row
+// r - N + 1: the 3N shared loads first, then the dependent chain, then the
+// stores. pgx points at gx's element of row r's step t, pga at ga's of
+// step t + 1; both step down a row a step. `ua` is the bf16 half of a's
+// word at row r, which flips a step where `codd` (C odd). Nothing is
+// stored where !live, and no ga for the first step where !ga_first (the
+// top step, whose t + 1 is S).
+template <typename T, bool VEC, int N>
+__device__ __forceinline__ void rb_steps(const unsigned char* sa,
+                                         const unsigned char* sh,
+                                         const unsigned char* sg, int r,
+                                         int lane, bool& ua, bool codd,
+                                         float& g, float& a_next, T*& pga,
+                                         T*& pgx, int C, bool live,
+                                         bool ga_first) {
+    constexpr int RA = rb_row_bytes<T, VEC>(), RF = rb_row_bytes<float, VEC>();
+    float hv[N], gv[N], av[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        hv[i] = rb_read<float, VEC>(sh + (r - i) * RF, lane, false);
+        gv[i] = rb_read<float, VEC>(sg + (r - i) * RF, lane, false);
+        av[i] = rb_read<T, VEC>(sa + (r - i) * RA, lane, ua);
+        ua = ua != codd;
+    }
+    float go[N], xo[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        go[i] = __fmul_rn(g, hv[i]);            // ga[t + 1] = g[t + 1] h[t]
+        g = __fadd_rn(gv[i], __fmul_rn(a_next, g));
+        xo[i] = g;
+        a_next = av[i];
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i, pga -= C, pgx -= C) {
+        if (live && (i > 0 || ga_first)) *pga = from_f32<T>(go[i]);
+        if (live) *pgx = from_f32<T>(xo[i]);
+    }
+}
+
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(RB_THREADS)
 rglru_scan_bwd_kernel(const T* __restrict__ a, const float* __restrict__ h,
@@ -113,70 +172,93 @@ rglru_scan_bwd_kernel(const T* __restrict__ a, const float* __restrict__ h,
                       int C) {
     constexpr int RA = rb_row_bytes<T, VEC>(), RF = rb_row_bytes<float, VEC>();
     constexpr int STAGE = rb_stage_bytes<T, VEC>();
-    const int lane = threadIdx.x;
-    const int c0 = blockIdx.x * RB_THREADS, c = c0 + lane;
+    extern __shared__ __align__(128) unsigned char ring[];
+    uint64_t* full = reinterpret_cast<uint64_t*>(ring + RB_STAGES * STAGE);
+    uint64_t* empty = full + RB_STAGES;
+    const int lane = threadIdx.x & 31;
+    const int c0 = blockIdx.x * 32, c = c0 + lane;
     const int64_t base = (int64_t)blockIdx.y * S * C;   // (b, 0, 0)
-    extern __shared__ __align__(16) unsigned char ring[];
-
-    // stage kt holds steps [S - (kt + 1) RB_STEPS, S - kt RB_STEPS), the
-    // first of them possibly negative (not copied)
+    // stage k holds the steps [k RB_STEPS, (k + 1) RB_STEPS) below S; the
+    // walk's j-th stage is nk - 1 - j, in ring slot j % RB_STAGES
     const int nk = (S + RB_STEPS - 1) / RB_STEPS;
-    auto fetch = [&](int kt) {
-        unsigned char* sa = ring + (kt % RB_STAGES) * STAGE;
-        unsigned char* sh = sa + RB_STEPS * RA;
-        unsigned char* sg = sh + RB_STEPS * RF;
-        const int t0 = S - (kt + 1) * RB_STEPS;
-        // row r of a stage is step t0 + r; rows below step 0 are not
-        // copied (zero-filled) and never read
-        rb_fetch<T, VEC>(sa, a, base, t0, c0, lane, S, C);
-        rb_fetch<float, VEC>(sh, h, base, t0, c0, lane, S, C);
-        rb_fetch<float, VEC>(sg, gh, base, t0, c0, lane, S, C);
-        cp_async_commit();
-    };
-#pragma unroll
-    for (int k = 0; k < RB_STAGES - 1; ++k) {
-        if (k < nk) fetch(k);
-        else cp_async_commit();       // an empty group keeps the count
-    }
-    float g = 0.f, a_next = 0.f;
-    for (int kt = 0; kt < nk; ++kt) {
-        // the stage consumed at kt - 1 is free (the __syncwarp below)
-        if (kt + RB_STAGES - 1 < nk) fetch(kt + RB_STAGES - 1);
-        else cp_async_commit();
-        cp_async_wait<RB_STAGES - 1>();   // stage kt landed for this lane
-        if constexpr (VEC) __syncwarp();  // ... and for the other lanes
-        const unsigned char* sa = ring + (kt % RB_STAGES) * STAGE;
-        const unsigned char* sh = sa + RB_STEPS * RA;
-        const unsigned char* sg = sh + RB_STEPS * RF;
-        const int t0 = S - (kt + 1) * RB_STEPS;
-        const int rlo = t0 < 0 ? -t0 : 0;   // rows below step 0
-        int64_t off = base + (int64_t)(t0 + RB_STEPS - 1) * C + c;
-        for (int r = RB_STEPS - 1; r >= rlo; --r, off -= C) {
-            // the bf16 half of a word row: parity of the element's address
-            const bool ua = !VEC && (((uintptr_t)(a + off) >> 1) & 1);
-            const float hv = rb_read<float, VEC>(sh + r * RF, lane, false);
-            // ga[t + 1] = g[t + 1] h[t], now that h[t] is here
-            if (c < C && t0 + r + 1 < S)
-                ga[off + C] = from_f32<T>(__fmul_rn(g, hv));
-            const float av = rb_read<T, VEC>(sa + r * RA, lane, ua);
-            const float gv = rb_read<float, VEC>(sg + r * RF, lane, false);
-            g = __fadd_rn(gv, __fmul_rn(a_next, g));
-            if (c < C) gx[off] = from_f32<T>(g);
-            a_next = av;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < RB_STAGES; ++s) {
+            mbar_init(&full[s], 32);          // the producer's lanes
+            mbar_init(&empty[s], 32);         // the consumer's lanes
         }
-        __syncwarp();                 // every lane is done with this stage
+        mbar_fence_init();
     }
-    cp_async_wait<0>();               // no copy outlives the block
-    if (c < C && S > 0) {
+    __syncthreads();
+
+    if (threadIdx.x >= 32) {                  // the producer warp
+        for (int j = 0; j < nk; ++j) {
+            const int s = j % RB_STAGES;
+            // the slot's last stage has been read
+            if (j >= RB_STAGES) mbar_wait(&empty[s], (j / RB_STAGES - 1) & 1);
+            const int t0 = (nk - 1 - j) * RB_STEPS, n = min(RB_STEPS, S - t0);
+            unsigned char* sa = ring + s * STAGE;
+            unsigned char* sh = sa + RB_STEPS * RA;
+            unsigned char* sg = sh + RB_STEPS * RF;
+            rb_fill<T, VEC>(sa, a, base, t0, n, c0, lane, C);
+            rb_fill<float, VEC>(sh, h, base, t0, n, c0, lane, C);
+            rb_fill<float, VEC>(sg, gh, base, t0, n, c0, lane, C);
+            cp_async_mbar_arrive(&full[s]);   // once this lane's copies land
+        }
+        cp_async_wait<0>();                   // no copy outlives the warp
+        return;
+    }
+
+    // the consumer warp
+    const bool live = c < C;
+    const bool codd = !VEC && sizeof(T) == 2 && (C & 1);
+    float g = 0.f, a_next = 0.f;
+    if (nk > 0) {
+        const int64_t top = base + (int64_t)(S - 1) * C + c;   // step S - 1
+        bool ua = !VEC && sizeof(T) == 2 && (((uintptr_t)(a + top) >> 1) & 1);
+        T* pgx = gx + top;
+        T* pga = ga + top + C;
+        for (int j = 0; j < nk; ++j) {
+            const int s = j % RB_STAGES;
+            mbar_wait(&full[s], (j / RB_STAGES) & 1);
+            const unsigned char* sa = ring + s * STAGE;
+            const unsigned char* sh = sa + RB_STEPS * RA;
+            const unsigned char* sg = sh + RB_STEPS * RF;
+            if (j == 0) {
+                // the ragged stage: the top step (no ga[S]), single steps
+                // up to whole batches, then batches
+                int r = S - (nk - 1) * RB_STEPS - 1;
+                rb_steps<T, VEC, 1>(sa, sh, sg, r, lane, ua, codd, g, a_next,
+                                    pga, pgx, C, live, false);
+                --r;
+#pragma unroll 1
+                for (int e = (r + 1) % RB_BATCH; e > 0; --e, --r)
+                    rb_steps<T, VEC, 1>(sa, sh, sg, r, lane, ua, codd, g,
+                                        a_next, pga, pgx, C, live, true);
+#pragma unroll 1
+                for (; r >= 0; r -= RB_BATCH)
+                    rb_steps<T, VEC, RB_BATCH>(sa, sh, sg, r, lane, ua, codd,
+                                               g, a_next, pga, pgx, C, live,
+                                               true);
+            } else {
+#pragma unroll
+                for (int r = RB_STEPS - 1; r >= 0; r -= RB_BATCH)
+                    rb_steps<T, VEC, RB_BATCH>(sa, sh, sg, r, lane, ua, codd,
+                                               g, a_next, pga, pgx, C, live,
+                                               true);
+            }
+            mbar_arrive(&empty[s]);             // this lane is done with it
+        }
+    }
+    if (live && S > 0) {
         const float hp = h0 != nullptr ? h0[(int64_t)blockIdx.y * C + c] : 0.f;
         ga[base + c] = from_f32<T>(__fmul_rn(g, hp));
     }
-    if (c < C && h0 != nullptr)
+    if (live && h0 != nullptr)
         gh0[(int64_t)blockIdx.y * C + c] = __fmul_rn(a_next, g);
 }
 
-// 16-byte chunks where C is a whole number of them for both element types
-// and a, h and gh are 16-byte aligned
+// 16-byte chunks where C is a whole number of them for
+// both element types and a, h and gh are 16-byte aligned
 template <typename T>
 static bool rb_vec(const void* a, const void* h, const void* gh, int C) {
     return C % (16 / (int)sizeof(T)) == 0 && C % 4 == 0 &&
@@ -188,7 +270,7 @@ template <typename T, bool VEC>
 static cudaError_t launch_t(const void* a, const void* h, const void* gh,
                             const void* h0, void* ga, void* gx, void* gh0,
                             int B, int S, int C, cudaStream_t stream) {
-    const dim3 grid((C + RB_THREADS - 1) / RB_THREADS, B);
+    const dim3 grid((C + 31) / 32, B);
     return launch_with_smem(
         rglru_scan_bwd_kernel<T, VEC>, grid, dim3(RB_THREADS),
         (size_t)rb_smem_bytes<T, VEC>(), stream, (const T*)a, (const float*)h,
@@ -222,9 +304,13 @@ static cudaError_t attrs_t(int B, int C, int* out) {
     out[1] = smem;
     out[2] = (int)fa.localSizeBytes;
     out[3] = blocks;
-    out[4] = (C + RB_THREADS - 1) / RB_THREADS;
+    out[4] = (C + 31) / 32;
     out[5] = B;
     out[6] = VEC ? 1 : 0;
+    out[7] = RB_THREADS;
+    out[8] = RB_STAGES;
+    out[9] = RB_STEPS;
+    out[10] = RB_BATCH;
     return e;
 }
 
@@ -254,7 +340,9 @@ extern "C" int rglru_scan_bwd_launch(const void* a, const void* h,
 
 // The variant rglru_scan_bwd_launch runs for these tensors: its
 // registers, dynamic shared memory, local bytes, resident blocks an SM,
-// grid (x, y) and whether it copies 16-byte chunks: out[0..6].
+// grid (x, y), whether it copies 16-byte chunks (else 4-byte words),
+// threads a block (a consumer and a producer warp), ring stages, steps a
+// stage and steps a consumer batch: out[0..10].
 extern "C" int rglru_scan_bwd_attrs(const void* a, const void* h,
                                     const void* gh, int B, int C, int dtype,
                                     int* out) {

@@ -16,7 +16,8 @@ kernel launches.
 Training: with grad enabled and an input that requires it, the call runs
 ``RglruScan``, a ``torch.autograd.Function`` whose forward launches K6
 and whose backward launches K6's backward, ``rglru_scan_bwd`` (CUDA C++
-for ``sm_90a``, ``csrc/rglru_scan_bwd.cu``: the reverse recurrence, bit
+for ``sm_90a``, ``csrc/rglru_scan_bwd.cu``: the reverse recurrence, a
+producer warp filling a ring that a consumer warp walks in batches, bit
 for bit the plain ``ref.rglru_scan_bwd``; counted in
 ``rglru_scan_bwd.launches``); the plain backward takes CPU tensors. So
 every family trains on the card.
@@ -153,8 +154,11 @@ class RglruScan(torch.autograd.Function):
 
 def bwd_kernel_attrs(a, h, gh):
     """The backward kernel variant a launch on a (B, S, C) and fp32 h, gh
-    runs, from the CUDA runtime: as ``kernel_attrs``."""
-    out = (ctypes.c_int * 7)()
+    runs, from the CUDA runtime: as ``kernel_attrs`` (``chunks_16_bytes``:
+    its ring is filled in 16-byte chunks, else in 4-byte words), and its
+    layout: threads a block (a consumer and a producer warp), ring stages,
+    steps a stage and steps a consumer batch."""
+    out = (ctypes.c_int * 11)()
     rc = _build.load_entry(
         "rglru_scan_bwd", "rglru_scan_bwd_attrs",
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -165,7 +169,10 @@ def bwd_kernel_attrs(a, h, gh):
         raise RuntimeError(f"rglru_scan_bwd_attrs failed: cudaError {rc}")
     return {"registers": out[0], "smem_bytes": out[1], "local_bytes": out[2],
             "blocks_per_sm": out[3], "grid": [out[4], out[5]],
-            "chunks_16_bytes": bool(out[6])}
+            "chunks_16_bytes": bool(out[6]), "threads": out[7],
+            "consumer_warps": 1, "producer_warps": out[7] // 32 - 1,
+            "stages": out[8], "steps_a_stage": out[9],
+            "steps_a_batch": out[10]}
 
 
 def kernel_attrs(a, b):

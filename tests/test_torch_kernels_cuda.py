@@ -87,7 +87,11 @@ sums, twice, times the sum of its terms' magnitudes), and repeated
 launches give the same bits (no float atomics). K6's backward
 (``rglru_scan_bwd``, ``csrc/rglru_scan_bwd.cu``) equals
 ``ref.rglru_scan_bwd`` bit for bit at ragged S and C, with and without
-h0, fp32 and bf16, through both copy paths. Through autograd
+h0, fp32 and bf16, through both copy paths, at S on the edges of its
+consumer batches (15, 16, 17) and ring stages (63, 64, 65, 129), with B >
+1 and h0; two launches give the same bits, and ``bwd_kernel_attrs``
+reports its producer/consumer layout (stages, steps a stage and a batch,
+shared bytes, no local memory). Through autograd
 (``SsdChunk``, ``RglruScan``) every input that requires a gradient gets
 one, and the forward and the backward launch once each.
 """
@@ -102,9 +106,11 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels import rglru as rglru_mod
 from repro_torch.kernels.rglru import rglru_scan, rglru_scan_bwd
 from repro_torch.kernels.ssd import (bwd_error_bound, error_bound, ssd_chunk,
                                      ssd_chunk_bwd)
+from test_torch_rglru_bwd_design import kernel_constants
 
 pytestmark = pytest.mark.cuda
 
@@ -1441,6 +1447,15 @@ def test_ssd_chunk_bwd_kernel_is_deterministic(card):
     (2, 33, 31, False),                   # S and C both ragged
     (2, 300, 256, True),                  # .reduced() width
     (2, 257, 4096, True),                 # a ring stage past a whole one
+    (1, 15, 4096, False),                 # a consumer batch -1/0/+1
+    (1, 16, 4096, True),
+    (1, 17, 4096, False),
+    (2, 63, 4096, False),                 # a ring stage -1/0/+1
+    (2, 64, 4096, True),
+    (2, 65, 4096, False),
+    (1, 129, 4096, True),                 # two stages +1
+    (3, 129, 4096, True),                 # B > 1 with h0
+    (4, 2049, 256, True),
 ])
 def test_rglru_scan_bwd_kernel_is_bit_equal_to_plain(card, B, S, C, with_h0,
                                                      dt):
@@ -1476,6 +1491,62 @@ def test_rglru_scan_bwd_kernel_takes_the_word_path_bit_equal(card, dt):
     for x, y in zip(rglru_scan_bwd(a, h, h0, gh),
                     ref.rglru_scan_bwd(a, h, h0, gh)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("word", [False, True])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 65, 129, 2049])
+def test_rglru_scan_bwd_kernel_paths_at_the_walks_edges(card, S, word, dt):
+    """Both copy paths at the batch and stage edges of the walk, two
+    sequences with h0: 16-byte chunks where a, h and gh are aligned, the
+    word path where a and gh start one element into their storage."""
+    g = torch.Generator(device=card).manual_seed(S + 20)
+    n = 2 * S * 4096
+    a = torch.sigmoid(torch.randn(n + 1, generator=g, device=card)).to(dt)
+    gh = torch.randn(n + 1, generator=g, device=card)
+    a = (a[1:] if word else a[:n]).view(2, S, 4096)
+    gh = (gh[1:] if word else gh[:n]).view(2, S, 4096)
+    h = torch.randn(2, S, 4096, generator=g, device=card)
+    h0 = torch.randn(2, 4096, generator=g, device=card)
+    assert rglru_mod.bwd_kernel_attrs(a, h, gh)["chunks_16_bytes"] != word
+    for x, y in zip(rglru_scan_bwd(a, h, h0, gh),
+                    ref.rglru_scan_bwd(a, h, h0, gh)):
+        assert torch.equal(x, y)
+
+
+def test_rglru_scan_bwd_kernel_is_deterministic(card):
+    g = torch.Generator(device=card).manual_seed(12)
+    a = torch.sigmoid(torch.randn(2, 1000, 4096, generator=g, device=card))
+    h, gh = (torch.randn(2, 1000, 4096, generator=g, device=card)
+             for _ in range(2))
+    h0 = torch.randn(2, 4096, generator=g, device=card)
+    first = rglru_scan_bwd(a, h, h0, gh)
+    for x, y in zip(rglru_scan_bwd(a, h, h0, gh), first):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_rglru_scan_bwd_kernel_reports_its_layout(card, dt):
+    """A consumer and a producer warp a block, the ring's stages and
+    steps as the source sets them, its shared bytes (the ring and a full
+    and an empty barrier a stage), and no local memory."""
+    steps, stages, batch = kernel_constants()
+    a = torch.rand(1, 2048, 4096, device=card).to(dt)
+    h = torch.rand(1, 2048, 4096, device=card)
+    attrs = rglru_mod.bwd_kernel_attrs(a, h, h)
+    row = 32 * a.element_size() + 2 * 32 * 4
+    assert attrs["chunks_16_bytes"] and attrs["threads"] == 64
+    assert (attrs["consumer_warps"], attrs["producer_warps"]) == (1, 1)
+    assert (attrs["steps_a_stage"], attrs["stages"],
+            attrs["steps_a_batch"]) == (steps, stages, batch)
+    assert attrs["smem_bytes"] == stages * steps * row + 2 * stages * 8
+    assert attrs["local_bytes"] == 0 and attrs["blocks_per_sm"] >= 1
+    assert attrs["grid"] == [128, 1]
+    word = rglru_mod.bwd_kernel_attrs(a.flatten()[1:].view(1, 1, -1),
+                                      h.flatten()[1:].view(1, 1, -1),
+                                      h.flatten()[1:].view(1, 1, -1))
+    assert not word["chunks_16_bytes"] and word["local_bytes"] == 0
+    assert word["smem_bytes"] == stages * steps * 3 * 128 + 2 * stages * 8
 
 
 def test_scan_kernels_train_under_autograd(card):
