@@ -70,15 +70,16 @@ Phases (each raises on failure, and the script then exits non-zero):
      identical to the profile's untraced run; span conservation, one
      terminal per request, one first token per completed request; the
      Chrome trace written to ``build/`` and read back;
+   - the phases that hold the scheduling to the CPU's or to a second
+     card run (the host split, degradation, trace harness, leakage, the
+     constant-shape A/B, the oversubscribed pool, churn, stochastic and
+     its replay) serve
+     smollm-135m's first ``SCHED_LAYERS`` (8) layers at its full widths:
+     none of their checks depends on the depth;
    - profile host split: the same traffic unprofiled and then with a
      ``DispatchProfiler`` on every batcher, each orchestrator tick timed:
      host_plan / bucket / dispatch_submit / device_sync per island and
-     the orchestrator's own share, both runs' streams the profile's;
-   - the phases that hold the scheduling to the CPU's or to a second
-     card run (degradation, trace harness, leakage, the constant-shape
-     A/B, the oversubscribed pool, churn, stochastic) serve
-     smollm-135m's first ``SCHED_LAYERS`` (8) layers at its full widths:
-     none of their checks depends on the depth;
+     the orchestrator's own share, both runs' streams equal;
    - degradation: ``benchmarks/degradation.py`` (ported here) fault-free
      and under its fault plan (a slowed laptop, two bursts, stale
      telemetry, the desktop drained then killed), held to the
@@ -232,10 +233,27 @@ Phases (each raises on failure, and the script then exits non-zero):
    cache sequence-sharded, 32 experts a rank, no token dropped) with its
    logits held to the one-process run's and its MLA/MoE calls exact; and
    the train launcher under ``--mesh 2x1 --backend gloo`` (smollm-135m,
-   3 steps of 8 x 2,048 tokens, 4 x 2,048 a rank) with every step's loss
+   2 steps of 8 x 2,048 tokens, 4 x 2,048 a rank) with every step's loss
    and gradient norm held to the one-process launcher's and K4 and its
    backward once a layer a step on each rank;
-12. P14a and P14b, training, last, after a ``gc.collect()`` (the memory still
+12. P13b, WAVES routing inside the serve step (``p13b_group``):
+   qwen3-4b, the reference's routed-serve arch, at full width on its
+   first ``SERVE_LAYERS`` layers, 16 prompts of 128 tokens prefilled
+   (K4) into a 2,048-slot fp32 cache, then 8 routed decode steps (K3) in
+   each variant (``launch.routed_serve.run``: the tick router over four
+   islands, two personal ones on pod 0 and an edge and a cloud island on
+   pod 1, then the batch permuted to its pods' rows, with the cache
+   rows too when migrating), in one process and on two gloo ranks as a
+   (pod 2, data 1, model 1) mesh: the ranks' logits within
+   ``DIST_LOGIT_TOL`` of one process's, ``assign`` and the router state
+   exactly, each rank's final cache within ``P13B_CACHE_TOL``, K3/K4
+   launches exact, the permutation's all-reduces and bytes as counted
+   from the shapes, the routed step's ms; a card-vs-CPU replay at the
+   2-layer cut on the reference's bf16 cache; and, in subprocesses on
+   the CPU beside those, the two CLIs (``launch.dryrun`` for qwen3-4b at
+   decode_32k on both production meshes, ``launch.routed_serve``'s
+   default) with their records' flops, memory and collectives;
+13. P14a and P14b, training, last, after a ``gc.collect()`` (the memory still
    allocated is read out first): the train launcher
    (``repro_torch.launch.train``: ``SyntheticLM``, AdamW, the cosine
    schedule, checkpoints) at smollm-135m's full width, 10 steps of 8 x
@@ -2866,22 +2884,23 @@ def _tick_walls(cfg, params, device, profiled):
     return streams, tick_ns, time.perf_counter() - t0, profs, orch
 
 
-def host_split_phase(cfg, params, device, base):
+def host_split_phase(cfg, params, device):
     """The main path's traffic once unprofiled and once with one
     ``DispatchProfiler`` per batcher, back to back, each orchestrator
     tick timed: each island's phase report, and the profiled run split
     into the batchers' host_plan / bucket / dispatch_submit / device_sync
     and the orchestrator's own time (routing, MIST, telemetry: the tick
-    wall less the profiled batcher ticks). Both runs' streams must be
-    those of ``profile main_path``'s run (``base``)."""
+    wall less the profiled batcher ticks). The two runs' streams must be
+    equal. It serves the ``SCHED_LAYERS`` cut: the split is of the
+    host's work a tick, which the depth scales but does not reorder."""
     from repro_torch.obs import DispatchProfiler
     plain, plain_ns, plain_wall, _p, _o = _tick_walls(cfg, params, device,
                                                       False)
     streams, tick_ns, wall, profs, orch = _tick_walls(cfg, params, device,
                                                       True)
-    if streams != base["streams"] or plain != base["streams"]:
-        raise AssertionError("host split: streams differ from the "
-                             "profile run's")
+    if streams != plain:
+        raise AssertionError("host split: the profiled run's streams "
+                             "differ from the unprofiled run's")
     total = sum(tick_ns)
     phases = {p: sum(pr.totals[p] for pr in profs.values())
               for p in DispatchProfiler.PHASES}
@@ -2889,6 +2908,7 @@ def host_split_phase(cfg, params, device, base):
     split_ms = {p: v / 1e6 for p, v in phases.items()}
     split_ms["orchestrator"] = (total - batcher_ns) / 1e6
     emit({"phase": "profile host split", "model": cfg.name,
+          "layers": cfg.num_layers,
           "requests": len(streams), "ticks": orch.tick_stats["ticks"],
           "batcher_ticks": sum(len(pr.ticks) for pr in profs.values()),
           "dispatches": sum(pr.dispatches for pr in profs.values()),
@@ -4067,8 +4087,9 @@ DS_DIST_LOGIT_TOL = 1e-3
 # two half-batch gradients summed against one). Later steps start from
 # weights one AdamW update apart: eps 1e-8 divides the summation-order
 # noise of eps-sized gradient elements into differences of up to a step
-# of lr on them, so they hold to 1e-5 (loss) and 1e-4 (norm), relative
-DIST_TRAIN_STEPS = 3
+# of lr on them, so they hold to 1e-5 (loss) and 1e-4 (norm), relative.
+# Two steps: the first and one later one
+DIST_TRAIN_STEPS = 2
 DIST_LATER_LOSS_TOL, DIST_LATER_GNORM_TOL = 1e-5, 1e-4
 # a spawned group's join timeout (seconds)
 DIST_JOIN_S = 900
@@ -4434,6 +4455,411 @@ def dist_group(device, timed, card, ds_want, rows):
     gc.collect()
     torch.cuda.empty_cache()
     timed("dist train --mesh 2x1", dist_train_phase, card)
+
+
+# ----------------------- P13b: WAVES routing inside the serve step, dry-run
+
+# qwen3-4b, the reference's own routed-serve arch, at full width on its
+# first SERVE_LAYERS layers: 16 prompts of 128 tokens prefilled stacked
+# (K4) into a 2,048-slot cache, then 8 routed decode steps (K3) in each
+# variant, in one process and on two gloo ranks as a (pod 2, data 1,
+# model 1) mesh (each rank 8 rows). Both on an fp32 cache, as the P13a
+# comparisons: in bf16 a ~1e-7 gap of another summation order flips a
+# stored value by a bf16 ulp, which the gate would then measure
+P13B_ARCH = "qwen3-4b"
+P13B_B, P13B_PROMPT, P13B_MAX_LEN, P13B_STEPS = 16, 128, 2048, 8
+# the sensitivities' seed: both pods get requests, and at step 1 half of
+# the 16 rows change rank (read out as ``rows_changing_rank``)
+P13B_SEED = 7
+# the two-rank run's final caches against the one-process run's,
+# elementwise within P13B_CACHE_TOL * (1 + |x|): fp32 K/V projections of
+# 2,560-term sums, whose inputs went through 8 layers that cuBLAS sums in
+# another order for a batch of 8 rows than for 16 (2.19e-5 measured on
+# the H100; the CPU tests' 1e-5 is for .reduced() widths and 2 layers)
+P13B_CACHE_TOL = 1e-4
+# the card-vs-CPU replay at the P12A_CUT_LAYERS cut, on the reference's
+# bf16 cache: shorter prompts, since the CPU computes every prompt
+# position's logits over the 151,936-token vocabulary
+P13B_REPLAY = dict(prompt=16, max_len=64, steps=4)
+P13B_VARIANTS = ("tokens_only", "migrate_cache")
+
+
+def _p13b_model(layers):
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import get_model
+    return get_model(dataclasses.replace(get_config(P13B_ARCH),
+                                         num_layers=layers))
+
+
+def _p13b_inputs(cfg, prompt):
+    """The 16 prompts and the requests' sensitivities, from the seed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(P13B_SEED)
+    sens = rng.uniform(0.0, 1.0, P13B_B).astype(np.float32)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (P13B_B, prompt)).astype(np.int32)
+    return torch.from_numpy(prompts), torch.from_numpy(sens)
+
+
+def _routed_runs(model, params, prompt, max_len, steps, cache_dtype):
+    """``routed_serve.run`` in both variants under the current mesh (if
+    any): per variant the logits (steps, rows, V) and the router's
+    results on the host, the final cache, each step's ms, the launches
+    and the permutation's all-reduces and bytes."""
+    from repro_torch.launch import routed_serve
+    prompts, sens = _p13b_inputs(model.cfg, prompt)
+    out = {}
+    for tag in P13B_VARIANTS:
+        zero_launches()
+        routed_serve.permute_rows.all_reduces = 0
+        routed_serve.permute_rows.bytes = 0.0
+        r = routed_serve.run(model, params, prompts, sens, max_len=max_len,
+                             steps=steps, migrate_cache=tag != "tokens_only",
+                             cache_dtype=cache_dtype)
+        out[tag] = {"logits": r["logits"].cpu(), "assign": r["assign"].cpu(),
+                    "state": {k: v.cpu() for k, v in r["state"].items()},
+                    "cache": r["cache"],
+                    "step_ms": [s * 1e3 for s in r["step_s"]],
+                    "launches": read_launches(),
+                    "all_reduces": routed_serve.permute_rows.all_reduces,
+                    "bytes": routed_serve.permute_rows.bytes}
+    return out
+
+
+def _filled(cache, n):
+    """The first ``n`` slots of every leaf, on the host (the rest hold
+    zeros)."""
+    return [{k: v[:, :n].cpu() for k, v in layer.items()} for layer in cache]
+
+
+def _p13b_rank(cache_dir):
+    """One rank of the (pod 2, data 1, model 1) gloo group on the card:
+    both variants on its 8 rows; its logits, router results, launches and
+    permutation counts, and its final cache held to the one-process
+    run's rows (``cache_dir``: their filled slots; every other slot must
+    be zero)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding
+    from repro_torch.launch.mesh import make_local_mesh, rank_device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = rank_device(None)
+    mesh = make_local_mesh(1, 1, pod=2)
+    model = _p13b_model(SERVE_LAYERS)
+    n = P13B_PROMPT + P13B_STEPS
+    with sharding.axis_rules(mesh):
+        params = model.init(seed=0, device=dev)
+        runs = _routed_runs(model, params, P13B_PROMPT, P13B_MAX_LEN,
+                            P13B_STEPS, torch.float32)
+    rows = P13B_B // dist.get_world_size()
+    lo = dist.get_rank() * rows
+    out = {}
+    for tag, r in runs.items():
+        want = torch.load(Path(cache_dir) / f"{tag}.pt")
+        gap, close, tail = 0.0, True, 0.0
+        for layer, wl in zip(r["cache"], want):
+            for k, c in layer.items():
+                w = wl[k][lo:lo + rows].to(dev)
+                d = (c[:, :n] - w).abs()
+                gap = max(gap, float(d.max()))
+                close &= bool(torch.all(d <= P13B_CACHE_TOL
+                                        * (1.0 + w.abs())))
+                tail = max(tail, float(c[:, n:].abs().max()))
+        out[tag] = {k: v for k, v in r.items() if k != "cache"}
+        out[tag].update(logits=r["logits"].numpy(),
+                        assign=r["assign"].numpy(),
+                        state={k: v.numpy() for k, v in r["state"].items()},
+                        cache_max_abs_gap=gap, cache_close=close,
+                        cache_unfilled_max_abs=tail)
+    return out
+
+
+def _crossings(assign, ranks=2):
+    """Per step, the rows whose routed position lies on another rank."""
+    import torch
+    out = []
+    for a in assign:
+        pod = torch.where(a >= 0, a * 2 // 4, 0)
+        inv = torch.argsort(torch.argsort(pod, stable=True))
+        rows = torch.arange(len(a)) // (len(a) // ranks)
+        out.append(int((rows != inv // (len(a) // ranks)).sum()))
+    return out
+
+
+def _permute_counts(cfg, cache, tag, steps):
+    """The permutation's all-reduces and ring bytes a rank of the (2, 1,
+    1) mesh does: per step one all-reduce over "pod" of the token, of the
+    logits and, migrating, of every cache leaf, each moving the global
+    tensor's bytes once (a ring of two)."""
+    per_step = [P13B_B * 4, P13B_B * cfg.vocab_size * 4]
+    if tag == "migrate_cache":
+        per_step += [c.numel() * c.element_size() for layer in cache
+                     for c in layer.values()]
+    return steps * len(per_step), float(steps * sum(per_step))
+
+
+def p13b_routed_phase(device, card):
+    """(a) qwen3-4b's cut in one process, both variants: K4 once a layer
+    of the prefill, K3 once a layer a step, no other kernel; (b) the same
+    run on two gloo ranks as (pod 2, data 1, model 1): the rows' logits
+    within ``DIST_LOGIT_TOL`` of (a), ``assign`` and the router state
+    exactly, each rank's final cache within ``P13B_CACHE_TOL`` of (a)'s
+    rows (in routed order when migrating), K3/K4 launches a rank exact,
+    the permutation's all-reduces and bytes as counted from the shapes;
+    at least a quarter of the rows change rank at some step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    model = _p13b_model(SERVE_LAYERS)
+    cfg = model.cfg
+    params = model.init(seed=0, device=device)
+    one = _routed_runs(model, params, P13B_PROMPT, P13B_MAX_LEN,
+                       P13B_STEPS, torch.float32)
+    L = cfg.num_layers
+    lw = dict.fromkeys(kernel_fns(), 0) | {"flash_attention": L,
+                                          "decode_attention": L * P13B_STEPS}
+    faults = []
+    for tag, r in one.items():
+        if r["launches"] != lw:
+            faults.append(f"one process {tag}: launches {r['launches']} "
+                          f"!= {lw}")
+        if r["all_reduces"] or r["bytes"]:
+            faults.append(f"one process {tag}: {r['all_reduces']} "
+                          f"permutation all-reduces")
+    assign = one["tokens_only"]["assign"]
+    cross = _crossings(assign)
+    pods = sorted(set(torch.where(assign >= 0, assign * 2 // 4, 0)
+                      .ravel().tolist()))
+    if max(cross) < P13B_B // 4 or pods != [0, 1]:
+        faults.append(f"routing: rows changing rank {cross}, pods {pods}")
+    n = P13B_PROMPT + P13B_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, r in one.items():
+            torch.save(_filled(r["cache"], n), Path(tmp) / f"{tag}.pt")
+        caches = {tag: r.pop("cache") for tag, r in one.items()}
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        outs = _run_gloo_ranks(_p13b_rank, (tmp,))
+    rows = P13B_B // len(outs)
+    lr = dict.fromkeys(kernel_fns(), 0) | {"flash_attention": L,
+                                          "decode_attention": L * P13B_STEPS}
+    report = {}
+    for tag, r in one.items():
+        got = np.concatenate([o[tag]["logits"] for o in outs], axis=1)
+        gap = float(np.abs(got - r["logits"].numpy()).max())
+        if not gap <= DIST_LOGIT_TOL:
+            faults.append(f"{tag}: gathered logits differ by {gap}")
+        want_n, want_b = _permute_counts(cfg, caches[tag], tag, P13B_STEPS)
+        for i, o in enumerate(outs):
+            g = o[tag]
+            if not np.array_equal(g["assign"], r["assign"].numpy()) or any(
+                    not np.array_equal(g["state"][k], v.numpy())
+                    for k, v in r["state"].items()):
+                faults.append(f"{tag} rank {i}: assign or router state "
+                              f"differs")
+            if not g["cache_close"] or g["cache_unfilled_max_abs"] != 0.0:
+                faults.append(f"{tag} rank {i}: cache gap "
+                              f"{g['cache_max_abs_gap']} over "
+                              f"{P13B_CACHE_TOL} (1 + |x|), unfilled "
+                              f"{g['cache_unfilled_max_abs']}")
+            if g["launches"] != lr:
+                faults.append(f"{tag} rank {i}: launches {g['launches']} "
+                              f"!= {lr}")
+            if (g["all_reduces"], g["bytes"]) != (want_n, want_b):
+                faults.append(f"{tag} rank {i}: {g['all_reduces']} "
+                              f"all-reduces of {g['bytes']} B, want "
+                              f"{want_n} of {want_b}")
+        med = lambda ms: sorted(ms)[len(ms) // 2]
+        report[tag] = {
+            "logit_max_abs_gap": gap,
+            "cache_max_abs_gap_rank": [o[tag]["cache_max_abs_gap"]
+                                       for o in outs],
+            "routed_step_ms_median": {
+                "one_process": med(r["step_ms"]),
+                "ranks": [med(o[tag]["step_ms"]) for o in outs]},
+            "routed_step_ms_first": {
+                "one_process": r["step_ms"][0],
+                "ranks": [o[tag]["step_ms"][0] for o in outs]},
+            "permute_all_reduces_rank": outs[0][tag]["all_reduces"],
+            "permute_bytes_rank": outs[0][tag]["bytes"],
+            "permute_bytes_per_step_rank":
+                outs[0][tag]["bytes"] / P13B_STEPS,
+            "launches_one_process": r["launches"],
+            "launches_rank": [o[tag]["launches"] for o in outs]}
+    emit({"phase": "p13b routed serve", "card": card, "arch": P13B_ARCH,
+          "layers": L, "batch": P13B_B, "prompt": P13B_PROMPT,
+          "max_len": P13B_MAX_LEN, "steps": P13B_STEPS,
+          "cache_dtype": "float32", "mesh": "pod 2 x data 1 x model 1",
+          "backend": "gloo", "rows_a_rank": rows,
+          "rows_changing_rank": cross, "pods": pods,
+          "assign": assign.tolist(),
+          "logit_tol": DIST_LOGIT_TOL, "cache_tol": P13B_CACHE_TOL,
+          "cache_bytes_one_process": {t: _cache_bytes(c)
+                                      for t, c in caches.items()},
+          **report, "faults": faults})
+    if faults:
+        raise AssertionError("p13b routed serve: " + "; ".join(faults))
+    return one["tokens_only"]["launches"]
+
+
+def p13b_replay_phase(device, card):
+    """The routed run card against CPU at the ``P12A_CUT_LAYERS`` cut
+    (full widths and vocabulary), both variants, on the reference's bf16
+    cache: ``assign`` and the router state equal; each step's logits
+    within ``REPLAY_LOGIT_TOL`` while both sides fed the same tokens; a
+    step whose greedy tokens part ends the comparison, and is legitimate
+    only at a CPU top-2 margin of at most twice that step's gap."""
+    import torch
+    cpu = torch.device("cpu")
+    model = _p13b_model(P12A_CUT_LAYERS)
+    params = model.init(seed=0, device=device)
+    runs = [_routed_runs(model, p, P13B_REPLAY["prompt"],
+                         P13B_REPLAY["max_len"], P13B_REPLAY["steps"],
+                         torch.bfloat16)
+            for p in (params, params_to(params, cpu))]
+    faults, report = [], {}
+    for tag in P13B_VARIANTS:
+        card_r, cpu_r = runs[0][tag], runs[1][tag]
+        if not torch.equal(card_r["assign"], cpu_r["assign"]) or any(
+                not torch.equal(card_r["state"][k], v)
+                for k, v in cpu_r["state"].items()):
+            faults.append(f"{tag}: assign or router state differs")
+        gaps, parted = [], None
+        for t in range(P13B_REPLAY["steps"]):
+            a, c = card_r["logits"][t], cpu_r["logits"][t]
+            gap = float((a - c).abs().max())
+            gaps.append(gap)
+            if not gap <= REPLAY_LOGIT_TOL:
+                faults.append(f"{tag} step {t}: logits differ by {gap}")
+            top = torch.topk(c, 2, dim=-1).values
+            margin = top[:, 0] - top[:, 1]
+            part = a.argmax(-1) != c.argmax(-1)
+            if part.any():
+                if float(margin[part].max()) > 2 * gap:
+                    faults.append(f"{tag} step {t}: tokens part at a "
+                                  f"margin over twice the gap {gap}")
+                parted = t
+                break
+        report[tag] = {"logit_gaps": gaps, "parted_at_step": parted}
+    emit({"phase": "p13b replay", "card": card, "arch": P13B_ARCH,
+          "layers": P12A_CUT_LAYERS, "batch": P13B_B,
+          "cache_dtype": "bfloat16", **P13B_REPLAY,
+          "logit_tol": REPLAY_LOGIT_TOL, **report, "faults": faults})
+    if faults:
+        raise AssertionError("p13b replay: " + "; ".join(faults))
+
+
+P13B_RECORDS = [ROOT / "build" / "dryrun"
+                / f"{P13B_ARCH}__decode_32k__{m}.json"
+                for m in ("pod16x16", "pod2x16x16")]
+P13B_ROUTED = ROOT / "build" / f"routed_serve_{P13B_ARCH}_decode_32k.json"
+P13B_CLIS = {"dryrun": ["repro_torch.launch.dryrun", "--arch", P13B_ARCH,
+                        "--shape", "decode_32k", "--mesh", "both", "--out",
+                        "build/dryrun"],
+             "routed_serve": ["repro_torch.launch.routed_serve"]}
+
+
+def start_p13b_clis():
+    """Start the two CLIs as a user runs them, from the checkout's root,
+    in subprocesses on the CPU (no card: they trace meta tensors on a fake
+    process group), beside the card phases: {name: (process, its output
+    file, start)}."""
+    import os
+    import tempfile
+    for p in P13B_RECORDS + [P13B_ROUTED]:   # an ok record is skipped
+        p.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    out = {}
+    for name, args in P13B_CLIS.items():
+        log = tempfile.TemporaryFile("w+")
+        out[name] = (subprocess.Popen(
+            [sys.executable, "-m", *args], cwd=str(ROOT), env=env,
+            stdout=log, stderr=subprocess.STDOUT, text=True), log,
+            time.perf_counter())
+    return out
+
+
+def p13b_cli_phase(card, clis, timeout=600):
+    """Wait for the two CLIs (``start_p13b_clis``): the dry-run of
+    qwen3-4b at decode_32k on both production meshes (fake groups of 256
+    and 512 ranks) and routed_serve's default; each must exit 0 and write
+    ok records, whose flops, memory and collectives are printed, with the
+    seconds from each CLI's start to when it was found done (the card
+    phases ran meanwhile: an upper bound of its wall time)."""
+    faults, secs = [], {}
+    deadline = time.perf_counter() + timeout
+    pending = dict(clis)
+    while pending:
+        for name, (proc, log, t0) in list(pending.items()):
+            if proc.poll() is None and time.perf_counter() < deadline:
+                continue
+            del pending[name]
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+                faults.append(f"{name}: still running after {timeout} s")
+            secs[name] = time.perf_counter() - t0
+            log.seek(0)
+            text = log.read()
+            log.close()
+            if proc.returncode != 0:
+                faults.append(f"{name} exited {proc.returncode}: "
+                              f"{text[-3000:]}")
+        time.sleep(0.1)
+    dry = {}
+    for p in P13B_RECORDS:
+        rec = json.loads(p.read_text()) if p.exists() else {}
+        if not rec.get("ok"):
+            faults.append(f"{p.name}: {rec.get('error', 'not written')}")
+            continue
+        dry[rec["mesh"]] = {k: rec[k] for k in (
+            "n_devices", "lower_s", "flops", "bytes_accessed", "memory",
+            "collectives", "collective_bytes", "param_bytes_placed",
+            "param_bytes_by_rules")}
+    routed = (json.loads(P13B_ROUTED.read_text())
+              if P13B_ROUTED.exists() else {})
+    for tag in P13B_VARIANTS:
+        if routed.get(tag, {}).get("n_collective_permute", 0) <= 0:
+            faults.append(f"routed_serve: no {tag} record")
+    emit({"phase": "p13b clis", "card": card, "done_within_s": secs,
+          "dryrun": dry, "routed_serve": routed, "faults": faults})
+    if faults:
+        raise AssertionError("p13b clis: " + "; ".join(faults))
+
+
+def p13b_group(device, timed, card, rows):
+    """P13b on the card: the routed serve step (one process and two gloo
+    ranks; gloo stages CUDA tensors through the host, so their step times
+    are gates, not speed) and its card-vs-CPU replay, while the two CLIs
+    run on the CPU in subprocesses (their wait is the "p13b clis"
+    seconds). The kernel rows of K3 and K4 take the one-process run's
+    launches."""
+    import torch
+    clis = start_p13b_clis()
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = timed("p13b routed serve", p13b_routed_phase, device,
+                         card)
+        for k in ("decode_attention", "flash_attention"):
+            rows[k]["launches_p13b"] = {
+                f"{P13B_ARCH} {SERVE_LAYERS} layers, a variant, one "
+                f"process or a rank": launches[k]}
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("p13b replay", p13b_replay_phase, device, card)
+        timed("p13b clis", p13b_cli_phase, card, clis)
+    finally:               # stop the CLIs if a phase failed first
+        for proc, log, _ in clis.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
 
 
 # --------------------------------------------------- P14a: training
@@ -5177,10 +5603,10 @@ def main() -> int:
                  params, gpu, wall, streams=True)
     timed("traced main_path", traced_phase, cfg, params, gpu, base,
           launches, wall)
-    timed("profile host split", host_split_phase, cfg, params, gpu, base)
     main_busy_s = base["busy_s"]
     del base
     scfg, sched = cut_model(cfg, params, SCHED_LAYERS, "schedule cut")
+    timed("profile host split", host_split_phase, scfg, sched, gpu)
     timed("degradation", degradation_phase, scfg, sched, gpu)
     timed("trace harness", trace_harness_phase, scfg, sched, gpu)
     timed("serve --trace", serve_trace_phase)
@@ -5216,7 +5642,9 @@ def main() -> int:
     timed("churn", churn_phase, scfg, sched, gpu)
     timed("churn downhill", churn_downhill_phase, scfg, sched, gpu)
     timed("churn stacked", churn_stacked_phase, scfg, sched, gpu)
-    timed("stochastic", stochastic_phase, scfg, sched, gpu, cfg, runs_on)
+    # its card-vs-CPU replay at the schedule cut too
+    timed("stochastic", stochastic_phase, scfg, sched, gpu, scfg,
+          [(gpu, sched), (cpu, params_to(sched, cpu))])
     del runs_on, params, sched
     gc.collect()
     torch.cuda.empty_cache()
@@ -5298,6 +5726,8 @@ def main() -> int:
     ds_want = p12b_group(gpu, timed, rows)
     # P13a: the distributed slice on gloo ranks on the card
     dist_group(gpu, timed, card, ds_want, rows)
+    # P13b: WAVES routing inside the serve step, and the dry-run's CLIs
+    p13b_group(gpu, timed, card, rows)
     # P14a: training on the card, last (paligemma's weights and AdamW
     # state are 40 GB)
     train_group(gpu, timed, rows, card)

@@ -83,10 +83,13 @@ def pack_requests(sens, priority_gate, deadline_ms=None, dataset=None,
                   personal_only=None, n_datasets=1, device="cpu"):
     """sens (m,), priority_gate (m,) capacity thresholds per request,
     dataset (m,) int ids (-1 = none), personal_only (m,) bool (primary
-    tier: local-regardless-of-pressure semantics)."""
+    tier: local-regardless-of-pressure semantics). Each a sequence or a
+    tensor (moved to ``device``, as the routed serve step passes them)."""
     m = len(sens)
 
     def t(vals, dtype):
+        if isinstance(vals, torch.Tensor):
+            return vals.to(device=device, dtype=dtype)
         return torch.tensor(vals, dtype=dtype, device=device)
 
     return {
@@ -256,7 +259,10 @@ def route_batch_tick(tbl: IslandTable, reqs, weights, state, extra_ok, *,
         # even consulted (the scalar path early-returns)
         pre = static_ok & (tbl.privacy >= sens_i)
         pre = pre & torch.where(prim_i, priv_ok_all, True)
-        ds_col = tbl.datasets[:, torch.clamp(ds_i, min=0).long()]
+        # index_select, not a 0-d tensor index, which reads it back to
+        # the host (and fails on meta tensors)
+        ds_col = tbl.datasets.index_select(
+            1, torch.clamp(ds_i, min=0).long().reshape(1))[:, 0]
         pre = pre & torch.where(ds_i >= 0, ds_col, True)
         pre = pre & extra_ok[i]
         pre = pre & (base_lat <= reqs["deadline"][i])
@@ -303,7 +309,8 @@ def route_batch_tick(tbl: IslandTable, reqs, weights, state, extra_ok, *,
         assign[i] = torch.where(acc_i, j, -1)
         acc[i] = acc_i
         que[i] = que_i
-        sco[i] = torch.where(acc_i, s_comp[j.long()], -1.0)
+        sco[i] = torch.where(acc_i, s_comp.index_select(
+            0, j.long().reshape(1))[0], -1.0)
         ncand[i] = torch.sum(ok).to(torch.int32)
     new_state = dict(state, cpu=cpu, gpu=gpu, mem=mem, inflight=infl,
                      local_ok=lok)

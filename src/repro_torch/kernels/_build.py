@@ -26,6 +26,11 @@ KERNELS = ("paged_attention", "chunked_prefill", "decode_attention",
 # configs the port runs (smollm-135m, musicgen-large 64; qwen3, glm4 128;
 # recurrentgemma-9b, paligemma-3b 256; their .reduced() widths 32)
 HEAD_DIMS = (32, 64, 128, 256)
+# the devices whose tensors take a kernel's plain version (``ref.py``):
+# the CPU, and meta tensors, for abstract evaluation (shapes and dtypes
+# only: no data, no launch, no launch counted). A CUDA tensor launches
+# the kernel or raises; any other device raises.
+PLAIN_DEVICES = ("cpu", "meta")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

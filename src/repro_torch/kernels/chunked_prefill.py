@@ -8,7 +8,7 @@ what bounds it and how the design answers) on tensor cores; where a
 tick's rows give the card too few blocks, each q tile's key walk is split
 across blocks and merged in a fixed order (scratch from ``torch.empty``).
 ``kernels/ref.py`` holds the plain version. A CUDA tensor launches the
-kernel or raises; a CPU tensor takes the plain version.
+kernel or raises; a CPU or meta tensor takes the plain version.
 ``chunked_prefill_attention.launches`` counts the calls that launched it,
 and ``chunked_prefill_attention.last_split`` is the key ranges of the
 latest launch.
@@ -39,7 +39,7 @@ def chunked_prefill_attention(q, k_pages, v_pages, block_table, start_pos,
     P, ps, Hkv, _ = k_pages.shape
     N = block_table.shape[1]
     scale = scale if scale is not None else D ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return ref.chunked_prefill_attention(q, k_pages, v_pages,
                                              block_table, start_pos, scale)
     if q.device.type != "cuda":

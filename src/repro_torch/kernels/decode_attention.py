@@ -8,7 +8,7 @@ says what bounds it and how the design answers) on tensor cores; where the
 rows give the card too few blocks, each row's key walk is split across
 blocks and merged in a fixed order (scratch from ``torch.empty``).
 ``kernels/ref.py`` holds the plain version. A CUDA tensor launches the
-kernel or raises; a CPU tensor takes the plain version.
+kernel or raises; a CPU or meta tensor takes the plain version.
 ``decode_attention.launches`` counts the calls that launched it (the
 split walk's merge kernel included in its call), and
 ``decode_attention.last_split`` is the key ranges of the latest launch.
@@ -32,7 +32,7 @@ def decode_attention(q, k, v, valid_len, scale=None):
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return ref.decode_attention(q, k, v, valid_len, scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device "

@@ -12,7 +12,7 @@ head note says what bounds it and how the design answers) and runs every
 ``Sq``/``Sk``, on tensor cores; where a prompt is short, the walk of each
 q tile is split across blocks and merged in a fixed order (scratch from
 ``torch.empty``). ``kernels/ref.py`` holds the plain version. A CUDA
-tensor launches the kernel or raises; a CPU tensor takes the plain
+tensor launches the kernel or raises; a CPU or meta tensor takes the plain
 version. ``flash_attention.launches`` counts the calls that launched it
 (the split walk's merge kernel included in its call), and
 ``flash_attention.last_split`` is the key ranges of the latest launch.
@@ -73,10 +73,10 @@ def flash_attention(q, k, v, scale=None, causal=True, window=None,
 
 def _forward(q, k, v, scale, causal, window, prefix_len, want_lse):
     """(out, lse or None): the kernel on a CUDA tensor, the plain version
-    on a CPU one; ``lse`` (B, Sq, H) fp32 is each row's log-sum-exp."""
+    on a CPU or meta one; ``lse`` (B, Sq, H) fp32 is each row's log-sum-exp."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         if want_lse:
             return ref.flash_attention(q, k, v, scale, causal, window,
                                        prefix_len, return_lse=True)
@@ -135,9 +135,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale, causal=True,
     ``flash_attention_bwd.launches``) on fp32 q/k/v/o/do, each kv head's
     query heads split across dK/dV blocks where the grid is short of two
     blocks an SM (``bwd_split``; ``flash_attention_bwd.last_split``); on a
-    CPU tensor its plain version, ``ref.flash_attention_bwd``."""
+    CPU or meta tensor its plain version, ``ref.flash_attention_bwd``."""
     window = _check_mask(q.shape[1], causal, window, prefix_len)
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return ref.flash_attention_bwd(q, k, v, o, lse, do, scale, causal,
                                        window, prefix_len)
     if q.device.type != "cuda":

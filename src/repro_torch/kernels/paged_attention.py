@@ -7,7 +7,7 @@ what bounds it and how the design answers) on tensor cores; where the
 decode batch gives the card too few blocks, each sequence's key walk is
 split across blocks and merged in a fixed order (scratch from
 ``torch.empty``). ``kernels/ref.py`` holds the plain version. A CUDA
-tensor launches the kernel or raises; a CPU tensor takes the plain
+tensor launches the kernel or raises; a CPU or meta tensor takes the plain
 version. ``paged_decode_attention.launches`` counts the calls that
 launched it (the split walk's merge kernel included in its call), and
 ``paged_decode_attention.last_split`` is the key ranges of the latest
@@ -35,7 +35,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, valid_lens,
     P, ps, Hkv, _ = k_pages.shape
     N = block_table.shape[1]
     scale = scale if scale is not None else D ** -0.5
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return ref.paged_decode_attention(q, k_pages, v_pages, block_table,
                                           valid_lens, scale)
     if q.device.type != "cuda":

@@ -10,8 +10,8 @@ tiling). The kernel is hand-written CUDA C++ for ``sm_90a``
 design answers: a lane a channel, fed from a deep cp.async ring);
 ``kernels/ref.py`` holds the plain version, which the
 kernel matches bit for bit. A CUDA tensor launches the kernel or raises;
-a CPU tensor takes the plain version. ``rglru_scan.launches`` counts the
-kernel launches.
+a CPU or meta tensor takes the plain version. ``rglru_scan.launches``
+counts the kernel launches.
 
 Training: with grad enabled and an input that requires it, the call runs
 ``RglruScan``, a ``torch.autograd.Function`` whose forward launches K6
@@ -64,8 +64,9 @@ def rglru_scan(a, b, h0=None):
 
 
 def _forward(a, b, h0):
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
-    if a.device.type == "cpu":
+    """The kernel on a CUDA tensor, the plain version on a CPU or meta
+    one."""
+    if a.device.type in _build.PLAIN_DEVICES:
         return ref.rglru_scan(a, b, h0)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {a.device}")
@@ -93,10 +94,10 @@ def rglru_scan_bwd(a, h, h0, gh):
     """The gradients (ga, gb, gh0) of ``rglru_scan(a, b, h0)``, whose
     output was ``h`` (B, S, C) fp32, for its gradient ``gh``: ga and gb in
     a's dtype, gh0 fp32 (None where h0 is None). On a CUDA tensor the
-    hand-written backward (``csrc/rglru_scan_bwd.cu``), on a CPU tensor
+    hand-written backward (``csrc/rglru_scan_bwd.cu``), on a CPU or meta tensor
     its plain version, ``ref.rglru_scan_bwd``; the two agree bit for
     bit."""
-    if a.device.type == "cpu":
+    if a.device.type in _build.PLAIN_DEVICES:
         return ref.rglru_scan_bwd(a, h, h0, gh)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan_bwd: no kernel for device {a.device}")

@@ -9,7 +9,7 @@ bounds it and how the design answers) and runs every chunk length Q from
 1 to 1024, in two passes: the head-free scores C.B^T once per chunk into
 a scratch the wrapper allocates (``scratch_shape``), then every head's y
 and state from them. ``kernels/ref.py`` holds the plain version. A CUDA
-tensor launches the kernel or raises; a CPU tensor takes the plain
+tensor launches the kernel or raises; a CPU or meta tensor takes the plain
 version. ``ssd_chunk.launches`` counts the wrapper's launches (one a
 call, both passes).
 
@@ -101,8 +101,9 @@ def ssd_chunk(x, dt, a, B_, C_):
 
 
 def _forward(x, dt, a, B_, C_):
-    """The kernel on a CUDA tensor, the plain version on a CPU one."""
-    if x.device.type == "cpu":
+    """The kernel on a CUDA tensor, the plain version on a CPU or meta
+    one."""
+    if x.device.type in _build.PLAIN_DEVICES:
         return ref.ssd_chunk(x, dt, a, B_, C_)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunk: no kernel for device {x.device}")
@@ -151,9 +152,9 @@ def ssd_chunk_bwd(x, dt, a, B_, C_, cum, gy, gstate, gdecay=None,
     hand-written backward (``csrc/ssd_chunk_bwd.cu``: five launches,
     counted as one in ``ssd_chunk_bwd.launches``; the pair, head and chunk
     passes take their products on tensor cores in 3xTF32, each sum in a
-    fixed order, no atomics), on a CPU tensor its plain version,
+    fixed order, no atomics), on a CPU or meta tensor its plain version,
     ``ref.ssd_chunk_bwd``."""
-    if x.device.type == "cpu":
+    if x.device.type in _build.PLAIN_DEVICES:
         return ref.ssd_chunk_bwd(x, dt, a, B_, C_, cum, gy, gstate, gdecay,
                                  gcum)
     if x.device.type != "cuda":

@@ -7,10 +7,12 @@ Port of ``repro/launch/mesh.py``. ``make_local_mesh(data, model)`` is a
 many devices one process sees; the port's ranks are processes, one per
 card with NCCL, or several on one card or on the CPU with gloo.
 
-The reference's ``make_production_mesh`` (the 16 x 16 and 2 x 16 x 16
-pod meshes its dry-run lowers onto) is not ported yet: it waits for
-ROADMAP P13b, since the port can reach 256 or 512 ranks only through a
-fake process group and meta tensors.
+``make_production_mesh`` is the reference's 16 x 16 ("data", "model")
+and 2 x 16 x 16 ("pod", "data", "model") pod meshes, over a process
+group of at least 256 or 512 ranks. One process reaches that many only
+on a fake group (``fake_world``): its collectives return at once and
+move nothing, which is what the dry-run (``launch/dryrun.py``) traces
+meta tensors on.
 
 ``RankGroup`` starts ranks with the spawn method, joins each to one
 process group through a ``FileStore`` in a fresh temporary directory
@@ -20,32 +22,88 @@ fails the group.
 """
 from __future__ import annotations
 
+import math
 import os
 import queue
 import shutil
 import tempfile
 import traceback
+from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
 
 
-def make_local_mesh(data: int = 1, model: int = 1, device=None):
+def make_local_mesh(data: int = 1, model: int = 1, device=None, *,
+                    pod: int | None = None):
     """A (data, model) DeviceMesh over the initialized process group on
-    ``device``'s type (None = the card). Raises when the mesh needs more
-    ranks than the group has, as the reference asserts on devices."""
+    ``device``'s type (None = the card); with ``pod``, a (pod, data,
+    model) one, the production mesh's dims at a small size. Raises when
+    the mesh needs more ranks than the group has, as the reference
+    asserts on devices."""
     from torch.distributed.device_mesh import DeviceMesh
     if not dist.is_initialized():
         raise RuntimeError("make_local_mesh: no process group; start the "
                            "ranks with launch.mesh.RankGroup or "
                            "torch.distributed.init_process_group")
+    dims = (data, model) if pod is None else (pod, data, model)
+    names = ("data", "model") if pod is None else ("pod", "data", "model")
     n = dist.get_world_size()
-    if data * model > n:
-        raise ValueError(f"make_local_mesh: a {data}x{model} mesh needs "
-                         f"{data * model} ranks, the process group has {n}")
+    if math.prod(dims) > n:
+        raise ValueError(f"make_local_mesh: a {'x'.join(map(str, dims))} "
+                         f"mesh needs {math.prod(dims)} ranks, the process "
+                         f"group has {n}")
     dev = torch.device("cuda" if device is None else device)
-    return DeviceMesh(dev.type, torch.arange(data * model).reshape(
-        data, model), mesh_dim_names=("data", "model"))
+    return DeviceMesh(dev.type, torch.arange(math.prod(dims)).reshape(dims),
+                      mesh_dim_names=names)
+
+
+def make_production_mesh(*, multi_pod: bool = False, shape=None,
+                         device=None):
+    """The reference's production meshes: (16, 16) = ("data", "model")
+    for one pod, (2, 16, 16) = ("pod", "data", "model") for two.
+    ``shape`` overrides a pod's (data, model) factorization, which must
+    hold its 256 chips. A DeviceMesh over the initialized process group
+    (ranks in row-major order) on ``device``'s type (None = the card);
+    raises when the group has fewer ranks than the mesh."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if shape is not None:
+        if shape[0] * shape[1] != 256:
+            raise ValueError(f"make_production_mesh: one pod = 256 chips, "
+                             f"got a {shape[0]}x{shape[1]} pod")
+        dims = tuple(shape)
+    else:
+        dims = (16, 16)
+    if multi_pod:
+        dims = (2,) + dims
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(dims)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world < n:
+        raise ValueError(f"make_production_mesh: a {'x'.join(map(str, dims))}"
+                         f" mesh needs {n} ranks, the process group has "
+                         f"{world} (join one with fake_world({n}) to trace "
+                         f"meta tensors)")
+    dev = torch.device("cuda" if device is None else device)
+    return DeviceMesh(dev.type, torch.arange(n).reshape(dims),
+                      mesh_dim_names=names)
+
+
+@contextmanager
+def fake_world(n: int):
+    """Join a fake-backend process group of ``n`` ranks as rank 0 for the
+    duration of the block, and destroy it on exit. Its collectives return
+    at once and move nothing: a step on meta tensors runs through them,
+    and a dispatch mode sees each one with its group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: this process is already in a "
+                           "process group")
+    dist.init_process_group("fake", rank=0, world_size=n, store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def rank_device(device=None) -> torch.device:

@@ -21,7 +21,7 @@ capacity or on another rank's experts are dropped), runs the expert FFNs
 as one batched matmul, gathers back, and an all-reduce SUM over "model"
 combines the experts' contributions. The load-balance loss takes global
 routing statistics: the counts summed and the mean probabilities averaged
-over the data axes.
+over the data axes ("pod" and "data").
 
 Gradients: ``torch.distributed.all_reduce`` has no backward, and an
 all-reduce that is differentiated sums again in its backward. The region
@@ -48,7 +48,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (PSpec, rms_norm, swiglu_apply,
                                        swiglu_table)
-from repro_torch.sharding import current_mesh, mesh_shape
+from repro_torch.sharding import (batch_groups, batch_ranks, current_mesh,
+                                  mesh_shape)
 
 
 def moe_table(cfg):
@@ -158,12 +159,12 @@ class _Leave(torch.autograd.Function):
 
 
 def _moe_local(p_router, weg, weu, wed, x2, *, k, E, E_loc, C, m, group,
-               data_group=None, data_n=1):
+               data_groups=(), data_n=1):
     """One rank's part (the reference's ``shard_map`` body): x2 (T_loc,
     d) this rank's tokens, replicated over "model"; the expert weights
     its local slices (E_loc, ...); ``m`` its model rank, ``group`` the
-    model group, ``data_group`` the data group (``data_n`` ranks) over
-    which the routing statistics are global."""
+    model group, ``data_groups`` the groups of the data axes (``data_n``
+    ranks in all) over which the routing statistics are global."""
     T, d = x2.shape
     logits = torch.matmul(x2, p_router).float()
     w, idx, probs = _route(logits, k)                            # (T, k)
@@ -193,10 +194,11 @@ def _moe_local(p_router, weg, weu, wed, x2, *, k, E, E_loc, C, m, group,
     counts.index_add_(0, flat, torch.ones(flat.shape[0], dtype=torch.float32,
                                           device=x2.device))
     p_mean = probs.mean(dim=0)
-    if data_group is not None:
+    for data_group in data_groups:
         counts = _all_reduce(counts, data_group)
         moe_apply.all_reduces += 1
-        p_mean = _Leave.apply(p_mean, data_group) / data_n
+        p_mean = _Leave.apply(p_mean, data_group)
+    p_mean = p_mean / data_n
     f = counts / torch.clamp(counts.sum(), min=1.0)
     aux = E * torch.sum(f * p_mean)
     return y.to(x2.dtype), aux
@@ -232,13 +234,11 @@ def moe_apply(cfg, p, x):
                              f"{p['we_gate'].shape[0]} experts, the mesh "
                              f"gives it {E_loc} (init or shard the params "
                              f"under the same mesh)")
-        data_n = sizes.get("data", 1)
         y, aux = _moe_local(
             p["router"], p["we_gate"], p["we_up"], p["we_down"], x2, k=k,
             E=E, E_loc=E_loc, C=capacity(cfg, B * S),
             m=mesh.get_local_rank("model"), group=mesh.get_group("model"),
-            data_group=mesh.get_group("data") if data_n > 1 else None,
-            data_n=data_n)
+            data_groups=batch_groups(mesh), data_n=batch_ranks(mesh))
     y = y.reshape(B, S, d)
     if cfg.num_shared_experts:
         y = y + swiglu_apply(p["shared"], h)

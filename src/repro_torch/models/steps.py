@@ -15,17 +15,17 @@ place (``training.optim.apply_updates_``): one copy of each, where the
 reference returns new arrays.
 
 Under a mesh (``sharding.axis_rules``) the train step takes the global
-batch and splits it over the data axes (the reference's ``shard`` of the
-batch, ``steps.py:53``), which must divide it; the model runs on the
-rank's rows, with its MoE blocks expert-parallel over "model". Each
-rank's objective is its cross-entropy weighted by its share of the
-global labelled tokens plus the aux loss (global already, and
-differentiated only through the rank's own statistics), so an
-all-reduce SUM of the gradients over "data" gives the gradient of the
-global-batch loss. Replicated leaves then hold the single-device
-gradient on every rank, an expert leaf this rank's slice of it; the
-clip norm sums the slices' squares over "model", and AdamW updates each
-rank's local leaves.
+batch and splits it over the data axes ("pod" and "data", the
+reference's ``shard`` of the batch, ``steps.py:53``), which must divide
+it; the model runs on the rank's rows, with its MoE blocks
+expert-parallel over "model". Each rank's objective is its
+cross-entropy weighted by its share of the global labelled tokens plus
+the aux loss (global already, and differentiated only through the
+rank's own statistics), so an all-reduce SUM of the gradients over the
+data axes gives the gradient of the global-batch loss. Replicated leaves
+then hold the single-device gradient on every rank, an expert leaf this
+rank's slice of it; the clip norm sums the slices' squares over "model",
+and AdamW updates each rank's local leaves.
 
 Device-resident sampling state (``last_tok`` (num_slots + 1,),
 ``gen_buf`` (num_slots + 1, max_len)) carries ONE extra row at index
@@ -92,7 +92,7 @@ def value_and_grad(model, params, batch, remat=False):
     are the global batch's (see the module docstring); an expert leaf's
     gradient is this rank's slice."""
     mesh = sharding.current_mesh()
-    data_n = sharding.mesh_shape(mesh).get("data", 1) if mesh else 1
+    groups = sharding.batch_groups(mesh)
     if mesh is not None:
         batch = split_batch(batch)
     live = _optim.tree_map(lambda p: p.detach().requires_grad_(True),
@@ -100,19 +100,19 @@ def value_and_grad(model, params, batch, remat=False):
     leaves = _optim.tree_leaves(live)
     with torch.enable_grad():
         loss, parts = loss_fn(model, live, batch, remat=remat)
-        if data_n > 1:
-            share = _token_share(batch, mesh.get_group("data"))
+        if groups:
+            share = _token_share(batch, groups)
             loss = share * parts["ce"] + \
                 model.cfg.router_aux_coef * parts["aux"]
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     parts = {k: v.detach() for k, v in parts.items()}
-    if data_n > 1:
-        group = mesh.get_group("data")
-        grads = _all_reduce_flat(grads, group)
+    if groups:
+        grads = _all_reduce_flat(grads, groups)
         ce = (share * parts["ce"]).detach().clone()
-        dist.all_reduce(ce, group=group)
+        for group in groups:
+            dist.all_reduce(ce, group=group)
         parts["ce"] = ce
         loss = ce + model.cfg.router_aux_coef * parts["aux"]
     return (loss.detach(), parts, _optim.tree_unflatten(live, grads))
@@ -122,7 +122,7 @@ def split_batch(batch):
     """This rank's rows of a global batch dict under the current mesh
     (the reference's ``shard(v, "batch", ...)``); the data axes must
     divide the batch."""
-    n = sharding.mesh_shape(sharding.current_mesh()).get("data", 1)
+    n = sharding.batch_ranks()
     out = {}
     for k, v in batch.items():
         if v.shape[0] % n:
@@ -133,10 +133,10 @@ def split_batch(batch):
     return out
 
 
-def _token_share(batch, group):
+def _token_share(batch, groups):
     """This rank's weight in the global mean cross-entropy: its labelled
-    tokens over the global batch's (a ``mask`` counts its ones; the
-    loss floors a denominator at 1)."""
+    tokens over the global batch's, summed over the data axes' ``groups``
+    (a ``mask`` counts its ones; the loss floors a denominator at 1)."""
     mask = batch.get("mask")
     if mask is None:
         n = torch.tensor(float(batch["labels"][:, 1:].numel()),
@@ -144,15 +144,17 @@ def _token_share(batch, group):
     else:
         n = mask.float().sum()
     total = n.clone()
-    dist.all_reduce(total, group=group)
+    for group in groups:
+        dist.all_reduce(total, group=group)
     return torch.clamp(n, min=1.0) / torch.clamp(total, min=1.0)
 
 
-def _all_reduce_flat(tensors, group):
-    """All-reduce SUM a list of tensors over ``group`` through one flat
-    fp32 buffer; returns new tensors in the inputs' dtypes."""
+def _all_reduce_flat(tensors, groups):
+    """All-reduce SUM a list of tensors over each of ``groups`` through
+    one flat fp32 buffer; returns new tensors in the inputs' dtypes."""
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat, group=group)
+    for group in groups:
+        dist.all_reduce(flat, group=group)
     out, i = [], 0
     for t in tensors:
         out.append(flat[i:i + t.numel()].view(t.shape).to(t.dtype))

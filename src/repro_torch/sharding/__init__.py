@@ -273,6 +273,28 @@ def _shard_index(mesh, axes) -> tuple[int, int]:
     return idx, n
 
 
+def batch_groups(mesh=None) -> list:
+    """The process groups of the mesh axes the batch splits over
+    (``LOCAL_RULES["batch"]``: "pod", then "data") that have more than one
+    rank: a SUM over the batch is an all-reduce over each in turn."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return []
+    sizes = mesh_shape(mesh)
+    return [mesh.get_group(ax) for ax in LOCAL_RULES["batch"]
+            if sizes.get(ax, 1) > 1]
+
+
+def batch_ranks(mesh=None) -> int:
+    """How many ways the mesh splits the batch (its batch axes' sizes
+    multiplied)."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return 1
+    sizes = mesh_shape(mesh)
+    return math.prod(sizes.get(ax, 1) for ax in LOCAL_RULES["batch"])
+
+
 def local_slice(x, logical_axes, mesh=None, rules: dict | None = None):
     """This rank's shard of the global tensor ``x`` under the spec
     ``logical_axes`` resolve to (``LOCAL_RULES`` by default): a copy of
@@ -317,9 +339,10 @@ def is_sharded(shape, logical_axes, mesh=None, rules: dict | None = None):
 def gather_global(x, logical_axes, global_shape, mesh=None,
                   rules: dict | None = None):
     """Invert ``local_slice``: the global tensor on every rank, from each
-    rank's shard ``x``. Per mesh dim that splits it, an all-reduce SUM of
-    a zero-filled global buffer holding this rank's shard in its place
-    (gloo on CUDA tensors offers only all-reduce and broadcast)."""
+    rank's shard ``x``. Per mesh dim that splits it (of more than one
+    rank), an all-reduce SUM of a zero-filled global buffer holding this
+    rank's shard in its place (gloo on CUDA tensors offers only
+    all-reduce and broadcast). The sizes depend only on the shapes."""
     import torch.distributed as dist
     mesh = mesh or _CTX.mesh
     if mesh is None:
@@ -337,9 +360,10 @@ def gather_global(x, logical_axes, global_shape, mesh=None,
             step = global_shape[dim] // n
             view = view.narrow(dim, i * step, step)
     view.copy_(x)
-    used = [ax for e in spec for ax in _entry_axes(e)]
-    for ax in used:
-        dist.all_reduce(out, group=mesh.get_group(ax))
+    sizes = mesh_shape(mesh)
+    for ax in (ax for e in spec for ax in _entry_axes(e)):
+        if sizes[ax] > 1:
+            dist.all_reduce(out, group=mesh.get_group(ax))
     return out
 
 

@@ -24,6 +24,26 @@ import torch
 MARGIN = 5e-3
 
 
+class _OtherDevice(torch.Tensor):
+    """A tensor's shape, dtype and device with no storage, on a device
+    the port has no kernel for; any op on it raises."""
+
+    @staticmethod
+    def __new__(cls, shape, dtype):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=dtype,
+                                                   device="xla")
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} ran on a stand-in tensor")
+
+
+def other_device(shape, dtype=torch.float32) -> torch.Tensor:
+    """A stand-in tensor on the ``xla`` device: a kernel wrapper must
+    refuse it (neither CUDA nor a plain version's CPU or meta)."""
+    return _OtherDevice(tuple(shape), dtype)
+
+
 def top2_margin(logits_row) -> float:
     top = np.sort(np.asarray(logits_row, np.float32))[-2:]
     return float(top[1] - top[0])

@@ -36,7 +36,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
                 "privacy.adversary", "privacy.leakage", "data.pipeline",
                 "training.optim", "checkpoint", "models.steps",
                 "launch.train", "core.mist_model", "sharding",
-                "launch.mesh", "launch.specs", "models.decode_sharded"):
+                "launch.mesh", "launch.specs", "models.decode_sharded",
+                "launch.dryrun", "launch.routed_serve"):
         assert f"repro_torch.{mod}" in names, mod
     code = (
         "import importlib, sys\n"

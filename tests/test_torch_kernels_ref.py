@@ -20,6 +20,7 @@ from repro.kernels.chunked_prefill import \
     chunked_prefill_attention as pallas_chunked
 from repro.kernels.paged_attention import \
     paged_decode_attention as pallas_paged
+from _torch_parity import other_device
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -199,11 +200,13 @@ def test_chunked_prefill_future_pages_fully_masked():
 
 
 def test_wrappers_refuse_unsupported_devices():
-    q = torch.zeros(1, 4, 8, device="meta")
-    kp = torch.zeros(2, 16, 2, 8, device="meta")
-    bt = torch.zeros(1, 1, dtype=torch.int32, device="meta")
-    lens = torch.ones(1, dtype=torch.int32, device="meta")
+    # neither CUDA nor a plain version's device (CPU, meta)
+    q = other_device((1, 4, 8))
+    kp = other_device((2, 16, 2, 8))
+    bt = other_device((1, 1), torch.int32)
+    lens = other_device((1,), torch.int32)
     with pytest.raises(ValueError, match="no kernel"):
         paged_decode_attention(q, kp, kp, bt, lens)
     with pytest.raises(ValueError, match="no kernel"):
-        chunked_prefill_attention(q[:, None], kp, kp, bt, lens)
+        chunked_prefill_attention(other_device((1, 1, 4, 8)), kp, kp, bt,
+                                  lens)

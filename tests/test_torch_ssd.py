@@ -28,6 +28,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels import ssd as jssd
 from repro.models import ssm as jssm
+from _torch_parity import other_device
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd import error_bound, ssd_chunk
 from repro_torch.models import ssm as tssm
@@ -104,7 +105,7 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     for g, w in zip(got, tref.ssd_chunk(*inputs)):
         assert torch.equal(g, w)
     with pytest.raises(ValueError, match="no kernel"):
-        ssd_chunk(*(t.to("meta") for t in inputs))
+        ssd_chunk(*(other_device(t.shape) for t in inputs))
 
 
 @pytest.mark.parametrize("S,chunk", [(32, 16), (48, 16)])
