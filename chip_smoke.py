@@ -230,15 +230,28 @@ Phases (each raises on failure, and the script then exits non-zero):
    held to the one-process run's, each rank's cache half the bytes, K4
    once a layer of the prefill, K3 never, three all-reduces a layer a
    step; deepseek-v2-lite-16b at full width and depth on 1x2 (the latent
-   cache sequence-sharded, 32 experts a rank, no token dropped) with its
-   logits held to the one-process run's and its MLA/MoE calls exact; and
+   cache sequence-sharded, 8 of the 16 MLA heads and 32 experts a rank,
+   no token dropped) with its logits held to the one-process run's and
+   its MLA/MoE calls exact; each rank of both holding exactly the weight
+   bytes the reference's rules place on it (since P13c smollm's ff and
+   vocab split, its q/k/v columns split mid-head and gathered); and
    the train launcher under ``--mesh 2x1 --backend gloo`` (smollm-135m,
    2 steps of 8 x 2,048 tokens, 4 x 2,048 a rank) with every step's loss
    and gradient norm held to the one-process launcher's and K4 and its
    backward once a layer a step on each rank;
-12. P13b, WAVES routing inside the serve step (``p13b_group``):
+12. P13c, qwen3-32b on the card (``p13c_group``): its first
+   ``P13C_LAYERS`` of 64 layers at full widths (60.8 GB of fp32 weights)
+   on the paged main path (K1/K2 launches, tokens/s, peak memory); the
+   card-vs-CPU replay at the 2-layer cut; and tensor parallel over two
+   gloo ranks as a (data 1, model 2) mesh at its first
+   ``P13C_TP_LAYERS`` layers, each rank holding exactly the rules' weight
+   bytes (32 of 64 q heads, 4 of 8 kv heads, half of ff and of both
+   vocab tables), a prefill through K4 at 32 heads a rank and decode
+   steps through K3 at 4 kv heads a rank, the gathered logits within
+   ``P13C_TP_TOL`` of one process's on the same cut;
+13. P13b, WAVES routing inside the serve step (``p13b_group``):
    qwen3-4b, the reference's routed-serve arch, at full width on its
-   first ``SERVE_LAYERS`` layers, 16 prompts of 128 tokens prefilled
+   first ``P13B_LAYERS`` layers, 16 prompts of 128 tokens prefilled
    (K4) into a 2,048-slot fp32 cache, then 8 routed decode steps (K3) in
    each variant (``launch.routed_serve.run``: the tick router over four
    islands, two personal ones on pod 0 and an edge and a cloud island on
@@ -253,7 +266,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    the CPU beside those, the two CLIs (``launch.dryrun`` for qwen3-4b at
    decode_32k on both production meshes, ``launch.routed_serve``'s
    default) with their records' flops, memory and collectives;
-13. P14a and P14b, training, last, after a ``gc.collect()`` (the memory still
+14. P14a and P14b, training, last, after a ``gc.collect()`` (the memory still
    allocated is read out first): the train launcher
    (``repro_torch.launch.train``: ``SyntheticLM``, AdamW, the cosine
    schedule, checkpoints) at smollm-135m's full width, 10 steps of 8 x
@@ -510,33 +523,35 @@ def prefill_case(dev, gen, H=9, Hkv=3, D=64, ps=16, N=128):
                                                 [0, 1, 2])
 
 
-def dense_decode_case(dev, gen, H=9, Hkv=3, D=64, S=2048):
+def dense_decode_case(dev, gen, H=9, Hkv=3, D=64, S=2048,
+                      valid=(1, 16, 17, 300, 1024, 1, 1600, 32),
+                      dtype="bfloat16"):
     """K3 at the stacked path's decode shapes: 8 slot rows of a
     (8, 2048, Hkv, D) bf16 cache, per-row fills spread over 1-1600 (an idle
-    slot decodes at fill 1)."""
+    slot decodes at fill 1); or a row a fill of ``valid`` on an ``S``-slot
+    cache of ``dtype``."""
     import torch
-    valid = [1, 16, 17, 300, 1024, 1, 1600, 32]
     B = len(valid)
     k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
-            .to(torch.bfloat16) for _ in range(2))
+            .to(getattr(torch, dtype)) for _ in range(2))
     q = torch.randn(B, H, D, generator=gen, device=dev)
     lens = torch.tensor(valid, dtype=torch.int32, device=dev)
     live = sum(valid)
-    nbytes = 2 * q.numel() * 4 + B * 4 + live * Hkv * D * 2 * 2
+    nbytes = 2 * q.numel() * 4 + B * 4 + live * Hkv * D * 2 * k.element_size()
     flops = 4 * live * H * D
-    return (q, k, v, lens), nbytes, flops, valid
+    return (q, k, v, lens), nbytes, flops, list(valid)
 
 
 def dense_prefill_case(dev, gen, H=9, Hkv=3, D=64, S=1024, window=None,
-                       prefix=0):
-    """K4 at a full-prompt prefill: one prompt of S tokens, fp32 q/k/v
+                       prefix=0, B=1):
+    """K4 at a full-prompt prefill: B prompts of S tokens, fp32 q/k/v
     (fp32 weights), causal, with a local-attention window or none, and a
     prefix-LM prefix or none. The flops count the pairs the mask allows:
     the causal half, or a band, plus the prefix keys above the diagonal
     (query t attends max(t + 1, prefix) keys without a window)."""
     import torch
-    q = torch.randn(1, S, H, D, generator=gen, device=dev)
-    k, v = (torch.randn(1, S, Hkv, D, generator=gen, device=dev)
+    q = torch.randn(B, S, H, D, generator=gen, device=dev)
+    k, v = (torch.randn(B, S, Hkv, D, generator=gen, device=dev)
             for _ in range(2))
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     P = min(prefix, S)
@@ -545,7 +560,7 @@ def dense_prefill_case(dev, gen, H=9, Hkv=3, D=64, S=1024, window=None,
     pairs = sum(min(t + 1, window or S)
                 + max(0, P - (t + 1)) + max(0, min(P, t + 1 - (window or S)))
                 for t in range(S))
-    flops = 4 * H * D * pairs
+    flops = 4 * B * H * D * pairs
     return (q, k, v), nbytes, flops, S
 
 
@@ -1302,15 +1317,27 @@ def kernel_phase(dev):
     RG = dict(H=16, Hkv=1, D=256)
     # the kernels line carries K3/K4 at the geometry of the newest path
     # that runs them (recurrentgemma-9b; K4 at its window of 2048, with
-    # the biting window's numbers beside); the others are phase lines
+    # the biting window's numbers beside), and at a rank's shapes on the
+    # P13c tensor-parallel qwen3-32b path (32 q on 4 kv heads, G 8: K4 on
+    # its 4 prompts of P13C_S, K3 on its fp32 cache of P13C_L slots at the
+    # last decode step's fill); the others are phase lines
+    TP = dict(H=32, Hkv=4, D=128)
+    TP_GEOM = ("qwen3-32b heads on a rank of the 1x2 tensor-parallel "
+               "path (32 on 4, D 128, G 8)")
     for (name, src, replaces), geom, case_kw, role in (
             (K3, "smollm-135m stacked", dict(), None),
             (K3, "qwen3-4b heads", dict(H=32, Hkv=8, D=128), None),
             (K3, "recurrentgemma-9b heads", RG, "row"),
+            (K3, f"{TP_GEOM}, {P13C_B} rows at fill {P13C_S + P13C_T} of "
+                 f"{P13C_L} fp32 slots",
+             dict(TP, S=P13C_L, valid=(P13C_S + P13C_T,) * P13C_B,
+                  dtype="float32"), "qwen3_32b_rank"),
             (K4, "smollm-135m", dict(), None),
             (K4, "qwen3-4b heads", dict(H=32, Hkv=8, D=128, S=2048), None),
             (K4, "recurrentgemma-9b heads, window 2048",
              dict(RG, S=2048, window=2048), "row"),
+            (K4, f"{TP_GEOM}, {P13C_B} prompts of {P13C_S}",
+             dict(TP, S=P13C_S, B=P13C_B), "qwen3_32b_rank"),
             (K4, "recurrentgemma-9b heads, window 512",
              dict(RG, S=2048, window=512), "biting_window"),
             (K4, "recurrentgemma-9b heads, window 2047 (the windowed walk "
@@ -1323,8 +1350,9 @@ def kernel_phase(dev):
         if name == "decode_attention":
             args, nbytes, flops, fills = dense_decode_case(dev, gen,
                                                            **case_kw)
-            wrapper, plain, rate = decode_attention, ref.decode_attention, \
-                BF16_FLOP_PER_S
+            wrapper, plain = decode_attention, ref.decode_attention
+            rate = (TF32_FLOP_PER_S if case_kw.get("dtype") == "float32"
+                    else BF16_FLOP_PER_S)
             lib_fn = (lambda q, k, v, m: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, enable_gqa=True))
             lib_inputs = (lambda c: sdpa_decode(*c))
@@ -1374,7 +1402,7 @@ def kernel_phase(dev):
                 {k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms",
                                      "walk_attrs")},
-                **shape)
+                geometry=geom, **shape)
         emit({"phase": "kernel", **row, **extra, "geometry": geom,
               "shape_q": list(args[0].shape),
               "shape_kv": list(args[1].shape), **shape, "bytes": nbytes,
@@ -4081,6 +4109,23 @@ DS_DIST_B, DS_DIST_S, DS_DIST_L, DS_DIST_T = 4, 512, 1024, 8
 # another order than the dense path's broadcasting matmuls, so 1e-3
 DIST_LOGIT_TOL = 3e-4
 DS_DIST_LOGIT_TOL = 1e-3
+# since P13c the ranks run deepseek tensor parallel (MLA heads, the dense
+# and shared ff, the vocab split over "model"), so their hidden states sum
+# in another order than one process's (~1e-6 relative) and a router's
+# top 6 of 64 parts where its 6th and 7th probabilities lie closer than
+# that, and a parted choice spreads through attention to later tokens
+# (logit gaps of 0.44 on the H100). The one-process run the ranks are
+# held to (at DS_DIST_LOGIT_TOL)
+# therefore takes the ranks' expert choices, and every choice of its own
+# that differs must be a near tie: a 6th-to-7th probability margin under
+# DS_ROUTE_NEAR_TIE. Sound runs on the H100 read at most 1.825e-7 (5 of
+# 54,080 choices parted), so 1e-6. The same run plants perturbations of
+# its router's probabilities (uniform in +-a, a in DS_ROUTE_PLANTED; they
+# move only the recorded choices, not the forced run's path) and fails
+# unless each reads a parted margin above the limit: a fault of that
+# size in the ranks' routing would not pass
+DS_ROUTE_NEAR_TIE = 1e-6
+DS_ROUTE_PLANTED = (1e-4, 1e-5)
 # the launcher under --mesh 2x1: smollm-135m at full width, 8 x 2,048
 # tokens a step (4 x 2,048 a rank), against the one-process launcher.
 # Step 1 holds to TRAIN_LOSS_TOL / TRAIN_GNORM_TOL (the same weights;
@@ -4147,10 +4192,60 @@ def _rank_setup():
     return dev, make_local_mesh(1, 2)
 
 
-def _dist_decode_rank(arch, changes, B, S, T, L):
+class _Routes:
+    """Every MoE routing decision of a run (``moe._route`` wrapped): each
+    call's chosen experts and its k-th to (k+1)-th probability margin,
+    on the host. With ``force`` (another run's chosen experts, call by
+    call) each call takes those experts instead, weighted by its own
+    probabilities as ``_route`` weights its own. With ``planted``
+    (amplitudes a), each call also records the choices and margins of
+    its probabilities plus uniform noise in +-a (``self.planted[a]``),
+    which the run does not take."""
+
+    def __init__(self, force=None, planted=()):
+        self.force, self.idx, self.margin = force, [], []
+        self.planted = {a: ([], []) for a in planted}
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import moe
+        self._orig = orig = moe._route
+        gen = {}
+
+        def route(logits, k):
+            w, idx, probs = orig(logits, k)
+            top = torch.sort(probs, dim=-1, descending=True)[0]
+            self.margin.append((top[:, k - 1] - top[:, k]).cpu().numpy())
+            self.idx.append(idx.cpu().numpy())
+            for a, (pidx, pmargin) in self.planted.items():
+                g = gen.setdefault(a, torch.Generator(
+                    device=probs.device).manual_seed(5))
+                noise = torch.rand(probs.shape, generator=g,
+                                   device=probs.device) * 2 - 1
+                top, chosen = torch.topk(probs + a * noise, k + 1, dim=-1)
+                pmargin.append((top[:, k - 1] - top[:, k]).cpu().numpy())
+                pidx.append(chosen[:, :k].cpu().numpy())
+            if self.force is not None:
+                idx = torch.as_tensor(self.force[len(self.idx) - 1],
+                                      device=idx.device)
+                w = torch.gather(probs, -1, idx)
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+            return w, idx, probs
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route = self._orig
+
+
+def _dist_decode_rank(arch, changes, B, S, T, L, routes=False):
     """One rank of a 1x2 gloo group on the card: the model at full width
-    under the mesh (``Model.init`` keeps this rank's experts), a prefill
-    and T decode steps; its gathered logits and counts."""
+    under the mesh (``Model.init`` keeps this rank's slice of every
+    weight by the rules), a prefill and T decode steps; its gathered
+    logits and counts (with ``routes``, its MoE routing decisions)."""
     import torch
 
     from repro_torch import sharding
@@ -4168,8 +4263,11 @@ def _dist_decode_rank(arch, changes, B, S, T, L):
         zero_launches()
         seq_sharded_decode.calls = seq_sharded_decode.all_reduces = 0
         moe_apply.all_reduces = 0
-        logits, cache, ms = _decode_run(model, params, toks, S, T, L, dev)
+        with _Routes() as rec:
+            logits, cache, ms = _decode_run(model, params, toks, S, T, L,
+                                            dev)
         out = {"logits": logits.numpy(), "launches": read_launches(),
+               "routes": rec.idx if routes else [],
                "blocks": read_blocks(),
                "seq_decode_calls": seq_sharded_decode.calls,
                "seq_decode_all_reduces": seq_sharded_decode.all_reduces,
@@ -4261,6 +4359,37 @@ def dist_world1_phase(device, card):
                              f"differs: launches {got} vs {want}")
 
 
+class _MeshShape:
+    """A mesh's sizes alone (``sharding.mesh_shape`` reads ``.shape``)."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+
+
+def rules_weight_bytes(cfg, data=1, model=2):
+    """The fp32 weight bytes a device of a (data, model) mesh holds under
+    the reference's rules (``Model.axes()``, ``DEFAULT_RULES``), from the
+    shapes alone: what each rank must hold."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.launch.dryrun import param_bytes
+    from repro_torch.models.model import get_model
+    return param_bytes(get_model(cfg), torch.float32,
+                       _MeshShape(data=data, model=model),
+                       rules=sharding.DEFAULT_RULES)
+
+
+def _hold_weights(name, cfg, outs):
+    """Each rank's weight bytes against the rules' figure, to the byte."""
+    want = rules_weight_bytes(cfg)
+    got = [o["weight_bytes"] for o in outs]
+    if any(g != want for g in got):
+        raise AssertionError(f"{name}: weight bytes a rank {got}, the "
+                             f"rules place {want}")
+    return want
+
+
 def _hold_ranks(name, outs, want, tol):
     import numpy as np
     gaps = [float(np.abs(o["logits"] - want).max()) for o in outs]
@@ -4288,6 +4417,7 @@ def dist_smollm_phase(device, card):
     outs = _run_gloo_ranks(_dist_decode_rank, (DIST_ARCH, {}, DIST_B,
                                                DIST_S, DIST_T, DIST_L))
     gaps = _hold_ranks("dist smollm", outs, want.numpy(), DIST_LOGIT_TOL)
+    rules = _hold_weights("dist smollm", cfg, outs)
     L = cfg.num_layers
     for r, o in enumerate(outs):
         lw = dict.fromkeys(kernel_fns(), 0) | {"flash_attention": L}
@@ -4308,6 +4438,8 @@ def dist_smollm_phase(device, card):
           "logit_max_abs_gap": gaps, "tol": DIST_LOGIT_TOL,
           "cache_bytes_rank": [o["cache_bytes"] for o in outs],
           "cache_bytes_one_process": full_bytes,
+          "weight_bytes_rank": [o["weight_bytes"] for o in outs],
+          "weight_bytes_by_rules": rules,
           "launches_rank": [o["launches"] for o in outs],
           "all_reduces_per_step": outs[0]["seq_decode_all_reduces"]
           / DIST_T,
@@ -4337,20 +4469,79 @@ def ds_dist_want(cfg, params, device):
     return logits.numpy(), ms
 
 
-def dist_deepseek_phase(card, want):
+def _parted(choices, margins, routes):
+    """(The decisions whose top k differs from ``routes``', the largest
+    of those decisions' margins)."""
+    import numpy as np
+    parted, worst = 0, 0.0
+    for own, forced, margin in zip(choices, routes, margins):
+        diff = (np.sort(own, -1) != np.sort(forced, -1)).any(-1)
+        parted += int(diff.sum())
+        if diff.any():
+            worst = max(worst, float(margin[diff].max()))
+    return parted, worst
+
+
+def ds_forced_run(cfg, device, routes):
+    """The one-process card run on the ranks' expert choices
+    (``routes``): (logits, (the decisions where its own top k differs,
+    the largest of those decisions' margins), the same for each planted
+    perturbation of ``DS_ROUTE_PLANTED``)."""
+    import torch
+
+    from repro_torch.models.model import get_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = get_model(cfg).init(seed=0, device=device)
+    with _Routes(force=routes, planted=DS_ROUTE_PLANTED) as rec:
+        logits, cache, _ = _decode_run(
+            get_model(cfg), params, _dist_tokens(
+                cfg, DS_DIST_B, DS_DIST_S + DS_DIST_T), DS_DIST_S,
+            DS_DIST_T, DS_DIST_L, device)
+    del params, cache
+    return logits.numpy(), _parted(rec.idx, rec.margin, routes), {
+        a: _parted(*rec.planted[a], routes) for a in DS_ROUTE_PLANTED}
+
+
+def dist_deepseek_phase(card, want, device):
     """deepseek-v2-lite-16b at full width and depth on a 1x2 mesh of two
-    gloo ranks on the card: MLA's sequence-sharded latent decode and the
-    expert-parallel MoE, 32 experts a rank. Gathered logits against the
-    one-process run (``want``: logits, decode ms), MLA and MoE calls
-    exact, each rank's peak memory."""
+    gloo ranks on the card: MLA's heads split and its sequence-sharded
+    latent decode, the dense and shared ff and the vocab split, the
+    expert-parallel MoE, 32 experts a rank, each rank's weights the
+    rules' bytes. The ranks' routing decisions are equal; their gathered
+    logits are held to the one-process run on the ranks' expert choices
+    (``ds_forced_run``), whose own choices part from them only at near
+    ties (``DS_ROUTE_NEAR_TIE``), which each planted perturbation
+    exceeds; ``want`` (logits, decode ms), the one-process run on its
+    own choices, is read out beside. MLA and MoE calls exact, each
+    rank's peak memory."""
+    import numpy as np
+
     from repro_torch.configs.base import get_config
     cfg = ds_dist_config(get_config(P12B))
     changes = {"capacity_factor": cfg.capacity_factor}
-    logits, ms = want
+    free_logits, ms = want
     outs = _run_gloo_ranks(_dist_decode_rank, (P12B, changes, DS_DIST_B,
                                                DS_DIST_S, DS_DIST_T,
-                                               DS_DIST_L))
+                                               DS_DIST_L, True))
+    routes = outs[0]["routes"]
+    if len(routes) != len(outs[1]["routes"]) or not all(
+            np.array_equal(a, b) for a, b in zip(routes, outs[1]["routes"])):
+        raise AssertionError("dist deepseek: the two ranks routed apart")
+    rules = _hold_weights("dist deepseek", cfg, outs)
+    logits, (parted, worst), planted = ds_forced_run(cfg, device, routes)
+    free_gaps = [float(np.abs(o["logits"] - free_logits).max())
+                 for o in outs]
     gaps = _hold_ranks("dist deepseek", outs, logits, DS_DIST_LOGIT_TOL)
+    if worst > DS_ROUTE_NEAR_TIE:
+        raise AssertionError(f"dist deepseek: the one-process run's own "
+                             f"routing parts from the ranks' at a margin "
+                             f"of {worst} (> {DS_ROUTE_NEAR_TIE})")
+    blind = {a: r for a, r in planted.items() if r[1] <= DS_ROUTE_NEAR_TIE}
+    if blind:
+        raise AssertionError(f"dist deepseek: planted router perturbations "
+                             f"{blind} (amplitude: parted, margin) read no "
+                             f"margin above {DS_ROUTE_NEAR_TIE}")
     L = cfg.num_layers
     n_moe = L - cfg.first_dense_layers
     fwd = 1 + DS_DIST_T
@@ -4369,8 +4560,15 @@ def dist_deepseek_phase(card, want):
           "prompt": DS_DIST_S, "max_len": DS_DIST_L,
           "decode_steps": DS_DIST_T, "capacity_factor": cfg.capacity_factor,
           "logit_max_abs_gap": gaps, "tol": DS_DIST_LOGIT_TOL,
+          "routing_decisions": sum(len(r) for r in routes),
+          "own_routing_parted": parted, "parted_max_margin": worst,
+          "near_tie": DS_ROUTE_NEAR_TIE,
+          "planted": {str(a): {"parted": r[0], "max_margin": r[1]}
+                      for a, r in planted.items()},
+          "logit_max_abs_gap_own_routing": free_gaps,
           "blocks_rank": [o["blocks"] for o in outs],
           "weight_bytes_rank": [o["weight_bytes"] for o in outs],
+          "weight_bytes_by_rules": rules,
           "cache_bytes_rank": [o["cache_bytes"] for o in outs],
           "decode_step_ms_median": {
               "one_process": sorted(ms)[len(ms) // 2],
@@ -4451,22 +4649,175 @@ def dist_group(device, timed, card, ds_want, rows):
         rows[k]["launches_p13a"] = {"smollm-135m 1x2, a rank": launches[k]}
     gc.collect()
     torch.cuda.empty_cache()
-    timed("dist deepseek 1x2", dist_deepseek_phase, card, ds_want)
+    timed("dist deepseek 1x2", dist_deepseek_phase, card, ds_want, device)
     gc.collect()
     torch.cuda.empty_cache()
     timed("dist train --mesh 2x1", dist_train_phase, card)
 
 
+# ------------- P13c: weights placed by the rules, qwen3-32b on the card
+
+P13C = "qwen3-32b"
+# one process on the paged main path: the first 28 of its 64 layers at
+# full widths, 28 x 1.950 GB + 6.223 GB of embedding tables = 60.8 GB of
+# fp32 weights (deepseek's 62.8 GB already load on the card)
+P13C_LAYERS = 28
+# tensor parallel on a (data 1, model 2) mesh of two gloo ranks on the
+# card: the first 8 layers, each rank 8 x 0.975 GB + 3.11 GB of its
+# vocab halves; 4 rows of 256-token prompts, 8 decode steps, a 512-slot
+# fp32 cache (fp32 as the P13a comparisons: a bf16 cache turns another
+# summation order's ~1e-7 gaps into bf16-ulp flips)
+P13C_TP_LAYERS = 8
+P13C_B, P13C_S, P13C_T, P13C_L = 4, 256, 8, 512
+# the ranks' gathered logits against one process on the same cut: the
+# reference's own tolerance for a sharded decode against a single
+# device (tests/test_system.py, rtol/atol 3e-4), as DIST_LOGIT_TOL
+P13C_TP_TOL = DIST_LOGIT_TOL
+
+
+def _p13c_tp_rank(layers, B, S, T, L):
+    """One rank of a (data 1, model 2) gloo group on the card: qwen3-32b
+    cut to ``layers`` at full widths, its weights drawn whole and sliced
+    by the rules (``Model.init`` under the mesh), a prefill and T decode
+    steps on an fp32 cache; its gathered logits, launches, heads and
+    bytes."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import get_model
+    dev, mesh = _rank_setup()
+    cfg = dataclasses.replace(get_config(P13C), num_layers=layers)
+    model = get_model(cfg)
+    with sharding.axis_rules(mesh):
+        params = model.init(seed=0, device=dev)
+        weights = tensor_bytes(params)
+        toks = _dist_tokens(cfg, B, S + T)
+        zero_launches()
+        logits, cache, ms = _decode_run(model, params, toks, S, T, L, dev)
+        return {"logits": logits.numpy(), "launches": read_launches(),
+                "weight_bytes": weights, "cache_bytes": _cache_bytes(cache),
+                "q_heads": params["layers"][0]["mixer"]["wq"].shape[1]
+                // cfg.head_dim,
+                "kv_heads": cache[0]["k"].shape[2],
+                "ff": params["layers"][0]["mlp"]["w_down"].shape[0],
+                "vocab": params["embed"].shape[0], "decode_ms": ms,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                "backend": torch.distributed.get_backend()}
+
+
+def p13c_tp_phase(cfg, want, card):
+    """qwen3-32b on two gloo ranks as (data 1, model 2): each rank's
+    weights exactly the rules' (to the byte), 32 q and 4 kv heads, half
+    of ff and vocab; K4 once a layer of the prefill and K3 once a layer
+    a step on each rank, no other kernel; the gathered logits within
+    ``P13C_TP_TOL`` of the one-process run ``want`` (logits, decode ms)
+    on the same cut."""
+    logits, ms = want
+    outs = _run_gloo_ranks(_p13c_tp_rank, (P13C_TP_LAYERS, P13C_B, P13C_S,
+                                           P13C_T, P13C_L))
+    gaps = _hold_ranks("p13c tp", outs, logits, P13C_TP_TOL)
+    rules = _hold_weights("p13c tp", cfg, outs)
+    L = cfg.num_layers
+    lw = dict.fromkeys(kernel_fns(), 0) | {"flash_attention": L,
+                                          "decode_attention": L * P13C_T}
+    for r, o in enumerate(outs):
+        shape = (o["q_heads"], o["kv_heads"], o["ff"], o["vocab"])
+        if o["launches"] != lw or shape != (
+                cfg.num_heads // 2, cfg.num_kv_heads // 2, cfg.d_ff // 2,
+                cfg.vocab_size // 2):
+            raise AssertionError(f"p13c tp rank {r}: launches "
+                                 f"{o['launches']} (want {lw}), q/kv heads,"
+                                 f" ff, vocab {shape}")
+    emit({"phase": "p13c tp 1x2", "card": card, "model": cfg.name,
+          "layers": L, "of": 64, "backend": outs[0]["backend"], "ranks": 2,
+          "batch": P13C_B, "prompt": P13C_S, "max_len": P13C_L,
+          "decode_steps": P13C_T, "logit_max_abs_gap": gaps,
+          "tol": P13C_TP_TOL,
+          "weight_bytes_rank": [o["weight_bytes"] for o in outs],
+          "weight_bytes_by_rules": rules,
+          "cache_bytes_rank": [o["cache_bytes"] for o in outs],
+          "q_heads_rank": outs[0]["q_heads"],
+          "kv_heads_rank": outs[0]["kv_heads"],
+          "launches_rank": [o["launches"] for o in outs],
+          "decode_step_ms_median": {
+              "one_process": sorted(ms)[len(ms) // 2],
+              "ranks": [sorted(o["decode_ms"])[len(o["decode_ms"]) // 2]
+                        for o in outs]},
+          "peak_memory_bytes_rank": [o["peak_memory_bytes"] for o in outs]})
+    return outs[0]["launches"]
+
+
+def p13c_group(device, timed, card, rows):
+    """P13c on the card, after everything else is freed: qwen3-32b at
+    ``P13C_LAYERS`` of 64 layers on the paged main path (the quickstart
+    traffic through ``TickOrchestrator``, K1/K2 launches exact); the
+    replay of the card against the CPU at the 2-layer cut; the one-process
+    decode at the ``P13C_TP_LAYERS`` cut, then the same cut tensor
+    parallel on two gloo ranks (``p13c_tp_phase``). The kernel rows take
+    the main path's K1/K2 launches and a rank's K3/K4."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import get_model
+    from repro_torch.serving.batcher import PagedContinuousBatcher
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": f"memory before {P13C}",
+          "memory_allocated_bytes": torch.cuda.memory_allocated()})
+    full = get_config(P13C)
+    cfg = dataclasses.replace(full, num_layers=P13C_LAYERS)
+    params = timed(f"init {P13C}", get_model(cfg).init, seed=0,
+                   device=device)
+    emit({"phase": f"params {P13C}", "layers": P13C_LAYERS,
+          "of": full.num_layers,
+          "parameters": sum(t.numel() for t in _tensors(params)),
+          "weight_bytes": tensor_bytes(params),
+          "memory_allocated_bytes": torch.cuda.memory_allocated()})
+    launches, _, _ = timed(P13C, serve_path, P13C, cfg, params, device)
+    for k in ("paged_decode_attention", "chunked_prefill_attention"):
+        rows[k].setdefault("launches_p13c", {})[
+            f"{P13C} {P13C_LAYERS} layers"] = launches[k]
+    ccfg, cut = cut_model(cfg, params)
+    cpu = torch.device("cpu")
+    runs = [(device, cut), (cpu, params_to(cut, cpu))]
+    timed(f"replay {P13C}", replay, f"replay {P13C}", ccfg, runs,
+          lambda dev, p: PagedContinuousBatcher(
+              ccfg, params=p, num_slots=4, max_len=256, device=dev),
+          _capture_fused)
+    del runs, cut
+    tcfg, tp = cut_model(cfg, params, P13C_TP_LAYERS, "tp cut")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = timed(f"tp want {P13C}", _decode_run, get_model(tcfg), tp,
+                _dist_tokens(tcfg, P13C_B, P13C_S + P13C_T), P13C_S, P13C_T,
+                P13C_L, device)
+    logits, ms = res[0], res[2]
+    del tp, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = timed("p13c tp 1x2", p13c_tp_phase, tcfg, (logits.numpy(), ms),
+                card)
+    for k in ("decode_attention", "flash_attention"):
+        rows[k]["launches_p13c"] = {
+            f"{P13C} {P13C_TP_LAYERS} layers 1x2, a rank": got[k]}
+
+
 # ----------------------- P13b: WAVES routing inside the serve step, dry-run
 
 # qwen3-4b, the reference's own routed-serve arch, at full width on its
-# first SERVE_LAYERS layers: 16 prompts of 128 tokens prefilled stacked
+# first P13B_LAYERS layers: 16 prompts of 128 tokens prefilled stacked
 # (K4) into a 2,048-slot cache, then 8 routed decode steps (K3) in each
 # variant, in one process and on two gloo ranks as a (pod 2, data 1,
 # model 1) mesh (each rank 8 rows). Both on an fp32 cache, as the P13a
 # comparisons: in bf16 a ~1e-7 gap of another summation order flips a
 # stored value by a bf16 ulp, which the gate would then measure
 P13B_ARCH = "qwen3-4b"
+# its cut: 4 of 36 layers since P13c (8 before), whose qwen3-32b phases
+# take the seconds; the migrating variant's gloo staging of the cache
+# scales with the layers
+P13B_LAYERS = 4
 P13B_B, P13B_PROMPT, P13B_MAX_LEN, P13B_STEPS = 16, 128, 2048, 8
 # the sensitivities' seed: both pods get requests, and at step 1 half of
 # the 16 rows change rank (read out as ``rows_changing_rank``)
@@ -4548,7 +4899,7 @@ def _p13b_rank(cache_dir):
     torch.backends.cudnn.allow_tf32 = False
     dev = rank_device(None)
     mesh = make_local_mesh(1, 1, pod=2)
-    model = _p13b_model(SERVE_LAYERS)
+    model = _p13b_model(P13B_LAYERS)
     n = P13B_PROMPT + P13B_STEPS
     with sharding.axis_rules(mesh):
         params = model.init(seed=0, device=dev)
@@ -4614,7 +4965,7 @@ def p13b_routed_phase(device, card):
 
     import numpy as np
     import torch
-    model = _p13b_model(SERVE_LAYERS)
+    model = _p13b_model(P13B_LAYERS)
     cfg = model.cfg
     params = model.init(seed=0, device=device)
     one = _routed_runs(model, params, P13B_PROMPT, P13B_MAX_LEN,
@@ -4848,7 +5199,7 @@ def p13b_group(device, timed, card, rows):
                          card)
         for k in ("decode_attention", "flash_attention"):
             rows[k]["launches_p13b"] = {
-                f"{P13B_ARCH} {SERVE_LAYERS} layers, a variant, one "
+                f"{P13B_ARCH} {P13B_LAYERS} layers, a variant, one "
                 f"process or a rank": launches[k]}
         gc.collect()
         torch.cuda.empty_cache()
@@ -5726,6 +6077,9 @@ def main() -> int:
     ds_want = p12b_group(gpu, timed, rows)
     # P13a: the distributed slice on gloo ranks on the card
     dist_group(gpu, timed, card, ds_want, rows)
+    # P13c: qwen3-32b on the card: the paged main path at a 28-layer cut,
+    # its replay, and tensor parallel over two gloo ranks
+    p13c_group(gpu, timed, card, rows)
     # P13b: WAVES routing inside the serve step, and the dry-run's CLIs
     p13b_group(gpu, timed, card, rows)
     # P14a: training on the card, last (paligemma's weights and AdamW

@@ -13,12 +13,16 @@ reference stacks its (E, d, f) experts to (G, E, d, f)), an MLA mixer,
 and the dense first layers (``head_{i}``) cross like any other.
 
 ``shard_params`` takes the reference's parameters to this rank's local
-slices under a mesh (the leaves ``sharding.LOCAL_RULES`` splits: an MoE
-block's experts), as ``Model.init`` under the mesh keeps them.
+slices under a mesh (``sharding.LOCAL_RULES``: the reference's rules,
+"fsdp" off), as ``Model.init`` under the mesh keeps them.
 
 ``opt_state_from_reference`` carries the reference's AdamW state (its
 ``mu`` tree mirrors the reference's params) into the port's layout, so
-that a train step can resume from it and the tests can compare states.
+that a train step can resume from it and the tests can compare states,
+and ``opt_state_to_reference`` inverts it. A factored state crosses
+too: a stacked leaf's ``vr``/``vc`` rows are per layer, except a
+grouped 1-D leaf's, which are its group's (``state["groups"]``, in
+pattern-slot order, as ``models.steps.stacked_groups``).
 
 ``dense_cache_from_reference``/``dense_cache_to_reference`` do the same
 for a dense decode cache (the reference's ``init_cache`` tree, whose
@@ -56,7 +60,8 @@ import torch
 from repro_torch.models.model import effective_pattern
 # the leaves of a nested dict in ``jax.tree.leaves`` order (sorted keys,
 # depth first), and back
-from repro_torch.training.optim import tree_leaves, tree_unflatten
+from repro_torch.training.optim import (at, nest, tree_leaves,
+                                        tree_unflatten, vector_paths)
 
 
 def _is_bf16(a: np.ndarray) -> bool:
@@ -176,29 +181,105 @@ def _stack(trees):
 
 def opt_state_from_reference(cfg, ref_state, device="cpu"):
     """The reference's AdamW state (``{"mu": ..., "step": ...}``, numpy
-    leaves; ``mu`` mirrors its param tree with an ``{"m", "v"}`` dict at
-    every leaf) -> the port's (``mu`` mirroring the port's params), by
-    ``from_reference``'s layer order. A factored state (``vr``/``vc``) is
-    refused: the reference factors a pattern group's vectors across the
-    layers it stacks, and those statistics do not split by layer."""
+    leaves; ``mu`` mirrors its param tree with an ``{"m", "v"}`` or a
+    factored ``{"m", "vr", "vc"}`` dict at every leaf) -> the port's
+    (``mu`` mirroring the port's params, by ``from_reference``'s layer
+    order; a factored grouped 1-D leaf's ``vr``/``vc`` in
+    ``groups``)."""
     mu = ref_state["mu"]
-    if any(k in ("vr", "vc") for k in _keys(mu)):
-        raise ValueError("opt_state_from_reference: a factored second "
-                         "moment does not split by layer")
-    top = {k: _map(v, lambda a: to_torch(a, device)) for k, v in mu.items()
+
+    def whole(leaf, path=None):
+        return {k: to_torch(a, device) for k, a in leaf.items()}
+    top = {k: _map_moments(v, whole) for k, v in mu.items()
            if not (k.startswith(("head_", "tail_")) or k == "blocks")}
-    layers = []
+    layers, stats = [], {}
     for key, g in _layer_order(cfg, mu):
         if g is None:
-            layers.append(_map(mu[key], lambda a: to_torch(a, device)))
-        else:
-            layers.append(_map(mu["blocks"][key],
-                               lambda a, g=g: to_torch(a[g], device)))
+            layers.append(_map_moments(mu[key], whole))
+            continue
+        block = mu["blocks"][key]
+        vec = _group_vectors(block)
+        layers.append(_map_moments(block, lambda leaf, path, g=g, vec=vec: {
+            k: to_torch(a[g], device) for k, a in leaf.items()
+            if k == "m" or path not in vec}))
+        stats.setdefault(key, nest(vec, lambda path, b=block: whole(
+            {k: at(b, path)[k] for k in ("vr", "vc")})))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"bridged {len(layers)} layers, config has "
                          f"{cfg.num_layers}")
-    return {"mu": {**top, "layers": layers},
-            "step": to_torch(np.asarray(ref_state["step"]), device)}
+    out = {"mu": {**top, "layers": layers},
+           "step": to_torch(np.asarray(ref_state["step"]),
+                            device).reshape(())}
+    groups = [stats[f"slot{s}"] for s in range(len(stats))]
+    if any(groups):
+        out["groups"] = groups
+    return out
+
+
+def opt_state_to_reference(cfg, state, like):
+    """Invert ``opt_state_from_reference``: the port's AdamW state -> a
+    numpy tree in the reference's layout (``like``: the reference's
+    state, numpy leaves)."""
+    mu, lmu = state["mu"], like["mu"]
+    out = {k: _pair_moments(mu[k], lmu[k]) for k in lmu
+           if not (k.startswith(("head_", "tail_")) or k == "blocks")}
+    stacked: dict = {}
+    for (key, g), layer in zip(_layer_order(cfg, lmu), mu["layers"]):
+        if g is None:
+            out[key] = _pair_moments(layer, lmu[key])
+        else:
+            stacked.setdefault(key, []).append(layer)
+    if stacked:
+        groups = state.get("groups", [])
+        out["blocks"] = {}
+        for s, key in enumerate(sorted(stacked, key=lambda k: int(k[4:]))):
+            out["blocks"][key] = _stack_moments(
+                stacked[key], lmu["blocks"][key],
+                groups[s] if s < len(groups) else {})
+    return {"mu": out, "step": np.asarray(state["step"].cpu().numpy())}
+
+
+def _is_moment(node) -> bool:
+    return isinstance(node, dict) and "m" in node and not isinstance(
+        node["m"], dict)
+
+
+def _map_moments(tree, fn, path=()):
+    """``fn(moment dict, its path)`` on every moment dict (``{"m",
+    ...}``) of a state tree."""
+    if _is_moment(tree):
+        return fn(tree, path)
+    return {k: _map_moments(v, fn, path + (k,)) for k, v in tree.items()}
+
+
+def _group_vectors(block) -> list:
+    """The paths of a stacked block's grouped 1-D leaves (``vector_paths``
+    of its per-layer ``m``) whose ``vr``/``vc`` are the group's: those
+    of a factored state."""
+    return [p for p in vector_paths(_map_moments(
+        block, lambda leaf, path: leaf["m"][0])) if "vr" in at(block, p)]
+
+
+def _pair_moments(tree, like):
+    if _is_moment(like):
+        return {k: to_numpy(tree[k], like[k]) for k in like}
+    return {k: _pair_moments(tree[k], like[k]) for k in like}
+
+
+def _stack_moments(layers, like, stats):
+    """The reference's stacked moment dicts from the port's per-layer
+    ones (``layers``) and the group's vector statistics ``stats``."""
+    vec = _group_vectors(like)
+
+    def one(leaf, path):
+        out = {k: np.stack([to_numpy(at(t, path)[k], leaf[k])
+                            for t in layers])
+               for k in leaf if k == "m" or path not in vec}
+        if path in vec:
+            out.update({k: to_numpy(at(stats, path)[k])
+                        for k in ("vr", "vc")})
+        return out
+    return _map_moments(like, one)
 
 
 def _keys(tree):

@@ -32,21 +32,22 @@ two of its own:
   counted with the reference's ring estimate (``ring_bytes``, its
   ``parse_collectives``) for the op's own group size, and their sum in
   ``collective_bytes``;
-* ``param_bytes_placed`` (port only): the weights a rank of the port
-  holds. Outside the MoE block and the sequence-sharded decode every
-  weight is replicated (``sharding.LOCAL_RULES``); an MoE block's
-  experts are the rank's slice;
+* ``param_bytes_placed`` (port only): the bytes of the weights rank 0
+  of the port holds, read from the local tensors the step ran on: every
+  weight's slice under ``sharding.LOCAL_RULES`` (the reference's rules
+  with "fsdp" off);
 * ``param_bytes_by_rules`` (port only): the weights a device holds under
   ``Model.axes()`` and the reference's rules (with ``apply_fsdp`` under
   ``--fsdp``, applied to the port's per-layer leaves, where the
   reference's stacked ones may pick another dim), which is what the
-  reference places. The two differ by the port's replication.
+  reference places. Without ``--fsdp`` the two are equal; under it the
+  port still places weights without the data-axis split (``note``).
 
 ``transcendentals``, ``compile_s`` and ``hlo_bytes`` have no counterpart
 here and are ``None``, each with its reason in ``note``. A train step
-with the factored second moment (the reference asks for it for configs
-of 64 experts or more) fails with the port's refusal
-(``models.steps.make_train_step``). The long-context sliding-window
+takes the factored second moment for configs of 64 experts or more, as
+the reference's (``models.steps.init_opt_state``, in the reference's
+stacked layout). The long-context sliding-window
 variant runs with ``cfg.attn_window`` set to ``SLIDING_WINDOW``: the
 port's steps take no ``window`` argument.
 
@@ -76,8 +77,8 @@ from repro_torch.launch.mesh import fake_world, make_production_mesh
 from repro_torch.launch.specs import (decode_window, input_specs,
                                       needs_sliding_window)
 from repro_torch.models.model import get_model
-from repro_torch.models.steps import (make_prefill_step, make_serve_step,
-                                      make_train_step)
+from repro_torch.models.steps import (init_opt_state, make_prefill_step,
+                                      make_serve_step, make_train_step)
 from repro_torch.training import optim
 
 RESULTS = Path(__file__).resolve().parents[3] / "build" / "dryrun"
@@ -94,7 +95,13 @@ NOTE = {
     "generated_code_bytes": "no generated code",
     "collectives": "per c10d op, the reference's ring estimate "
                    "(parse_collectives) for the op's group size",
+    "param_bytes_placed": "the weights rank 0 holds: each leaf's slice "
+                          "under the reference's rules with fsdp off",
 }
+# an --fsdp record's placed weights keep the model-axis placement
+FSDP_NOTE = ("--fsdp: param_bytes_by_rules splits weights over the data "
+             "axes as apply_fsdp does; the port does not, so "
+             "param_bytes_placed is the placement without it")
 
 # ------------------------------------------------------ collective bytes
 
@@ -274,7 +281,9 @@ def local_params(model, dtype):
 def param_bytes(model, dtype, mesh, *, fsdp=False, rules=None) -> int:
     """Bytes of the weights a device holds under ``rules`` (None: the
     port's ``LOCAL_RULES``; ``sharding.DEFAULT_RULES``: the reference's
-    placement by ``Model.axes()``, with ``apply_fsdp`` under ``fsdp``)."""
+    placement by ``Model.axes()``, with ``apply_fsdp`` under ``fsdp``).
+    Shapes only: ``lower_one`` reads what the rank holds from its
+    tensors."""
     abstract, axes = model.abstract(dtype), model.axes()
     if fsdp:
         axes = sharding.apply_fsdp(abstract, axes, mesh)
@@ -302,7 +311,7 @@ def build_step(cfg, shape, model, opt_dtype="float32"):
     window = decode_window(cfg, shape)
     if kind == "train":
         opt_cfg = optim.AdamWConfig(
-            # 1T-class MoE: the factored second moment (the port refuses it)
+            # 1T-class MoE: the factored second moment
             factored=cfg.num_experts >= 64,
             state_dtype=opt_dtype)
         return kind, make_train_step(model, opt_cfg, remat=True), inp, \
@@ -331,7 +340,7 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool,
                                                       opt_dtype=opt_dtype)
         params = local_params(model, dtype)
         if kind == "train":
-            opt_state = optim.init_state(opt_cfg, params)
+            opt_state = init_opt_state(model, opt_cfg, params)
             lowered = count_step(step, params, opt_state, inp)
             # the rank's argument is its rows of the batch (the step
             # slices them out of the global batch it takes)
@@ -353,7 +362,8 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool,
             loc = local_inputs(inp)
             lowered = count_step(step, params, cache, loc["token"],
                                  loc["pos"])
-        lowered.memory["param_bytes_placed"] = param_bytes(model, dtype, mesh)
+        lowered.memory["param_bytes_placed"] = sum(
+            _nbytes(t) for t in optim.tree_leaves(params))
         lowered.memory["param_bytes_by_rules"] = param_bytes(
             model, dtype, mesh, fsdp=fsdp, rules=sharding.DEFAULT_RULES)
     return lowered, n_dev, kind, window
@@ -404,7 +414,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
             "hlo_bytes": None,
             "param_bytes_placed": mem["param_bytes_placed"],
             "param_bytes_by_rules": mem["param_bytes_by_rules"],
-            "note": NOTE,
+            "note": {**NOTE, **({"param_bytes_placed": FSDP_NOTE}
+                                if fsdp else {})},
         })
         rec["ok"] = True
         print(f"[ok]   {tag}  lower={t_lower:.1f}s "
@@ -435,8 +446,9 @@ def main(argv=None):
                     help="per-pod data x model, e.g. 64x4 (perf experiments)")
     ap.add_argument("--fsdp", action="store_true",
                     help="ZeRO-3-style weight sharding over the data axis "
-                         "(param_bytes_by_rules only: the port replicates "
-                         "dense weights)")
+                         "(param_bytes_by_rules only: the port still "
+                         "places weights by the model axis alone, "
+                         "replicated over the data axes)")
     ap.add_argument("--kv-dtype", default="bfloat16",
                     help="decode cache dtype (e.g. float8_e4m3fn)")
     ap.add_argument("--tag", default="", help="extra tag for the result file")

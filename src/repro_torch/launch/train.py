@@ -25,7 +25,12 @@ unchanged; it then returns rank 0's ``hist``, and only rank 0 prints.
 ``--backend`` is gloo on the CPU and NCCL on the card (one rank a card)
 by default; gloo on the card runs several ranks on one card. Checkpoints
 are written in the global layout (every shard gathered, rank 0 writes),
-so a run with ``--mesh`` resumes one without it, and the reverse.
+so a run with ``--mesh`` resumes one without it, and the reverse. Under
+the mesh each rank holds its slice of every weight by the reference's
+rules (``sharding.LOCAL_RULES``: heads, ff, vocab, ssm_heads and lru
+tensor-parallel over "model", experts over "model"). The checkpoint
+carries the AdamW state as ``models.steps.init_opt_state`` lays it out
+(a factored one with its groups' statistics).
 """
 from __future__ import annotations
 
@@ -45,7 +50,8 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch.mesh import (default_backend, make_local_mesh,
                                      rank_device, run_ranks)
 from repro_torch.models.model import get_model, resolve_device
-from repro_torch.models.steps import make_train_step
+from repro_torch.models.steps import (init_opt_state, make_train_step,
+                                      stacked_groups)
 from repro_torch.training import optim
 
 # the spawned ranks' join timeout (seconds)
@@ -78,10 +84,13 @@ def _local(tree, axes, like):
 
 
 def _state_layout(ocfg, model):
-    """(axes, global shapes) of the AdamW state beside the params."""
-    ax = optim.state_axes(ocfg, model.axes())
-    shapes = optim.tree_map(lambda s: {"m": s, "v": s}, model.abstract())
-    return ax["mu"], shapes
+    """(axes, global shapes) of the AdamW state beside the params: its
+    ``mu`` and, with the factored moment, its ``groups``."""
+    groups = stacked_groups(model)
+    ax = optim.state_axes(ocfg, model.axes(), groups)
+    shapes = optim.init_state(ocfg, model.abstract(), groups)
+    return ({k: v for k, v in ax.items() if k != "step"},
+            {k: v for k, v in shapes.items() if k != "step"})
 
 
 def main(argv=None):
@@ -152,7 +161,7 @@ def _train(args, device, mesh):
                              total_steps=args.steps)
     params = model.init(seed=args.seed, dtype=getattr(torch, args.dtype),
                         device=device)
-    state = optim.init_state(ocfg, params)
+    state = init_opt_state(model, ocfg, params)
     data = SyntheticLM(cfg.vocab_size, args.batch, args.seq, seed=args.seed,
                        frontend=cfg.frontend, d_model=cfg.d_model,
                        num_prefix=cfg.num_prefix_tokens)
@@ -163,8 +172,8 @@ def _train(args, device, mesh):
     def save(step):       # the global layout: every shard gathered
         checkpoint_tree = {
             "params": _global(params, pax, shapes, mesh),
-            "state": {"mu": _global(state["mu"], sax, sshapes, mesh),
-                      "step": state["step"]}}
+            "state": {**_global({k: state[k] for k in sax}, sax, sshapes,
+                                mesh), "step": state["step"]}}
         if lead:
             checkpoint.save(args.ckpt_dir, checkpoint_tree, step=step)
         if mesh is not None:
@@ -177,14 +186,15 @@ def _train(args, device, mesh):
             # read the global layout on the host, keep this rank's slices
             like = optim.tree_map(
                 lambda t, g: torch.empty(g.shape, dtype=t.dtype),
-                {"params": params, "mu": state["mu"]},
-                {"params": shapes, "mu": sshapes})
+                {"params": params, **{k: state[k] for k in sax}},
+                {"params": shapes, **sshapes})
             g = checkpoint.restore(
                 Path(args.ckpt_dir) / f"step_{s:08d}",
-                {"params": like["params"],
-                 "state": {"mu": like["mu"], "step": state["step"].cpu()}})
+                {"params": like.pop("params"),
+                 "state": {**like, "step": state["step"].cpu()}})
             params = _local(g["params"], pax, params)
-            state = {"mu": _local(g["state"]["mu"], sax, state["mu"]),
+            state = {**_local({k: g["state"][k] for k in sax}, sax,
+                              {k: state[k] for k in sax}),
                      "step": g["state"]["step"].to(device)}
             start = s
             data.seek(start)

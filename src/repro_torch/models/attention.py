@@ -50,7 +50,22 @@ seq-sharded decode for a quantized cache), decodes over the whole cache:
 the owning rank writes the token and its scales, every rank dequantizes
 its slots, the slots are gathered (``decode_sharded.gather_seq``) and
 K3 runs on the global fp32 cache. Otherwise a rank's cache holds every
-slot and head and decodes through K3 as without a mesh.
+slot and its kv heads and decodes through K3 as without a mesh.
+
+Tensor parallel over "model" (``sharding.LOCAL_RULES``): a rank holds
+its columns of ``wq``, ``wk`` and ``wv`` and its rows of ``wo`` as the
+rules split them (by the flattened ``heads * head_dim`` dim). Where the
+model axis divides the heads, q (and k, v where it divides the kv heads
+too) hold the rank's heads and K1-K4 run at the local head counts;
+where it does not, the projection's columns are gathered over "model"
+(``layers.split_heads``) and every head is computed. ``wo`` is
+row-parallel, summed over "model" after it (``layers.row_parallel``).
+Where q heads are split and kv heads whole, the local q heads share one
+kv head, ``q0 // G`` (``_kv_for_q``), and a decode against the
+sequence-sharded cache gathers q's heads over "model" before the region
+and keeps the rank's heads after the merge. qk_norm acts per head, so
+its weights are read by split work (``sharding.column_in``). The paged
+pool holds the rank's kv heads; it needs a model axis that divides them.
 """
 from __future__ import annotations
 
@@ -65,8 +80,10 @@ from repro_torch.models.decode_sharded import (gather_seq, local_seq,
                                                seq_sharded_decode,
                                                slot_and_fill, use_seq_sharded,
                                                write_owned, write_prompt)
-from repro_torch.models.layers import PSpec, apply_rope, rms_norm
-from repro_torch.sharding import current_mesh
+from repro_torch.models.layers import (PSpec, apply_rope, rms_norm,
+                                       row_parallel, split_heads)
+from repro_torch.sharding import (column_in, current_mesh, model_gather,
+                                  model_offset)
 
 
 def _fp8_quantize(x, dt):
@@ -107,17 +124,44 @@ def attend_decode(q, k_cache, v_cache, valid_len, scale):
                             valid_len, scale)[:, None]
 
 
+def _kv_for_q(t, H, Hkv, Hl):
+    """K or V (B, S, Hkv, D), every kv head, for this rank's ``Hl`` of
+    ``H`` q heads where the model axis divides the q heads but not the
+    kv heads: the local q heads then lie inside one group (G = H / Hkv
+    is a multiple of Hl) and read its kv head, ``q0 // G``."""
+    G = H // Hkv
+    if G % Hl:
+        raise ValueError(f"attention: {Hl} local of {H} q heads straddle "
+                         f"the groups of {Hkv} kv heads; shard over a "
+                         f"model axis that divides or is divided by the "
+                         f"kv heads")
+    kv = model_offset(Hl) // G
+    return t[:, :, kv:kv + 1].contiguous()
+
+
 def _decode_seq_sharded(cfg, q, k, v, positions, cache, window, scale):
     """Decode one token against this rank's slots of a seq-sharded dense
-    cache (updated in place): q/k/v (B, 1, *, D) before RoPE. A plain
-    cache takes ``seq_sharded_decode``; an fp8 one is written by its
-    owning rank, gathered as fp32 and attended by K3 whole, as the
-    reference decodes a quantized cache without the seq-sharded path."""
-    B = q.shape[0]
+    cache (updated in place): q (B, 1, local q heads, D), k/v (B, 1,
+    Hkv, D) before RoPE. A plain cache takes ``seq_sharded_decode``; an
+    fp8 one is written by its owning rank, gathered as fp32 and attended
+    by K3 whole, as the reference decodes a quantized cache without the
+    seq-sharded path. Split q heads are gathered over "model" first, and
+    the rank's heads of the output kept."""
+    B, Hl = q.shape[0], q.shape[2]
     posb = (torch.zeros(B, dtype=torch.int32, device=q.device)
             + positions).to(torch.int32)
     q = apply_rope(q, posb[:, None], cfg.rope_theta)
     k = apply_rope(k, posb[:, None], cfg.rope_theta)
+    if Hl != cfg.num_heads:
+        q = model_gather(q, 2)
+    o = _decode_seq_sharded_all(cfg, q, k, v, posb, cache, window, scale)
+    if Hl != cfg.num_heads:
+        o = o.narrow(2, model_offset(Hl), Hl)
+    return o
+
+
+def _decode_seq_sharded_all(cfg, q, k, v, posb, cache, window, scale):
+    B = q.shape[0]
     if "k_scale" not in cache:
         _, _, o = seq_sharded_decode(cache["k"], cache["v"],
                                      k.to(cache["k"].dtype),
@@ -190,18 +234,32 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = hd ** -0.5
     h = rms_norm(x, p["ln"])
-    q = torch.matmul(h, p["wq"]).reshape(B, -1, H, hd)
-    k = torch.matmul(h, p["wk"]).reshape(B, -1, Hkv, hd)
-    v = torch.matmul(h, p["wv"]).reshape(B, -1, Hkv, hd)
+    # the projections' columns as the rules split them: whole heads
+    # (this rank's), or gathered where a split falls mid-head
+    hs = column_in(h)
+    q = split_heads(torch.matmul(
+        h if p["wq"].shape[1] == H * hd else hs, p["wq"]), H, hd)
+    hk = h if p["wk"].shape[1] == Hkv * hd else hs
+    k = split_heads(torch.matmul(hk, p["wk"]), Hkv, hd)
+    v = split_heads(torch.matmul(hk, p["wv"]), Hkv, hd)
+    Hl, Kl = q.shape[2], k.shape[2]
+    q_split, kv_split = Hl != H, Kl != Hkv
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
+        q = rms_norm(q, column_in(p["q_norm"]) if q_split else p["q_norm"])
+        k = rms_norm(k, column_in(p["k_norm"]) if kv_split
+                     else p["k_norm"])
+    # split q heads over replicated kv heads: each reads its global one
+    kv_whole = q_split and not kv_split
     if mode == "full":       # a whole prompt, positions 0..S-1
         S = x.shape[1]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         prefix_len = cfg.num_prefix_tokens if cfg.prefix_lm else 0
-        o = flash_attention(q, k, v, scale, window=window,
+        k_att, v_att = k, v
+        if kv_whole:
+            k_att = _kv_for_q(column_in(k), H, Hkv, Hl)
+            v_att = _kv_for_q(column_in(v), H, Hkv, Hl)
+        o = flash_attention(q, k_att, v_att, scale, window=window,
                             prefix_len=prefix_len)
         if cache is not None:
             W = cache["k"].shape[1]
@@ -245,6 +303,11 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
             k_att, v_att = cache["k"], cache["v"]
         o = attend_decode(q, k_att, v_att, torch.clamp(posb + 1, max=W),
                           scale)
+    elif kv_whole:
+        raise ValueError(
+            f"attention: the paged pool holds every one of {Hkv} kv heads "
+            f"while this rank holds {Hl} of {H} q heads; page a mesh "
+            f"whose model axis divides the kv heads")
     elif mode == "chunk":    # page-aligned prefill chunks into the paged pool
         kp, vp = cache["k_pages"], cache["v_pages"]
         ps = kp.shape[1]
@@ -265,9 +328,9 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
         C = S // ps
         dst = (dst_page if dst_page.dim() == 2 else dst_page[None]).reshape(-1)
         kp.index_copy_(0, dst.long(),
-                       k.to(kp.dtype).reshape(B * C, ps, Hkv, hd))
+                       k.to(kp.dtype).reshape(B * C, ps, Kl, hd))
         vp.index_copy_(0, dst.long(),
-                       v.to(vp.dtype).reshape(B * C, ps, Hkv, hd))
+                       v.to(vp.dtype).reshape(B * C, ps, Kl, hd))
         start = positions[:, 0].to(torch.int32).contiguous()
         o = attend_chunk_paged(q, kp, vp, block_table, start, scale)
     elif mode == "decode":   # one token per sequence against the paged pool
@@ -291,5 +354,5 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
         o = attend_decode_paged(q, kp, vp, block_table, posb + 1, scale)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
-    y = torch.matmul(o.reshape(B, o.shape[1], H * hd), p["wo"])
+    y = row_parallel(o.reshape(B, o.shape[1], Hl * hd), p["wo"], q_split)
     return x + y, cache

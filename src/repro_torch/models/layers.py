@@ -25,6 +25,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding import (column_in, gather_out, model_offset,
+                                  model_ranks, row_out)
+
 
 @dataclass(frozen=True)
 class PSpec:
@@ -150,9 +153,50 @@ def swiglu_table(d_model, d_ff, ff_axis="ff"):
     }
 
 
-def swiglu_apply(p, x):
-    """Weights are stored (d_in, d_out), as the reference: ``x @ W``."""
-    g = torch.matmul(x, p["w_gate"])
-    u = torch.matmul(x, p["w_up"])
+def rms_norm_split(x, w, total, eps=1e-6):
+    """``rms_norm`` over a last dim split over "model": ``x`` and ``w``
+    are this rank's ``x.shape[-1]`` of ``total`` lanes, the squares summed
+    over the ranks (the reference's gated norm over all of Mamba-2's
+    inner width). The whole sum is read by each rank's split lanes, so
+    its gradient is summed over "model" too."""
+    x32 = x.float()
+    var = column_in(row_out(torch.sum(x32 * x32, dim=-1,
+                                      keepdim=True))) / total
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def split_heads(t, heads, width):
+    """A projection's output ``t`` (..., cols) as (..., h, width): this
+    rank's ``h`` heads where its columns are whole heads (the model axis
+    divides ``heads``), every head otherwise, its columns gathered over
+    "model" where the rules split them mid-head."""
+    if t.shape[-1] != heads * width and heads % model_ranks():
+        t = gather_out(t, -1)
+    return t.reshape(t.shape[:-1] + (t.shape[-1] // width, width))
+
+
+def row_parallel(o, w, split):
+    """``o @ w`` for an output projection whose rows ``w`` may be this
+    rank's slice (the rules split them over "model"): ``o`` holds this
+    rank's heads (``split``) or every head, of which the rank's rows are
+    taken; the partial products summed over "model"."""
+    if w.shape[0] == o.shape[-1]:
+        y = torch.matmul(o, w)
+        return row_out(y) if split else y
+    o = column_in(o).narrow(-1, model_offset(w.shape[0]), w.shape[0])
+    return row_out(torch.matmul(o, w))
+
+
+def swiglu_apply(p, x, ff=None):
+    """Weights are stored (d_in, d_out), as the reference: ``x @ W``.
+    ``ff`` is the global hidden width: where this rank holds fewer
+    (``w_down`` split over "model"), ``w_gate``/``w_up`` are
+    column-parallel and ``w_down`` row-parallel, summed over "model"."""
+    split = ff is not None and p["w_down"].shape[0] != ff
+    xi = column_in(x) if split else x
+    g = torch.matmul(xi, p["w_gate"])
+    u = torch.matmul(xi, p["w_up"])
     h = F.silu(g.float()).to(x.dtype) * u
-    return torch.matmul(h, p["w_down"])
+    y = torch.matmul(h, p["w_down"])
+    return row_out(y) if split else y

@@ -38,6 +38,15 @@ absorbed query against ``decode_sharded.seq_sharded_decode`` with
 ``ckr`` as the keys and its first ``kv_lora_rank`` lanes as the values
 (MQA over the latent), whatever ``decode_mode`` says, as the reference.
 
+Tensor parallel over "model" (``sharding.LOCAL_RULES``): where the
+model axis divides the heads, ``wq``, ``w_uk``, ``w_uv`` and ``wo`` hold
+this rank's heads (``wo`` row-parallel, summed over "model" after it);
+``w_dkv``, ``w_krope`` and ``kv_ln`` are replicated, so the latent and
+the RoPE key are whole on every rank and read by split work
+(``sharding.column_in``). The seq-sharded decode gathers the absorbed
+query's heads over "model" before the region and keeps the rank's heads
+of the merged latent output.
+
 ``mla_apply`` counts its calls in ``mla_apply.calls``, as the kernel
 wrappers count ``.launches``.
 """
@@ -49,6 +58,7 @@ from repro_torch.models.decode_sharded import (local_seq, seq_shard_axes,
                                                seq_sharded_decode,
                                                use_seq_sharded, write_prompt)
 from repro_torch.models.layers import PSpec, apply_rope, rms_norm
+from repro_torch.sharding import column_in, model_gather, model_offset, row_out
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -80,9 +90,8 @@ def mla_cache_spec(cfg, batch, max_len, window=None):
 
 
 def _project_q(cfg, p, h, B):
-    H = cfg.num_heads
     nd, rd = cfg.nope_head_dim, cfg.rope_head_dim
-    q = torch.matmul(h, p["wq"]).reshape(B, -1, H, nd + rd)
+    q = torch.matmul(h, p["wq"]).reshape(B, h.shape[1], -1, nd + rd)
     return q[..., :nd], q[..., nd:]
 
 
@@ -100,9 +109,10 @@ def _attend_causal(q, k, v, scale):
 
 
 def _absorbed_query(cfg, p, q_nope, q_rope, dtype):
-    """q' = [q_nope @ W_uk^T, q_rope] (B, 1, H, r + rd) in ``dtype``."""
-    H, nd, r = cfg.num_heads, cfg.nope_head_dim, cfg.kv_lora_rank
-    wuk = p["w_uk"].reshape(r, H, nd)
+    """q' = [q_nope @ W_uk^T, q_rope] (B, 1, H, r + rd) in ``dtype`` (H
+    the heads this rank holds)."""
+    nd, r = cfg.nope_head_dim, cfg.kv_lora_rank
+    wuk = p["w_uk"].reshape(r, -1, nd)
     q_lat = torch.einsum("bthn,rhn->bthr", q_nope.float(), wuk.float())
     return torch.cat([q_lat, q_rope.float()], dim=-1).to(dtype)
 
@@ -110,13 +120,19 @@ def _absorbed_query(cfg, p, q_nope, q_rope, dtype):
 def _decode_seq_sharded(cfg, p, x, q_nope, q_rope, c, k_rope_t, ckr, posb,
                         scale):
     """The absorbed decode against this rank's slots of a seq-sharded
-    latent cache (updated in place). Returns o (B, 1, H, v_head_dim)."""
-    B, H, r, vd = x.shape[0], cfg.num_heads, cfg.kv_lora_rank, \
-        cfg.v_head_dim
+    latent cache (updated in place). Returns o (B, 1, H, v_head_dim) of
+    this rank's H heads: split heads' queries are gathered over "model"
+    for the region and the rank's heads of its output kept."""
+    r, vd = cfg.kv_lora_rank, cfg.v_head_dim
     new = torch.cat([c, k_rope_t], dim=-1)[:, :, None, :].to(ckr.dtype)
     q_abs = _absorbed_query(cfg, p, q_nope, q_rope, x.dtype)
+    H = q_abs.shape[2]
+    if H != cfg.num_heads:
+        q_abs = model_gather(q_abs, 2)
     _, _, o_lat = seq_sharded_decode(ckr, ckr[..., :r], new, new[..., :r],
                                      q_abs, posb, None, scale)
+    if H != cfg.num_heads:
+        o_lat = o_lat.narrow(2, model_offset(H), H)
     wuv = p["w_uv"].reshape(r, H, vd)
     return torch.einsum("bthr,rhv->bthv", o_lat.float(),
                         wuv.float()).to(x.dtype)
@@ -132,12 +148,19 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
     (x + attn_out, cache)."""
     mla_apply.calls += 1
     B = x.shape[0]
-    H = cfg.num_heads
     nd, rd, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim,
                      cfg.kv_lora_rank)
+    H = p["wq"].shape[1] // (nd + rd)          # this rank's heads
+    split = H != cfg.num_heads
+    if p["wq"].shape[1] % (nd + rd) or (split and cfg.num_heads % H):
+        raise ValueError(f"mla_apply: this rank's wq columns "
+                         f"{p['wq'].shape[1]} are not whole heads of "
+                         f"{nd + rd}; MLA splits over a model axis that "
+                         f"divides its {cfg.num_heads} heads")
+    tp = column_in if split else (lambda t: t)
     scale = (nd + rd) ** -0.5
     h = rms_norm(x, p["ln"])
-    q_nope, q_rope = _project_q(cfg, p, h, B)
+    q_nope, q_rope = _project_q(cfg, p, tp(h), B)
     c = rms_norm(torch.matmul(h, p["w_dkv"]), p["kv_ln"])
     k_rope_new = torch.matmul(h, p["w_krope"])
 
@@ -146,10 +169,11 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
         q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
         k_rope = apply_rope(k_rope_new[:, :, None, :], positions,
                             cfg.rope_theta)
-        k_nope = torch.matmul(c, p["w_uk"]).reshape(B, S, H, nd)
-        v = torch.matmul(c, p["w_uv"]).reshape(B, S, H, vd)
+        cs = tp(c)
+        k_nope = torch.matmul(cs, p["w_uk"]).reshape(B, S, H, nd)
+        v = torch.matmul(cs, p["w_uv"]).reshape(B, S, H, vd)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        k = torch.cat([k_nope, k_rope.expand(B, S, H, rd)], dim=-1)
+        k = torch.cat([k_nope, tp(k_rope).expand(B, S, H, rd)], dim=-1)
         o = _attend_causal(q, k, v, scale)
         if cache is not None:
             ckr = torch.cat([c, k_rope[:, :, 0, :]], dim=-1)[:, :, None, :]
@@ -170,7 +194,7 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
             o = _decode_seq_sharded(cfg, p, x, q_nope, q_rope, c, k_rope_t,
                                     ckr, posb, scale)
             y = torch.matmul(o.reshape(B, 1, H * vd), p["wo"])
-            return x + y, cache
+            return x + (row_out(y) if split else y), cache
         rows = torch.arange(B, device=x.device)
         slot = torch.clamp(posb, max=S - 1).long()
         ckr[rows, slot] = torch.cat([c, k_rope_t], dim=-1)[:, 0, None, :].to(
@@ -204,7 +228,7 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
     else:
         raise ValueError(f"MLA has no {mode!r} mode (it is not paged)")
     y = torch.matmul(o.reshape(B, o.shape[1], H * vd), p["wo"])
-    return x + y, cache
+    return x + (row_out(y) if split else y), cache
 
 
 mla_apply.calls = 0

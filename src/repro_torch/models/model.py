@@ -35,13 +35,21 @@ recurrentgemma-9b's are windowed.
 ``axes()``, ``abstract()``, ``cache_spec()`` and ``cache_axes()`` give
 the logical sharding axes, meta-device stand-ins and cache layout in the
 port's per-layer layout (the reference's per-layer entries, without its
-stacked "layers" dim). Under a mesh (``sharding.axis_rules``)
-``init`` keeps this rank's slice of each leaf the port shards (an MoE
-block's experts, ``sharding.LOCAL_RULES``), drawing every leaf whole as
-one process would, and ``init_cache`` allocates this rank's slice of the
-cache (its batch rows over the data axes; a sequence-sharded layer's
-slot range). ``forward`` then runs on this rank's local tensors: the
-MoE block and the sequence-sharded decode add their collectives.
+stacked "layers" dim). Under a mesh (``sharding.axis_rules``) ``init``
+keeps this rank's slice of every leaf under ``sharding.LOCAL_RULES``
+(the reference's rules, "fsdp" off: heads, kv heads, ff, vocab,
+ssm_heads and lru over "model", an MoE block's experts over "model"),
+drawing every leaf whole as one process would, and ``init_cache``
+allocates this rank's slice of each cache leaf by ``cache_axes`` (its
+batch rows over the data axes; its kv heads, or a sequence-sharded
+layer's slot range, over "model"; Mamba-2's conv tail keeps the rank's
+channels, ``ssm.conv_channels``). ``forward`` then runs on this rank's
+local tensors, tensor-parallel over "model" where GSPMD partitions the
+reference: each block adds its collectives (``sharding.column_in``,
+``row_out``), the embedding is a masked lookup of the rank's vocab rows
+summed over "model", the head is column-parallel, and the logits are
+gathered over "model" unless the caller takes the rank's vocab slice
+(``local_logits``: the train step's cross-entropy).
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sharding
 from repro_torch.models import attention, mla, rglru, ssm
+from repro_torch.sharding import column_in, gather_out, model_offset, row_out
 from repro_torch.models.decode_sharded import use_seq_sharded
 from repro_torch.models.layers import (PSpec, abstract_params, init_params,
                                        param_axes, rms_norm, swiglu_apply,
@@ -213,15 +222,25 @@ class Model:
         empty memory: a masked slot multiplies p = 0 by what it holds, and
         uninitialised memory may hold NaN bits. Under a mesh, this rank's
         slice of each leaf (``cache_spec``'s axes under
-        ``sharding.LOCAL_RULES``): a seq-sharded layer holds
-        ``max_len / model`` slots."""
+        ``sharding.LOCAL_RULES``): its kv heads where the model axis
+        divides them, else (a seq-sharded layer) ``max_len / model``
+        slots; a Mamba-2 conv tail of the rank's channels
+        (``ssm.conv_channels``)."""
         dev = resolve_device(device)
         self._check_cache_mesh(max_len)
-        out = [{n: torch.zeros(sharding.local_shape(sh, ax),
+
+        def shape(bt, name, sh, ax):
+            loc = sharding.local_shape(sh, ax)
+            if bt == "ssm" and name == "conv":
+                loc = loc[:-1] + (ssm.conv_channels(self.cfg),)
+            return loc
+
+        out = [{n: torch.zeros(shape(bt, n, sh, ax),
                                dtype=torch.float32 if n == "h" else dtype,
                                device=dev)
                 for n, (sh, ax) in layer.items()}
-               for layer in self.cache_spec(batch, max_len)]
+               for bt, layer in zip(self.block_types,
+                                    self.cache_spec(batch, max_len))]
         if dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
             for layer in out:
                 if "k" in layer:
@@ -234,8 +253,8 @@ class Model:
     def init(self, seed=0, dtype=torch.float32, device=None):
         """Seeded random weights at the config's widths, drawn on
         ``device`` (None = the card) from one ``torch.Generator``. Under
-        a mesh each leaf is drawn whole and this rank keeps its slice of
-        the leaves the port shards (``sharding.LOCAL_RULES``)."""
+        a mesh each leaf is drawn whole and this rank keeps its slice
+        under ``sharding.LOCAL_RULES``."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -250,6 +269,19 @@ class Model:
         return params
 
     # ------------------------------------------------------------ forward
+    def _embed(self, emb, tokens):
+        """The tokens' rows of the embedding table; with the vocabulary
+        split over "model", a masked lookup of this rank's rows summed
+        over "model" (each token's row lives on one rank)."""
+        tok = tokens.long()
+        V = emb.shape[0]
+        if V == self.cfg.vocab_size:
+            return emb[tok]
+        ids = tok - model_offset(V)
+        own = (ids >= 0) & (ids < V)
+        x = emb[torch.clamp(ids, 0, V - 1)] * own[..., None].to(emb.dtype)
+        return row_out(x)
+
     def _apply_layer(self, bt, p, x, positions, mode, cache, block_table,
                      dst_page):
         """One layer: the mixer, then the MoE block (its ``y`` added, its
@@ -266,7 +298,8 @@ class Model:
             y, aux = moe_apply(self.cfg, p["moe"], x)
             x = x + y
         elif "mlp" in p:
-            x = x + swiglu_apply(p["mlp"], rms_norm(x, p["mlp"]["ln"]))
+            x = x + swiglu_apply(p["mlp"], rms_norm(x, p["mlp"]["ln"]),
+                                 ff=self.cfg.d_ff)
         return x, cache, aux
 
     def _run_layers(self, lo, hi, layers, x, positions, mode, cache,
@@ -287,7 +320,8 @@ class Model:
 
     def forward(self, params, *, tokens=None, embeddings=None, mode="full",
                 cache=None, pos=None, block_table=None, dst_page=None,
-                return_aux=False, remat=False, triangular=True):
+                return_aux=False, remat=False, triangular=True,
+                local_logits=False):
         """Returns (logits, cache); ``cache`` is the list of per-layer
         cache dicts, updated in place, or None. With ``return_aux``,
         (logits, cache, aux): the fp32 sum of every MoE layer's
@@ -299,7 +333,10 @@ class Model:
         its scanned group body), so a group's activations are not kept.
         ``triangular`` is the reference's switch between its attention
         paths; it changes nothing here: K4 skips the key tiles its mask
-        hides at every length.
+        hides at every length. Under a mesh that splits the vocabulary
+        over "model", ``local_logits`` returns this rank's vocab slice of
+        the logits (V / model entries from ``model_offset``) where the
+        default gathers them whole.
 
         mode='full': tokens (B, S) and/or embeddings (B, P, d) — a
         frontend's precomputed embeddings, alone or placed before the
@@ -319,12 +356,12 @@ class Model:
         cfg = self.cfg
         emb = params["embed"]
         if embeddings is not None and tokens is not None:
-            x = torch.cat([embeddings.to(emb.dtype), emb[tokens.long()]],
+            x = torch.cat([embeddings.to(emb.dtype), self._embed(emb, tokens)],
                           dim=1)
         elif embeddings is not None:
             x = embeddings.to(emb.dtype)
         else:
-            x = emb[tokens.long()]
+            x = self._embed(emb, tokens)
         S = x.shape[1]
         if mode == "full":
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -347,10 +384,13 @@ class Model:
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         x = rms_norm(x, params["final_norm"])
-        if cfg.tie_embeddings:
-            logits = torch.matmul(x, emb.t())
+        head = emb.t() if cfg.tie_embeddings else params["lm_head"]
+        if head.shape[1] != cfg.vocab_size:      # column-parallel head
+            logits = torch.matmul(column_in(x), head)
+            if not local_logits:
+                logits = gather_out(logits, -1)
         else:
-            logits = torch.matmul(x, params["lm_head"])
+            logits = torch.matmul(x, head)
         if not return_aux:
             return logits, cache
         if aux_total is None:

@@ -33,6 +33,10 @@ on the data-averaged probabilities. Each rank's gradient of a replicated
 input is then the single-device gradient, which is also what the
 reference's sharded gradient equals.
 
+The shared experts' ff is split over "model" as the dense MLP's is
+(``layers.swiglu_apply``: column- then row-parallel); the router is
+replicated.
+
 ``moe_apply`` counts its calls in ``moe_apply.calls`` (as the kernel
 wrappers count ``.launches``), so a serving run can show how many MoE
 layers each dispatch went through, and the expert-parallel path's
@@ -241,7 +245,8 @@ def moe_apply(cfg, p, x):
             data_groups=batch_groups(mesh), data_n=batch_ranks(mesh))
     y = y.reshape(B, S, d)
     if cfg.num_shared_experts:
-        y = y + swiglu_apply(p["shared"], h)
+        y = y + swiglu_apply(p["shared"], h,
+                             ff=cfg.num_shared_experts * cfg.moe_d_ff)
     return y, aux
 
 

@@ -14,6 +14,15 @@ The block's cache is ``{"conv", "h"}``: the last ``conv_width - 1``
 PRE-conv features (B, W-1, lru_width) in the cache dtype (bf16 on the
 serving paths) and the state (B, lru_width) in fp32. Caches are updated
 IN PLACE (the reference returns new, donated arrays).
+
+Tensor parallel over "model" (``sharding.LOCAL_RULES``): where the model
+axis divides ``lru_width``, ``wx``, ``wy``, ``conv`` and ``wo`` hold this
+rank's channels (``wo`` row-parallel, summed over "model" after it) and
+K6 runs on them; the rank reads its channels of the replicated ``lam``.
+Block-diagonal gates are the rank's blocks and stay local (an axis that
+does not divide the blocks is refused); dense (r, r) gates hold the
+rank's output columns and read all of ``u``, which is gathered over
+"model" before them.
 """
 from __future__ import annotations
 
@@ -23,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.models.layers import PSpec, rms_norm
 from repro_torch.models.ssm import causal_conv
+from repro_torch.sharding import column_in, gather_out, model_offset, row_out
 
 C_RGLRU = 8.0
 
@@ -81,6 +91,31 @@ def rglru_gates(p, u):
     return a, gated
 
 
+def _gates_split(p, u, rl):
+    """``rglru_gates`` on this rank's ``rl`` channels ``u`` (B, S, rl) of
+    a width split over "model": block-diagonal gates are the rank's
+    blocks; a dense gate holds the rank's columns and reads ``u``
+    gathered over "model"."""
+    lam = column_in(p["lam"]).narrow(0, model_offset(rl), rl)
+
+    def gate(w):
+        if w.dim() == 3:
+            if w.shape[0] * w.shape[1] != rl:
+                raise ValueError(f"rglru: {w.shape[0]} gate blocks of "
+                                 f"{w.shape[1]} do not cover this rank's "
+                                 f"{rl} channels; shard over a model axis "
+                                 f"that divides the blocks")
+            return _gate(u, w)
+        return torch.matmul(column_in(gather_out(u, -1)), w).float()
+
+    r_g = torch.sigmoid(gate(p["w_rg"]))
+    i_g = torch.sigmoid(gate(p["w_ig"]))
+    log_a = -C_RGLRU * F.softplus(lam.float()) * r_g
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    return a, beta * i_g * u.float()
+
+
 def lru_scan(a, b, h0=None):
     """h_t = a_t h_{t-1} + b_t over axis 1. a, b (B, S, r) fp32; h0
     (B, r) or None. The reference's associative scan, here K6."""
@@ -94,14 +129,20 @@ def rglru_apply(cfg, p, x, positions, *, mode, cache=None):
     against ``cache``). ``positions`` are not read: the state carries the
     position. Returns (x + out, cache)."""
     W = cfg.conv_width
+    rl = p["wx"].shape[1]                        # this rank's channels
+    split = rl != cfg.lru_width
+    gates = ((lambda p_, u_: _gates_split(p_, u_, rl)) if split
+             else rglru_gates)
     hin = rms_norm(x, p["ln"])
+    if split:
+        hin = column_in(hin)
     y_branch = F.gelu(torch.matmul(hin, p["wy"]).float(), approximate="tanh")
     pre = torch.matmul(hin, p["wx"])             # pre-conv (B, S, r)
 
     if mode == "full":
         S = x.shape[1]
         u = causal_conv(pre, p["conv"])
-        a, gated = rglru_gates(p, u)
+        a, gated = gates(p, u)
         h0 = cache["h"].float() if cache is not None else None
         h = lru_scan(a, gated, h0)
         if cache is not None:
@@ -114,7 +155,7 @@ def rglru_apply(cfg, p, x, positions, *, mode, cache=None):
     elif mode == "decode":                       # one token
         window = torch.cat([cache["conv"].to(pre.dtype), pre], dim=1)
         u = torch.einsum("bwr,wr->br", window, p["conv"])[:, None, :]
-        a, gated = rglru_gates(p, u)
+        a, gated = gates(p, u)
         h = (a[:, 0] * cache["h"].float() + gated[:, 0])[:, None, :]
         cache["conv"].copy_(window[:, 1:])
         cache["h"].copy_(h[:, 0])
@@ -124,4 +165,4 @@ def rglru_apply(cfg, p, x, positions, *, mode, cache=None):
 
     out = (h * y_branch).to(x.dtype)
     out = torch.matmul(out, p["wo"])
-    return x + out, cache
+    return x + (row_out(out) if split else out), cache

@@ -12,6 +12,17 @@ The block's cache is ``{"conv", "h"}``: the last ``conv_width - 1``
 PRE-conv features (B, W-1, inner + 2N) in the cache dtype (bf16 on the
 serving paths) and the SSM state (B, H, P, N) in fp32. Caches are updated
 IN PLACE (the reference returns new, donated arrays).
+
+Tensor parallel over "model" (``sharding.LOCAL_RULES``): where the model
+axis divides ``ssm_heads``, ``wz``, ``wx``, ``wdt``, ``conv_x`` and
+``wo`` hold this rank's heads (``wo`` row-parallel, summed over "model"
+after it); the rank reads its heads' part of the replicated ``dt_bias``,
+``A_log`` and ``D``, and of ``gn``, whose gated norm over all of
+``inner`` sums its squares over "model". ``wB``/``wC`` and their convs
+are replicated. K5 runs on the local heads. The conv cache keeps the
+rank's pre-conv channels (its ``inner`` slice, then B and C), where the
+reference's axes replicate it: a deviation, which spares a gather of
+the x features at every step (``conv_channels``).
 """
 from __future__ import annotations
 
@@ -20,7 +31,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.ssd import ssd_chunk
-from repro_torch.models.layers import PSpec, rms_norm
+from repro_torch.models.layers import PSpec, rms_norm, rms_norm_split
+from repro_torch.sharding import column_in, model_offset, model_ranks, row_out
 
 
 def causal_conv(x, w):
@@ -65,6 +77,21 @@ def ssm_cache_spec(cfg, batch, max_len=None):
                   ("batch", "ssm_heads", None, None))}
 
 
+def conv_channels(cfg) -> int:
+    """The pre-conv channels this rank keeps in its conv cache: its
+    ``inner`` slice where the model axis divides ``ssm_heads``, then B's
+    and C's ``2N``."""
+    n = model_ranks()
+    inner = cfg.ssm_inner // n if cfg.ssm_heads % n == 0 else cfg.ssm_inner
+    return inner + 2 * cfg.ssm_state
+
+
+def _local(w, H, split):
+    """This rank's ``H`` entries of a replicated per-head vector that
+    split work reads."""
+    return column_in(w).narrow(0, model_offset(H), H) if split else w
+
+
 def ssd_chunked(x, dt, a, B_, C_, chunk):
     """SSD scan. x (B, S, H, P), dt (B, S, H) fp32 (post-softplus), a (H,)
     fp32 (negative), B_/C_ (B, S, N) fp32. Returns (y (B, S, H, P),
@@ -105,26 +132,37 @@ def ssm_apply(cfg, p, x, positions, *, mode, cache=None):
     state) or 'decode' (x (B, 1, d) against ``cache``). ``positions`` are
     not read: the state carries the position. Returns (x + out, cache)."""
     Bsz = x.shape[0]
-    inner, N = cfg.ssm_inner, cfg.ssm_state
-    H, Pd, W = cfg.ssm_heads, cfg.ssm_head_dim, cfg.conv_width
+    N, Pd, W = cfg.ssm_state, cfg.ssm_head_dim, cfg.conv_width
+    H = p["wdt"].shape[1]                        # this rank's heads
+    inner = H * Pd
+    split = H != cfg.ssm_heads
+    if p["wx"].shape[1] != inner:
+        raise ValueError(f"ssm_apply: the rules split inner "
+                         f"({cfg.ssm_inner}) but not the {cfg.ssm_heads} "
+                         f"heads over this model axis; Mamba-2 splits "
+                         f"over one that divides its heads")
+    tp = column_in if split else (lambda t: t)
     h = rms_norm(x, p["ln"])
-    z = torch.matmul(h, p["wz"])
-    xs = torch.matmul(h, p["wx"])
+    hs = tp(h)
+    z = torch.matmul(hs, p["wz"])
+    xs = torch.matmul(hs, p["wx"])
     Bf = torch.matmul(h, p["wB"])
     Cf = torch.matmul(h, p["wC"])
-    dt_raw = torch.matmul(h, p["wdt"])
+    dt_raw = torch.matmul(hs, p["wdt"])
     feats = torch.cat([xs, Bf, Cf], dim=-1)      # pre-conv (B, S, inner+2N)
     conv_w = torch.cat([p["conv_x"], p["conv_B"], p["conv_C"]], dim=-1)
-    a = -torch.exp(p["A_log"].float())           # (H,)
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    a = -torch.exp(_local(p["A_log"], H, split).float())      # (H,)
+    dt = F.softplus(dt_raw.float()
+                    + _local(p["dt_bias"], H, split).float())
+    D = _local(p["D"], H, split).float()
 
     if mode == "full":
         S = x.shape[1]
         conv = F.silu(causal_conv(feats, conv_w).float())
         xs_c, B_c, C_c = torch.split(conv, [inner, N, N], dim=-1)
         xh = xs_c.reshape(Bsz, S, H, Pd)
-        y, h_fin = ssd_chunked(xh, dt, a, B_c, C_c, cfg.ssm_chunk)
-        y = y + p["D"].float()[None, None, :, None] * xh
+        y, h_fin = ssd_chunked(xh, dt, a, tp(B_c), tp(C_c), cfg.ssm_chunk)
+        y = y + D[None, None, :, None] * xh
         if cache is not None:
             # the conv tail is the last W-1 PRE-conv features, zeros
             # before a prompt shorter than that
@@ -137,6 +175,7 @@ def ssm_apply(cfg, p, x, positions, *, mode, cache=None):
         conv = torch.einsum("bwc,wc->bc", window, conv_w)[:, None, :]
         conv = F.silu(conv.float())
         xs_c, B_c, C_c = torch.split(conv, [inner, N, N], dim=-1)
+        B_c, C_c = tp(B_c), tp(C_c)
         xh = xs_c.reshape(Bsz, 1, H, Pd)
         hprev = cache["h"].float()               # (B, H, P, N)
         dA = torch.exp(dt[:, 0, :] * a)          # (B, H)
@@ -144,7 +183,7 @@ def ssm_apply(cfg, p, x, positions, *, mode, cache=None):
                            xh[:, 0].float())
         h_new = dA[:, :, None, None] * hprev + upd
         y = torch.einsum("bn,bhpn->bhp", C_c[:, 0], h_new)[:, None]
-        y = y + p["D"].float()[None, None, :, None] * xh
+        y = y + D[None, None, :, None] * xh
         cache["conv"].copy_(window[:, 1:])
         cache["h"].copy_(h_new)
     else:
@@ -153,6 +192,10 @@ def ssm_apply(cfg, p, x, positions, *, mode, cache=None):
 
     y = y.reshape(Bsz, -1, inner)
     gated = y * F.silu(z.float())
-    out = rms_norm(gated.to(x.dtype), p["gn"])
-    out = torch.matmul(out, p["wo"])
+    if split:
+        out = rms_norm_split(gated.to(x.dtype),
+                             _local(p["gn"], inner, split), cfg.ssm_inner)
+        out = row_out(torch.matmul(out, p["wo"]))
+    else:
+        out = torch.matmul(rms_norm(gated.to(x.dtype), p["gn"]), p["wo"])
     return x + out, cache

@@ -22,10 +22,21 @@ expert-parallel over "model". Each rank's objective is its
 cross-entropy weighted by its share of the global labelled tokens plus
 the aux loss (global already, and differentiated only through the
 rank's own statistics), so an all-reduce SUM of the gradients over the
-data axes gives the gradient of the global-batch loss. Replicated leaves
-then hold the single-device gradient on every rank, an expert leaf this
-rank's slice of it; the clip norm sums the slices' squares over "model",
-and AdamW updates each rank's local leaves.
+data axes gives the gradient of the global-batch loss. The model runs
+tensor-parallel over "model" (``sharding.LOCAL_RULES``): its blocks'
+``column_in``/``row_out`` pairs make each rank's gradient of a
+replicated leaf the single-device one, and of a split leaf (heads, ff,
+vocab, ssm_heads, lru, experts) this rank's slice of it; the clip norm
+counts each split leaf's slices once (their squares summed over
+"model") and each replicated leaf once, and AdamW updates each rank's
+local leaves. Over a vocabulary split over "model" the cross-entropy
+never gathers the (B, S, V) logits (``cross_entropy_split``).
+
+The factored second moment (``AdamWConfig.factored``, which the
+reference's dry-run sets for configs of 64 experts or more) factors
+each leaf as the reference's stacked layout does
+(``stacked_groups``, ``training.optim``); ``init_opt_state`` makes the
+state to match.
 
 Device-resident sampling state (``last_tok`` (num_slots + 1,),
 ``gen_buf`` (num_slots + 1, max_len)) carries ONE extra row at index
@@ -56,6 +67,29 @@ def cross_entropy(logits, labels, mask=None):
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
+def cross_entropy_split(logits, labels, mask=None):
+    """``cross_entropy`` of this rank's vocab slice of the logits (V /
+    model entries from ``sharding.model_offset``): the row max and the
+    sum of exps over "model", the label's logit from the rank that holds
+    it; never a gather of (B, S, V)."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    m = sharding.model_sum(logits.detach().amax(dim=-1),
+                           op=dist.ReduceOp.MAX)
+    se = sharding.row_out(torch.exp(logits - m[..., None]).sum(dim=-1))
+    lse = m + torch.log(se)
+    lab = labels.long() - sharding.model_offset(V)
+    own = (lab >= 0) & (lab < V)
+    ll = torch.gather(logits, -1, torch.clamp(lab, 0, V - 1)[..., None])
+    ll = sharding.row_out(torch.where(own, ll[..., 0],
+                                      torch.zeros_like(ll[..., 0])))
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
 def loss_fn(model, params, batch, remat=False):
     """(loss, {"ce", "aux"}) of a batch dict of tensors: ``tokens`` and
     ``labels`` (B, S); an audio frontend's ``embeddings`` (B, S, d) in
@@ -73,12 +107,15 @@ def loss_fn(model, params, batch, remat=False):
     else:
         kw["tokens"] = batch["tokens"]
     logits, _, aux = model.forward(params, mode="full", remat=remat,
-                                   triangular=False, return_aux=True, **kw)
+                                   triangular=False, return_aux=True,
+                                   local_logits=True, **kw)
     labels = batch["labels"]
     P = logits.shape[1] - labels.shape[1]
     if P > 0:  # vlm: no loss on the image prefix
         logits = logits[:, P:]
-    loss = cross_entropy(logits[:, :-1], labels[:, 1:], batch.get("mask"))
+    ce = (cross_entropy if logits.shape[-1] == cfg.vocab_size
+          else cross_entropy_split)
+    loss = ce(logits[:, :-1], labels[:, 1:], batch.get("mask"))
     total = loss + cfg.router_aux_coef * aux
     return total, {"ce": loss, "aux": aux}
 
@@ -188,6 +225,35 @@ def sharded_leaves(model) -> list:
         model.axes()))
 
 
+def split_dims(model):
+    """A tree like the params: the dim of each leaf split over "model"
+    under the current mesh, or None."""
+    def one(s, a):
+        spec = sharding.resolve_spec(tuple(s.shape), a)
+        for i, e in enumerate(spec):
+            if e is not None and "model" in sharding._entry_axes(e):
+                return i
+        return None
+    if sharding.current_mesh() is None:
+        return None
+    return _optim.tree_map(one, model.abstract(), model.axes())
+
+
+def stacked_groups(model) -> list:
+    """For each slot of the repeating pattern, the port's layers the
+    reference stacks into one leaf (``blocks/slot{s}``), in depth
+    order."""
+    spans = [(lo, hi) for lo, hi, g in model.layer_spans() if g]
+    return [tuple(lo + s for lo, _ in spans)
+            for s in range(len(model.pattern))] if spans else []
+
+
+def init_opt_state(model, opt_cfg: _optim.AdamWConfig, params):
+    """``training.optim.init_state`` for ``model``'s params, with the
+    reference's stacked groups (the factored moment's layout)."""
+    return _optim.init_state(opt_cfg, params, stacked_groups(model))
+
+
 def reference_ranks(model, params):
     """The rank each parameter has in the reference's layout, a tree like
     ``params``: a layer of a repeating pattern group is stacked there
@@ -209,21 +275,20 @@ def make_train_step(model, opt_cfg: _optim.AdamWConfig, remat=True):
     ``params`` and ``opt_state`` in place (both returned; the parameters
     never require grad, so the serving paths can take them as they are).
     ``metrics``: ``loss``, ``ce``, ``aux``, ``lr`` and ``grad_norm``,
-    0-d tensors on the parameters' device. The factored second moment is
-    refused: the reference factors a grouped layer's vectors across the
-    layers it stacks, which the port's per-layer tensors do not hold."""
-    if opt_cfg.factored:
-        raise ValueError("make_train_step: the factored second moment "
-                         "spans a pattern group's stacked layers in the "
-                         "reference; the port keeps one tensor a layer "
-                         "and does not train with it")
+    0-d tensors on the parameters' device. ``opt_state`` comes from
+    ``init_opt_state`` (with the factored second moment, its groups).
+    Under a mesh (build the step under the mesh it runs on), the
+    factored statistics of a leaf split over "model" take their means
+    over "model"."""
+    groups = stacked_groups(model)
+    split = split_dims(model) if opt_cfg.factored else None
 
     def train_step(params, opt_state, batch):
         loss, parts, grads = value_and_grad(model, params, batch, remat)
         params, opt_state, stats = _optim.apply_updates_(
             opt_cfg, params, grads, opt_state,
             ranks=reference_ranks(model, params),
-            grad_norm=grad_norm(model, grads))
+            grad_norm=grad_norm(model, grads), groups=groups, split=split)
         return params, opt_state, {"loss": loss, **parts, **stats}
 
     return train_step
@@ -234,11 +299,16 @@ def make_prefill_step(model):
     ``embeddings`` (B, P, d), placed before the tokens, at positions
     0..S-1 into a dense cache from ``model.init_cache`` (the reference's
     step takes the same inputs as a dict). Returns the last position's
-    logits (B, V) and the cache."""
+    logits (B, V) and the cache; over a vocabulary split over "model"
+    only that row is gathered."""
     def prefill_step(params, cache, tokens=None, embeddings=None):
         logits, cache = model.forward(params, mode="full", tokens=tokens,
-                                      embeddings=embeddings, cache=cache)
-        return logits[:, -1, :], cache
+                                      embeddings=embeddings, cache=cache,
+                                      local_logits=True)
+        last = logits[:, -1, :]
+        if last.shape[-1] != model.cfg.vocab_size:   # gather one row only
+            last = sharding.model_gather(last, -1)
+        return last, cache
 
     return prefill_step
 

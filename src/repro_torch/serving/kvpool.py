@@ -40,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding
 from repro_torch.models.model import resolve_device
 from repro_torch.serving.migration import PageRecord
 
@@ -159,7 +160,10 @@ class PagePool:
                             f"caches, got cache leaf {name!r} (use the "
                             f"stacked batcher for ssm/rglru/mla patterns)")
             dev = resolve_device(device)
-            shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+            # under a mesh, the rank's kv heads (``sharding.LOCAL_RULES``)
+            shape = sharding.local_shape(
+                (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim),
+                (None, None, "kv_heads", None))
             self.pages = [{"k_pages": torch.zeros(shape, dtype=dtype,
                                                   device=dev),
                            "v_pages": torch.zeros(shape, dtype=dtype,

@@ -15,19 +15,34 @@ reference's ``PartitionSpec`` as a tuple; ``placements`` turns one into
 the DTensor placements of a real mesh (``Shard(i)`` or ``Replicate()``
 per mesh dim), and ``named_sharding`` carries both.
 
-The reference is SPMD: ``jit`` partitions global arrays and two regions
-(the MoE dispatch and the sequence-sharded decode) are written per device
-under ``shard_map``. The port runs the model on each rank's LOCAL tensors
-with explicit collectives in those two regions. Outside them every weight
-is replicated on every rank, as the reference's train step hands ``jit``
-unsharded parameters, and the batch is split over the data axes.
-``LOCAL_RULES`` says which logical axes the port keeps sharded in its
-local layout: the batch, the experts of an MoE block and a
-sequence-sharded cache's slots. ``local_slice`` takes a global tensor to
+The reference is SPMD: ``jit`` partitions global arrays, GSPMD inserts
+the collectives its sharding constraints call for, and two regions (the
+MoE dispatch and the sequence-sharded decode) are written per device
+under ``shard_map``. The port runs the model on each rank's LOCAL
+tensors and writes those collectives out. ``LOCAL_RULES`` is what the
+local layout resolves under: the reference's ``DEFAULT_RULES`` with
+"fsdp" off (weights are not split over the data axes), so each rank
+holds exactly the slice of a weight or a cache leaf the reference
+places on its device: heads, kv heads, ff, vocab, ssm_heads and lru
+tensor-parallel over "model", experts over "model", the batch over
+"pod" and "data". A dim the model axis does not divide stays
+replicated, as the rules say. ``local_slice`` takes a global tensor to
 this rank's shard under a spec and ``gather_global`` is its inverse (an
 all-reduce of a zero-filled global buffer, per mesh dim: gloo on CUDA
 tensors has no all-gather). ``shard`` is the identity on a plain local
 tensor and a ``redistribute`` on a DTensor.
+
+The tensor-parallel helpers act over the "model" group and are the
+identity without a mesh or with a model axis of one rank, so a
+one-process run is unchanged bit for bit: ``model_ranks`` and
+``model_rank``, ``model_offset`` (where a rank's slice of a split dim
+starts), ``model_sum`` and ``model_gather`` (no gradient), and the
+autograd pairs around a tensor-parallel region (``torch.distributed``'s
+collectives have no backward): ``column_in`` (identity forward, a sum
+over "model" backward: a replicated tensor read by split work),
+``row_out`` (a sum forward, identity backward: split partial sums made
+whole) and ``gather_out`` (a gather over "model" forward, the rank's
+slice of the gradient backward).
 """
 from __future__ import annotations
 
@@ -56,12 +71,10 @@ DEFAULT_RULES = {
     "kv_lora": (),
 }
 
-# the axes the port's local layout shards: every other logical axis is
-# replicated on every rank (the model runs on local tensors, and only the
-# two shard_map regions of the reference split work across "model")
-LOCAL_RULES = {**{name: () for name in DEFAULT_RULES},
-               "batch": ("pod", "data"), "experts": ("model",),
-               "kv_seq": ("model",)}
+# the rules the port's local layout resolves weights, caches and batches
+# under: the reference's, with "fsdp" off (the ZeRO-3 placement of
+# ``apply_fsdp`` is not carried: a rank holds every weight's model slice)
+LOCAL_RULES = {**DEFAULT_RULES, "fsdp": ()}
 
 
 class _Ctx:
@@ -328,12 +341,14 @@ def local_shape(shape, logical_axes, mesh=None, rules: dict | None = None):
 
 def is_sharded(shape, logical_axes, mesh=None, rules: dict | None = None):
     """Whether a tensor of ``shape`` is split across ranks under the
-    spec."""
+    spec (over a mesh axis of more than one rank)."""
     mesh = mesh or _CTX.mesh
     if mesh is None:
         return False
-    return any(e is not None for e in resolve_spec(
-        tuple(shape), logical_axes, mesh, rules or LOCAL_RULES))
+    sizes = mesh_shape(mesh)
+    return any(math.prod(sizes[a] for a in _entry_axes(e)) > 1
+               for e in resolve_spec(tuple(shape), logical_axes, mesh,
+                                     rules or LOCAL_RULES))
 
 
 def gather_global(x, logical_axes, global_shape, mesh=None,
@@ -377,3 +392,111 @@ def to_dtensor(x, logical_axes, global_shape, mesh=None):
                               shape=torch.Size(global_shape),
                               stride=torch.empty(global_shape,
                                                  device="meta").stride())
+
+
+# ------------------------------------------- tensor parallel over "model"
+
+def model_ranks(mesh=None) -> int:
+    """The size of the current mesh's "model" axis (1 without a mesh)."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return 1
+    return mesh_shape(mesh).get("model", 1)
+
+
+def model_rank(mesh=None) -> int:
+    """This rank's index along "model" (0 without a mesh)."""
+    mesh = mesh or _CTX.mesh
+    if model_ranks(mesh) == 1:
+        return 0
+    return mesh.get_local_rank("model")
+
+
+def model_offset(local: int, mesh=None) -> int:
+    """Where this rank's slice of ``local`` entries starts on a dim split
+    over "model" (the split is even, rank-major)."""
+    return model_rank(mesh) * local
+
+
+def _model_group():
+    return _CTX.mesh.get_group("model")
+
+
+def model_sum(x, op=None):
+    """An all-reduce of ``x`` over "model" (SUM unless ``op``), in a new
+    tensor; ``x`` itself with one model rank. No gradient."""
+    import torch.distributed as dist
+    if model_ranks() == 1:
+        return x
+    x = x.contiguous().clone()
+    dist.all_reduce(x, op=op or dist.ReduceOp.SUM, group=_model_group())
+    return x
+
+
+def model_gather(x, dim):
+    """The whole of ``x`` along ``dim`` on every rank, from each rank's
+    even slice: an all-reduce of a zero-filled buffer (gloo on CUDA
+    tensors has no all-gather). ``x`` itself with one model rank. No
+    gradient."""
+    n = model_ranks()
+    if n == 1:
+        return x
+    shape = list(x.shape)
+    loc = shape[dim]
+    shape[dim] = loc * n
+    out = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    out.narrow(dim, model_offset(loc), loc).copy_(x)
+    return model_sum(out)
+
+
+class _ColumnIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_sum(g)
+
+
+class _RowOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return model_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _GatherOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.loc = dim, x.shape[dim]
+        return model_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, model_offset(ctx.loc), ctx.loc)
+                .contiguous(), None)
+
+
+def column_in(x):
+    """A replicated tensor entering split work (a column-parallel matmul,
+    this rank's heads): identity forward; backward, the gradient summed
+    over "model", since each rank's split work gives only its share of
+    it. ``x`` itself with one model rank."""
+    return x if model_ranks() == 1 else _ColumnIn.apply(x)
+
+
+def row_out(x):
+    """Split partial sums made whole (after a row-parallel matmul, a
+    masked lookup, a sum of squares): a sum over "model" forward,
+    identity backward. ``x`` itself with one model rank."""
+    return x if model_ranks() == 1 else _RowOut.apply(x)
+
+
+def gather_out(x, dim):
+    """``model_gather`` with a gradient: backward keeps this rank's slice
+    of the (replicated) gradient."""
+    return x if model_ranks() == 1 else _GatherOut.apply(x, dim)

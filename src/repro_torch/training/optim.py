@@ -25,6 +25,21 @@ and take weight decay; the port keeps one tensor per layer. ``ranks``
 (a tree of ints beside the parameters, from
 ``models.steps.reference_ranks``) gives the rank each leaf has in the
 reference's layout, so that the decay falls on the same leaves.
+
+The factored second moment follows the reference's layout too
+(``groups``: for each pattern slot, the port's layers the reference
+stacks into one leaf, from ``models.steps.stacked_groups``). A leaf of
+rank 2 or more keeps its row and column statistics ``vr``/``vc`` beside
+its ``m``: stacked, those are the reference's per-layer rows. A grouped
+1-D leaf (rank 2 stacked) keeps only ``m`` per layer; its ``vr`` (one
+mean of g^2 a layer) and ``vc`` (the mean over the group's layers) and
+the ``denom`` (the mean of ``vr``) couple the group's layers, so they
+live once a group in ``state["groups"][g]``, a tree of the layer's 1-D
+leaves, computed from the group's gradients together. An ungrouped 1-D
+leaf is not factored (rank 1 in the reference). Under a mesh a factored
+leaf whose last or second-to-last dim is split over "model" (``split``:
+a tree of that dim's index, or None) takes those means, and the
+``denom``, over "model".
 """
 from __future__ import annotations
 
@@ -32,6 +47,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from repro_torch.sharding import model_ranks, model_sum
 
 
 @dataclass(frozen=True)
@@ -101,45 +118,145 @@ def global_norm(tree):
                           for x in tree_leaves(tree)))
 
 
-def _use_factored(cfg, shape):
-    return cfg.factored and len(shape) >= 2
+def _use_factored(cfg, rank):
+    return cfg.factored and rank >= 2
 
 
-def init_state(cfg: AdamWConfig, params):
+def _grouped(groups):
+    """{layer index: the index of its group}."""
+    return {i: g for g, layers in enumerate(groups or ()) for i in layers}
+
+
+def _rank(leaf) -> int:
+    """A leaf's rank: a tensor's or an array's dims, or the length of a
+    logical-axes tuple."""
+    return len(getattr(leaf, "shape", leaf))
+
+
+def vector_paths(layer) -> list:
+    """The key paths of a layer tree's 1-D leaves (tensors, arrays or
+    axes tuples), in sorted order. In a grouped layer these are the
+    leaves whose ``vr``/``vc`` live once a group."""
+    out = []
+    for k in sorted(layer):
+        if isinstance(layer[k], dict):
+            out += [(k,) + p for p in vector_paths(layer[k])]
+        elif _rank(layer[k]) == 1:
+            out.append((k,))
+    return out
+
+
+def nest(paths, fn) -> dict:
+    """A tree holding ``fn(path)`` at each of ``paths``."""
+    out = {}
+    for path in paths:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = fn(path)
+    return out
+
+
+def at(tree, path):
+    """The node of ``tree`` at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set(tree, path, value):
+    at(tree, path[:-1])[path[-1]] = value
+
+
+def _mirror(params, groups, leaf, vector=None):
+    """A tree beside ``params``: ``leaf(p, its rank in the reference)``
+    at every leaf, and with ``vector``, ``vector(p)`` at a grouped
+    layer's 1-D leaves (``vector_paths``)."""
+    where = _grouped(groups)
+    if not where or not isinstance(params, dict) or "layers" not in params:
+        return tree_map(lambda p: leaf(p, _rank(p)), params)
+    out = {k: tree_map(lambda p: leaf(p, _rank(p)), v)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = []
+    for i, lp in enumerate(params["layers"]):
+        e = int(i in where)
+        t = tree_map(lambda p: leaf(p, _rank(p) + e), lp)
+        if e and vector is not None:
+            for path in vector_paths(lp):
+                _set(t, path, vector(at(lp, path)))
+        out["layers"].append(t)
+    return out
+
+
+def init_state(cfg: AdamWConfig, params, groups=None):
+    """Zeroed AdamW state beside ``params``; factored, as set out above
+    (``groups`` from ``models.steps.stacked_groups``; without them every
+    leaf is factored by its own rank)."""
     dt = getattr(torch, cfg.state_dtype)
 
-    def one(p):
+    def one(p, rank):
         z = dict(dtype=dt, device=p.device)
-        if _use_factored(cfg, p.shape):
+        if _use_factored(cfg, rank) and p.dim() >= 2:
             return {"m": torch.zeros(p.shape, **z),
                     "vr": torch.zeros(p.shape[:-1], **z),
                     "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
         return {"m": torch.zeros(p.shape, **z),
                 "v": torch.zeros(p.shape, **z)}
 
+    def vector(p):          # its vr/vc are its group's
+        return {"m": torch.zeros(p.shape, dtype=dt, device=p.device)}
+
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else None
-    return {"mu": tree_map(one, params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    state = {"mu": _mirror(params, groups, one,
+                           vector if cfg.factored else None),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if cfg.factored and groups:
+        state["groups"] = []
+        for layers in groups:
+            lp = params["layers"][layers[0]]
+            state["groups"].append(nest(vector_paths(lp), lambda path: {
+                "vr": torch.zeros((len(layers),), dtype=dt, device=dev),
+                "vc": torch.zeros(at(lp, path).shape, dtype=dt,
+                                  device=dev)}))
+    return state
 
 
-def state_axes(cfg: AdamWConfig, params_axes):
+def state_axes(cfg: AdamWConfig, params_axes, groups=None):
     """Logical axes for the optimizer state mirroring the param axes (a
-    tree of tuples beside the params)."""
-    def one(ax):
+    tree of tuples beside the params); with ``groups``, a grouped 1-D
+    leaf's ``m`` and its group's ``vr`` ("layers") and ``vc``."""
+    def one(ax, rank):
         ax = tuple(ax)
-        if cfg.factored and len(ax) >= 2:
+        if _use_factored(cfg, rank) and len(ax) >= 2:
             return {"m": ax, "vr": ax[:-1], "vc": ax[:-2] + ax[-1:]}
         return {"m": ax, "v": ax}
 
-    def walk(node):
+    def walk(node, extra):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, extra) for k, v in node.items()}
         if isinstance(node, list):
-            return [walk(v) for v in node]
-        return one(node)
+            return [walk(v, extra) for v in node]
+        return one(node, _rank(node) + extra)
 
-    return {"mu": walk(params_axes), "step": ()}
+    where = _grouped(groups)
+    if not where:
+        return {"mu": walk(params_axes, 0), "step": ()}
+    mu = {k: walk(v, 0) for k, v in params_axes.items() if k != "layers"}
+    mu["layers"] = [walk(lp, int(i in where))
+                    for i, lp in enumerate(params_axes["layers"])]
+    out = {"mu": mu, "step": ()}
+    if cfg.factored:
+        for i in where:
+            lp = params_axes["layers"][i]
+            for path in vector_paths(lp):
+                _set(mu["layers"][i], path, {"m": tuple(at(lp, path))})
+        out["groups"] = []
+        for layers in groups:
+            lp = params_axes["layers"][layers[0]]
+            out["groups"].append(nest(vector_paths(lp), lambda path: {
+                "vr": ("layers",), "vc": tuple(at(lp, path))}))
+    return out
 
 
 def _scalars(cfg, grads, state, gnorm=None):
@@ -157,8 +274,21 @@ def _scalars(cfg, grads, state, gnorm=None):
     return step, lr, scale, bc1, bc2, gnorm
 
 
-def _update(cfg, p, g, s, rank, lr, scale, bc1, bc2):
-    """One leaf's new parameter and state, the reference's ``one``."""
+def _mean(x, dim, split_dim, ndim):
+    """``x.mean(dim)`` of a tensor of ``ndim`` dims whose dim
+    ``split_dim`` (or None) is split evenly over "model": the ranks'
+    means averaged where ``dim`` is the split one."""
+    m = x.mean(dim)
+    if split_dim is not None and dim % ndim == split_dim % ndim:
+        m = model_sum(m) / model_ranks()
+    return m
+
+
+def _update(cfg, p, g, s, rank, lr, scale, bc1, bc2, vhat=None,
+            split=None):
+    """One leaf's new parameter and state, the reference's ``one``;
+    ``vhat`` is a grouped 1-D leaf's second moment (its group's), and
+    ``split`` the dim split over "model" (or None)."""
     b1, b2 = cfg.b1, cfg.b2
     g = g.float() * scale
     m = b1 * s["m"].float() + (1 - b1) * g
@@ -166,13 +296,19 @@ def _update(cfg, p, g, s, rank, lr, scale, bc1, bc2):
         v = b2 * s["v"].float() + (1 - b2) * g * g
         vhat = v / bc2
         new = {"m": m, "v": v}
-    else:
+    elif "vr" in s:
         g2 = g * g
-        vr = b2 * s["vr"].float() + (1 - b2) * g2.mean(-1)
-        vc = b2 * s["vc"].float() + (1 - b2) * g2.mean(-2)
-        denom = torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
+        nd = g2.dim()
+        vr = b2 * s["vr"].float() + (1 - b2) * _mean(g2, -1, split, nd)
+        vc = b2 * s["vc"].float() + (1 - b2) * _mean(g2, -2, split, nd)
+        # vr's last dim is the leaf's second-to-last
+        denom = torch.clamp(_mean(vr, -1, None if split is None or
+                                  split % nd != (nd - 2) else -1,
+                                  vr.dim()).unsqueeze(-1), min=1e-30)
         vhat = (vr[..., None] * vc[..., None, :] / denom[..., None]) / bc2
         new = {"m": m, "vr": vr, "vc": vc}
+    else:
+        new = {"m": m}
     upd = (m / bc1) / (torch.sqrt(vhat) + cfg.eps)
     if (p.dim() if rank is None else rank) >= 2:
         upd = upd + cfg.weight_decay * p.float()
@@ -180,40 +316,68 @@ def _update(cfg, p, g, s, rank, lr, scale, bc1, bc2):
             {k: x.to(s[k].dtype) for k, x in new.items()})
 
 
-def _ranks_or_none(ranks, params):
-    return ranks if ranks is not None else tree_map(lambda p: None, params)
+def _group_moments(cfg, grads, state, groups, scale, bc2):
+    """The grouped 1-D leaves' second moments: (a tree beside the params
+    with each such leaf's ``vhat`` and None elsewhere, the groups' new
+    ``{vr, vc}``). ``vr`` (L,) and ``vc`` come from the group's L
+    layers' gradients stacked, ``denom`` is ``vr``'s mean."""
+    b2 = cfg.b2
+    vh = tree_map(lambda g: None, grads)
+    if "groups" not in state:
+        return vh, None
+    new_groups = []
+    for layers, stats in zip(groups, state["groups"]):
+        def one(path, layers=layers, stats=stats):
+            st = at(stats, path)
+            g2 = torch.stack([
+                at(grads["layers"][i], path).float() * scale
+                for i in layers]) ** 2                       # (L, n)
+            vr = b2 * st["vr"].float() + (1 - b2) * g2.mean(-1)
+            vc = b2 * st["vc"].float() + (1 - b2) * g2.mean(-2)
+            denom = torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
+            vhat = (vr[..., None] * vc[..., None, :] / denom[..., None]) \
+                / bc2
+            for j, i in enumerate(layers):
+                _set(vh["layers"][i], path, vhat[j])
+            return {"vr": vr.to(st["vr"].dtype), "vc": vc.to(st["vc"].dtype)}
+        new_groups.append(nest(vector_paths(grads["layers"][layers[0]]),
+                               one))
+    return vh, new_groups
+
+
+def _or_none(tree, params):
+    return tree if tree is not None else tree_map(lambda p: None, params)
 
 
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params, grads, state, ranks=None):
     """Returns (new params, new state, {"lr", "grad_norm"}); the norm is
-    the gradients' before clipping."""
-    step, lr, scale, bc1, bc2, gnorm = _scalars(cfg, grads, state)
-    out = tree_map(lambda p, g, s, r: _update(cfg, p, g, s, r, lr, scale,
-                                              bc1, bc2),
-                   params, grads, state["mu"], _ranks_or_none(ranks, params))
-    new_params = tree_map(lambda p, o: o[0], params, out)
-    new_mu = tree_map(lambda p, o: o[1], params, out)
-    return new_params, {"mu": new_mu, "step": step}, {
-        "lr": lr, "grad_norm": gnorm}
+    the gradients' before clipping. ``apply_updates_`` on copies."""
+    return apply_updates_(cfg, tree_map(torch.clone, params), grads,
+                          tree_map(torch.clone, state), ranks)
 
 
 @torch.no_grad()
 def apply_updates_(cfg: AdamWConfig, params, grads, state, ranks=None,
-                   grad_norm=None):
-    """``apply_updates`` in place: the same values written into
-    ``params`` and ``state``, one leaf at a time. ``grad_norm``: the
-    gradients' global norm when ``grads`` hold only this rank's shards.
-    Returns (params, state, {"lr", "grad_norm"})."""
+                   grad_norm=None, groups=None, split=None):
+    """The AdamW step written into ``params`` and ``state`` in place,
+    one leaf at a time. ``grad_norm``: the gradients' global norm when
+    ``grads`` hold only this rank's shards; ``groups`` and ``split`` as
+    for ``init_state`` and the module docstring. Returns (params, state,
+    {"lr", "grad_norm"}), the norm the gradients' before clipping."""
     step, lr, scale, bc1, bc2, gnorm = _scalars(cfg, grads, state,
                                                 grad_norm)
+    vh, new_groups = _group_moments(cfg, grads, state, groups, scale, bc2)
 
-    def one(p, g, s, r):
-        new_p, new_s = _update(cfg, p, g, s, r, lr, scale, bc1, bc2)
+    def one(p, g, s, r, v, d):
+        new_p, new_s = _update(cfg, p, g, s, r, lr, scale, bc1, bc2, v, d)
         p.copy_(new_p)
         for k, x in new_s.items():
             s[k].copy_(x)
 
-    tree_map(one, params, grads, state["mu"], _ranks_or_none(ranks, params))
+    tree_map(one, params, grads, state["mu"], _or_none(ranks, params),
+             vh, _or_none(split, params))
+    if new_groups is not None:
+        tree_map(lambda s, n: s.copy_(n), state["groups"], new_groups)
     state["step"] = step
     return params, state, {"lr": lr, "grad_norm": gnorm}

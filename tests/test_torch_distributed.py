@@ -15,7 +15,8 @@ no JAX at its top: the ranks import it to find their job functions.
   against the reference's single-device decode at rtol/atol 3e-4 (the
   reference's own tolerance, ``tests/test_system.py``), and the gathered
   caches against the reference's to 1e-5; at 2x2 (kv heads 2 divide the
-  model axis) the rank's whole-cache decode, its batch rows split. One
+  model axis) the rank's decode over its kv heads, its batch rows
+  split. One
   layer's ``seq_sharded_decode`` against the reference's ``_inner`` under
   ``jax.vmap(axis_name="model")`` on the same local slots: each rank's
   updated slots and the merged output to 1e-6 (fp32, summation order),
@@ -454,7 +455,9 @@ def test_gqa_decode_equals_the_single_device_reference(groups, shape, sub,
         assert int(o["calls"]) == (T * jcfg.num_layers if seq else 0)
         assert int(o["all_reduces"]) == 3 * int(o["calls"])
         full = sum(t.numel() * 4 for layer in cache for t in layer.values())
-        assert int(o["local_bytes"]) * (m if seq else 1) * d == full
+        # the model axis splits every cache: its slots where it does not
+        # divide the kv heads, else the kv heads (the reference's rules)
+        assert int(o["local_bytes"]) * m * d == full
 
 
 def jax_tree_numpy(tree):

@@ -25,10 +25,18 @@ exit.
 * Every kernel wrapper and backward kernel takes its plain version on
   meta tensors: meta outputs of the kernel's shapes, no launch counted.
 * Every config at ``.reduced()`` lowers train, prefill and decode on a
-  fake (2, 2) mesh, and the train step under a (pod, data, model) mesh
-  sums its gradients over both batch axes.
+  fake (2, 2) mesh, each record's weights placed as the rules place them
+  (``param_bytes_placed == param_bytes_by_rules``, since P13c), and the
+  train step under a (pod, data, model) mesh sums its gradients over
+  both batch axes.
+* kimi-k2 and deepseek at ``.reduced()`` widths with their full expert
+  counts (64 or more: the factored second moment, as the reference's
+  dry-run sets it) lower their train step ok on the fake (2, 2) mesh; one
+  production-mesh record (smollm-135m ``decode_32k`` on 16 x 16) places
+  its weights as the rules do.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -397,7 +405,7 @@ def test_every_arch_reduced_lowers(fake_group, monkeypatch, tmp_path, arch):
                          .read_text())
         assert (rec["kind"], rec["n_devices"]) == (kind, 4)
         assert rec["flops"] > 0 and rec["memory"]["argument_bytes"] > 0
-        assert rec["param_bytes_placed"] >= rec["param_bytes_by_rules"]
+        assert rec["param_bytes_placed"] == rec["param_bytes_by_rules"]
         if kind == "train":       # the gradients' all-reduce over "data"
             assert rec["collectives"]["all-reduce"]["count"] >= 1
     # a combination recorded ok is skipped
@@ -428,3 +436,40 @@ def test_train_step_reduces_over_pod_and_data(fake_group, monkeypatch):
     want = sum(tdry.ring_bytes("all-reduce", b, 2) for b in per_axis) * 2
     assert (n_dev, sizes) == (4, [2, 2])
     assert low.collectives == {"all-reduce": {"count": 6, "bytes": want}}
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "deepseek-v2-lite-16b"])
+def test_factored_train_records_are_ok(fake_group, monkeypatch, tmp_path,
+                                       arch):
+    full = tget_config(arch)
+    cfg = dataclasses.replace(full.reduced(), num_experts=full.num_experts)
+    names = _small_shapes(monkeypatch, TSHAPES, TInputShape)
+    monkeypatch.setattr(tdry, "get_config", lambda a: cfg)
+    monkeypatch.setattr(tdry, "make_production_mesh", lambda **kw: DeviceMesh(
+        "cpu", torch.arange(4).reshape(2, 2),
+        mesh_dim_names=("data", "model")))
+    assert tdry.run_one(arch, names["train"], False, tmp_path)
+    rec = json.loads((tmp_path / f"{arch}__{names['train']}__pod16x16.json")
+                     .read_text())
+    assert rec["ok"] and rec["kind"] == "train" and cfg.num_experts >= 64
+    assert rec["param_bytes_placed"] == rec["param_bytes_by_rules"]
+    # the factored moment's statistics of a model-split leaf are means
+    # over "model": more all-reduces than the gradients' and the norm's
+    assert rec["collectives"]["all-reduce"]["count"] > 3
+
+
+def test_production_record_places_weights_by_the_rules(fake_group,
+                                                       tmp_path):
+    fake_group.join(256)
+    try:
+        assert tdry.run_one("smollm-135m", "decode_32k", False, tmp_path)
+    finally:
+        fake_group.join(512)
+    rec = json.loads((tmp_path / "smollm-135m__decode_32k__pod16x16.json")
+                     .read_text())
+    assert rec["n_devices"] == 256
+    assert rec["param_bytes_placed"] == rec["param_bytes_by_rules"]
+    cfg = tget_config("smollm-135m")
+    assert rec["param_bytes_placed"] == tdry.param_bytes(
+        tget_model(cfg), getattr(torch, cfg.dtype),
+        Mesh(data=16, model=16), rules=sharding.DEFAULT_RULES)

@@ -212,6 +212,23 @@ def test_grouped_layers_take_the_reference_weight_decay():
 
 
 def test_factored_train_step_is_refused():
+    """The refusal is gone: the factored second moment trains in the
+    reference's stacked layout (held to the reference in
+    ``test_torch_factored_moment.py``). The state keeps a grouped 1-D
+    leaf's ``vr``/``vc`` once a group, and a step moves them. (The name
+    is kept from when ``make_train_step`` refused ``factored=True``.)"""
+    from repro_torch.models.steps import init_opt_state
     cfg = tget_config("smollm-135m").reduced()
-    with pytest.raises(ValueError, match="factored"):
-        make_train_step(tget_model(cfg), toptim.AdamWConfig(factored=True))
+    model = tget_model(cfg)
+    ocfg = toptim.AdamWConfig(factored=True, warmup_steps=0)
+    step = make_train_step(model, ocfg, remat=False)
+    params = model.init(seed=0, device="cpu")
+    state = init_opt_state(model, ocfg, params)
+    assert "v" not in state["mu"]["layers"][0]["mixer"]["ln"]
+    assert state["groups"][0]["mixer"]["ln"]["vr"].shape == (2,)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16),
+                         generator=torch.Generator().manual_seed(0))
+    _, state, metrics = step(params, state, {"tokens": toks,
+                                             "labels": toks})
+    assert torch.isfinite(metrics["loss"])
+    assert float(state["groups"][0]["mixer"]["ln"]["vr"].abs().sum()) > 0
