@@ -74,7 +74,7 @@ Phases (each raises on failure, and the script then exits non-zero):
      card run (the host split, degradation, trace harness, leakage, the
      constant-shape A/B, the oversubscribed pool, churn, stochastic and
      its replay) serve
-     smollm-135m's first ``SCHED_LAYERS`` (8) layers at its full widths:
+     smollm-135m's first ``SCHED_LAYERS`` (4) layers at its full widths:
      none of their checks depends on the depth;
    - profile host split: the same traffic unprofiled and then with a
      ``DispatchProfiler`` on every batcher, each orchestrator tick timed:
@@ -149,7 +149,7 @@ Phases (each raises on failure, and the script then exits non-zero):
 7. mamba2: mamba2-370m at its full published widths (48 layers, d_model
    1024, 32 SSM heads of 64, state 128, chunk 256, vocab 50280) with
    seeded random fp32 weights, a bf16 conv tail and an fp32 SSM state:
-   at its first ``SERVE_LAYERS`` (8) layers, the quickstart traffic
+   at its first ``SERVE_LAYERS`` (4) layers, the quickstart traffic
    through ``build_island_batchers(cache="auto")`` (stacked batchers: K5
    on every layer of every prefill dispatch, no attention kernel), a
    profile of it and the per-request path; at full depth, the
@@ -179,7 +179,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    glm4-9b (40 layers, 32 heads on 2 kv heads of 128: G 16) at their
    full published widths and depths with seeded random fp32 weights, one
    at a time, each freed before the next: at the first
-   ``SERVE_LAYERS`` (8) layers, the quickstart traffic through
+   ``SERVE_LAYERS`` (4) layers, the quickstart traffic through
    ``build_island_batchers(cache="auto")`` (fused chunked paged
    batchers: K2 and K1 once per layer of every dispatch) and a profile
    of it; the card-vs-CPU replay on the fused paged batcher cut to the
@@ -226,7 +226,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    the one card (NCCL refuses two ranks on one device; gloo stages CUDA
    tensors through the host), smollm-135m at full width on a 1x2 mesh
    (3 KV heads: every layer decodes sequence-sharded; 8 rows, a 1,024-
-   token prompt, max_len 2,048, 16 decode steps) with its gathered logits
+   token prompt, max_len 2,048, 8 decode steps) with its gathered logits
    held to the one-process run's, each rank's cache half the bytes, K4
    once a layer of the prefill, K3 never, three all-reduces a layer a
    step; deepseek-v2-lite-16b at full width and depth on 1x2 (the latent
@@ -239,6 +239,18 @@ Phases (each raises on failure, and the script then exits non-zero):
    2 steps of 8 x 2,048 tokens, 4 x 2,048 a rank) with every step's loss
    and gradient norm held to the one-process launcher's and K4 and its
    backward once a layer a step on each rank;
+11a. P13d, the ZeRO-3 placement on two gloo ranks as (data 2, model 1)
+   (``p13d_group``): the train launcher under ``--mesh 2x1 --backend
+   gloo --fsdp`` (smollm-135m, 2 steps of 8 x 2,048 tokens), each
+   rank's weights exactly the rules' FSDP bytes (``apply_fsdp`` on the
+   reference's stacked layout) and its moments twice that, every step's
+   loss and gradient norm held to the one-process launcher run of item
+   11, K4 and its backward once a layer a step; and deepseek-v2-lite-16b
+   at full width cut to 2 layers (its dense first layer and one MoE
+   layer), each rank without and then with FSDP from the same weights:
+   the FSDP weights the rules' bytes, a prefill and 8 decode steps
+   bit-equal, step 1's loss and gradients bit-equal, the gradient norm
+   and step 2 within stated tolerances, peak memory a rank beside;
 12. P13c, qwen3-32b on the card (``p13c_group``): its first
    ``P13C_LAYERS`` of 64 layers at full widths (60.8 GB of fp32 weights)
    on the paged main path (K1/K2 launches, tokens/s, peak memory); the
@@ -2951,19 +2963,20 @@ def host_split_phase(cfg, params, device):
 # the depth of the smollm phases held to the port's scheduling on the
 # CPU or to a second run on the card, not to the served model's numbers
 # (degradation, trace harness, leakage, the constant-shape A/B, the
-# oversubscribed pool, churn, stochastic): its first 8 of 30 layers at
+# oversubscribed pool, churn, stochastic): its first 4 of 30 layers at
 # full widths. Those checks depend on neither the depth nor the
-# weights, and at full depth the phases took ~280 s of the script's
-# time limit
-SCHED_LAYERS = 8
+# weights; at full depth the phases took ~280 s of the script's time
+# limit, at 8 layers ~94 s, which the P13d group's gloo gathers now
+# need
+SCHED_LAYERS = 4
 # the serving paths of the configs after smollm (mamba2, recurrentgemma
 # and the P12a four: the auto path, its profile, the per-request path,
-# paligemma's prefix paths) serve their first 8 layers at full widths
-# (recurrentgemma 9: three whole pattern cycles); a layer's launches and
+# paligemma's prefix paths) serve their first 4 layers at full widths
+# (recurrentgemma 6: two whole pattern cycles); a layer's launches and
 # device time repeat, and their full depths (18-48 layers) took ~230 s
-# of the script's time limit. Their replays and the kernel phase keep
-# their own shapes
-SERVE_LAYERS = 8
+# of the script's time limit, 8 layers ~71 s. Their replays and the
+# kernel phase keep their own shapes
+SERVE_LAYERS = 4
 
 # benchmarks/degradation.py's scenario (ported here: it imports the JAX
 # package). DEADLINE_WORK is above the fault-free run's total mesh work,
@@ -4095,7 +4108,9 @@ def p12b_group(device, timed, rows):
 # model ranks, so every layer decodes sequence-sharded (each rank holds
 # 1,024 of the 2,048 slots)
 DIST_ARCH = "smollm-135m"
-DIST_B, DIST_S, DIST_L, DIST_T = 8, 1024, 2048, 16
+# (8 decode steps since P13d, 16 before: each is ~0.56 s of gloo
+# all-reduces a rank)
+DIST_B, DIST_S, DIST_L, DIST_T = 8, 1024, 2048, 8
 # deepseek-v2-lite-16b at full width and depth on 1x2: the latent cache
 # sequence-sharded, 32 of the 64 experts a rank. capacity_factor E / k
 # gives a capacity of every local token, so no token is dropped and the
@@ -4147,20 +4162,22 @@ def _dist_tokens(cfg, B, n, seed=11):
         0, cfg.vocab_size, (B, n)).astype(np.int32))
 
 
-def _decode_run(model, params, toks, S, T, L, device):
+def _decode_run(model, params, toks, S, T, L, device, batch=None):
     """A prefill of ``S`` tokens and ``T`` decode steps through the serve
     steps on an fp32 dense cache: (logits (B, T + 1, V) fp32 on the host,
     the cache, each decode step's ms). fp32, as the reference's own
     sharded-decode check: in a bf16 cache the ~1e-7 gaps of another
     summation order (the merged softmax, the expert-parallel MoE) flip
     some stored values by a bf16 ulp (4e-3 relative), which the
-    comparison would then measure instead of the sharded path."""
+    comparison would then measure instead of the sharded path. Under a
+    mesh that splits the batch, ``toks`` are the rank's rows and
+    ``batch`` the global batch the cache is made for."""
     import torch
 
     from repro_torch.models.steps import make_prefill_step, make_serve_step
     prefill, serve = make_prefill_step(model), make_serve_step(model)
     toks = toks.to(device)
-    cache = model.init_cache(toks.shape[0], L, dtype=torch.float32,
+    cache = model.init_cache(batch or toks.shape[0], L, dtype=torch.float32,
                              device=device)
     lg, cache = prefill(params, cache, tokens=toks[:, :S])
     out, ms = [lg.float().cpu()], []
@@ -4179,9 +4196,10 @@ def _cache_bytes(cache):
                for t in layer.values())
 
 
-def _rank_setup():
+def _rank_setup(data=1, model=2):
     """A spawned rank: the card, fp32 matmuls without TF32 (as the
-    parent), and a 1x2 mesh over the gloo group."""
+    parent), and a (data, model) mesh over the gloo group (1x2 unless
+    asked)."""
     import torch
 
     from repro_torch.launch.mesh import make_local_mesh, rank_device
@@ -4189,7 +4207,7 @@ def _rank_setup():
     torch.backends.cudnn.allow_tf32 = False
     dev = rank_device(None)
     torch.cuda.reset_peak_memory_stats(dev)
-    return dev, make_local_mesh(1, 2)
+    return dev, make_local_mesh(data, model)
 
 
 class _Routes:
@@ -4366,17 +4384,18 @@ class _MeshShape:
         self.shape = shape
 
 
-def rules_weight_bytes(cfg, data=1, model=2):
+def rules_weight_bytes(cfg, data=1, model=2, fsdp=False):
     """The fp32 weight bytes a device of a (data, model) mesh holds under
-    the reference's rules (``Model.axes()``, ``DEFAULT_RULES``), from the
-    shapes alone: what each rank must hold."""
+    the reference's rules (``Model.axes()``, ``DEFAULT_RULES``; with
+    ``fsdp``, ``apply_fsdp`` on its stacked layout), from the shapes
+    alone: what each rank must hold."""
     import torch
 
     from repro_torch import sharding
     from repro_torch.launch.dryrun import param_bytes
     from repro_torch.models.model import get_model
     return param_bytes(get_model(cfg), torch.float32,
-                       _MeshShape(data=data, model=model),
+                       _MeshShape(data=data, model=model), fsdp=fsdp,
                        rules=sharding.DEFAULT_RULES)
 
 
@@ -4577,18 +4596,25 @@ def dist_deepseek_phase(card, want, device):
           "peak_memory_bytes_rank": [o["peak_memory_bytes"] for o in outs]})
 
 
+def dist_train_argv():
+    """The launcher's arguments of the distributed training checks."""
+    return ["--arch", TRAIN, "--steps", str(DIST_TRAIN_STEPS), "--batch",
+            str(TRAIN_B), "--seq", str(TRAIN_S), "--log-every", "1"]
+
+
 def dist_train_phase(card):
     """The train launcher with ``--mesh 2x1 --backend gloo`` on the card
     (two ranks, each 4 of the 8 rows a step) against the one-process
     launcher: the first step's loss and gradient norm within
     ``TRAIN_LOSS_TOL``/``TRAIN_GNORM_TOL`` (relative), later steps' within
     ``DIST_LATER_*_TOL``, and on every rank
-    K4 and its backward once a layer a step and no other kernel."""
+    K4 and its backward once a layer a step and no other kernel. Returns
+    the one-process history and the ranks' peak memory (the p13d group
+    holds its FSDP ranks to both)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import train
     from repro_torch.models.model import get_model
-    argv = ["--arch", TRAIN, "--steps", str(DIST_TRAIN_STEPS), "--batch",
-            str(TRAIN_B), "--seq", str(TRAIN_S), "--log-every", "1"]
+    argv = dist_train_argv()
     import torch
     records, undo = _step_recorder()
     try:
@@ -4630,6 +4656,7 @@ def dist_train_phase(card):
           "faults": faults})
     if faults:
         raise AssertionError("dist train: " + "; ".join(faults))
+    return one, [o["peak_memory_bytes"] for o in outs]
 
 
 def dist_group(device, timed, card, ds_want, rows):
@@ -4637,7 +4664,8 @@ def dist_group(device, timed, card, ds_want, rows):
     deepseek-v2-lite-16b on two gloo ranks (NCCL takes one rank a card;
     gloo stages CUDA tensors through the host, so these are correctness
     gates, not speed claims), then the launcher under --mesh 2x1. The
-    kernel rows of K3 and K4 take a rank's launches in the smollm run."""
+    kernel rows of K3 and K4 take a rank's launches in the smollm run.
+    Returns what ``dist_train_phase`` does."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -4652,7 +4680,245 @@ def dist_group(device, timed, card, ds_want, rows):
     timed("dist deepseek 1x2", dist_deepseek_phase, card, ds_want, device)
     gc.collect()
     torch.cuda.empty_cache()
-    timed("dist train --mesh 2x1", dist_train_phase, card)
+    return timed("dist train --mesh 2x1", dist_train_phase, card)
+
+
+# ------------------- P13d: the ZeRO-3 placement (--fsdp), gloo ranks
+
+# deepseek-v2-lite-16b at full width cut to its dense first layer and one
+# MoE layer (MLA in both): 4,341,149,696 B of fp32 weights, half a rank
+# under FSDP on (data 2, model 1). Each rank: a prefill of its 2 of 4
+# prompts of P13D_DS_S tokens and P13D_DS_T decode steps into a
+# P13D_DS_L-slot fp32 cache, then 2 AdamW steps (the factored moment,
+# which the reference's dry-run takes at 64 experts) on its half of 4 x
+# P13D_DS_S tokens a step; once without FSDP, then with it, from the
+# same seeded weights
+P13D_DS = "deepseek-v2-lite-16b"
+P13D_DS_LAYERS = 2
+P13D_DS_B, P13D_DS_S, P13D_DS_T, P13D_DS_L = 4, 512, 8, 1024
+P13D_DS_LR = 3e-4
+
+
+def _p13d_ds_rank(layers, B, S, T, L):
+    """One rank of a (data 2, model 1) gloo group on the card: deepseek at
+    the ``layers`` cut, without FSDP and then with it (module comment
+    above). Returns, for each run: its weight and moment bytes, peak
+    memory (and the bytes allocated as it starts), decode logits, the
+    train steps' metrics; and whether step 1's gradients (the FSDP slice
+    of each, on the host) are bit-equal."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import steps
+    from repro_torch.models.model import get_model
+    from repro_torch.training import optim
+    dev, mesh = _rank_setup(data=2, model=1)
+    cfg = ds_dist_config(dataclasses.replace(get_config(P13D_DS),
+                                             num_layers=layers))
+    model = get_model(cfg)
+    ocfg = optim.AdamWConfig(lr=P13D_DS_LR, warmup_steps=1, total_steps=10,
+                             factored=True)
+    toks = _dist_tokens(cfg, B, S + T)
+    batches = [{"tokens": t, "labels": t} for t in (
+        _dist_tokens(cfg, B, S, seed=21 + i).to(dev) for i in range(2))]
+    placed = [a for _, a in sharding._walk(
+        model.abstract(), sharding.placed_axes(model, mesh, fsdp=True))]
+    real_vg, out, host = steps.value_and_grad, {}, {}
+    for fsdp in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.memory_allocated(dev)
+
+        def captured(*args, **kw):
+            # step 1's gradients on the host, at the FSDP slices (the
+            # device keeps no extra copy)
+            got = real_vg(*args, **kw)
+            if fsdp not in host:
+                host[fsdp] = [(g if fsdp else sharding.local_slice(g, a))
+                              .cpu() for g, a in
+                              zip(optim.tree_leaves(got[2]), placed)]
+            return got
+        with sharding.axis_rules(mesh, fsdp=fsdp):
+            params = model.init(seed=0, device=dev)
+            state = steps.init_opt_state(model, ocfg, params)
+            weights, moments = tensor_bytes(params), tensor_bytes(state["mu"])
+            logits, cache, _ = _decode_run(
+                model, params, sharding.local_slice(toks, ("batch", None)),
+                S, T, L, dev, batch=B)
+            del cache
+            step = steps.make_train_step(model, ocfg, remat=False)
+            steps.value_and_grad = captured
+            try:
+                metrics = []
+                for b in batches:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    params, state, m = step(params, state, b)
+                    metrics.append({k: float(m[k]) for k in
+                                    ("loss", "grad_norm")} |
+                                   {"ms": (time.perf_counter() - t0) * 1e3})
+            finally:
+                steps.value_and_grad = real_vg
+            counts = dict(sharding.fsdp_gather.counts)
+            out[f"fsdp{int(fsdp)}"] = {
+                "weight_bytes": weights, "moment_bytes": moments,
+                "allocated_at_start_bytes": start,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                "logits": logits.numpy(), "metrics": metrics,
+                "fsdp_collectives": {f"{k} over {n}": v
+                                     for (k, n), v in counts.items()}}
+            del params, state, step, m
+            sharding.fsdp_gather.counts.clear()
+    out["grads_equal"] = all(torch.equal(a, b)
+                             for a, b in zip(host[False], host[True]))
+    return out
+
+
+def p13d_smollm_phase(card, one, mesh_peaks):
+    """smollm-135m at full width through the launcher with ``--mesh 2x1
+    --backend gloo --fsdp``: each rank's weight bytes the rules' FSDP
+    figure to the byte and its moments twice that; K4 and its backward
+    once a layer a step; the loss and gradient norm against the one-
+    process launcher's (``dist_train_phase``'s run, not repeated) within
+    the tolerances ``dist_train_phase`` holds the mesh to; each rank's
+    peak memory beside the ranks' without FSDP."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import get_model
+    cfg = get_config(TRAIN)
+    outs = _run_gloo_ranks(_dist_train_rank, (
+        dist_train_argv() + ["--mesh", "2x1", "--backend", "gloo",
+                             "--fsdp"],))
+    want = train_launches(get_model(cfg))
+    rules = rules_weight_bytes(cfg, data=2, model=1, fsdp=True)
+    faults = []
+    for r, o in enumerate(outs):
+        _launch_counts(f"{TRAIN} --fsdp rank {r}", o["records"], want)
+        for rec in o["records"]:
+            if rec["weight_bytes"] != rules or \
+                    rec["moment_bytes"] != 2 * rules:
+                faults.append(f"rank {r}: weights {rec['weight_bytes']}, "
+                              f"moments {rec['moment_bytes']}, the rules "
+                              f"place {rules}")
+        for a, b in zip(one, o["hist"]):
+            lt, gt = ((TRAIN_LOSS_TOL, TRAIN_GNORM_TOL) if a["step"] == 1
+                      else (DIST_LATER_LOSS_TOL, DIST_LATER_GNORM_TOL))
+            if abs(a["loss"] - b["loss"]) > lt * abs(a["loss"]):
+                faults.append(f"rank {r} step {a['step']} loss {b['loss']}"
+                              f" vs {a['loss']}")
+            if abs(a["grad_norm"] - b["grad_norm"]) > \
+                    gt * abs(a["grad_norm"]):
+                faults.append(f"rank {r} step {a['step']} grad norm "
+                              f"{b['grad_norm']} vs {a['grad_norm']}")
+        if len(o["hist"]) != len(one):
+            faults.append(f"rank {r}: {len(o['hist'])} steps")
+    med = lambda rs: sorted(x["s"] for x in rs[1:])[len(rs[1:]) // 2] * 1e3
+    peaks = [o["peak_memory_bytes"] for o in outs]
+    emit({"phase": "p13d smollm --mesh 2x1 --fsdp", "card": card,
+          "backend": "gloo", "batch": TRAIN_B, "seq": TRAIN_S,
+          "steps": DIST_TRAIN_STEPS,
+          "weight_bytes_rank": [o["records"][0]["weight_bytes"]
+                                for o in outs],
+          "moment_bytes_rank": [o["records"][0]["moment_bytes"]
+                                for o in outs],
+          "weight_bytes_by_rules": rules,
+          "weight_bytes_whole": rules_weight_bytes(cfg, data=1, model=1),
+          "loss": {"one_process": [h["loss"] for h in one],
+                   "ranks": [[h["loss"] for h in o["hist"]] for o in outs]},
+          "grad_norm": {"one_process": [h["grad_norm"] for h in one],
+                        "ranks": [[h["grad_norm"] for h in o["hist"]]
+                                  for o in outs]},
+          "step_ms_median_rank": [med(o["records"]) for o in outs],
+          "launches_per_step": want,
+          "peak_memory_bytes_rank": peaks,
+          "peak_memory_bytes_rank_without_fsdp": mesh_peaks,
+          "peak_saved_bytes_rank": [b - a for a, b in zip(peaks,
+                                                         mesh_peaks)],
+          "faults": faults})
+    if faults:
+        raise AssertionError("p13d smollm: " + "; ".join(faults))
+    return want
+
+
+def p13d_deepseek_phase(card):
+    """deepseek at its 2-layer cut on (data 2, model 1), each rank without
+    and with FSDP (``_p13d_ds_rank``): the FSDP weights the rules' figure
+    to the byte (half the whole), the decode logits and step 1's loss
+    and gradients bit-equal, the gradient norm within
+    ``TRAIN_GNORM_TOL`` and step 2 within ``DIST_LATER_*_TOL``
+    (relative)."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    cfg = dataclasses.replace(get_config(P13D_DS), num_layers=P13D_DS_LAYERS)
+    outs = _run_gloo_ranks(_p13d_ds_rank, (P13D_DS_LAYERS, P13D_DS_B,
+                                           P13D_DS_S, P13D_DS_T, P13D_DS_L))
+    rules = rules_weight_bytes(cfg, data=2, model=1, fsdp=True)
+    whole = rules_weight_bytes(cfg, data=1, model=1)
+    faults = []
+    for r, o in enumerate(outs):
+        a, b = o["fsdp0"], o["fsdp1"]
+        if b["weight_bytes"] != rules or a["weight_bytes"] != whole:
+            faults.append(f"rank {r}: weights {b['weight_bytes']} with FSDP"
+                          f" ({rules} by the rules), {a['weight_bytes']} "
+                          f"without ({whole})")
+        if not np.array_equal(a["logits"], b["logits"]):
+            faults.append(f"rank {r}: decode logits differ by "
+                          f"{float(np.abs(a['logits'] - b['logits']).max())}")
+        if not o["grads_equal"]:
+            faults.append(f"rank {r}: step 1's gradients differ")
+        m0, m1 = a["metrics"], b["metrics"]
+        if m0[0]["loss"] != m1[0]["loss"]:
+            faults.append(f"rank {r}: step 1 loss {m1[0]['loss']} vs "
+                          f"{m0[0]['loss']}")
+        for i, (x, y) in enumerate(zip(m0, m1)):
+            lt, gt = ((0.0, TRAIN_GNORM_TOL) if i == 0 else
+                      (DIST_LATER_LOSS_TOL, DIST_LATER_GNORM_TOL))
+            if abs(x["loss"] - y["loss"]) > lt * abs(x["loss"]) or \
+                    abs(x["grad_norm"] - y["grad_norm"]) > \
+                    gt * abs(x["grad_norm"]):
+                faults.append(f"rank {r} step {i + 1}: {y} vs {x}")
+    emit({"phase": "p13d deepseek 2x1 --fsdp", "card": card,
+          "backend": "gloo", "layers": P13D_DS_LAYERS, "batch": P13D_DS_B,
+          "prompt": P13D_DS_S, "decode_steps": P13D_DS_T,
+          "max_len": P13D_DS_L, "train_steps": 2,
+          "weight_bytes_whole": whole, "weight_bytes_by_rules": rules,
+          **{f"{k}_rank": [[o[f"fsdp{i}"][k] for i in (0, 1)]
+                           for o in outs]
+             for k in ("weight_bytes", "moment_bytes", "peak_memory_bytes",
+                       "metrics")},
+          "logits_bit_equal": [bool(np.array_equal(o["fsdp0"]["logits"],
+                                                   o["fsdp1"]["logits"]))
+                               for o in outs],
+          "step1_grads_bit_equal": [o["grads_equal"] for o in outs],
+          "allocated_at_start_bytes_rank": [
+              [o[f"fsdp{i}"]["allocated_at_start_bytes"] for i in (0, 1)]
+              for o in outs],
+          "fsdp_collectives_rank0": outs[0]["fsdp1"]["fsdp_collectives"],
+          "faults": faults})
+    if faults:
+        raise AssertionError("p13d deepseek: " + "; ".join(faults))
+
+
+def p13d_group(device, timed, card, rows, one, mesh_peaks):
+    """P13d on the card: the ZeRO-3 placement on two gloo ranks as (data
+    2, model 1), smollm through the launcher (``p13d_smollm_phase``) and
+    deepseek at a 2-layer cut against the same mesh without FSDP
+    (``p13d_deepseek_phase``). Correctness and memory gates, not speed
+    claims: gloo stages every gather through the host. K4's rows take a
+    rank's launches a step."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = timed("p13d smollm --fsdp", p13d_smollm_phase, card, one,
+                 mesh_peaks)
+    for k in ("flash_attention", "flash_attention_bwd"):
+        rows[k]["launches_p13d"] = {
+            f"{TRAIN} --mesh 2x1 --fsdp, a rank a step": want[k]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("p13d deepseek --fsdp", p13d_deepseek_phase, card)
 
 
 # ------------- P13c: weights placed by the rules, qwen3-32b on the card
@@ -4814,10 +5080,10 @@ def p13c_group(device, timed, card, rows):
 # comparisons: in bf16 a ~1e-7 gap of another summation order flips a
 # stored value by a bf16 ulp, which the gate would then measure
 P13B_ARCH = "qwen3-4b"
-# its cut: 4 of 36 layers since P13c (8 before), whose qwen3-32b phases
-# take the seconds; the migrating variant's gloo staging of the cache
-# scales with the layers
-P13B_LAYERS = 4
+# its cut: 2 of 36 layers since P13d (4 in P13c, 8 before), whose
+# qwen3-32b and FSDP phases take the seconds; the migrating variant's
+# gloo staging of the cache scales with the layers
+P13B_LAYERS = 2
 P13B_B, P13B_PROMPT, P13B_MAX_LEN, P13B_STEPS = 16, 128, 2048, 8
 # the sensitivities' seed: both pods get requests, and at step 1 half of
 # the 16 rows change rank (read out as ``rows_changing_rank``)
@@ -5287,8 +5553,9 @@ REMAT_TOL = 1e-6
 
 def _step_recorder():
     """Wrap the train launcher's ``make_train_step`` so that every step is
-    timed (synchronized on both sides) and its kernel launches and MLA/MoE
-    calls counted. Returns (records, undo)."""
+    timed (synchronized on both sides), its kernel launches and MLA/MoE
+    calls counted and the weight and AdamW moment bytes it holds read.
+    Returns (records, undo)."""
     import torch
 
     from repro_torch.launch import train
@@ -5304,7 +5571,9 @@ def _step_recorder():
             out = step(params, state, batch)
             torch.cuda.synchronize()
             records.append({"s": time.perf_counter() - t0,
-                            **read_launches(), **read_blocks()})
+                            **read_launches(), **read_blocks(),
+                            "weight_bytes": tensor_bytes(params),
+                            "moment_bytes": tensor_bytes(state["mu"])})
             return out
         return timed_step
 
@@ -6076,7 +6345,9 @@ def main() -> int:
     # deepseek-v2-lite-16b at full width, the largest model of the script
     ds_want = p12b_group(gpu, timed, rows)
     # P13a: the distributed slice on gloo ranks on the card
-    dist_group(gpu, timed, card, ds_want, rows)
+    one, mesh_peaks = dist_group(gpu, timed, card, ds_want, rows)
+    # P13d: the ZeRO-3 placement (--fsdp) on two gloo ranks
+    p13d_group(gpu, timed, card, rows, one, mesh_peaks)
     # P13c: qwen3-32b on the card: the paged main path at a 28-layer cut,
     # its replay, and tensor parallel over two gloo ranks
     p13c_group(gpu, timed, card, rows)

@@ -13,8 +13,9 @@ reference stacks its (E, d, f) experts to (G, E, d, f)), an MLA mixer,
 and the dense first layers (``head_{i}``) cross like any other.
 
 ``shard_params`` takes the reference's parameters to this rank's local
-slices under a mesh (``sharding.LOCAL_RULES``: the reference's rules,
-"fsdp" off), as ``Model.init`` under the mesh keeps them.
+slices under a mesh, placed as ``sharding.placed_axes`` places them (the
+reference's rules; with FSDP, ``apply_fsdp``'s split over the data axes
+too), as ``Model.init`` under the mesh keeps them.
 
 ``opt_state_from_reference`` carries the reference's AdamW state (its
 ``mu`` tree mirrors the reference's params) into the port's layout, so
@@ -22,7 +23,10 @@ that a train step can resume from it and the tests can compare states,
 and ``opt_state_to_reference`` inverts it. A factored state crosses
 too: a stacked leaf's ``vr``/``vc`` rows are per layer, except a
 grouped 1-D leaf's, which are its group's (``state["groups"]``, in
-pattern-slot order, as ``models.steps.stacked_groups``).
+pattern-slot order, as ``models.steps.stacked_groups``). Given a mesh
+and the AdamW config, the pair takes a rank's slices of the state, as
+``optim.state_axes`` places them beside the placed params: from the
+reference's whole state, and (every rank gathering its shards) back.
 
 ``dense_cache_from_reference``/``dense_cache_to_reference`` do the same
 for a dense decode cache (the reference's ``init_cache`` tree, whose
@@ -137,14 +141,15 @@ def from_reference(cfg, ref_params, device="cpu"):
 
 def shard_params(cfg, ref_params, mesh, device="cpu"):
     """The reference's numpy param tree -> this rank's local slices of
-    the port's params under ``mesh`` (sliced on the host, then moved)."""
+    the port's params under ``mesh`` and the current rules' placement
+    (``sharding.placed_axes``; sliced on the host, then moved)."""
     from repro_torch import sharding
     from repro_torch.models.model import get_model
     from repro_torch.training.optim import tree_map
     full = from_reference(cfg, ref_params, "cpu")
     return tree_map(
         lambda t, ax: sharding.local_slice(t, ax, mesh).to(device), full,
-        get_model(cfg).axes())
+        sharding.placed_axes(get_model(cfg), mesh))
 
 
 def to_reference(cfg, params, like):
@@ -179,13 +184,25 @@ def _stack(trees):
             for k in first}
 
 
-def opt_state_from_reference(cfg, ref_state, device="cpu"):
+def opt_state_from_reference(cfg, ref_state, device="cpu", mesh=None,
+                             opt_cfg=None):
     """The reference's AdamW state (``{"mu": ..., "step": ...}``, numpy
     leaves; ``mu`` mirrors its param tree with an ``{"m", "v"}`` or a
     factored ``{"m", "vr", "vc"}`` dict at every leaf) -> the port's
     (``mu`` mirroring the port's params, by ``from_reference``'s layer
     order; a factored grouped 1-D leaf's ``vr``/``vc`` in
-    ``groups``)."""
+    ``groups``). With ``mesh`` (and ``opt_cfg``), this rank's slices
+    of it (module docstring)."""
+    if mesh is not None:
+        from repro_torch import sharding
+        from repro_torch.models.model import get_model
+        from repro_torch.models.steps import state_layout
+        from repro_torch.training.optim import tree_map
+        whole = opt_state_from_reference(cfg, ref_state, "cpu")
+        ax, _ = state_layout(get_model(cfg), opt_cfg, mesh)
+        return {**tree_map(lambda t, a: sharding.local_slice(
+            t, a, mesh).to(device), {k: whole[k] for k in ax}, ax),
+            "step": whole["step"].to(device)}
     mu = ref_state["mu"]
 
     def whole(leaf, path=None):
@@ -216,10 +233,20 @@ def opt_state_from_reference(cfg, ref_state, device="cpu"):
     return out
 
 
-def opt_state_to_reference(cfg, state, like):
+def opt_state_to_reference(cfg, state, like, mesh=None, opt_cfg=None):
     """Invert ``opt_state_from_reference``: the port's AdamW state -> a
     numpy tree in the reference's layout (``like``: the reference's
-    state, numpy leaves)."""
+    state, numpy leaves). With ``mesh``, ``state`` is this rank's
+    slices, gathered first (on every rank of the mesh)."""
+    if mesh is not None:
+        from repro_torch import sharding
+        from repro_torch.models.model import get_model
+        from repro_torch.models.steps import state_layout
+        from repro_torch.training.optim import tree_map
+        ax, shapes = state_layout(get_model(cfg), opt_cfg, mesh)
+        state = {**tree_map(lambda t, a, s: sharding.gather_global(
+            t, a, s.shape, mesh), {k: state[k] for k in ax}, ax, shapes),
+            "step": state["step"]}
     mu, lmu = state["mu"], like["mu"]
     out = {k: _pair_moments(mu[k], lmu[k]) for k in lmu
            if not (k.startswith(("head_", "tail_")) or k == "blocks")}

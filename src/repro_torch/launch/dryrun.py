@@ -34,14 +34,19 @@ two of its own:
   ``collective_bytes``;
 * ``param_bytes_placed`` (port only): the bytes of the weights rank 0
   of the port holds, read from the local tensors the step ran on: every
-  weight's slice under ``sharding.LOCAL_RULES`` (the reference's rules
-  with "fsdp" off);
+  weight's slice as ``sharding.placed_axes`` places it (the reference's
+  rules; under ``--fsdp``, ``apply_fsdp``'s split over the data axes
+  too);
 * ``param_bytes_by_rules`` (port only): the weights a device holds under
-  ``Model.axes()`` and the reference's rules (with ``apply_fsdp`` under
-  ``--fsdp``, applied to the port's per-layer leaves, where the
-  reference's stacked ones may pick another dim), which is what the
-  reference places. Without ``--fsdp`` the two are equal; under it the
-  port still places weights without the data-axis split (``note``).
+  the reference's rules, from the shapes alone (``param_bytes``; under
+  ``--fsdp`` ``apply_fsdp`` decided on the reference's stacked layout),
+  which is what the reference places. The two are equal;
+* ``fsdp_collectives`` (port only, under ``--fsdp``): the gathers of the weights
+  split over the data axes (``sharding.fsdp_gather``) and the sums of
+  their gradients, each ``{count, bytes}``: the port runs both as
+  all-reduces of a flat buffer a layer (counted under ``all-reduce``
+  too), where the reference's HLO has all-gathers and reduce-scatters
+  (``note``).
 
 ``transcendentals``, ``compile_s`` and ``hlo_bytes`` have no counterpart
 here and are ``None``, each with its reason in ``note``. A train step
@@ -96,12 +101,16 @@ NOTE = {
     "collectives": "per c10d op, the reference's ring estimate "
                    "(parse_collectives) for the op's group size",
     "param_bytes_placed": "the weights rank 0 holds: each leaf's slice "
-                          "under the reference's rules with fsdp off",
+                          "as sharding.placed_axes places it",
 }
-# an --fsdp record's placed weights keep the model-axis placement
-FSDP_NOTE = ("--fsdp: param_bytes_by_rules splits weights over the data "
-             "axes as apply_fsdp does; the port does not, so "
-             "param_bytes_placed is the placement without it")
+# an --fsdp record's gathers and gradient sums
+GATHER_NOTE = ("gathers: an all-reduce of a zero-filled flat buffer a layer "
+             "over each data axis, where the reference's HLO has an "
+             "all-gather; reduce_scatters: an all-reduce of the layer's "
+             "fp32 gradients and a narrow to the rank's slice, where it "
+             "has a reduce-scatter. Both also counted under all-reduce; "
+             "bytes: the reference's ring estimate for the all-reduces "
+             "run")
 
 # ------------------------------------------------------ collective bytes
 
@@ -275,18 +284,18 @@ def local_params(model, dtype):
     """Meta stand-ins of the weights rank 0 of the port holds."""
     return optim.tree_map(
         lambda s, ax: _meta(sharding.local_shape(s.shape, ax), s.dtype),
-        model.abstract(dtype), model.axes())
+        model.abstract(dtype), sharding.placed_axes(model))
 
 
 def param_bytes(model, dtype, mesh, *, fsdp=False, rules=None) -> int:
     """Bytes of the weights a device holds under ``rules`` (None: the
     port's ``LOCAL_RULES``; ``sharding.DEFAULT_RULES``: the reference's
-    placement by ``Model.axes()``, with ``apply_fsdp`` under ``fsdp``).
+    placement by ``Model.axes()``, with ``apply_fsdp`` under ``fsdp``,
+    decided on the reference's stacked layout: ``sharding.placed_axes``).
     Shapes only: ``lower_one`` reads what the rank holds from its
     tensors."""
-    abstract, axes = model.abstract(dtype), model.axes()
-    if fsdp:
-        axes = sharding.apply_fsdp(abstract, axes, mesh)
+    abstract = model.abstract(dtype)
+    axes = sharding.placed_axes(model, mesh, fsdp=fsdp)
     return sum(optim.tree_leaves(optim.tree_map(
         lambda s, ax: math.prod(sharding.local_shape(
             tuple(s.shape), tuple(ax), mesh, rules)) * s.element_size(),
@@ -335,7 +344,9 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool,
     model = get_model(cfg)
     dtype = getattr(torch, cfg.dtype)
 
-    with sharding.axis_rules(mesh):
+    fsdp_counts = sharding.fsdp_gather.counts
+    fsdp_counts.clear()
+    with sharding.axis_rules(mesh, fsdp=fsdp):
         kind, step, inp, opt_cfg, window = build_step(cfg, shape, model,
                                                       opt_dtype=opt_dtype)
         params = local_params(model, dtype)
@@ -366,6 +377,14 @@ def lower_one(arch: str, shape_name: str, multi_pod: bool,
             _nbytes(t) for t in optim.tree_leaves(params))
         lowered.memory["param_bytes_by_rules"] = param_bytes(
             model, dtype, mesh, fsdp=fsdp, rules=sharding.DEFAULT_RULES)
+        if fsdp:
+            lowered.memory["fsdp_collectives"] = {kind: {"count": 0, "bytes": 0.0}
+                                      for kind in ("gathers",
+                                                   "reduce_scatters")}
+            for (kind, n), (count, nbytes) in fsdp_counts.items():
+                rec = lowered.memory["fsdp_collectives"][kind]
+                rec["count"] += count
+                rec["bytes"] += ring_bytes("all-reduce", nbytes, n)
     return lowered, n_dev, kind, window
 
 
@@ -414,7 +433,9 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
             "hlo_bytes": None,
             "param_bytes_placed": mem["param_bytes_placed"],
             "param_bytes_by_rules": mem["param_bytes_by_rules"],
-            "note": {**NOTE, **({"param_bytes_placed": FSDP_NOTE}
+            **({"fsdp_collectives": mem["fsdp_collectives"]}
+               if fsdp else {}),
+            "note": {**NOTE, **({"fsdp_collectives": GATHER_NOTE}
                                 if fsdp else {})},
         })
         rec["ok"] = True
@@ -445,10 +466,7 @@ def main(argv=None):
     ap.add_argument("--mesh-shape", default=None,
                     help="per-pod data x model, e.g. 64x4 (perf experiments)")
     ap.add_argument("--fsdp", action="store_true",
-                    help="ZeRO-3-style weight sharding over the data axis "
-                         "(param_bytes_by_rules only: the port still "
-                         "places weights by the model axis alone, "
-                         "replicated over the data axes)")
+                    help="ZeRO-3-style weight sharding over the data axis")
     ap.add_argument("--kv-dtype", default="bfloat16",
                     help="decode cache dtype (e.g. float8_e4m3fn)")
     ap.add_argument("--tag", default="", help="extra tag for the result file")

@@ -28,9 +28,14 @@ are written in the global layout (every shard gathered, rank 0 writes),
 so a run with ``--mesh`` resumes one without it, and the reverse. Under
 the mesh each rank holds its slice of every weight by the reference's
 rules (``sharding.LOCAL_RULES``: heads, ff, vocab, ssm_heads and lru
-tensor-parallel over "model", experts over "model"). The checkpoint
-carries the AdamW state as ``models.steps.init_opt_state`` lays it out
-(a factored one with its groups' statistics).
+tensor-parallel over "model", experts over "model"). ``--fsdp`` (only
+with ``--mesh``, the counterpart of the reference's dry-run flag) adds
+the reference's ZeRO-3 placement: each large weight, and its AdamW
+moments, split over "data" as ``apply_fsdp`` places it on the
+reference's stacked layout (``sharding.placed_axes``), gathered a layer
+at a time in the step. The checkpoint carries the AdamW state as
+``models.steps.init_opt_state`` lays it out (a factored one with its
+groups' statistics), every shard gathered by its placement.
 """
 from __future__ import annotations
 
@@ -51,7 +56,7 @@ from repro_torch.launch.mesh import (default_backend, make_local_mesh,
                                      rank_device, run_ranks)
 from repro_torch.models.model import get_model, resolve_device
 from repro_torch.models.steps import (init_opt_state, make_train_step,
-                                      stacked_groups)
+                                      state_layout)
 from repro_torch.training import optim
 
 # the spawned ranks' join timeout (seconds)
@@ -83,16 +88,6 @@ def _local(tree, axes, like):
         axes, like)
 
 
-def _state_layout(ocfg, model):
-    """(axes, global shapes) of the AdamW state beside the params: its
-    ``mu`` and, with the factored moment, its ``groups``."""
-    groups = stacked_groups(model)
-    ax = optim.state_axes(ocfg, model.axes(), groups)
-    shapes = optim.init_state(ocfg, model.abstract(), groups)
-    return ({k: v for k, v in ax.items() if k != "step"},
-            {k: v for k, v in shapes.items() if k != "step"})
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m", choices=ARCH_IDS)
@@ -115,6 +110,10 @@ def main(argv=None):
                     help="train the config's first N layers")
     ap.add_argument("--mesh", default=None,
                     help="dxm local mesh, e.g. 2x1: d * m ranks")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --mesh: split weights and AdamW state over "
+                         "the data axis as the reference's dry-run --fsdp "
+                         "places them (ZeRO-3)")
     ap.add_argument("--backend", default=None, choices=("gloo", "nccl"),
                     help="the mesh's process-group backend (default: "
                          "nccl on the card, gloo on the CPU)")
@@ -124,6 +123,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     mesh = None
+    if args.fsdp and not args.mesh:
+        raise SystemExit("--fsdp splits weights over the mesh's data axis: "
+                         "pass --mesh too")
     if args.mesh:
         d, m = parse_mesh(args.mesh)
         if not dist.is_initialized():
@@ -141,7 +143,7 @@ def main(argv=None):
         device = rank_device(args.device)
     else:
         device = resolve_device(args.device)
-    with (sharding.axis_rules(mesh) if mesh is not None
+    with (sharding.axis_rules(mesh, fsdp=args.fsdp) if mesh is not None
           else contextlib.nullcontext()):
         return _train(args, device, mesh)
 
@@ -166,8 +168,8 @@ def _train(args, device, mesh):
                        frontend=cfg.frontend, d_model=cfg.d_model,
                        num_prefix=cfg.num_prefix_tokens)
 
-    pax, shapes = model.axes(), model.abstract()
-    sax, sshapes = _state_layout(ocfg, model)
+    pax, shapes = sharding.placed_axes(model), model.abstract()
+    sax, sshapes = state_layout(model, ocfg)
 
     def save(step):       # the global layout: every shard gathered
         checkpoint_tree = {

@@ -54,8 +54,9 @@ def _walk(table, prefix=()):
 def init_params(table, generator: torch.Generator, dtype, device,
                 keep=None):
     """Real tensors for every leaf of ``table``, drawn in flattening order
-    from ``generator`` (which must live on ``device``). ``keep(spec, w)``,
-    when given, replaces each whole leaf by what to keep of it."""
+    from ``generator`` (which must live on ``device``). ``keep(path, w)``,
+    when given, replaces each whole leaf (at ``path``, a tuple of keys)
+    by what to keep of it."""
     out: dict = {}
     for path, spec in _walk(table):
         if spec.init == "zeros":
@@ -94,7 +95,7 @@ def init_params(table, generator: torch.Generator, dtype, device,
             raise ValueError(f"init {spec.init!r} belongs to a block family "
                              f"the port does not carry yet")
         if keep is not None:
-            w = keep(spec, w)
+            w = keep(path, w)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})

@@ -36,20 +36,26 @@ recurrentgemma-9b's are windowed.
 the logical sharding axes, meta-device stand-ins and cache layout in the
 port's per-layer layout (the reference's per-layer entries, without its
 stacked "layers" dim). Under a mesh (``sharding.axis_rules``) ``init``
-keeps this rank's slice of every leaf under ``sharding.LOCAL_RULES``
-(the reference's rules, "fsdp" off: heads, kv heads, ff, vocab,
-ssm_heads and lru over "model", an MoE block's experts over "model"),
-drawing every leaf whole as one process would, and ``init_cache``
-allocates this rank's slice of each cache leaf by ``cache_axes`` (its
-batch rows over the data axes; its kv heads, or a sequence-sharded
-layer's slot range, over "model"; Mamba-2's conv tail keeps the rank's
-channels, ``ssm.conv_channels``). ``forward`` then runs on this rank's
-local tensors, tensor-parallel over "model" where GSPMD partitions the
-reference: each block adds its collectives (``sharding.column_in``,
-``row_out``), the embedding is a masked lookup of the rank's vocab rows
-summed over "model", the head is column-parallel, and the logits are
-gathered over "model" unless the caller takes the rank's vocab slice
-(``local_logits``: the train step's cross-entropy).
+keeps this rank's slice of every leaf as ``sharding.placed_axes`` places
+it under ``sharding.LOCAL_RULES`` (the reference's rules: heads, kv
+heads, ff, vocab, ssm_heads and lru over "model", an MoE block's experts
+over "model"; with FSDP, ``apply_fsdp``'s dim of each large weight over
+"pod" and "data" too), drawing every leaf whole as one process would,
+and ``init_cache`` allocates this rank's slice of each cache leaf by
+``cache_axes`` (its batch rows over the data axes; its kv heads, or a
+sequence-sharded layer's slot range, over "model"; Mamba-2's conv tail
+keeps the rank's channels, ``ssm.conv_channels``). ``forward`` then runs
+on this rank's local tensors, tensor-parallel over "model" where GSPMD
+partitions the reference: each block adds its collectives
+(``sharding.column_in``, ``row_out``), the embedding is a masked lookup
+of the rank's vocab rows summed over "model", the head is
+column-parallel, and the logits are gathered over "model" unless the
+caller takes the rank's vocab slice (``local_logits``: the train step's
+cross-entropy). With FSDP a layer's split weights are gathered over the
+data axes just before it runs (``sharding.fsdp_gather``, inside the
+function ``remat`` recomputes, so a checkpointed group gathers them
+again in the backward and keeps none), and the embedding and the head
+before their use.
 """
 from __future__ import annotations
 
@@ -64,6 +70,7 @@ from repro_torch.models.layers import (PSpec, abstract_params, init_params,
                                        param_axes, rms_norm, swiglu_apply,
                                        swiglu_table)
 from repro_torch.models.moe import moe_apply, moe_table
+from repro_torch.training.optim import at
 
 
 def effective_pattern(cfg):
@@ -254,18 +261,23 @@ class Model:
         """Seeded random weights at the config's widths, drawn on
         ``device`` (None = the card) from one ``torch.Generator``. Under
         a mesh each leaf is drawn whole and this rank keeps its slice
-        under ``sharding.LOCAL_RULES``."""
+        as ``sharding.placed_axes`` places it."""
         dev = resolve_device(device)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
-        keep = None
-        if sharding.current_mesh() is not None:
-            def keep(spec, w):
-                return sharding.local_slice(w, spec.axes)
-        params = init_params(self.param_table(), gen, dtype, dev, keep)
-        params["layers"] = [init_params(self.layer_table(i), gen, dtype,
-                                        dev, keep)
-                            for i in range(self.cfg.num_layers)]
+        placed = (sharding.placed_axes(self)
+                  if sharding.current_mesh() is not None else None)
+
+        def keep(axes):         # this rank's slice of each whole leaf
+            if placed is None:
+                return None
+            return lambda path, w: sharding.local_slice(w, at(axes, path))
+        params = init_params(self.param_table(), gen, dtype, dev,
+                             keep(placed))
+        params["layers"] = [init_params(
+            self.layer_table(i), gen, dtype, dev,
+            keep(placed and placed["layers"][i]))
+            for i in range(self.cfg.num_layers)]
         return params
 
     # ------------------------------------------------------------ forward
@@ -305,9 +317,14 @@ class Model:
     def _run_layers(self, lo, hi, layers, x, positions, mode, cache,
                     block_table, dst_page):
         """Layers lo..hi-1 (``layers`` their params): (x, summed aux or
-        None)."""
+        None). With FSDP each layer's split weights are gathered here,
+        just before it runs, and dropped after it."""
         aux_total = None
+        placed = (sharding.placed_axes(self)["layers"]
+                  if sharding.fsdp_on() else None)
         for i, lp in zip(range(lo, hi), layers):
+            if placed is not None:
+                lp = sharding.fsdp_gather(lp, placed[i])
             c = cache[i] if cache is not None else None
             x, c, aux = self._apply_layer(self.block_types[i], lp, x,
                                           positions, mode, c, block_table,
@@ -354,7 +371,10 @@ class Model:
         ``dst_page`` (B, C) page ids the runs' K/V is scattered onto (the
         scratch page for prefix-shared chunks and padding)."""
         cfg = self.cfg
+        placed = sharding.placed_axes(self) if sharding.fsdp_on() else None
         emb = params["embed"]
+        if placed is not None:      # gathered once, for the head too
+            emb = sharding.fsdp_gather(emb, placed["embed"])
         if embeddings is not None and tokens is not None:
             x = torch.cat([embeddings.to(emb.dtype), self._embed(emb, tokens)],
                           dim=1)
@@ -383,8 +403,12 @@ class Model:
                 x, aux = self._run_layers(*args)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
-        x = rms_norm(x, params["final_norm"])
-        head = emb.t() if cfg.tie_embeddings else params["lm_head"]
+        top = {k: params[k] for k in ("final_norm", "lm_head")
+               if k in params}
+        if placed is not None:
+            top = sharding.fsdp_gather(top, {k: placed[k] for k in top})
+        x = rms_norm(x, top["final_norm"])
+        head = emb.t() if cfg.tie_embeddings else top["lm_head"]
         if head.shape[1] != cfg.vocab_size:      # column-parallel head
             logits = torch.matmul(column_in(x), head)
             if not local_logits:

@@ -26,11 +26,14 @@ data axes gives the gradient of the global-batch loss. The model runs
 tensor-parallel over "model" (``sharding.LOCAL_RULES``): its blocks'
 ``column_in``/``row_out`` pairs make each rank's gradient of a
 replicated leaf the single-device one, and of a split leaf (heads, ff,
-vocab, ssm_heads, lru, experts) this rank's slice of it; the clip norm
-counts each split leaf's slices once (their squares summed over
-"model") and each replicated leaf once, and AdamW updates each rank's
-local leaves. Over a vocabulary split over "model" the cross-entropy
-never gathers the (B, S, V) logits (``cross_entropy_split``).
+vocab, ssm_heads, lru, experts) this rank's slice of it. With FSDP
+(``sharding.axis_rules(mesh, fsdp=True)``) a leaf split over the data
+axes has its gradient summed there already, by ``sharding.fsdp_gather``'s
+backward, and the step sums only the others. The clip norm counts each
+leaf's slices once (its squares summed over every mesh axis that splits
+it) and each replicated leaf once, and AdamW updates each rank's local
+leaves. Over a vocabulary split over "model" the cross-entropy never
+gathers the (B, S, V) logits (``cross_entropy_split``).
 
 The factored second moment (``AdamWConfig.factored``, which the
 reference's dry-run sets for configs of 64 experts or more) factors
@@ -120,16 +123,19 @@ def loss_fn(model, params, batch, remat=False):
     return total, {"ce": loss, "aux": aux}
 
 
-def value_and_grad(model, params, batch, remat=False):
+def value_and_grad(model, params, batch, remat=False, *, summed=None):
     """(loss, {"ce", "aux"}, grads): the loss of ``loss_fn`` and its
     gradient with respect to every parameter, a tree like ``params``
     (zeros for a parameter the loss does not read, as ``jax.grad``
     gives). ``params`` is not changed and needs no ``requires_grad``.
     Under a mesh ``batch`` is the global batch and the loss and gradients
-    are the global batch's (see the module docstring); an expert leaf's
-    gradient is this rank's slice."""
+    are the global batch's (see the module docstring); a split leaf's
+    gradient is this rank's slice. ``summed``: ``fsdp_leaves(model)``,
+    where the caller has made it once."""
     mesh = sharding.current_mesh()
     groups = sharding.batch_groups(mesh)
+    if groups and summed is None:
+        summed = fsdp_leaves(model)
     if mesh is not None:
         batch = split_batch(batch)
     live = _optim.tree_map(lambda p: p.detach().requires_grad_(True),
@@ -146,7 +152,12 @@ def value_and_grad(model, params, batch, remat=False):
              for p, g in zip(leaves, grads)]
     parts = {k: v.detach() for k, v in parts.items()}
     if groups:
-        grads = _all_reduce_flat(grads, groups)
+        # a leaf split over the data axes was summed by its gather's
+        # backward: summing it again would double its gradient
+        rest = [k for k, done in enumerate(summed) if not done]
+        for k, g in zip(rest, _all_reduce_flat([grads[k] for k in rest],
+                                               groups)):
+            grads[k] = g
         ce = (share * parts["ce"]).detach().clone()
         for group in groups:
             dist.all_reduce(ce, group=group)
@@ -199,44 +210,69 @@ def _all_reduce_flat(tensors, groups):
     return out
 
 
-def grad_norm(model, grads):
+def grad_norm(model, grads, *, split=None):
     """The global norm of ``grads`` under the current mesh: replicated
-    leaves once, the sharded leaves' squares summed over "model"."""
+    leaves once, a split leaf's squares summed over each mesh axis that
+    splits it ("model", and with FSDP "pod" and "data"). ``split``:
+    ``split_axes(model)``, where the caller has made it once."""
     mesh = sharding.current_mesh()
     if mesh is None:
         return _optim.global_norm(grads)
-    rep, split = [], []
-    for g, s in zip(_optim.tree_leaves(grads), sharded_leaves(model)):
-        (split if s else rep).append(torch.sum(torch.square(g.float())))
-    zero = torch.zeros((), dtype=torch.float32,
-                       device=_optim.tree_leaves(grads)[0].device)
-    sq_split = sum(split, zero)
-    if split:
-        sq_split = sq_split.clone()
-        dist.all_reduce(sq_split, group=mesh.get_group("model"))
-    return torch.sqrt(sum(rep, zero) + sq_split)
+    leaves = _optim.tree_leaves(grads)
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    parts: dict = {}      # the mesh axes that split a leaf -> its squares
+    for g, axes in zip(leaves, split or split_axes(model)):
+        parts.setdefault(axes, []).append(torch.sum(torch.square(g.float())))
+    total = sum(parts.pop((), []), zero)
+    for axes, squares in parts.items():
+        part = sum(squares, zero).clone()
+        for ax in axes:
+            dist.all_reduce(part, group=mesh.get_group(ax))
+        total = total + part
+    return torch.sqrt(total)
 
 
-def sharded_leaves(model) -> list:
-    """For each parameter leaf (``tree_leaves`` order), whether this
-    rank holds only a slice of it under the current mesh."""
-    return _optim.tree_leaves(_optim.tree_map(
-        lambda s, a: sharding.is_sharded(s.shape, a), model.abstract(),
-        model.axes()))
+def _placed_leaves(model):
+    """(abstract leaf, placed axes) of every parameter, in
+    ``tree_leaves`` order."""
+    return sharding._walk(model.abstract(), sharding.placed_axes(model))
+
+
+def _split_spec(shape, axes) -> dict:
+    """{dim: the mesh axes of more than one rank that split it} of a
+    leaf under the current rules."""
+    sizes = sharding.mesh_shape(sharding.current_mesh())
+    out = {}
+    for i, e in enumerate(sharding.resolve_spec(tuple(shape), axes)):
+        split = tuple(a for a in sharding._entry_axes(e) if sizes[a] > 1)
+        if split:
+            out[i] = split
+    return out
+
+
+def split_axes(model) -> list:
+    """For each parameter leaf (``tree_leaves`` order), the mesh axes of
+    more than one rank that split it under the current placement, in
+    dim order; () for a whole leaf."""
+    return [tuple(ax for d in sorted(spec) for ax in spec[d])
+            for spec in (_split_spec(s.shape, a)
+                         for s, a in _placed_leaves(model))]
+
+
+def fsdp_leaves(model) -> list:
+    """For each parameter leaf, whether it is split over the data axes
+    (its gradient summed by ``sharding.fsdp_gather``)."""
+    return [sharding.fsdp_split(a) for _, a in _placed_leaves(model)]
 
 
 def split_dims(model):
-    """A tree like the params: the dim of each leaf split over "model"
-    under the current mesh, or None."""
-    def one(s, a):
-        spec = sharding.resolve_spec(tuple(s.shape), a)
-        for i, e in enumerate(spec):
-            if e is not None and "model" in sharding._entry_axes(e):
-                return i
-        return None
+    """A tree like the params: for each leaf, ``{dim: mesh axes}`` of
+    its dims split under the current mesh and placement (over "model",
+    and with FSDP over "pod" and "data"), or None."""
     if sharding.current_mesh() is None:
         return None
-    return _optim.tree_map(one, model.abstract(), model.axes())
+    return _optim.tree_unflatten(model.abstract(), [
+        _split_spec(s.shape, a) or None for s, a in _placed_leaves(model)])
 
 
 def stacked_groups(model) -> list:
@@ -252,6 +288,19 @@ def init_opt_state(model, opt_cfg: _optim.AdamWConfig, params):
     """``training.optim.init_state`` for ``model``'s params, with the
     reference's stacked groups (the factored moment's layout)."""
     return _optim.init_state(opt_cfg, params, stacked_groups(model))
+
+
+def state_layout(model, opt_cfg: _optim.AdamWConfig, mesh=None):
+    """(axes, global shapes) of the AdamW state beside the params as
+    ``sharding.placed_axes`` places them under ``mesh`` (None: the
+    current one): its ``mu`` and, with the factored moment, its
+    ``groups`` (``step`` left out)."""
+    groups = stacked_groups(model)
+    ax = _optim.state_axes(opt_cfg, sharding.placed_axes(model, mesh),
+                           groups)
+    shapes = _optim.init_state(opt_cfg, model.abstract(), groups)
+    return ({k: v for k, v in ax.items() if k != "step"},
+            {k: v for k, v in shapes.items() if k != "step"})
 
 
 def reference_ranks(model, params):
@@ -278,17 +327,23 @@ def make_train_step(model, opt_cfg: _optim.AdamWConfig, remat=True):
     0-d tensors on the parameters' device. ``opt_state`` comes from
     ``init_opt_state`` (with the factored second moment, its groups).
     Under a mesh (build the step under the mesh it runs on), the
-    factored statistics of a leaf split over "model" take their means
-    over "model"."""
+    factored statistics of a leaf take their means over the mesh axes
+    that split the dims they reduce; which leaves split where is read
+    once, here."""
     groups = stacked_groups(model)
     split = split_dims(model) if opt_cfg.factored else None
+    meshed = sharding.current_mesh() is not None
+    summed = fsdp_leaves(model) if meshed else None
+    norm_axes = split_axes(model) if meshed else None
 
     def train_step(params, opt_state, batch):
-        loss, parts, grads = value_and_grad(model, params, batch, remat)
+        loss, parts, grads = value_and_grad(model, params, batch, remat,
+                                            summed=summed)
         params, opt_state, stats = _optim.apply_updates_(
             opt_cfg, params, grads, opt_state,
             ranks=reference_ranks(model, params),
-            grad_norm=grad_norm(model, grads), groups=groups, split=split)
+            grad_norm=grad_norm(model, grads, split=norm_axes),
+            groups=groups, split=split)
         return params, opt_state, {"loss": loss, **parts, **stats}
 
     return train_step

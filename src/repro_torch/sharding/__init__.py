@@ -20,17 +20,31 @@ the collectives its sharding constraints call for, and two regions (the
 MoE dispatch and the sequence-sharded decode) are written per device
 under ``shard_map``. The port runs the model on each rank's LOCAL
 tensors and writes those collectives out. ``LOCAL_RULES`` is what the
-local layout resolves under: the reference's ``DEFAULT_RULES`` with
-"fsdp" off (weights are not split over the data axes), so each rank
-holds exactly the slice of a weight or a cache leaf the reference
+local layout resolves under: the reference's ``DEFAULT_RULES``, so each
+rank holds exactly the slice of a weight or a cache leaf the reference
 places on its device: heads, kv heads, ff, vocab, ssm_heads and lru
 tensor-parallel over "model", experts over "model", the batch over
-"pod" and "data". A dim the model axis does not divide stays
-replicated, as the rules say. ``local_slice`` takes a global tensor to
-this rank's shard under a spec and ``gather_global`` is its inverse (an
-all-reduce of a zero-filled global buffer, per mesh dim: gloo on CUDA
-tensors has no all-gather). ``shard`` is the identity on a plain local
-tensor and a ``redistribute`` on a DTensor.
+"pod" and "data", and with FSDP a weight's "fsdp" dim over "pod" and
+"data". A dim the mesh axes do not divide stays replicated, as the
+rules say. ``local_slice`` takes a global tensor to this rank's shard
+under a spec and ``gather_global`` is its inverse (an all-reduce of a
+zero-filled global buffer, per mesh dim: gloo on CUDA tensors has no
+all-gather). ``shard`` is the identity on a plain local tensor and a
+``redistribute`` on a DTensor.
+
+``placed_axes(model)`` gives the logical axes a rank's weights are
+placed by, and every consumer (``Model.init``, the bridge, the train
+step, the launcher's checkpoints, the dry-run) reads its placement from
+it. Without FSDP it is ``Model.axes()``. ``axis_rules(mesh, fsdp=True)``
+turns on the reference's ZeRO-3 placement (its dry-run's ``--fsdp``):
+``apply_fsdp``'s choice, made on the reference's stacked layout (a layer
+of a repeating pattern group decided as its stacked leaf, the "layers"
+dim leading). ``fsdp_gather`` gathers a layer's split leaves over the
+data axes just before the layer runs (one flat buffer a layer, an
+all-reduce of a zero-filled buffer, as ``gather_global``) and, in the
+backward, sums their gradients over the same axes and keeps the rank's
+slice: the reference's all-gather and reduce-scatter, run as
+all-reduces.
 
 The tensor-parallel helpers act over the "model" group and are the
 identity without a mesh or with a model axis of one rank, so a
@@ -72,30 +86,38 @@ DEFAULT_RULES = {
 }
 
 # the rules the port's local layout resolves weights, caches and batches
-# under: the reference's, with "fsdp" off (the ZeRO-3 placement of
-# ``apply_fsdp`` is not carried: a rank holds every weight's model slice)
-LOCAL_RULES = {**DEFAULT_RULES, "fsdp": ()}
+# under: the reference's ("fsdp", which only ``placed_axes`` names, over
+# the data axes)
+LOCAL_RULES = DEFAULT_RULES
+
+# the reference's ``apply_fsdp`` default: smaller leaves stay replicated
+FSDP_MIN_SIZE = 2 ** 16
 
 
 class _Ctx:
     mesh = None
     rules: dict = DEFAULT_RULES
+    fsdp: int | None = None     # apply_fsdp's min_size while FSDP is on
 
 
 _CTX = _Ctx()
 
 
 @contextmanager
-def axis_rules(mesh, rules: dict | None = None):
+def axis_rules(mesh, rules: dict | None = None, *, fsdp: bool = False,
+               min_size: int = FSDP_MIN_SIZE):
     """Install a mesh + logical rules for ``shard()`` and
-    ``named_sharding()`` resolution and for the model's mesh paths."""
-    prev = (_CTX.mesh, _CTX.rules)
+    ``named_sharding()`` resolution and for the model's mesh paths.
+    ``fsdp`` places weights as the reference's dry-run ``--fsdp`` does
+    (``placed_axes``; ``min_size`` is ``apply_fsdp``'s)."""
+    prev = (_CTX.mesh, _CTX.rules, _CTX.fsdp)
     _CTX.mesh = mesh
     _CTX.rules = {**DEFAULT_RULES, **(rules or {})}
+    _CTX.fsdp = min_size if fsdp else None
     try:
         yield
     finally:
-        _CTX.mesh, _CTX.rules = prev
+        _CTX.mesh, _CTX.rules, _CTX.fsdp = prev
 
 
 def current_mesh():
@@ -105,9 +127,18 @@ def current_mesh():
 def mesh_shape(mesh) -> dict:
     """{axis name: size} of a DeviceMesh or a stand-in's ``.shape``."""
     names = getattr(mesh, "mesh_dim_names", None)
-    if names is not None:
-        return dict(zip(names, mesh.mesh.shape))
-    return dict(mesh.shape)
+    if names is None:
+        return dict(mesh.shape)
+    # a DeviceMesh rebuilds its rank tensor on every ``.mesh``: read it
+    # once a mesh (the entry keeps the mesh, so its id is not reused)
+    hit = _MESH_SHAPES.get(id(mesh))
+    if hit is None or hit[0] is not mesh:
+        hit = _MESH_SHAPES[id(mesh)] = (mesh, dict(zip(names,
+                                                       mesh.mesh.shape)))
+    return dict(hit[1])
+
+
+_MESH_SHAPES: dict = {}
 
 
 class PartitionSpec(tuple):
@@ -220,16 +251,18 @@ def _walk(shapes_tree, axes_tree):
 
 
 def _rebuild(like, leaves):
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, list):
-            return [build(v) for v in node]
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    # a module-level recursion: a closure that calls itself is a reference
+    # cycle, which would keep ``leaves`` (gathered weights) alive until
+    # the garbage collector runs
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, list):
+        return [_build(v, it) for v in node]
+    return next(it)
 
 
 def apply_fsdp(shapes_tree, axes_tree, mesh=None, fsdp_axis: str = "data",
@@ -272,6 +305,68 @@ def tree_shardings(shapes_tree, axes_tree, mesh=None):
                                   for s, a in _walk(shapes_tree, axes_tree)])
 
 
+def _map_axes(tree, fn):
+    """``fn`` on every axes tuple (or shaped leaf) of a dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: _map_axes(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_axes(v, fn) for v in tree]
+    return fn(tree)
+
+
+def fsdp_on() -> bool:
+    """Whether the current rules place weights by FSDP over a mesh whose
+    data axes have more than one rank."""
+    mesh = _CTX.mesh
+    if mesh is None or _CTX.fsdp is None:
+        return False
+    sizes = mesh_shape(mesh)
+    return any(sizes[ax] > 1 for ax in _fsdp_axes(mesh))
+
+
+def placed_axes(model, mesh=None, *, fsdp=None, min_size=None):
+    """The logical axes ``model``'s weights are placed by, a tree like
+    ``Model.axes()``. Without FSDP (the current rules', unless ``fsdp``
+    says) that tree itself. With it, ``apply_fsdp``'s axes decided on
+    the reference's layout: a layer of a repeating pattern group (the
+    reference stacks the group's ``n`` cycles into one leaf) is decided
+    on its stacked shape ``(n,) + shape`` with axes ``("layers",) +
+    axes``, whose leading entry is then dropped; the other leaves as
+    they are. A dim named "fsdp" resolves over ("pod", "data"). The
+    tree is made once a model and mesh shape: do not change it."""
+    mesh = mesh or _CTX.mesh
+    if fsdp is None:
+        fsdp = _CTX.fsdp is not None
+    if min_size is None:
+        min_size = _CTX.fsdp or FSDP_MIN_SIZE
+    if mesh is None or not fsdp:
+        return model.axes()
+    key = (tuple(sorted(mesh_shape(mesh).items())), min_size)
+    made = model.__dict__.setdefault("_placed_axes", {})
+    if key in made:
+        return made[key]
+    shapes, axes = model.abstract(), model.axes()
+    spans = model.layer_spans()
+    n = sum(1 for _, _, grouped in spans if grouped)
+    grouped = {i for lo, hi, g in spans if g for i in range(lo, hi)}
+    out = apply_fsdp({k: v for k, v in shapes.items() if k != "layers"},
+                     {k: v for k, v in axes.items() if k != "layers"},
+                     mesh, min_size=min_size)
+    out["layers"] = []
+    for i, (s, a) in enumerate(zip(shapes["layers"], axes["layers"])):
+        if i in grouped:
+            stacked = apply_fsdp(
+                _map_axes(s, lambda t: torch.empty((n,) + tuple(t.shape),
+                                                   device="meta")),
+                _map_axes(a, lambda ax: ("layers",) + tuple(ax)), mesh,
+                min_size=min_size)
+            out["layers"].append(_map_axes(stacked, lambda ax: ax[1:]))
+        else:
+            out["layers"].append(apply_fsdp(s, a, mesh, min_size=min_size))
+    made[key] = out
+    return out
+
+
 # ------------------------------------------------- local shards on a mesh
 
 def _shard_index(mesh, axes) -> tuple[int, int]:
@@ -284,6 +379,21 @@ def _shard_index(mesh, axes) -> tuple[int, int]:
         idx = idx * sizes[ax] + coord[ax]
         n *= sizes[ax]
     return idx, n
+
+
+def _fsdp_axes(mesh) -> tuple:
+    """The mesh axes a dim named "fsdp" splits over (pod before data)."""
+    sizes = mesh_shape(mesh)
+    return tuple(ax for ax in DEFAULT_RULES["fsdp"] if ax in sizes)
+
+
+def fsdp_groups(mesh=None) -> list:
+    """The process groups of the data axes FSDP splits over that have
+    more than one rank: a gather or a sum over them is an all-reduce
+    over each in turn."""
+    mesh = mesh or _CTX.mesh
+    sizes = mesh_shape(mesh)
+    return [mesh.get_group(ax) for ax in _fsdp_axes(mesh) if sizes[ax] > 1]
 
 
 def batch_groups(mesh=None) -> list:
@@ -433,6 +543,19 @@ def model_sum(x, op=None):
     return x
 
 
+def axes_mean(x, axes):
+    """The mean over the ranks of mesh ``axes`` of ``x`` (each rank's
+    mean of an equal share): an all-reduce SUM over each axis in a new
+    tensor, divided by their ranks. No gradient."""
+    import torch.distributed as dist
+    mesh = _CTX.mesh
+    x = x.contiguous().clone()
+    for ax in axes:
+        dist.all_reduce(x, group=mesh.get_group(ax))
+    sizes = mesh_shape(mesh)
+    return x / math.prod(sizes[ax] for ax in axes)
+
+
 def model_gather(x, dim):
     """The whole of ``x`` along ``dim`` on every rank, from each rank's
     even slice: an all-reduce of a zero-filled buffer (gloo on CUDA
@@ -500,3 +623,94 @@ def gather_out(x, dim):
     """``model_gather`` with a gradient: backward keeps this rank's slice
     of the (replicated) gradient."""
     return x if model_ranks() == 1 else _GatherOut.apply(x, dim)
+
+
+# ------------------------------------------------- FSDP over the data axes
+
+class _FsdpGather(torch.autograd.Function):
+    """Leaves split over the data axes at ``dims`` -> gathered whole,
+    through one flat buffer; backward, their gradients summed over the
+    data axes through one flat fp32 buffer, each rank keeping its
+    slice."""
+
+    @staticmethod
+    def forward(ctx, dims, *xs):
+        import torch.distributed as dist
+        mesh = _CTX.mesh
+        i, n = _shard_index(mesh, _fsdp_axes(mesh))
+        groups = fsdp_groups(mesh)
+        whole = []
+        for x, d in zip(xs, dims):
+            s = list(x.shape)
+            s[d] *= n
+            whole.append(tuple(s))
+        flat = torch.zeros(sum(math.prod(s) for s in whole),
+                           dtype=xs[0].dtype, device=xs[0].device)
+        out, at = [], 0
+        for x, d, s in zip(xs, dims, whole):
+            v = flat[at:at + math.prod(s)].view(s)
+            v.narrow(d, i * x.shape[d], x.shape[d]).copy_(x)
+            out.append(v)
+            at += math.prod(s)
+        for group in groups:
+            dist.all_reduce(flat, group=group)
+            _count("gathers", group, flat)
+        ctx.dims, ctx.i, ctx.groups, ctx.whole = dims, i, groups, whole
+        ctx.local = [(x.shape[d], x.dtype) for x, d in zip(xs, dims)]
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        import torch.distributed as dist
+        flat = torch.cat([g.reshape(-1).float() for g in gs])
+        for group in ctx.groups:
+            dist.all_reduce(flat, group=group)
+            _count("reduce_scatters", group, flat)
+        out, at = [], 0
+        for d, s, (loc, dt) in zip(ctx.dims, ctx.whole, ctx.local):
+            mine = flat[at:at + math.prod(s)].view(s).narrow(
+                d, ctx.i * loc, loc)
+            # a copy of its own: a view would keep the whole flat buffer
+            out.append(mine.to(dt, copy=True))
+            at += math.prod(s)
+        return (None, *out)
+
+
+def fsdp_gather(tree, axes):
+    """``tree`` (a layer's params, or the top-level leaves) with every
+    leaf whose ``axes`` (from ``placed_axes``) name "fsdp" gathered over
+    the data axes, in one flat buffer: an all-reduce over "pod" and
+    "data" of a zero-filled buffer holding this rank's slices (gloo on
+    CUDA tensors has no all-gather). Backward, each gathered leaf's
+    gradient is summed over the same axes and the rank keeps its slice
+    (the reference's reduce-scatter), so the train step must not sum
+    it again. ``tree`` itself when no leaf is split. ``fsdp_gather.counts``
+    holds, for the dry-run, ``{(kind, group size): [all-reduces, their
+    buffers' bytes]}``, kind "gathers" or "reduce_scatters"."""
+    pairs = list(_walk(tree, axes))
+    split = [(k, tuple(a).index("fsdp")) for k, (_, a) in enumerate(pairs)
+             if "fsdp" in a]
+    if not split or not fsdp_on():
+        return tree
+    got = _FsdpGather.apply(tuple(d for _, d in split),
+                            *(pairs[k][0] for k, _ in split))
+    leaves = [x for x, _ in pairs]
+    for (k, _), g in zip(split, got):
+        leaves[k] = g
+    return _rebuild(tree, leaves)
+
+
+fsdp_gather.counts = {}
+
+
+def _count(kind, group, flat):
+    rec = fsdp_gather.counts.setdefault((kind, group.size()), [0, 0])
+    rec[0] += 1
+    rec[1] += flat.numel() * flat.element_size()
+
+
+def fsdp_split(axes) -> bool:
+    """Whether a leaf placed by ``axes`` is split over the data axes
+    under the current rules (its gradient then summed by
+    ``fsdp_gather``'s backward)."""
+    return "fsdp" in tuple(axes) and fsdp_on()

@@ -37,9 +37,12 @@ the ``denom`` (the mean of ``vr``) couple the group's layers, so they
 live once a group in ``state["groups"][g]``, a tree of the layer's 1-D
 leaves, computed from the group's gradients together. An ungrouped 1-D
 leaf is not factored (rank 1 in the reference). Under a mesh a factored
-leaf whose last or second-to-last dim is split over "model" (``split``:
-a tree of that dim's index, or None) takes those means, and the
-``denom``, over "model".
+leaf whose last or second-to-last dim is split (``split``: a tree of
+``{dim: mesh axes}``, or None; "model", and with FSDP "pod" and "data")
+takes those means, and the ``denom``, over the axes that split them, as
+the reference's GSPMD sums them: the ranks' equal-sized local means
+summed there and divided by their count, the mean over the global dim.
+A grouped 1-D leaf split so takes its group's ``vr`` the same way.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.sharding import model_ranks, model_sum
+from repro_torch.sharding import axes_mean
 
 
 @dataclass(frozen=True)
@@ -79,16 +82,18 @@ def tree_leaves(tree) -> list:
 def tree_unflatten(like, leaves):
     """A tree shaped as ``like`` from its leaves in ``tree_leaves``
     order."""
-    it = iter(leaves)
+    return _unflatten(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return [build(v) for v in node]
-        return next(it)
 
-    return build(like)
+def _unflatten(node, it):
+    # not a closure calling itself: that is a reference cycle, which would
+    # keep ``leaves`` (a step's gradients) alive until the garbage
+    # collector runs
+    if isinstance(node, dict):
+        return {k: _unflatten(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return [_unflatten(v, it) for v in node]
+    return next(it)
 
 
 def tree_map(fn, tree, *rest):
@@ -274,21 +279,20 @@ def _scalars(cfg, grads, state, gnorm=None):
     return step, lr, scale, bc1, bc2, gnorm
 
 
-def _mean(x, dim, split_dim, ndim):
-    """``x.mean(dim)`` of a tensor of ``ndim`` dims whose dim
-    ``split_dim`` (or None) is split evenly over "model": the ranks'
-    means averaged where ``dim`` is the split one."""
+def _mean(x, dim, split, ndim):
+    """``x.mean(dim)`` of a tensor of ``ndim`` dims whose dims ``split``
+    (``{dim: mesh axes}``, or None) names are split evenly over those
+    axes: where ``dim`` is one, the mean over the global dim."""
     m = x.mean(dim)
-    if split_dim is not None and dim % ndim == split_dim % ndim:
-        m = model_sum(m) / model_ranks()
-    return m
+    axes = (split or {}).get(dim % ndim)
+    return axes_mean(m, axes) if axes else m
 
 
 def _update(cfg, p, g, s, rank, lr, scale, bc1, bc2, vhat=None,
             split=None):
     """One leaf's new parameter and state, the reference's ``one``;
     ``vhat`` is a grouped 1-D leaf's second moment (its group's), and
-    ``split`` the dim split over "model" (or None)."""
+    ``split`` the leaf's split dims (``{dim: mesh axes}``, or None)."""
     b1, b2 = cfg.b1, cfg.b2
     g = g.float() * scale
     m = b1 * s["m"].float() + (1 - b1) * g
@@ -301,10 +305,9 @@ def _update(cfg, p, g, s, rank, lr, scale, bc1, bc2, vhat=None,
         nd = g2.dim()
         vr = b2 * s["vr"].float() + (1 - b2) * _mean(g2, -1, split, nd)
         vc = b2 * s["vc"].float() + (1 - b2) * _mean(g2, -2, split, nd)
-        # vr's last dim is the leaf's second-to-last
-        denom = torch.clamp(_mean(vr, -1, None if split is None or
-                                  split % nd != (nd - 2) else -1,
-                                  vr.dim()).unsqueeze(-1), min=1e-30)
+        # vr's dims are the leaf's but its last
+        denom = torch.clamp(_mean(vr, -1, split, nd - 1).unsqueeze(-1),
+                            min=1e-30)
         vhat = (vr[..., None] * vc[..., None, :] / denom[..., None]) / bc2
         new = {"m": m, "vr": vr, "vc": vc}
     else:
@@ -316,11 +319,12 @@ def _update(cfg, p, g, s, rank, lr, scale, bc1, bc2, vhat=None,
             {k: x.to(s[k].dtype) for k, x in new.items()})
 
 
-def _group_moments(cfg, grads, state, groups, scale, bc2):
+def _group_moments(cfg, grads, state, groups, scale, bc2, split=None):
     """The grouped 1-D leaves' second moments: (a tree beside the params
     with each such leaf's ``vhat`` and None elsewhere, the groups' new
     ``{vr, vc}``). ``vr`` (L,) and ``vc`` come from the group's L
-    layers' gradients stacked, ``denom`` is ``vr``'s mean."""
+    layers' gradients stacked, ``denom`` is ``vr``'s mean; a leaf split
+    (``split``) takes ``vr``'s mean over its global length."""
     b2 = cfg.b2
     vh = tree_map(lambda g: None, grads)
     if "groups" not in state:
@@ -332,7 +336,10 @@ def _group_moments(cfg, grads, state, groups, scale, bc2):
             g2 = torch.stack([
                 at(grads["layers"][i], path).float() * scale
                 for i in layers]) ** 2                       # (L, n)
-            vr = b2 * st["vr"].float() + (1 - b2) * g2.mean(-1)
+            axes = (at(split["layers"][layers[0]], path) or {}).get(0) \
+                if split is not None else None
+            vr = b2 * st["vr"].float() + (1 - b2) * _mean(
+                g2, -1, axes and {1: axes}, 2)
             vc = b2 * st["vc"].float() + (1 - b2) * g2.mean(-2)
             denom = torch.clamp(vr.mean(-1, keepdim=True), min=1e-30)
             vhat = (vr[..., None] * vc[..., None, :] / denom[..., None]) \
@@ -367,7 +374,8 @@ def apply_updates_(cfg: AdamWConfig, params, grads, state, ranks=None,
     {"lr", "grad_norm"}), the norm the gradients' before clipping."""
     step, lr, scale, bc1, bc2, gnorm = _scalars(cfg, grads, state,
                                                 grad_norm)
-    vh, new_groups = _group_moments(cfg, grads, state, groups, scale, bc2)
+    vh, new_groups = _group_moments(cfg, grads, state, groups, scale, bc2,
+                                    split)
 
     def one(p, g, s, r, v, d):
         new_p, new_s = _update(cfg, p, g, s, r, lr, scale, bc1, bc2, v, d)

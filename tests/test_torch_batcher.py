@@ -14,6 +14,7 @@ import dataclasses
 import jax
 import pytest
 
+from _torch_parity import lean_cpu  # noqa: F401  (a fixture)
 from _torch_parity import (assert_streams_match, capture_port,
                            capture_reference, reference_steps)
 from repro.configs.base import get_config as jget_config
@@ -24,6 +25,10 @@ from repro_torch.configs.base import get_config as tget_config
 from repro_torch.models.model import get_model
 from repro_torch.serving.batcher import PagedContinuousBatcher as TBatcher
 from repro_torch.serving.batcher import make_batcher
+
+# one torch thread, and the reference's step functions shared by
+# every batcher of a config (``_torch_parity.lean_cpu``)
+pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 PREFIX = "shared clinical preamble for the cohort under review. "
 MIXED = [

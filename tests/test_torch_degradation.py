@@ -25,6 +25,7 @@ admission into a slot whose fused decode was cancelled mid-stream.
 import jax
 import pytest
 
+from _torch_parity import lean_cpu  # noqa: F401  (a fixture)
 from _torch_parity import (assert_streams_match, capture_port,
                            capture_reference, reference_steps)
 from repro.configs.base import get_config as jget_config
@@ -58,6 +59,10 @@ from repro_torch.serving.batcher import (ContinuousBatcher,
 from repro_torch.serving.degrade import (FaultEvent, FaultPlan,
                                          OverloadPolicy, RejectReason)
 from repro_torch.serving.engine import TickOrchestrator, build_island_batchers
+
+# one torch thread, and the reference's step functions shared by
+# every batcher of a config (``_torch_parity.lean_cpu``)
+pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 CPU = "cpu"
 SCORE_TOL = 1e-3

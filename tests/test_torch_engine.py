@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 import repro_torch.core.waves as twaves
+from _torch_parity import lean_cpu  # noqa: F401  (a fixture)
 from _torch_parity import (assert_streams_match, capture_port,
                            capture_reference, reference_steps)
 from repro.configs.base import get_config as jget_config
@@ -36,6 +37,10 @@ from repro_torch.core.mist import MIST as TMIST
 from repro_torch.core.tide import TIDE as TTIDE
 from repro_torch.serving.engine import TickOrchestrator as TOrch
 from repro_torch.serving.engine import build_island_batchers as tbuild
+
+# one torch thread, and the reference's step functions shared by
+# every batcher of a config (``_torch_parity.lean_cpu``)
+pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 ROUTER_MESH = [
     ("personal_island", "laptop", dict(latency_ms=120, capacity_units=3.0)),

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 from _hypothesis_shim import given, settings, st
+from _torch_parity import lean_cpu  # noqa: F401  (a fixture)
 from _torch_parity import (assert_streams_match, capture_port,
                            capture_reference, reference_steps)
 from repro.configs.base import get_config as jget_config
@@ -55,6 +56,10 @@ from repro_torch.serving.kvpool import (PagePool, export_request,
                                         import_request, prefix_chunk_hashes)
 from repro_torch.serving.migration import MigrationTicket, PageRecord
 from repro_torch.serving.session import SessionManager
+
+# one torch thread, and the reference's step functions shared by
+# every batcher of a config (``_torch_parity.lean_cpu``)
+pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 CPU = "cpu"
 PROMPTS = ["a somewhat longer request that spans multiple pages here",

@@ -27,6 +27,7 @@ import jax
 import pytest
 import torch
 
+from _torch_parity import lean_cpu  # noqa: F401  (a fixture)
 from _torch_parity import (assert_streams_match, capture_port,
                            capture_reference, reference_steps)
 from repro.configs.base import get_config as jget_config
@@ -46,6 +47,10 @@ from repro_torch.obs import (DispatchProfiler, Tracer,
                              write_chrome_trace)
 from repro_torch.obs.profile import _first_tensor
 from repro_torch.serving.batcher import PagedContinuousBatcher
+
+# one torch thread, and the reference's step functions shared by
+# every batcher of a config (``_torch_parity.lean_cpu``)
+pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 CPU = "cpu"
 PREFIX = "shared observability preamble for the span tests. "

@@ -21,7 +21,9 @@ exit.
   decode and prefill.
 * ``param_bytes_by_rules`` equals the sum of the reference's
   ``resolve_spec`` shard shapes for every config at full width on the
-  (16, 16) and (2, 16, 16) stand-in meshes (shapes only).
+  (16, 16) and (2, 16, 16) stand-in meshes (shapes only), with and
+  without ``--fsdp`` (the reference's own ``apply_fsdp`` on its stacked
+  tree).
 * Every kernel wrapper and backward kernel takes its plain version on
   meta tensors: meta outputs of the kernel's shapes, no launch counted.
 * Every config at ``.reduced()`` lowers train, prefill and decode on a
@@ -33,7 +35,8 @@ exit.
   counts (64 or more: the factored second moment, as the reference's
   dry-run sets it) lower their train step ok on the fake (2, 2) mesh; one
   production-mesh record (smollm-135m ``decode_32k`` on 16 x 16) places
-  its weights as the rules do.
+  its weights as the rules do, with and without ``--fsdp`` (whose record
+  counts a gather a layer and one of the embedding).
 """
 import contextlib
 import dataclasses
@@ -299,15 +302,23 @@ def test_flops_match_analytic_count(fake_group, monkeypatch, kind):
     assert low.flops == want
 
 
-@pytest.mark.parametrize("multi_pod", [False, True])
-def test_param_bytes_by_rules_match_reference_specs(multi_pod):
+@pytest.mark.parametrize("multi_pod,fsdp", [
+    (False, False), (True, False), (False, True), (True, True)],
+    ids=["False", "True", "False-fsdp=True", "True-fsdp=True"])
+def test_param_bytes_by_rules_match_reference_specs(multi_pod, fsdp):
+    """With ``fsdp`` the reference's side is its own ``apply_fsdp`` on its
+    stacked tree: a repeating group's norm scales are (L, d) there and
+    split over the data axes, where the port's per-layer leaves are 1-D."""
     mesh = (Mesh(pod=2, data=16, model=16) if multi_pod
             else Mesh(data=16, model=16))
     for arch in ARCH_IDS:
         jm = jget_model(jget_config(arch))
+        axes = jm.axes()
+        if fsdp:
+            axes = jsharding.apply_fsdp(jm.abstract(), axes, mesh)
         want = 0
         for s, ax in zip(jax.tree.leaves(jm.abstract()),
-                         jax.tree.leaves(jm.axes(), is_leaf=lambda x:
+                         jax.tree.leaves(axes, is_leaf=lambda x:
                                          isinstance(x, tuple))):
             spec = jsharding.resolve_spec(s.shape, ax, mesh)
             n = math.prod(math.prod(mesh.shape[a] for a in (
@@ -315,7 +326,7 @@ def test_param_bytes_by_rules_match_reference_specs(multi_pod):
             want += math.prod(s.shape) // n * s.dtype.itemsize
         tcfg = tget_config(arch)
         got = tdry.param_bytes(tget_model(tcfg), getattr(torch, tcfg.dtype),
-                               mesh, rules=sharding.DEFAULT_RULES)
+                               mesh, fsdp=fsdp, rules=sharding.DEFAULT_RULES)
         assert got == want, arch
 
 
@@ -458,18 +469,43 @@ def test_factored_train_records_are_ok(fake_group, monkeypatch, tmp_path,
     assert rec["collectives"]["all-reduce"]["count"] > 3
 
 
-def test_production_record_places_weights_by_the_rules(fake_group,
-                                                       tmp_path):
+def _production_record(fake_group, tmp_path, fsdp):
+    """smollm-135m ``decode_32k`` on the 16 x 16 mesh: the record, its
+    weights placed as the rules place them."""
     fake_group.join(256)
     try:
-        assert tdry.run_one("smollm-135m", "decode_32k", False, tmp_path)
+        assert tdry.run_one("smollm-135m", "decode_32k", False, tmp_path,
+                            fsdp=fsdp)
     finally:
         fake_group.join(512)
     rec = json.loads((tmp_path / "smollm-135m__decode_32k__pod16x16.json")
                      .read_text())
-    assert rec["n_devices"] == 256
+    assert rec["n_devices"] == 256 and rec["fsdp"] == fsdp
     assert rec["param_bytes_placed"] == rec["param_bytes_by_rules"]
     cfg = tget_config("smollm-135m")
     assert rec["param_bytes_placed"] == tdry.param_bytes(
         tget_model(cfg), getattr(torch, cfg.dtype),
+        Mesh(data=16, model=16), fsdp=fsdp, rules=sharding.DEFAULT_RULES)
+    return rec, cfg
+
+
+def test_production_record_places_weights_by_the_rules(fake_group,
+                                                       tmp_path):
+    rec, _ = _production_record(fake_group, tmp_path, False)
+    assert "fsdp_collectives" not in rec
+
+
+def test_production_fsdp_record_places_weights_by_the_rules(fake_group,
+                                                            tmp_path):
+    """Under ``--fsdp`` rank 0 holds the ZeRO-3 placement itself, less
+    than without it, and the record counts one gather a layer and one of
+    the embedding over the data axis (a decode step has no backward)."""
+    rec, cfg = _production_record(fake_group, tmp_path, True)
+    assert rec["param_bytes_placed"] < tdry.param_bytes(
+        tget_model(cfg), getattr(torch, cfg.dtype),
         Mesh(data=16, model=16), rules=sharding.DEFAULT_RULES)
+    got = rec["fsdp_collectives"]
+    assert got["gathers"]["count"] == cfg.num_layers + 1
+    assert got["gathers"]["bytes"] > 0
+    assert got["reduce_scatters"] == {"count": 0, "bytes": 0.0}
+    assert "fsdp_collectives" in rec["note"]

@@ -16,6 +16,7 @@ exhaustion, against the reference in the same mode, with bridged weights.
 import jax
 import pytest
 
+from _torch_parity import lean_cpu  # noqa: F401  (a fixture)
 from _torch_parity import (assert_streams_match, capture_port,
                            capture_reference, capture_reference_host,
                            reference_steps)
@@ -25,6 +26,10 @@ from repro.serving.batcher import PagedContinuousBatcher as JBatcher
 from repro_torch import bridge
 from repro_torch.configs.base import get_config as tget_config
 from repro_torch.serving.batcher import PagedContinuousBatcher as TBatcher
+
+# one torch thread, and the reference's step functions shared by
+# every batcher of a config (``_torch_parity.lean_cpu``)
+pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 PREFIX = "shared clinical preamble for the cohort under review. "
 WORKLOADS = {

@@ -32,6 +32,7 @@ import repro.serving.engine as jengine
 import repro_torch.core.waves as twaves
 import repro_torch.launch.serve as tserve
 import repro_torch.serving.engine as tengine
+from _torch_parity import lean_cpu  # noqa: F401  (a fixture)
 from _torch_parity import (assert_streams_match, capture_port,
                            capture_reference_host)
 from repro.configs.base import get_config as jget_config
@@ -48,6 +49,10 @@ from repro_torch.serving.batcher import make_batcher as tmake_batcher
 from test_torch_engine import (JAX_PKG, PORT_PKG, QUERIES, QUICKSTART_MESH,
                                _stack)
 from test_torch_per_request import _clock, _record_reference
+
+# one torch thread, and the reference's step functions shared by
+# every batcher of a config (``_torch_parity.lean_cpu``)
+pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 PREFIX = "shared clinical preamble for the cohort under review. "
 WORKLOADS = {

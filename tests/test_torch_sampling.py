@@ -17,11 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import lean_cpu  # noqa: F401  (a fixture)
 from repro.serving.sampling import sample as jsample
 from repro_torch.configs.base import get_config
 from repro_torch.serving import sampling
 from repro_torch.serving.batcher import (ContinuousBatcher,
                                          PagedContinuousBatcher)
+
+# one torch thread, and the reference's step functions shared by
+# every batcher of a config (``_torch_parity.lean_cpu``)
+pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 N_DRAWS = 4096
 # a tie at the 5th largest logit (index 3 and 9 both hold 1.0) and at the

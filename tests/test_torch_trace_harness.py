@@ -25,7 +25,8 @@ import jax
 import pytest
 
 from _torch_parity import (assert_streams_match, capture_port,
-                           capture_reference, reference_steps)
+                           capture_reference, lean_cpu,  # noqa: F401
+                           reference_steps)
 from repro.configs.base import get_config as jget_config
 from repro.core import tracegen as jtracegen
 from repro.core.islands import IslandRegistry as JRegistry
@@ -65,6 +66,10 @@ CLASS_ROWS = (("interactive", 2400.0, 256.0, 64.0, "primary"),
               ("batch", math.inf, math.inf, math.inf, "burstable"))
 WEIGHTS = (0.3, 0.45, 0.25)
 AB_N = 150
+
+# one torch thread and the reference's step functions shared by every
+# batcher of a config (``_torch_parity.lean_cpu``)
+pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 PORT = dict(reg=IslandRegistry, island=personal_island, mist=MIST,
             tide=TIDE, lh=Lighthouse, waves=WAVES, policy=Policy,
