@@ -218,7 +218,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    card-vs-CPU replay on the stacked batcher at a 2-layer cut (the dense
    layer 0 and one MLA+MoE layer at full widths and vocabulary, 4.3 GB
    of fp32); deepseek's one-process decode (4 rows, a 512-token prompt,
-   8 steps) is kept for the distributed group;
+   4 steps) is kept for the distributed group;
 11. P13a, distributed (``dist_group``): a world-1 NCCL group and
    ``make_local_mesh(1, 1)`` (kimi ``.reduced()``'s expert-parallel MoE
    against its dense branch at capacity_factor 8; smollm-135m under the
@@ -248,9 +248,20 @@ Phases (each raises on failure, and the script then exits non-zero):
    11, K4 and its backward once a layer a step; and deepseek-v2-lite-16b
    at full width cut to 2 layers (its dense first layer and one MoE
    layer), each rank without and then with FSDP from the same weights:
-   the FSDP weights the rules' bytes, a prefill and 8 decode steps
+   the FSDP weights the rules' bytes, a prefill and 4 decode steps
    bit-equal, step 1's loss and gradients bit-equal, the gradient norm
    and step 2 within stated tolerances, peak memory a rank beside;
+11b. P13e, every placement the reference runs, on two gloo ranks
+   (``p13e_group``): smollm-135m at 2 layers with a 1,033-slot cache the
+   model axis does not divide, kept whole on each rank of (data 1,
+   model 2) and decoded through K3 (8 rows, a 1,024-token prompt, 8
+   decode steps); a global batch of 3 the data axis does not divide on
+   (data 2, model 1), without and with FSDP: step 1's loss and every
+   gradient leaf against one process, and the train launcher's two
+   steps; the mid-head cases at ``.reduced()`` (MLA, Mamba-2, q heads
+   straddling kv groups on dense caches and the paged pool, RG-LRU gate
+   blocks), each a prefill and 4 decode steps; every case's logits held
+   to one process and its launches to its layout's;
 12. P13c, qwen3-32b on the card (``p13c_group``): its first
    ``P13C_LAYERS`` of 64 layers at full widths (60.8 GB of fp32 weights)
    on the paged main path (K1/K2 launches, tokens/s, peak memory); the
@@ -264,7 +275,7 @@ Phases (each raises on failure, and the script then exits non-zero):
 13. P13b, WAVES routing inside the serve step (``p13b_group``):
    qwen3-4b, the reference's routed-serve arch, at full width on its
    first ``P13B_LAYERS`` layers, 16 prompts of 128 tokens prefilled
-   (K4) into a 2,048-slot fp32 cache, then 8 routed decode steps (K3) in
+   (K4) into a 2,048-slot fp32 cache, then 4 routed decode steps (K3) in
    each variant (``launch.routed_serve.run``: the tick router over four
    islands, two personal ones on pod 0 and an edge and a cloud island on
    pod 1, then the batch permuted to its pods' rows, with the cache
@@ -281,10 +292,10 @@ Phases (each raises on failure, and the script then exits non-zero):
 14. P14a and P14b, training, last, after a ``gc.collect()`` (the memory still
    allocated is read out first): the train launcher
    (``repro_torch.launch.train``: ``SyntheticLM``, AdamW, the cosine
-   schedule, checkpoints) at smollm-135m's full width, 10 steps of 8 x
+   schedule, checkpoints) at smollm-135m's full width, 6 steps of 8 x
    2,048 tokens, each step timed and its launches counted (K4 and its
    backward once a layer, no other kernel), the loss falling by a nat,
-   checkpoints at steps 5 and 10 and a resume from step 5 that ends on
+   checkpoints at steps 3 and 6 and a resume from step 3 that ends on
    the uninterrupted run's loss; one step's gradient with and without
    ``remat`` (K4 60 launches against 30, the same loss and gradients, no
    leaf without a gradient); paligemma-3b at full width (2.51 B
@@ -295,7 +306,7 @@ Phases (each raises on failure, and the script then exits non-zero):
    gradient norm and every gradient leaf on the card and on the CPU at a
    2-layer cut of smollm and of paligemma (full widths and vocabulary),
    within ``TRAIN_*_TOL``; then P14b: mamba2-370m at full width and
-   depth (368 M parameters), 8 launcher steps of 8 x 2,048 tokens with
+   depth (368 M parameters), 4 launcher steps of 8 x 2,048 tokens with
    remat (K5 twice and its backward once a layer a step, no other
    kernel), the loss falling, and one step's gradient with and without
    remat at 2 x 2,048 (bit-equality read out); recurrentgemma-9b cut to
@@ -4108,14 +4119,15 @@ def p12b_group(device, timed, rows):
 # model ranks, so every layer decodes sequence-sharded (each rank holds
 # 1,024 of the 2,048 slots)
 DIST_ARCH = "smollm-135m"
-# (8 decode steps since P13d, 16 before: each is ~0.56 s of gloo
-# all-reduces a rank)
-DIST_B, DIST_S, DIST_L, DIST_T = 8, 1024, 2048, 8
+# (4 decode steps since P13e, 8 since P13d, 16 before: each is ~0.56 s
+# of gloo all-reduces a rank)
+DIST_B, DIST_S, DIST_L, DIST_T = 8, 1024, 2048, 4
 # deepseek-v2-lite-16b at full width and depth on 1x2: the latent cache
 # sequence-sharded, 32 of the 64 experts a rank. capacity_factor E / k
 # gives a capacity of every local token, so no token is dropped and the
-# dense single-process run is the comparison
-DS_DIST_B, DS_DIST_S, DS_DIST_L, DS_DIST_T = 4, 512, 1024, 8
+# dense single-process run is the comparison (4 decode steps since P13e,
+# 8 before: each is ~1.1 s of gloo a rank)
+DS_DIST_B, DS_DIST_S, DS_DIST_L, DS_DIST_T = 4, 512, 1024, 4
 # gathered logits against the one-process card run (fp32 caches): smollm
 # at the reference's own tolerance for this comparison
 # (tests/test_system.py, rtol/atol 3e-4); the sharded decode's plain fp32
@@ -4692,10 +4704,11 @@ def dist_group(device, timed, card, ds_want, rows):
 # P13D_DS_L-slot fp32 cache, then 2 AdamW steps (the factored moment,
 # which the reference's dry-run takes at 64 experts) on its half of 4 x
 # P13D_DS_S tokens a step; once without FSDP, then with it, from the
-# same seeded weights
+# same seeded weights (4 decode steps since P13e, 8 before: each gathers
+# the layers' split weights through gloo)
 P13D_DS = "deepseek-v2-lite-16b"
 P13D_DS_LAYERS = 2
-P13D_DS_B, P13D_DS_S, P13D_DS_T, P13D_DS_L = 4, 512, 8, 1024
+P13D_DS_B, P13D_DS_S, P13D_DS_T, P13D_DS_L = 4, 512, 4, 1024
 P13D_DS_LR = 3e-4
 
 
@@ -4921,6 +4934,319 @@ def p13d_group(device, timed, card, rows, one, mesh_peaks):
     timed("p13d deepseek --fsdp", p13d_deepseek_phase, card)
 
 
+# ------------- P13e: every mesh placement the reference runs, gloo ranks
+
+# smollm-135m at full width cut to its first 2 layers. G1: a cache the
+# model axis does not divide: 1,033 slots on (data 1, model 2), which the
+# reference keeps whole (3 kv heads and 1,033 slots split over neither),
+# so every rank holds every slot and decodes through K3. G2: a global
+# batch of 3 on (data 2, model 1), without and with --fsdp: every rank
+# holds the whole batch (the reference replicates it)
+P13E_ARCH, P13E_LAYERS = "smollm-135m", 2
+P13E_B, P13E_S, P13E_T, P13E_L = 8, 1024, 8, 1033
+P13E_TRAIN_B, P13E_TRAIN_S = 3, 1024
+# the mid-head cases at .reduced() with the widths changed so that a
+# model axis of 2 splits them mid-head (no published config meets them
+# at the meshes the port runs): (arch, changes, max_len). straddle: 12 q
+# heads on 3 kv heads, whose local 6 q heads straddle kv groups, its
+# 24-slot cache sequence-sharded; straddle-whole the same at 25 slots,
+# its cache whole (K3 reads each q head's kv head)
+P13E_MID = {
+    "mla-mid": ("deepseek-v2-lite-16b", {"num_heads": 3, "num_kv_heads": 3,
+                                         "capacity_factor": 8.0}, 24),
+    "ssm-mid": ("mamba2-370m", {"d_model": 96, "ssm_head_dim": 64}, 24),
+    "straddle": ("qwen3-4b", {"num_heads": 12, "num_kv_heads": 3}, 24),
+    "straddle-whole": ("qwen3-4b", {"num_heads": 12, "num_kv_heads": 3},
+                       25),
+    "rglru-mid": ("recurrentgemma-9b", {"lru_width": 192,
+                                        "lru_diag_blocks": 3}, 24),
+}
+P13E_MID_B, P13E_MID_S, P13E_MID_T = 2, 20, 4
+# the straddling heads on the paged pool (every kv head on each rank):
+# one chunk run of P13E_PAGED_S tokens a row, then P13E_MID_T decode steps
+P13E_PAGE, P13E_PAGED_S = 16, 32
+
+
+def _p13e_cfg(case):
+    from repro_torch.configs.base import get_config
+    if case == "g1":
+        return dataclasses.replace(get_config(P13E_ARCH),
+                                   num_layers=P13E_LAYERS)
+    arch, changes, _ = P13E_MID[case]
+    return dataclasses.replace(get_config(arch).reduced(), **changes)
+
+
+def _p13e_paged(model, params, toks, device):
+    """One chunk run of P13E_PAGED_S tokens a row into a fresh fp32 pool
+    (pages of P13E_PAGE, page 0 the scratch page), then P13E_MID_T paged
+    decode steps: logits (B, T + 1, V) on the host."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.models.steps import (make_chunked_prefill_step,
+                                          make_paged_serve_step)
+    cfg = model.cfg
+    B, T = toks.shape[0], P13E_MID_T
+    n = -(-(P13E_PAGED_S + T) // P13E_PAGE)
+    shape = sharding.local_shape((1 + B * n, P13E_PAGE, cfg.num_kv_heads,
+                                  cfg.head_dim),
+                                 (None, None, "kv_heads", None))
+    pool = [{"k_pages": torch.zeros(shape, device=device),
+             "v_pages": torch.zeros(shape, device=device)}
+            for _ in range(cfg.num_layers)]
+    table = torch.arange(1, 1 + B * n, dtype=torch.int32,
+                         device=device).reshape(B, n)
+    toks = toks.to(device)
+    lg, pool = make_chunked_prefill_step(model)(
+        params, pool, toks[:, :P13E_PAGED_S],
+        torch.zeros(B, dtype=torch.int32, device=device), table,
+        table[:, :P13E_PAGED_S // P13E_PAGE])
+    out = [lg[:, -1].float().cpu()]
+    serve = make_paged_serve_step(model)
+    for t in range(T):
+        lg, pool = serve(params, pool, toks[:, P13E_PAGED_S + t:
+                                            P13E_PAGED_S + t + 1],
+                         torch.full((B,), P13E_PAGED_S + t,
+                                    dtype=torch.int32, device=device),
+                         table)
+        out.append(lg.float().cpu())
+    return torch.stack(out, 1)
+
+
+def _p13e_decode(case, device, paged=False):
+    """A prefill and decode steps of one p13e case (``g1`` or a mid-head
+    case) on fp32 caches, under the current mesh or none: (logits, each
+    layer's cache split over "model" or not)."""
+    from repro_torch.models.decode_sharded import SeqSplitCache
+    from repro_torch.models.model import get_model
+    cfg = _p13e_cfg(case)
+    model = get_model(cfg)
+    params = model.init(seed=0, device=device)
+    if case == "g1":
+        B, S, T, L = P13E_B, P13E_S, P13E_T, P13E_L
+    else:
+        B, S, T, L = (P13E_MID_B, P13E_MID_S, P13E_MID_T,
+                      P13E_MID[case][2])
+    toks = _dist_tokens(cfg, B, max(S, P13E_PAGED_S) + T)
+    if paged:
+        return _p13e_paged(model, params, toks, device), []
+    logits, cache, _ = _decode_run(model, params, toks, S, T, L, device)
+    return logits, [isinstance(c, SeqSplitCache) for c in cache]
+
+
+def _p13e_expected(case, split, paged):
+    """The launches a p13e run must make, from its model and its caches'
+    layout: K4 once a prefill for each attention layer (K2 on the pool),
+    K5 and K6 once for each SSM and RG-LRU layer; a decode step K3 for
+    each attention layer whose cache is whole (K1 on the pool), the
+    sequence-sharded region for each attention or MLA layer whose cache
+    is split."""
+    from repro_torch.models.model import get_model
+    model = get_model(_p13e_cfg(case))
+    T = P13E_T if case == "g1" else P13E_MID_T
+    bts = model.block_types
+    attn = sum(bt == "attn" for bt in bts)
+    seq = sum(split)
+    whole = attn - sum(s for s, bt in zip(split, bts) if bt == "attn")
+    want = {k: 0 for k in kernel_fns()}
+    want["ssd_chunk"] = sum(bt == "ssm" for bt in bts)
+    want["rglru_scan"] = sum(bt == "rglru" for bt in bts)
+    if paged:
+        want["chunked_prefill_attention"] = attn
+        want["paged_decode_attention"] = T * attn
+    else:
+        want["flash_attention"] = attn
+        want["decode_attention"] = T * whole
+    return want, T * seq
+
+
+def _p13e_rank(grads_path):
+    """One rank of the 2-rank gloo group: G1 and the mid-head cases on
+    (data 1, model 2), each's gathered logits, launches and sequence-
+    sharded calls; then G2 on (data 2, model 1): step 1's gradients of a
+    global batch of 3 against one process's (``grads_path``), without and
+    with FSDP, and the launcher's two steps."""
+    import torch
+
+    from repro_torch import sharding
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import steps
+    from repro_torch.models.decode_sharded import seq_sharded_decode
+    from repro_torch.models.model import get_model
+    from repro_torch.training import optim
+    dev, mesh = _rank_setup()
+    out = {}
+    for case, paged in [("g1", False)] + [(c, False) for c in P13E_MID] + \
+            [("straddle", True)]:
+        with sharding.axis_rules(mesh):
+            zero_launches()
+            seq_sharded_decode.calls = 0
+            t0 = time.perf_counter()
+            logits, split = _p13e_decode(case, dev, paged)
+            torch.cuda.synchronize()
+            out[case + (" paged" if paged else "")] = {
+                "logits": logits.numpy(), "split": split,
+                "launches": read_launches(),
+                "seq_calls": seq_sharded_decode.calls,
+                "s": time.perf_counter() - t0}
+    cfg = _p13e_cfg("g1")
+    model = get_model(cfg)
+    want = torch.load(grads_path)
+    toks = _dist_tokens(cfg, P13E_TRAIN_B, P13E_TRAIN_S, seed=31).to(dev)
+    data = make_local_mesh(2, 1)
+    for fsdp in (False, True):
+        with sharding.axis_rules(data, fsdp=fsdp):
+            params = model.init(seed=0, device=dev)
+            loss, parts, grads = steps.value_and_grad(
+                model, params, {"tokens": toks, "labels": toks})
+            axes = [a for _, a in sharding._walk(
+                model.abstract(), sharding.placed_axes(model))]
+            worst = 0.0
+            for g, a, s, w in zip(optim.tree_leaves(grads), axes,
+                                  optim.tree_leaves(model.abstract()),
+                                  want["grads"]):
+                g = sharding.gather_global(g, a, s.shape).cpu()
+                worst = max(worst, float((g - w).abs().max())
+                            / max(float(w.abs().max()), 1e-30))
+            del params, grads
+        argv = (["--arch", P13E_ARCH, "--layers", str(P13E_LAYERS),
+                 "--steps", "2", "--batch", str(P13E_TRAIN_B), "--seq",
+                 str(P13E_TRAIN_S), "--log-every", "1", "--mesh", "2x1",
+                 "--backend", "gloo"] + (["--fsdp"] if fsdp else []))
+        zero_launches()
+        hist = train.main(argv)
+        out[f"g2 fsdp{int(fsdp)}"] = {
+            "loss": float(loss), "ce": float(parts["ce"]),
+            "grad_leaf_worst": worst, "hist": hist,
+            "launches": read_launches()}
+    return out
+
+
+def p13e_phase(device, card):
+    """P13e on two gloo ranks of the card (``_p13e_rank``), each case held
+    to one process on the card: G1's and the mid-head cases' gathered
+    logits within DIST_LOGIT_TOL, their launches the layout's
+    (``_p13e_expected``); G2's step-1 loss within TRAIN_LOSS_TOL, ce
+    equal to the loss (no MoE), every gradient leaf within
+    TRAIN_GRAD_TOL of its largest, and the launcher's two steps within
+    the tolerances ``dist_train_phase`` holds the mesh to. Returns a
+    rank's launches of each case."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.models import steps
+    from repro_torch.models.model import get_model
+    from repro_torch.training import optim
+    one = {}
+    for case, paged in [("g1", False)] + [(c, False) for c in P13E_MID] + \
+            [("straddle", True)]:
+        one[case + (" paged" if paged else "")] = \
+            _p13e_decode(case, device, paged)[0].numpy()
+    cfg = _p13e_cfg("g1")
+    model = get_model(cfg)
+    toks = _dist_tokens(cfg, P13E_TRAIN_B, P13E_TRAIN_S, seed=31).to(device)
+    params = model.init(seed=0, device=device)
+    loss1, parts1, grads1 = steps.value_and_grad(
+        model, params, {"tokens": toks, "labels": toks})
+    hist1 = train.main(["--arch", P13E_ARCH, "--layers", str(P13E_LAYERS),
+                        "--steps", "2", "--batch", str(P13E_TRAIN_B),
+                        "--seq", str(P13E_TRAIN_S), "--log-every", "1"])
+    del params
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "grads.pt")
+        torch.save({"grads": [g.cpu() for g in optim.tree_leaves(grads1)]},
+                   path)
+        del grads1
+        gc.collect()
+        torch.cuda.empty_cache()
+        outs = _run_gloo_ranks(_p13e_rank, (path,))
+    faults, gaps = [], {}
+    for r, o in enumerate(outs):
+        for case, want in one.items():
+            got = o[case]
+            gap = float(np.abs(got["logits"] - want).max())
+            gaps[f"{case} rank {r}"] = gap
+            if not np.allclose(got["logits"], want, rtol=DIST_LOGIT_TOL,
+                               atol=DIST_LOGIT_TOL):
+                faults.append(f"rank {r} {case}: logits {gap} from one "
+                              f"process")
+            exp, seq = _p13e_expected(case.split()[0], got["split"],
+                                      case.endswith("paged"))
+            if case == "g1" and any(got["split"]):
+                faults.append(f"rank {r} g1: a cache split over 'model'")
+            if got["launches"] != exp or got["seq_calls"] != seq:
+                faults.append(f"rank {r} {case}: launches "
+                              f"{got['launches']}, seq calls "
+                              f"{got['seq_calls']}; the layout gives {exp},"
+                              f" {seq}")
+        for fsdp in (0, 1):
+            g = o[f"g2 fsdp{fsdp}"]
+            if abs(g["loss"] - float(loss1)) > TRAIN_LOSS_TOL * \
+                    abs(float(loss1)) or g["ce"] != g["loss"]:
+                faults.append(f"rank {r} g2 fsdp{fsdp}: loss {g['loss']}, "
+                              f"ce {g['ce']}, one process {float(loss1)}")
+            if not g["grad_leaf_worst"] <= TRAIN_GRAD_TOL:
+                faults.append(f"rank {r} g2 fsdp{fsdp}: a gradient leaf "
+                              f"{g['grad_leaf_worst']} of its largest from "
+                              f"one process")
+            for a, b in zip(hist1, g["hist"]):
+                lt, gt = ((TRAIN_LOSS_TOL, TRAIN_GNORM_TOL)
+                          if a["step"] == 1 else
+                          (DIST_LATER_LOSS_TOL, DIST_LATER_GNORM_TOL))
+                if abs(a["loss"] - b["loss"]) > lt * abs(a["loss"]) or \
+                        abs(a["grad_norm"] - b["grad_norm"]) > \
+                        gt * abs(a["grad_norm"]):
+                    faults.append(f"rank {r} g2 fsdp{fsdp} launcher step "
+                                  f"{a['step']}: {b} vs {a}")
+            if len(g["hist"]) != len(hist1):
+                faults.append(f"rank {r} g2 fsdp{fsdp}: {len(g['hist'])} "
+                              f"launcher steps")
+    emit({"phase": "p13e placements", "card": card, "backend": "gloo",
+          "g1": {"arch": P13E_ARCH, "layers": P13E_LAYERS, "batch": P13E_B,
+                 "prompt": P13E_S, "decode_steps": P13E_T,
+                 "max_len": P13E_L},
+          "mid": {k: {"arch": a, "changes": c, "max_len": L}
+                  for k, (a, c, L) in P13E_MID.items()},
+          "g2": {"batch": P13E_TRAIN_B, "seq": P13E_TRAIN_S,
+                 "loss_one_process": float(loss1),
+                 "launcher_one_process": hist1,
+                 "ranks": [{k: {kk: vv for kk, vv in o[k].items()
+                                if kk != "launches"}
+                            for k in ("g2 fsdp0", "g2 fsdp1")}
+                           for o in outs]},
+          "logit_gaps": gaps,
+          "launches_rank0": {k: v["launches"] for k, v in outs[0].items()
+                             if "logits" in v},
+          "seconds_rank0": {k: v["s"] for k, v in outs[0].items()
+                            if "s" in v},
+          "tolerance": {"logits": DIST_LOGIT_TOL, "loss": TRAIN_LOSS_TOL,
+                        "grad_leaf": TRAIN_GRAD_TOL},
+          "faults": faults})
+    if faults:
+        raise AssertionError("p13e: " + "; ".join(faults))
+    return {k: v["launches"] for k, v in outs[0].items() if "logits" in v}
+
+
+def p13e_group(device, timed, card, rows):
+    """P13e on the card: G1, G2 (with and without --fsdp) and the five
+    mid-head cases on two gloo ranks against one process
+    (``p13e_phase``). Correctness gates, not speed claims. The kernel
+    rows take a rank's launches of each case."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = timed("p13e placements", p13e_phase, device, card)
+    for case, got in launches.items():
+        for k, n in got.items():
+            if n:
+                rows[k].setdefault("launches_p13e", {})[
+                    f"{case}, a rank"] = n
+
+
 # ------------- P13c: weights placed by the rules, qwen3-32b on the card
 
 P13C = "qwen3-32b"
@@ -4929,11 +5255,11 @@ P13C = "qwen3-32b"
 # fp32 weights (deepseek's 62.8 GB already load on the card)
 P13C_LAYERS = 28
 # tensor parallel on a (data 1, model 2) mesh of two gloo ranks on the
-# card: the first 8 layers, each rank 8 x 0.975 GB + 3.11 GB of its
-# vocab halves; 4 rows of 256-token prompts, 8 decode steps, a 512-slot
-# fp32 cache (fp32 as the P13a comparisons: a bf16 cache turns another
-# summation order's ~1e-7 gaps into bf16-ulp flips)
-P13C_TP_LAYERS = 8
+# card: the first 4 layers (8 before P13e), each rank 4 x 0.975 GB +
+# 3.11 GB of its vocab halves; 4 rows of 256-token prompts, 8 decode
+# steps, a 512-slot fp32 cache (fp32 as the P13a comparisons: a bf16
+# cache turns another summation order's ~1e-7 gaps into bf16-ulp flips)
+P13C_TP_LAYERS = 4
 P13C_B, P13C_S, P13C_T, P13C_L = 4, 256, 8, 512
 # the ranks' gathered logits against one process on the same cut: the
 # reference's own tolerance for a sharded decode against a single
@@ -5074,7 +5400,7 @@ def p13c_group(device, timed, card, rows):
 
 # qwen3-4b, the reference's own routed-serve arch, at full width on its
 # first P13B_LAYERS layers: 16 prompts of 128 tokens prefilled stacked
-# (K4) into a 2,048-slot cache, then 8 routed decode steps (K3) in each
+# (K4) into a 2,048-slot cache, then 4 routed decode steps (K3) in each
 # variant, in one process and on two gloo ranks as a (pod 2, data 1,
 # model 1) mesh (each rank 8 rows). Both on an fp32 cache, as the P13a
 # comparisons: in bf16 a ~1e-7 gap of another summation order flips a
@@ -5082,9 +5408,10 @@ def p13c_group(device, timed, card, rows):
 P13B_ARCH = "qwen3-4b"
 # its cut: 2 of 36 layers since P13d (4 in P13c, 8 before), whose
 # qwen3-32b and FSDP phases take the seconds; the migrating variant's
-# gloo staging of the cache scales with the layers
+# gloo staging of the cache scales with the layers. 4 routed decode steps
+# since P13e (8 before)
 P13B_LAYERS = 2
-P13B_B, P13B_PROMPT, P13B_MAX_LEN, P13B_STEPS = 16, 128, 2048, 8
+P13B_B, P13B_PROMPT, P13B_MAX_LEN, P13B_STEPS = 16, 128, 2048, 4
 # the sensitivities' seed: both pods get requests, and at step 1 half of
 # the 16 rows change rank (read out as ``rows_changing_rank``)
 P13B_SEED = 7
@@ -5482,11 +5809,11 @@ def p13b_group(device, timed, card, rows):
 # --------------------------------------------------- P14a: training
 
 TRAIN = "smollm-135m"
-# the launcher's path at smollm-135m's published context: 10 steps of
+# the launcher's path at smollm-135m's published context: 6 steps of
 # batch 8 x 2048 tokens (the loss falls by a nat within 3), checkpoints
-# every 5 steps, then a resume from step 5 that must end on the
-# uninterrupted run's loss
-TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 2048, 10, 5
+# every 3 steps, then a resume from step 3 that must end on the
+# uninterrupted run's loss (10 steps and a resume from 5 before P13e)
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT_EVERY = 8, 2048, 6, 3
 # paligemma-3b: 5 steps of 2 rows of 256 image embeddings + 256 tokens
 PALI_TRAIN = "paligemma-3b"
 PALI_TRAIN_B, PALI_TRAIN_S, PALI_TRAIN_STEPS = 2, 512, 5
@@ -5496,9 +5823,10 @@ KIMI_TRAIN_STEPS = 3
 # step at 2 x 2,048 peaks at 33.7 GB without it and 8.0 GB with it (the
 # remat phase below, PERF.md), so 8 x 2,048 does not fit an 80 GB card
 # without it; recurrentgemma's cut peaks at 71.7 GB with it.
-# mamba2-370m at full width and depth, 8 steps of 8 x 2,048 tokens (its
+# mamba2-370m at full width and depth, 4 steps of 8 x 2,048 tokens (its
 # published context; ~2 s a step on an H100, and the loss's fall and the
-# per-step launch counts need no more steps); recurrentgemma-9b cut to its first 8 layers (two
+# per-step launch counts need no more steps; 8 before P13e);
+# recurrentgemma-9b cut to its first 8 layers (two
 # (rglru, rglru, attn) cycles and the two trailing RG-LRU layers, as the
 # 38-layer model ends; every width kept: 2.64 B parameters, 42.3 GB of
 # fp32 weights, gradients and AdamW moments, where the full model's 137
@@ -5507,7 +5835,7 @@ KIMI_TRAIN_STEPS = 3
 # d_model 4,096) a step, where paligemma-3b's loss (d_model 2,048) rises
 # at 3e-3 (PERF.md)
 MAMBA2_TRAIN = "mamba2-370m"
-MAMBA2_TRAIN_B, MAMBA2_TRAIN_S, MAMBA2_TRAIN_STEPS = 8, 2048, 8
+MAMBA2_TRAIN_B, MAMBA2_TRAIN_S, MAMBA2_TRAIN_STEPS = 8, 2048, 4
 RG_TRAIN = "recurrentgemma-9b"
 RG_TRAIN_LAYERS, RG_TRAIN_B, RG_TRAIN_S, RG_TRAIN_STEPS = 8, 1, 2048, 5
 RG_TRAIN_LR = 3e-4
@@ -6348,6 +6676,9 @@ def main() -> int:
     one, mesh_peaks = dist_group(gpu, timed, card, ds_want, rows)
     # P13d: the ZeRO-3 placement (--fsdp) on two gloo ranks
     p13d_group(gpu, timed, card, rows, one, mesh_peaks)
+    # P13e: every placement the reference runs (whole caches, replicated
+    # batches, mid-head splits) on two gloo ranks
+    p13e_group(gpu, timed, card, rows)
     # P13c: qwen3-32b on the card: the paged main path at a 28-layer cut,
     # its replay, and tensor parallel over two gloo ranks
     p13c_group(gpu, timed, card, rows)

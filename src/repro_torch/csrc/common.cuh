@@ -152,6 +152,39 @@ __device__ __forceinline__ void mma_abt(float (&c)[NT][4], const float* a,
         }
     }
 }
+// c += a . b^T as mma_abt, with its three products each summed from zero
+// and the two cross terms added to each other in fp32 before the large
+// one: a . b^T and b . a^T then give the same bits (one product from zero
+// sums the same exact TF32 products in the same k order whichever operand
+// is A, and fp32 addition commutes). K4's backward takes dP = dO.V^T so in
+// all three of its kernels, where one of them computes its transpose
+template <int K, int NT, int RS>
+__device__ __forceinline__ void mma_abt_sym(float (&c)[NT][4],
+                                            const float* a, const float* b,
+                                            int gq, int tq) {
+#pragma unroll 2
+    for (int kk = 0; kk < K; kk += 8) {
+        const float* a0 = a + gq * RS + kk + tq;
+        uint32_t ahi[4], alo[4];
+        tf32_split<false>(a0[0], ahi[0], alo[0]);
+        tf32_split<false>(a0[8 * RS], ahi[1], alo[1]);
+        tf32_split<false>(a0[4], ahi[2], alo[2]);
+        tf32_split<false>(a0[8 * RS + 4], ahi[3], alo[3]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+            const float* b0 = b + (8 * n + gq) * RS + kk + tq;
+            uint32_t bhi[2], blo[2];
+            tf32_split<false>(b0[0], bhi[0], blo[0]);
+            tf32_split<false>(b0[4], bhi[1], blo[1]);
+            float x[4], y[4], t[4];
+            mma_tf32_z(x, alo, bhi[0], bhi[1]);
+            mma_tf32_z(y, ahi, blo[0], blo[1]);
+            mma_tf32_z(t, ahi, bhi[0], bhi[1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) c[n][e] += t[e] + (x[e] + y[e]);
+        }
+    }
+}
 // acc (16 x 8 DT) += s . b in 3xTF32: s (16 x 8 NT) in mma accumulator
 // fragments, b (8 NT x 8 DT) fp32 rows in shared memory at a stride of RS
 // floats (RS = 4 mod 16). Each 8-wide k step takes the fragment's own

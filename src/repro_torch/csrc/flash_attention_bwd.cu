@@ -16,16 +16,22 @@
 // It computes, from the saved log-sum-exp of each row's scaled scores
 // (K4's lse output) and with S the scaled scores recomputed from q and k:
 //   P = exp(S - lse), 0 where masked;  dV = P^T dO;  dP = dO V^T;
-//   D = rowsum(dO * O);  dS = P * (dP - D);  dQ = scale dS K;
+//   D = sum_j softmax(S)_ij dP_ij;  dS = P * (dP - D);  dQ = scale dS K;
 //   dK = scale dS^T Q;  dK and dV sum the G query heads of their kv head.
+// D equals rowsum(dO * O) in exact arithmetic. Taken from dP itself, with
+// every kernel's dP the same bits (mma_abt_sym), it is exactly dP_ii for a
+// row that sees one key (a window of 1), so that row's dS, and its share
+// of dQ and dK, are exactly 0, as the exact gradient is; rowsum(dO * O)
+// left fp32 noise of 1e-6 there. The output o is therefore not read.
 //
 // What bounds it on this card: the backward's products, five at least,
-// seven here (the dQ kernel recomputes S and dP: a dQ summed without
+// nine here (the dQ kernel recomputes S and dP: a dQ summed without
 // atomics from kept dS tiles would need a partial per key tile, ~1.2 GB at
-// smollm-135m's train shape), some 100-400 flops for every byte read:
-// operations. Its least time is five products over the TF32 rate of fp32
-// operands (494 TFLOP/s); with seven products taken in three TF32 passes
-// (below) the design's own ceiling is 7/5 x 3 = 4.2 times that.
+// smollm-135m's train shape; the D pass computes them once more), some
+// 100-400 flops for every byte read: operations. Its least time is five
+// products over the TF32 rate of fp32 operands (494 TFLOP/s); with nine
+// products taken in three TF32 passes (below) the design's own ceiling is
+// 9/5 x 3 = 5.4 times that.
 //
 // What the design does about it. Every product runs on the tensor cores,
 // as mma.sync m16n8k8 TF32 with each fp32 operand split into hi + lo and
@@ -34,7 +40,10 @@
 // keeps ~1e-3 of a score, ten times the 1e-4 the gradients are held to.
 // Three launches and a merge, no float atomics, so two launches on the
 // same inputs give the same bits (as K4's split merge):
-// - flash_bwd_dot_kernel: D, one warp a (b, t, h) row;
+// - flash_bwd_dq_kernel<D, true>: D, the dQ kernel's walk (below) over the
+//   same key steps, with S and dP but no dQ product: each lane keeps a
+//   running max, sum of exps and sum of exps x dP for its two rows, and
+//   the four lanes of a row merge them as the forward merges its ranges;
 // - flash_bwd_dkdv_kernel: one block of 8 warps per (64 keys, kv head,
 //   batch row, head group). Warp w takes keys 16 (w % 4) .. +16 and one
 //   role: warps 0-3 compute S^T = K.Q^T, P^T and dV += P^T.dO; warps 4-7
@@ -160,25 +169,6 @@ __device__ __forceinline__ void bwd_fetch_rows(float* dst, const float* src,
     }
 }
 
-// D = rowsum(dO * O): one warp a row of nrows (b, t, h) rows
-template <int D>
-__global__ void __launch_bounds__(256)
-flash_bwd_dot_kernel(const float* __restrict__ o,
-                     const float* __restrict__ dout,
-                     float* __restrict__ dsum, int64_t nrows) {
-    const int64_t row = (int64_t)blockIdx.x * 8 + (threadIdx.x >> 5);
-    const int lane = threadIdx.x & 31;
-    if (row >= nrows) return;
-    float acc = 0.f;
-#pragma unroll
-    for (int e = 0; e < D / 32; ++e) {
-        const int64_t i = row * D + e * 32 + lane;
-        acc = fmaf(o[i], dout[i], acc);
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) dsum[row] = acc;
-}
-
 // dK, dV of 64 keys of one kv head of one batch row (one head group)
 template <int D>
 __global__ void __launch_bounds__(BW_THREADS, BwdTiles<D>::MKV)
@@ -274,7 +264,8 @@ flash_bwd_dkdv_kernel(const float* __restrict__ q,
         // (e & 1)
         float s[NQ][4];
         frag_zero(s);
-        mma_abt<D, NQ, RS>(s, arows, pv ? qd : dod, gq, tq);
+        if (pv) mma_abt<D, NQ, RS>(s, arows, qd, gq, tq);
+        else mma_abt_sym<D, NQ, RS>(s, arows, dod, gq, tq);  // dsum's dP
         if (pv) {
 #pragma unroll
             for (int n = 0; n < NQ; ++n)
@@ -339,14 +330,18 @@ flash_bwd_merge_kernel(const float* __restrict__ part_dk,
     dv[i] = c;
 }
 
-// dQ of 64 query rows of one query head of one batch row
-template <int D>
+// dQ of 64 query rows of one query head of one batch row; with DSUM, the
+// walk before it: D = sum_j P_ij dP_ij of the same rows, P the softmax of
+// the scores this pass recomputes (online, as the forward's walk) and dP
+// the very bits the dQ and dK/dV walks compute (mma_abt_sym). A row with
+// one visible key then has P 1, D its dP and dS exactly 0
+template <int D, bool DSUM>
 __global__ void __launch_bounds__(BW_THREADS, BwdTiles<D>::MQ)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ dsum, float* __restrict__ dq,
+                    float* __restrict__ dsum, float* __restrict__ dq,
                     int Sq, int Sk, int H, int Hkv, int causal, int window,
                     int prefix, float scale) {
     constexpr int KS = BwdTiles<D>::KS, RS = D + 4;
@@ -372,7 +367,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int64_t qbase = ((int64_t)b * Sq + t0) * qrow + (int64_t)h * D;
     bwd_fetch_rows<D, BW_ROWS>(qs, q + qbase, qrow, nq);
     bwd_fetch_rows<D, BW_ROWS>(dos, dout + qbase, qrow, nq);
-    for (int i = threadIdx.x; i < BW_ROWS; i += BW_THREADS) {
+    for (int i = threadIdx.x; i < BW_ROWS && !DSUM; i += BW_THREADS) {
         const bool live = i < nq;
         const int64_t off = live ? ((int64_t)b * Sq + t0 + i) * H + h : 0;
         cp_async4(ls + i, lse + off, live);
@@ -404,6 +399,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* pother = pex + (qg * 2 + (hf ^ 1)) * NK * 4 * 32 + lane;
     float acc[DT][4];
     frag_zero(acc);
+    // DSUM: this lane's running max, sum of exps and sum of exps x dP of
+    // its rows ra (0) and rb (1) over the entries it holds
+    float rm[2] = {-INFINITY, -INFINITY}, rl[2] = {0.f, 0.f},
+          ra_[2] = {0.f, 0.f};
 
     for (int kt = 0; kt < nsteps; ++kt) {
         const int st = kt & 1;
@@ -418,7 +417,53 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         // (e & 1)
         float s[NK][4];
         frag_zero(s);
-        mma_abt<D, NK, RS>(s, arows, hf ? kd + KS * RS : kd, gq, tq);
+        if (hf) mma_abt_sym<D, NK, RS>(s, arows, kd + KS * RS, gq, tq);
+        else mma_abt<D, NK, RS>(s, arows, kd, gq, tq);
+        if (DSUM) {
+            if (hf) {
+#pragma unroll
+                for (int n = 0; n < NK; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        pmine[(n * 4 + e) * 32] = s[n][e];
+            }
+            __syncthreads();     // dP is in shared memory
+            if (!hf) {
+                // the visible scaled scores, -inf where masked
+#pragma unroll
+                for (int n = 0; n < NK; ++n)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const bool ok = bwd_allowed(
+                            t0 + (e < 2 ? ra : rb),
+                            k0 + 8 * n + 2 * tq + (e & 1), Sq, Sk, causal,
+                            window, prefix);
+                        s[n][e] = ok ? s[n][e] * scale : -INFINITY;
+                    }
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float m = rm[r];
+#pragma unroll
+                    for (int n = 0; n < NK; ++n)
+                        m = fmaxf(m, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+                    if (m == -INFINITY) continue;   // nothing visible yet
+                    const float c = expf(rm[r] - m);
+                    rl[r] *= c;
+                    ra_[r] *= c;
+                    rm[r] = m;
+#pragma unroll
+                    for (int n = 0; n < NK; ++n)
+#pragma unroll
+                        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+                            const float p = expf(s[n][e] - m);
+                            rl[r] += p;
+                            ra_[r] += p * pother[(n * 4 + e) * 32];
+                        }
+                }
+            }
+            __syncthreads();     // the stage and dP are consumed
+            continue;
+        }
         if (!hf) {
             const float la = ls[ra], lb = ls[rb];
 #pragma unroll
@@ -452,6 +497,30 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         __syncthreads();         // the stage and the fragments are consumed
     }
     cp_async_wait<0>();
+    if (DSUM) {
+        if (hf) return;
+        // merge the four lanes of each row (tq), as the forward's ranges
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {
+                const float m2 = __shfl_xor_sync(0xffffffffu, rm[r], off);
+                const float l2 = __shfl_xor_sync(0xffffffffu, rl[r], off);
+                const float a2 = __shfl_xor_sync(0xffffffffu, ra_[r], off);
+                const float m = fmaxf(rm[r], m2);
+                if (m == -INFINITY) continue;
+                const float c1 = expf(rm[r] - m), c2 = expf(m2 - m);
+                rl[r] = rl[r] * c1 + l2 * c2;
+                ra_[r] = ra_[r] * c1 + a2 * c2;
+                rm[r] = m;
+            }
+            const int row = r ? rb : ra;
+            if (tq == 0 && row < nq)
+                dsum[((int64_t)b * Sq + t0 + row) * H + h] =
+                    rl[r] > 0.f ? ra_[r] / rl[r] : 0.f;
+        }
+        return;
+    }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
         const int r = half ? rb : ra;
@@ -466,16 +535,17 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
-                              const float* o, const float* lse,
-                              const float* dout, float* dq, float* dk,
-                              float* dv, float* dsum, float* part_dk,
-                              float* part_dv, int n_split, int B, int Sq,
-                              int Sk, int H, int Hkv, int causal, int window,
-                              int prefix, float scale, cudaStream_t stream) {
-    const int64_t nrows = (int64_t)B * Sq * H;
-    flash_bwd_dot_kernel<D><<<(unsigned)((nrows + 7) / 8), 256, 0, stream>>>(
-        o, dout, dsum, nrows);
-    cudaError_t e = cudaGetLastError();
+                              const float* lse, const float* dout, float* dq,
+                              float* dk, float* dv, float* dsum,
+                              float* part_dk, float* part_dv, int n_split,
+                              int B, int Sq, int Sk, int H, int Hkv,
+                              int causal, int window, int prefix, float scale,
+                              cudaStream_t stream) {
+    const dim3 qgrid((Sq + BW_ROWS - 1) / BW_ROWS, H, B);
+    cudaError_t e = launch_with_smem(
+        flash_bwd_dq_kernel<D, true>, qgrid, dim3(BW_THREADS),
+        bwd_smem_dq<D>(), stream, q, k, v, dout, lse, dsum, dq, Sq, Sk, H,
+        Hkv, causal, window, prefix, scale);
     if (e != cudaSuccess) return e;
     e = launch_with_smem(flash_bwd_dkdv_kernel<D>,
                          dim3((Sk + BW_ROWS - 1) / BW_ROWS, Hkv,
@@ -493,23 +563,21 @@ static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
         e = cudaGetLastError();
         if (e != cudaSuccess) return e;
     }
-    return launch_with_smem(flash_bwd_dq_kernel<D>,
-                            dim3((Sq + BW_ROWS - 1) / BW_ROWS, H, B),
+    return launch_with_smem(flash_bwd_dq_kernel<D, false>, qgrid,
                             dim3(BW_THREADS), bwd_smem_dq<D>(), stream, q, k,
-                            v, dout, lse, (const float*)dsum, dq, Sq, Sk, H,
-                            Hkv, causal, window, prefix, scale);
+                            v, dout, lse, dsum, dq, Sq, Sk, H, Hkv, causal,
+                            window, prefix, scale);
 }
 
-// q, o, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D); lse and
-// dsum (B, Sq, H); all fp32, contiguous, q, k, v and dout 16-byte
-// aligned, D in {32, 64, 128, 256}, H a
+// q, dout, dq (B, Sq, H, D); k, v, dk, dv (B, Sk, Hkv, D); lse and dsum
+// (B, Sq, H); all fp32, contiguous, q, k, v and dout 16-byte aligned, D in {32, 64, 128, 256}, H a
 // multiple of Hkv. lse is K4's output for the same q, k, v and mask;
 // dsum is scratch. window 0 for none, else >= 1 and causal; prefix >= 0.
 // n_split >= 1 groups of each kv head's query heads, at most H / Hkv;
 // with more than one, part_dk and part_dv (n_split, B, Sk, Hkv, D) fp32
 // scratch. Returns the cudaError_t of the launches (0 = launched).
 extern "C" int flash_attention_bwd_launch(
-        const void* q, const void* k, const void* v, const void* o,
+        const void* q, const void* k, const void* v,
         const void* lse, const void* dout, void* dq, void* dk, void* dv,
         void* dsum, void* part_dk, void* part_dv, int n_split, int B, int Sq,
         int Sk, int H, int Hkv, int D, int causal, int window, int prefix,
@@ -519,8 +587,8 @@ extern "C" int flash_attention_bwd_launch(
         (n_split > 1 && (part_dk == nullptr || part_dv == nullptr)))
         return (int)cudaErrorInvalidValue;
 #define REPRO_BWD_ARGS                                                        \
-    (const float*)q, (const float*)k, (const float*)v, (const float*)o,      \
-        (const float*)lse, (const float*)dout, (float*)dq, (float*)dk,       \
+    (const float*)q, (const float*)k, (const float*)v, (const float*)lse,    \
+        (const float*)dout, (float*)dq, (float*)dk,                          \
         (float*)dv, (float*)dsum, (float*)part_dk, (float*)part_dv, n_split, \
         B, Sq, Sk, H, Hkv, causal, window, prefix, scale,                     \
         (cudaStream_t)stream
@@ -537,7 +605,7 @@ extern "C" int flash_attention_bwd_launch(
 template <int D>
 static cudaError_t bwd_attrs(int* out) {
     const void* kerns[2] = {(const void*)flash_bwd_dkdv_kernel<D>,
-                            (const void*)flash_bwd_dq_kernel<D>};
+                            (const void*)flash_bwd_dq_kernel<D, false>};
     const size_t smem[2] = {bwd_smem_dkdv<D>(), bwd_smem_dq<D>()};
     const int step[2] = {BwdTiles<D>::QS, BwdTiles<D>::KS};
     for (int i = 0; i < 2; ++i) {

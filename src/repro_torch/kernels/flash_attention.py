@@ -36,7 +36,7 @@ from repro_torch.kernels import _build, ref
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + [
     ctypes.c_float, ctypes.c_void_p]
 
 
@@ -130,8 +130,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale, causal=True,
     causal, window, prefix_len)`` whose output was ``o`` (B, Sq, H, D) and
     log-sum-exp ``lse`` (B, Sq, H), for the output gradient ``do``. On a
     CUDA tensor the hand-written backward (``csrc/flash_attention_bwd.cu``:
-    D, then dK/dV and dQ with every product on the tensor cores in
-    3xTF32, no atomics; its launches counted as one in
+    D = sum_j P_ij dP_ij in a pass over the keys, then dK/dV and dQ, with
+    every product on the tensor cores in 3xTF32, no atomics; ``o`` is
+    checked but not read; its launches counted as one in
     ``flash_attention_bwd.launches``) on fp32 q/k/v/o/do, each kv head's
     query heads split across dK/dV blocks where the grid is short of two
     blocks an SM (``bwd_split``; ``flash_attention_bwd.last_split``); on a
@@ -176,7 +177,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale, causal=True,
              if n_split > 1 else [None, None])
     fn = _build.load_entry("flash_attention_bwd",
                            "flash_attention_bwd_launch", _BWD_ARGTYPES)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dsum.data_ptr(),
             *(t.data_ptr() if t is not None else None for t in parts),

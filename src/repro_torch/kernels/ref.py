@@ -67,10 +67,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale, causal=True,
     """The gradients (dq, dk, dv) of ``flash_attention`` at its output
     ``o`` and log-sum-exp ``lse`` (B, Sq, H), for the output gradient
     ``do`` (B, Sq, H, D), from the formulas: P = exp(S - lse) (S the
-    scaled scores, 0 where masked), dV = P^T dO, dP = dO V^T, D =
-    rowsum(dO * O), dS = P * (dP - D), dQ = scale dS K, dK = scale dS^T Q;
-    dK and dV sum the G query heads of each kv head. Each in its input's
-    dtype."""
+    scaled scores, 0 where masked), dV = P^T dO, dP = dO V^T, D = sum_j
+    softmax(S)_ij dP_ij, dS = P * (dP - D), dQ = scale dS K, dK = scale
+    dS^T Q; dK and dV sum the G query heads of each kv head. Each in its
+    input's dtype. D equals rowsum(dO * O) in exact arithmetic; taken
+    from dP and the recomputed softmax, it is exactly dP_ii for a row
+    that sees one key (a window of 1), whose dS, dQ and dK are then
+    exactly 0, as the kernel's are. ``o`` is not read."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -85,8 +88,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale, causal=True,
         p = torch.where(mask, p, torch.zeros_like(p))
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
-    dsum = (dog * o.reshape(B, Sq, Hkv, G, D).float()).sum(-1)
-    ds = p * (dp - dsum.permute(0, 2, 3, 1)[..., None])
+    if mask is not None:
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    dsum = (torch.softmax(s, dim=-1) * dp).sum(-1, keepdim=True)
+    ds = p * (dp - dsum)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
     return (dq.reshape(B, Sq, H, D).to(q.dtype), dk.to(k.dtype),

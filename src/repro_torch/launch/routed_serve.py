@@ -112,7 +112,8 @@ def make_routed_step(model, migrate_cache: bool):
         order = torch.argsort(pod, stable=True)     # group requests by pod
         token_r = permute_rows(token, order)
         if migrate_cache:
-            cache = [{k: permute_rows(c, order) for k, c in layer.items()}
+            cache = [type(layer)((k, permute_rows(c, order))
+                                 for k, c in layer.items())
                      for layer in cache]
         logits, cache = serve(params, cache, token_r, pos)
         inv = torch.argsort(order)

@@ -16,7 +16,9 @@ config's first N layers (its pattern continued, every width kept: a cut
 of a model too large for one card).
 
 ``--mesh dxm`` trains under a (data, model) mesh (``launch.mesh``): the
-global batch is split over "data", an MoE block's experts over "model"
+global batch is split over "data" (or held whole by every rank where
+"data" does not divide it, as the reference replicates it), an MoE
+block's experts over "model"
 (the train step's data-parallel gradient reduction and the
 expert-parallel MoE, ``models.steps``, ``models.moe``). Outside a process
 group the launcher starts the d * m ranks itself (spawned, joined

@@ -39,18 +39,21 @@ is still inside the prefix attends those tokens both ways too (R9). The
 port reproduces both, path for path.
 
 Under a mesh (``sharding.axis_rules``) whose model axis kv_heads does
-not divide, the dense cache is sequence-sharded: each rank holds its
-slot range (``attn_cache_spec``'s ``kv_seq`` axis), a full prefill
-writes only that range of the prompt's K/V (the reference writes a global
-array and lets XLA slice it), and decode runs
+not divide, the dense cache is sequence-sharded where the model axis
+divides its slots (``attn_cache_spec``'s ``kv_seq`` axis; the cache a
+``decode_sharded.SeqSplitCache``): each rank holds its slot range, a
+full prefill writes only that range of the prompt's K/V (the reference
+writes a global array and lets XLA slice it), and decode runs
 ``decode_sharded.seq_sharded_decode`` (plain torch ops and three
 all-reduces, no K3), as the reference's decode branch does. An fp8 cache
 keeps the seq-sharded layout but, as in the reference (which skips the
 seq-sharded decode for a quantized cache), decodes over the whole cache:
 the owning rank writes the token and its scales, every rank dequantizes
 its slots, the slots are gathered (``decode_sharded.gather_seq``) and
-K3 runs on the global fp32 cache. Otherwise a rank's cache holds every
-slot and its kv heads and decodes through K3 as without a mesh.
+K3 runs on the global fp32 cache. Otherwise (a plain dict: the model
+axis divides the kv heads, or does not divide the slots, max_len or a
+ring's W) a rank's cache holds every slot and its kv heads, a full
+prefill writes every slot, and it decodes through K3 as without a mesh.
 
 Tensor parallel over "model" (``sharding.LOCAL_RULES``): a rank holds
 its columns of ``wq``, ``wk`` and ``wv`` and its rows of ``wo`` as the
@@ -60,12 +63,18 @@ too) hold the rank's heads and K1-K4 run at the local head counts;
 where it does not, the projection's columns are gathered over "model"
 (``layers.split_heads``) and every head is computed. ``wo`` is
 row-parallel, summed over "model" after it (``layers.row_parallel``).
-Where q heads are split and kv heads whole, the local q heads share one
-kv head, ``q0 // G`` (``_kv_for_q``), and a decode against the
+Where q heads are split and kv heads whole, each local q head reads its
+own kv head from the whole K/V (``_kv_for_q``: one shared kv head where
+the local heads lie inside one group, the rows repeated per q head where
+they straddle groups) in full mode and in a decode against a whole dense
+cache, at the local head count through K4 and K3; a decode against the
 sequence-sharded cache gathers q's heads over "model" before the region
 and keeps the rank's heads after the merge. qk_norm acts per head, so
 its weights are read by split work (``sharding.column_in``). The paged
-pool holds the rank's kv heads; it needs a model axis that divides them.
+pool holds the rank's kv heads, or every kv head where the model axis
+does not divide them (``kvpool.PagePool``); with q split over whole kv
+heads, chunk and decode gather q's heads over "model", run K2 and K1 at
+every head, and keep the rank's heads of the output.
 """
 from __future__ import annotations
 
@@ -75,7 +84,8 @@ from repro_torch.kernels.chunked_prefill import chunked_prefill_attention
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
-from repro_torch.models.decode_sharded import (gather_seq, local_seq,
+from repro_torch.models.decode_sharded import (SeqSplitCache, check_whole,
+                                               gather_seq, model_shards,
                                                seq_shard_axes,
                                                seq_sharded_decode,
                                                slot_and_fill, use_seq_sharded,
@@ -127,16 +137,18 @@ def attend_decode(q, k_cache, v_cache, valid_len, scale):
 def _kv_for_q(t, H, Hkv, Hl):
     """K or V (B, S, Hkv, D), every kv head, for this rank's ``Hl`` of
     ``H`` q heads where the model axis divides the q heads but not the
-    kv heads: the local q heads then lie inside one group (G = H / Hkv
-    is a multiple of Hl) and read its kv head, ``q0 // G``."""
+    kv heads. Where the local q heads lie inside one group (G = H / Hkv a
+    multiple of Hl) they read its kv head, ``q0 // G``; where they
+    straddle groups, each q head's own, ``(q0 + i) // G``, the rows
+    repeated per q head (one kv head a q head)."""
     G = H // Hkv
-    if G % Hl:
-        raise ValueError(f"attention: {Hl} local of {H} q heads straddle "
-                         f"the groups of {Hkv} kv heads; shard over a "
-                         f"model axis that divides or is divided by the "
-                         f"kv heads")
-    kv = model_offset(Hl) // G
-    return t[:, :, kv:kv + 1].contiguous()
+    q0 = model_offset(Hl)
+    if G % Hl == 0:
+        kv = q0 // G
+        return t[:, :, kv:kv + 1].contiguous()
+    idx = torch.div(q0 + torch.arange(Hl, device=t.device), G,
+                    rounding_mode="floor")
+    return t.index_select(2, idx)
 
 
 def _decode_seq_sharded(cfg, q, k, v, positions, cache, window, scale):
@@ -169,7 +181,7 @@ def _decode_seq_sharded_all(cfg, q, k, v, posb, cache, window, scale):
                                      window, scale)
         return o
     group = current_mesh().get_group("model")
-    rank, n = local_seq(cfg.num_kv_heads, cache["k"].shape[1])
+    rank, n = model_shards()
     slot, valid = slot_and_fill(posb, B, cache["k"].shape[1] * n, window,
                                 q.device)
     for name, t in (("k", k), ("v", v)):
@@ -181,6 +193,17 @@ def _decode_seq_sharded_all(cfg, q, k, v, posb, cache, window, scale):
     v_att = gather_seq(cache["v"].float() * cache["v_scale"][..., None],
                        group, rank, n)
     return attend_decode(q, k_att, v_att, valid.to(torch.int32), scale)
+
+
+def _all_heads(q, gather):
+    """q (B, T, Hl, D) with its heads gathered over "model" where
+    ``gather`` (this rank's q heads over a pool of every kv head)."""
+    return model_gather(q, 2) if gather else q
+
+
+def _local_heads(o, gathered, Hl):
+    """This rank's ``Hl`` heads of an output ``_all_heads`` gathered."""
+    return o.narrow(2, model_offset(Hl), Hl) if gathered else o
 
 
 # ------------------------------------------------------------------- block
@@ -204,7 +227,8 @@ def attn_cache_spec(cfg, batch, max_len, window=None):
     """{name: (global shape, logical axes)} of this block's dense decode
     cache: ``max_len`` slots, or ``min(window, max_len)`` for a windowed
     layer. Mesh-aware: when kv_heads don't divide the model axis, the
-    sequence dim is sharded instead (the seq-sharded decode)."""
+    sequence dim is sharded instead (the seq-sharded decode), where the
+    model axis divides the slots; else the cache stays whole."""
     S = min(window, max_len) if window else max_len
     sh = (batch, S, cfg.num_kv_heads, cfg.head_dim)
     if use_seq_sharded(cfg.num_kv_heads, S):
@@ -250,6 +274,7 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
                      else p["k_norm"])
     # split q heads over replicated kv heads: each reads its global one
     kv_whole = q_split and not kv_split
+    seq_split = isinstance(cache, SeqSplitCache)
     if mode == "full":       # a whole prompt, positions 0..S-1
         S = x.shape[1]
         q = apply_rope(q, positions, cfg.rope_theta)
@@ -263,7 +288,8 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
                             prefix_len=prefix_len)
         if cache is not None:
             W = cache["k"].shape[1]
-            shards = local_seq(Hkv, W)
+            if not seq_split:
+                check_whole(Hkv, W)
             new = {}
             if "k_scale" in cache:       # fp8 cache: quantize on write
                 new["k"], new["k_scale"] = _fp8_quantize(k, cache["k"].dtype)
@@ -271,18 +297,18 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
             else:
                 new["k"], new["v"] = k, v
             for name, val in new.items():
-                if shards is not None:   # this rank's slots only
-                    write_prompt(cache[name], val, *shards)
+                if seq_split:            # this rank's slots only
+                    write_prompt(cache[name], val, *model_shards())
                 elif W >= S:
                     cache[name][:, :S] = val.to(cache[name].dtype)
                 else:        # windowed ring: keep the last W tokens
                     cache[name].copy_(val[:, -W:])
-    elif mode == "decode" and "k" in cache and local_seq(
-            Hkv, cache["k"].shape[1]) is not None:
+    elif mode == "decode" and seq_split:
         o = _decode_seq_sharded(cfg, q, k, v, positions, cache, window,
                                 scale)
     elif mode == "decode" and "k" in cache:   # one token, dense cache
         W = cache["k"].shape[1]
+        check_whole(Hkv, W)
         posb = (torch.zeros(B, dtype=torch.int32, device=x.device)
                 + positions).to(torch.int32)       # scalar or (B,)
         q = apply_rope(q, posb[:, None], cfg.rope_theta)
@@ -301,13 +327,11 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
             cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
             cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
             k_att, v_att = cache["k"], cache["v"]
+        if kv_whole:
+            k_att = _kv_for_q(k_att, H, Hkv, Hl)
+            v_att = _kv_for_q(v_att, H, Hkv, Hl)
         o = attend_decode(q, k_att, v_att, torch.clamp(posb + 1, max=W),
                           scale)
-    elif kv_whole:
-        raise ValueError(
-            f"attention: the paged pool holds every one of {Hkv} kv heads "
-            f"while this rank holds {Hl} of {H} q heads; page a mesh "
-            f"whose model axis divides the kv heads")
     elif mode == "chunk":    # page-aligned prefill chunks into the paged pool
         kp, vp = cache["k_pages"], cache["v_pages"]
         ps = kp.shape[1]
@@ -332,7 +356,9 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
         vp.index_copy_(0, dst.long(),
                        v.to(vp.dtype).reshape(B * C, ps, Kl, hd))
         start = positions[:, 0].to(torch.int32).contiguous()
-        o = attend_chunk_paged(q, kp, vp, block_table, start, scale)
+        o = _local_heads(attend_chunk_paged(_all_heads(q, kv_whole), kp, vp,
+                                            block_table, start, scale),
+                         kv_whole, Hl)
     elif mode == "decode":   # one token per sequence against the paged pool
         kp, vp = cache["k_pages"], cache["v_pages"]
         ps = kp.shape[1]
@@ -351,7 +377,9 @@ def attn_apply(cfg, p, x, positions, *, mode, cache=None, window=None,
         off = (posb % ps).long()
         kp[pi, off] = k[:, 0].to(kp.dtype)
         vp[pi, off] = v[:, 0].to(vp.dtype)
-        o = attend_decode_paged(q, kp, vp, block_table, posb + 1, scale)
+        o = _local_heads(attend_decode_paged(_all_heads(q, kv_whole), kp,
+                                             vp, block_table, posb + 1,
+                                             scale), kv_whole, Hl)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     y = row_parallel(o.reshape(B, o.shape[1], Hl * hd), p["wo"], q_split)

@@ -6,8 +6,9 @@ headless latent cache), replicating the KV cache on every rank is
 hopeless at 32k-524k contexts. Instead the cache's *sequence* dim is
 sharded over the model axis: rank ``r`` of ``n`` holds global slots
 ``[r * S_loc, (r + 1) * S_loc)`` of a cache of ``S = n * S_loc`` slots
-(``Model.init_cache`` under the mesh allocates only those), and decode
-attention runs per rank, as the reference's ``shard_map`` body ``_inner``:
+(``Model.init_cache`` under the mesh allocates only those, as a
+``SeqSplitCache``), and decode attention runs per rank, as the
+reference's ``shard_map`` body ``_inner``:
 
   - the rank owning slot ``pos`` writes the new K/V (a one-slot predicated
     write: every rank writes, the others their slot's old value back)
@@ -17,7 +18,10 @@ attention runs per rank, as the reference's ``shard_map`` body ``_inner``:
     row maxima ``m``, an all-reduce SUM of the denominators ``l`` (then
     floored at 1e-30) and one of the weighted values
 
-over the mesh's "model" process group. Three all-reduces a layer: two
+over the mesh's "model" process group. Where the model axis does not
+divide the slots (``use_seq_sharded``'s ``seq_len``), the reference keeps
+the cache whole and decodes it unsharded, and so does the port: the
+layer's cache is then a plain dict. Three all-reduces a layer: two
 (B, Hkv, G) and one (B, Hkv, G, Dv), O(B H D) bytes instead of an O(S)
 gather. The arithmetic is plain fp32 torch ops, as the reference computes
 it with ``einsum`` outside any Pallas kernel. ``pos`` is a scalar or (B,)
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch.utils import _pytree
 
 from repro_torch.sharding import current_mesh, mesh_shape
 
@@ -53,19 +58,43 @@ def seq_shard_axes():
     return ("batch", "kv_seq", None, None)
 
 
-def local_seq(kv_heads: int, local_len: int):
-    """(model rank, model ranks) when a cache holding ``local_len`` slots
-    on this rank is sequence-sharded under the current mesh, else None.
-    Under a mesh that seq-shards ``kv_heads`` every dense cache is split
-    (``Model.init_cache`` refuses a length the model axis does not
-    divide), so its global length is ``local_len`` times the ranks."""
+class SeqSplitCache(dict):
+    """One layer's dense cache whose slots are split over "model": each
+    rank holds its range of ``n * S_loc`` global slots. ``Model.init_cache``
+    makes one for a layer whose ``cache_spec`` names "kv_seq" (the
+    reference's ``use_seq_sharded`` of its kv heads and its global slot
+    count) under a model axis of more than one rank; every other dense
+    cache, a plain dict, is whole on each rank (its kv heads' share), as
+    where the model axis does not divide the slots the reference keeps
+    the cache whole and decodes it unsharded. Attention and MLA read
+    this flag, not the local slot count, which cannot tell 37 whole slots
+    from 74 split over two ranks. Code that rebuilds a layer's dict keeps
+    its type (``type(layer)(...)``)."""
+
+
+# a node of torch's pytrees as a dict is, so that walks over a cache (the
+# dry-run's byte counts) see its tensors
+_pytree.register_pytree_node(
+    SeqSplitCache, lambda c: (list(c.values()), list(c.keys())),
+    lambda values, keys: SeqSplitCache(zip(keys, values)),
+    serialized_type_name=f"{__name__}.SeqSplitCache")
+
+
+def check_whole(kv_heads: int, slots: int):
+    """Refuse a plain-dict cache of ``slots`` slots a rank that the
+    current mesh would have split over "model": it was not made by
+    ``Model.init_cache``, and its global length is unknown."""
+    if use_seq_sharded(kv_heads, slots):
+        raise ValueError(
+            f"a dense cache of {slots} slots a rank under this mesh is "
+            f"split over 'model' (Model.init_cache makes it a "
+            f"decode_sharded.SeqSplitCache); this one is a plain dict")
+
+
+def model_shards():
+    """(this rank's index along "model", the model axis's ranks)."""
     mesh = current_mesh()
-    if mesh is None:
-        return None
-    n = mesh_shape(mesh).get("model", 1)
-    if not use_seq_sharded(kv_heads, local_len * n):
-        return None
-    return mesh.get_local_rank("model"), n
+    return mesh.get_local_rank("model"), mesh_shape(mesh)["model"]
 
 
 def _all_reduce(t, op, group):

@@ -32,11 +32,14 @@ kernel, and so does the port with torch ops: the port's K3/K4 take one
 D up to 256 for q, k and v, and MLA needs 192/128 and 576/512.
 
 Under a mesh with a model axis of more than one rank the latent cache
-(which has no kv-head dim) is sequence-sharded (``mla_cache_spec``):
+(which has no kv-head dim) is sequence-sharded (``mla_cache_spec``, a
+``decode_sharded.SeqSplitCache``) where the model axis divides max_len:
 a full prefill writes this rank's slot range, and decode is the
 absorbed query against ``decode_sharded.seq_sharded_decode`` with
 ``ckr`` as the keys and its first ``kv_lora_rank`` lanes as the values
 (MQA over the latent), whatever ``decode_mode`` says, as the reference.
+Where it does not divide max_len the cache stays whole on every rank
+(a plain dict) and decodes as without a mesh, as the reference's.
 
 Tensor parallel over "model" (``sharding.LOCAL_RULES``): where the
 model axis divides the heads, ``wq``, ``w_uk``, ``w_uv`` and ``wo`` hold
@@ -45,7 +48,11 @@ this rank's heads (``wo`` row-parallel, summed over "model" after it);
 the RoPE key are whole on every rank and read by split work
 (``sharding.column_in``). The seq-sharded decode gathers the absorbed
 query's heads over "model" before the region and keeps the rank's heads
-of the merged latent output.
+of the merged latent output. Where the rules split the heads' columns
+mid-head (a model axis that divides ``H * (nd + rd)`` but not ``H``),
+``wq``'s output and ``w_uk``/``w_uv`` are gathered over "model" and
+every head is computed, as GSPMD reshards there; ``wo``'s rows stay the
+rules' slice (``layers.row_parallel``).
 
 ``mla_apply`` counts its calls in ``mla_apply.calls``, as the kernel
 wrappers count ``.launches``.
@@ -54,11 +61,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.decode_sharded import (local_seq, seq_shard_axes,
+from repro_torch.models.decode_sharded import (SeqSplitCache, check_whole,
+                                               model_shards, seq_shard_axes,
                                                seq_sharded_decode,
                                                use_seq_sharded, write_prompt)
-from repro_torch.models.layers import PSpec, apply_rope, rms_norm
-from repro_torch.sharding import column_in, model_gather, model_offset, row_out
+from repro_torch.models.layers import (PSpec, apply_rope, rms_norm,
+                                       row_parallel)
+from repro_torch.sharding import (column_in, gather_out, model_gather,
+                                  model_offset, model_ranks)
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -90,8 +100,13 @@ def mla_cache_spec(cfg, batch, max_len, window=None):
 
 
 def _project_q(cfg, p, h, B):
+    return _split_q(cfg, torch.matmul(h, p["wq"]), B)
+
+
+def _split_q(cfg, q, B):
+    """wq's output (B, S, heads * (nd + rd)) -> (q_nope, q_rope)."""
     nd, rd = cfg.nope_head_dim, cfg.rope_head_dim
-    q = torch.matmul(h, p["wq"]).reshape(B, h.shape[1], -1, nd + rd)
+    q = q.reshape(B, q.shape[1], -1, nd + rd)
     return q[..., :nd], q[..., nd:]
 
 
@@ -150,17 +165,22 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
     B = x.shape[0]
     nd, rd, vd, r = (cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim,
                      cfg.kv_lora_rank)
-    H = p["wq"].shape[1] // (nd + rd)          # this rank's heads
-    split = H != cfg.num_heads
-    if p["wq"].shape[1] % (nd + rd) or (split and cfg.num_heads % H):
-        raise ValueError(f"mla_apply: this rank's wq columns "
-                         f"{p['wq'].shape[1]} are not whole heads of "
-                         f"{nd + rd}; MLA splits over a model axis that "
-                         f"divides its {cfg.num_heads} heads")
+    whole = p["wq"].shape[1] == cfg.num_heads * (nd + rd)
+    # columns split mid-head: every head computed, from gathered columns
+    mid = not whole and cfg.num_heads % model_ranks() != 0
+    if mid:
+        p = dict(p, w_uk=gather_out(p["w_uk"], -1),
+                 w_uv=gather_out(p["w_uv"], -1))
+    H = cfg.num_heads if mid else p["wq"].shape[1] // (nd + rd)
+    split = H != cfg.num_heads             # this rank's whole heads
     tp = column_in if split else (lambda t: t)
     scale = (nd + rd) ** -0.5
     h = rms_norm(x, p["ln"])
-    q_nope, q_rope = _project_q(cfg, p, tp(h), B)
+    if mid:
+        q_nope, q_rope = _split_q(cfg, gather_out(torch.matmul(
+            column_in(h), p["wq"]), -1), B)
+    else:
+        q_nope, q_rope = _project_q(cfg, p, tp(h), B)
     c = rms_norm(torch.matmul(h, p["w_dkv"]), p["kv_ln"])
     k_rope_new = torch.matmul(h, p["w_krope"])
 
@@ -177,10 +197,10 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
         o = _attend_causal(q, k, v, scale)
         if cache is not None:
             ckr = torch.cat([c, k_rope[:, :, 0, :]], dim=-1)[:, :, None, :]
-            shards = local_seq(0, cache["ckr"].shape[1])
-            if shards is not None:       # this rank's slots only
-                write_prompt(cache["ckr"], ckr, *shards)
+            if isinstance(cache, SeqSplitCache):      # this rank's slots only
+                write_prompt(cache["ckr"], ckr, *model_shards())
             else:
+                check_whole(0, cache["ckr"].shape[1])
                 cache["ckr"][:, :S] = ckr.to(cache["ckr"].dtype)
     elif mode == "decode":
         posb = (torch.zeros(B, dtype=torch.int32, device=x.device)
@@ -190,11 +210,12 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
                               cfg.rope_theta)[:, :, 0, :]
         ckr = cache["ckr"]
         S = ckr.shape[1]
-        if local_seq(0, S) is not None:
+        if isinstance(cache, SeqSplitCache):
             o = _decode_seq_sharded(cfg, p, x, q_nope, q_rope, c, k_rope_t,
                                     ckr, posb, scale)
-            y = torch.matmul(o.reshape(B, 1, H * vd), p["wo"])
-            return x + (row_out(y) if split else y), cache
+            y = row_parallel(o.reshape(B, 1, H * vd), p["wo"], split)
+            return x + y, cache
+        check_whole(0, S)
         rows = torch.arange(B, device=x.device)
         slot = torch.clamp(posb, max=S - 1).long()
         ckr[rows, slot] = torch.cat([c, k_rope_t], dim=-1)[:, 0, None, :].to(
@@ -227,8 +248,8 @@ def mla_apply(cfg, p, x, positions, *, mode, cache=None,
             raise ValueError(f"unknown MLA decode mode {decode_mode!r}")
     else:
         raise ValueError(f"MLA has no {mode!r} mode (it is not paged)")
-    y = torch.matmul(o.reshape(B, o.shape[1], H * vd), p["wo"])
-    return x + (row_out(y) if split else y), cache
+    y = row_parallel(o.reshape(B, o.shape[1], H * vd), p["wo"], split)
+    return x + y, cache
 
 
 mla_apply.calls = 0

@@ -43,8 +43,10 @@ over "model"; with FSDP, ``apply_fsdp``'s dim of each large weight over
 "pod" and "data" too), drawing every leaf whole as one process would,
 and ``init_cache`` allocates this rank's slice of each cache leaf by
 ``cache_axes`` (its batch rows over the data axes; its kv heads, or a
-sequence-sharded layer's slot range, over "model"; Mamba-2's conv tail
-keeps the rank's channels, ``ssm.conv_channels``). ``forward`` then runs
+sequence-sharded layer's slot range, over "model", the latter marked
+``decode_sharded.SeqSplitCache``; a cache whose kv heads and slots the
+model axis divides neither whole; Mamba-2's conv tail keeps the rank's
+channels where it can, ``ssm.conv_channels``). ``forward`` then runs
 on this rank's local tensors, tensor-parallel over "model" where GSPMD
 partitions the reference: each block adds its collectives
 (``sharding.column_in``, ``row_out``), the embedding is a masked lookup
@@ -65,12 +67,18 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import sharding
 from repro_torch.models import attention, mla, rglru, ssm
 from repro_torch.sharding import column_in, gather_out, model_offset, row_out
-from repro_torch.models.decode_sharded import use_seq_sharded
+from repro_torch.models.decode_sharded import SeqSplitCache
 from repro_torch.models.layers import (PSpec, abstract_params, init_params,
                                        param_axes, rms_norm, swiglu_apply,
                                        swiglu_table)
 from repro_torch.models.moe import moe_apply, moe_table
 from repro_torch.training.optim import at
+
+
+def seq_split(layer_spec) -> bool:
+    """Whether a layer's ``cache_spec`` entry splits its slots over
+    "model" (a leaf's axes name "kv_seq")."""
+    return any("kv_seq" in ax for _, ax in layer_spec.values())
 
 
 def effective_pattern(cfg):
@@ -183,7 +191,8 @@ class Model:
         decode cache; attention layers hold ``min(cfg.attn_window,
         max_len)`` slots when windowed. Mesh-aware, as the reference's:
         a layer whose kv heads the model axis does not divide (MLA: any
-        model axis) shards its slots over it."""
+        model axis) shards its slots over it ("kv_seq", ``seq_split``)
+        where the axis divides them, and otherwise keeps them whole."""
         w = self.cfg.attn_window
         return [BLOCK_CACHE[bt](self.cfg, batch, max_len, w) if bt == "attn"
                 else BLOCK_CACHE[bt](self.cfg, batch, max_len)
@@ -192,26 +201,6 @@ class Model:
     def cache_axes(self, batch, max_len):
         return [{n: sa[1] for n, sa in layer.items()}
                 for layer in self.cache_spec(batch, max_len)]
-
-    def _check_cache_mesh(self, max_len):
-        """Refuse a cache the reference would replicate where a
-        seq-sharded one fits (kv heads the model axis does not divide,
-        slots it does not divide): the port decides a layer's decode from
-        its local slots, and cannot tell such a cache from a split one."""
-        mesh = sharding.current_mesh()
-        n = sharding.mesh_shape(mesh).get("model", 1) if mesh else 1
-        for i, (layer, bt) in enumerate(zip(self.cache_spec(1, max_len),
-                                            self.block_types)):
-            if bt not in ("attn", "mla"):
-                continue
-            kv = self.cfg.num_kv_heads if bt == "attn" else 0
-            S = next(iter(layer.values()))[0][1]
-            if use_seq_sharded(kv) and S % n:
-                raise ValueError(
-                    f"init_cache: layer {i} ({bt}) has {S} cache slots, "
-                    f"which do not split over the mesh's model axis of "
-                    f"{n}; the port decodes such a layer only "
-                    f"sequence-sharded (pick a max_len that {n} divides)")
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16, device=None):
         """A zeroed dense decode cache on ``device`` (None = the card): per
@@ -230,11 +219,13 @@ class Model:
         uninitialised memory may hold NaN bits. Under a mesh, this rank's
         slice of each leaf (``cache_spec``'s axes under
         ``sharding.LOCAL_RULES``): its kv heads where the model axis
-        divides them, else (a seq-sharded layer) ``max_len / model``
-        slots; a Mamba-2 conv tail of the rank's channels
-        (``ssm.conv_channels``)."""
+        divides them; else, for a seq-sharded layer, ``W / model`` of its
+        W slots, in a ``decode_sharded.SeqSplitCache`` (the flag the
+        layer's decode reads); else (the model axis divides neither the kv
+        heads nor the slots) every slot and kv head, as the reference
+        keeps such a cache whole; a Mamba-2 conv tail of the rank's
+        channels where it can (``ssm.conv_channels``)."""
         dev = resolve_device(device)
-        self._check_cache_mesh(max_len)
 
         def shape(bt, name, sh, ax):
             loc = sharding.local_shape(sh, ax)
@@ -242,10 +233,11 @@ class Model:
                 loc = loc[:-1] + (ssm.conv_channels(self.cfg),)
             return loc
 
-        out = [{n: torch.zeros(shape(bt, n, sh, ax),
-                               dtype=torch.float32 if n == "h" else dtype,
-                               device=dev)
-                for n, (sh, ax) in layer.items()}
+        out = [(SeqSplitCache if seq_split(layer) else dict)(
+                   (n, torch.zeros(shape(bt, n, sh, ax),
+                                   dtype=torch.float32 if n == "h" else dtype,
+                                   device=dev))
+                   for n, (sh, ax) in layer.items())
                for bt, layer in zip(self.block_types,
                                     self.cache_spec(batch, max_len))]
         if dtype in (torch.float8_e4m3fn, torch.float8_e5m2):

@@ -13,15 +13,22 @@ Under a mesh with a "model" axis (``sharding.axis_rules``) the block
 takes the reference's ``expert_parallel`` path (``moe.py:136-170``): the
 experts are sharded over "model" (each rank holds ``E / model`` of them,
 ``Model.init`` under the mesh), the tokens are this rank's rows (split
-over "data", or the whole batch when it does not divide the data axes),
-and ``_moe_local`` is the reference's ``shard_map`` body run per rank:
+over the data axes that divide the batch, ``sharding.batch_split_axes``;
+the whole batch where none does, as the reference replicates it), and
+``_moe_local`` is the reference's ``shard_map`` body run per rank:
 each rank dispatches its tokens to its local experts through a
 capacity-bounded scatter (``_rank_within_expert``; entries over
 capacity or on another rank's experts are dropped), runs the expert FFNs
 as one batched matmul, gathers back, and an all-reduce SUM over "model"
 combines the experts' contributions. The load-balance loss takes global
 routing statistics: the counts summed and the mean probabilities averaged
-over the data axes ("pod" and "data").
+over the data axes that split the batch. Over a batch that no data axis
+splits, each rank routes every token and takes no data groups, and its
+capacity counts every token, as the reference's, which drops the batch
+axes there (``moe.py:142-146``). Where the batch does not split but its
+tokens would (B % data != 0, B*S % data == 0), the reference sizes the
+capacity for a token share and the port for every token: only drops
+differ (ROADMAP G3).
 
 Gradients: ``torch.distributed.all_reduce`` has no backward, and an
 all-reduce that is differentiated sums again in its backward. The region
@@ -52,8 +59,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (PSpec, rms_norm, swiglu_apply,
                                        swiglu_table)
-from repro_torch.sharding import (batch_groups, batch_ranks, current_mesh,
-                                  mesh_shape)
+from repro_torch.sharding import batch_split_axes, current_mesh, mesh_shape
 
 
 def moe_table(cfg):
@@ -238,11 +244,13 @@ def moe_apply(cfg, p, x):
                              f"{p['we_gate'].shape[0]} experts, the mesh "
                              f"gives it {E_loc} (init or shard the params "
                              f"under the same mesh)")
+        data = batch_split_axes(mesh)
         y, aux = _moe_local(
             p["router"], p["we_gate"], p["we_up"], p["we_down"], x2, k=k,
             E=E, E_loc=E_loc, C=capacity(cfg, B * S),
             m=mesh.get_local_rank("model"), group=mesh.get_group("model"),
-            data_groups=batch_groups(mesh), data_n=batch_ranks(mesh))
+            data_groups=[mesh.get_group(ax) for ax in data],
+            data_n=math.prod(sizes[ax] for ax in data))
     y = y.reshape(B, S, d)
     if cfg.num_shared_experts:
         y = y + swiglu_apply(p["shared"], h,

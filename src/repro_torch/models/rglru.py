@@ -19,10 +19,12 @@ Tensor parallel over "model" (``sharding.LOCAL_RULES``): where the model
 axis divides ``lru_width``, ``wx``, ``wy``, ``conv`` and ``wo`` hold this
 rank's channels (``wo`` row-parallel, summed over "model" after it) and
 K6 runs on them; the rank reads its channels of the replicated ``lam``.
-Block-diagonal gates are the rank's blocks and stay local (an axis that
-does not divide the blocks is refused); dense (r, r) gates hold the
-rank's output columns and read all of ``u``, which is gathered over
-"model" before them.
+Block-diagonal gates are the rank's blocks and stay local where the
+model axis divides the blocks; where it does not, they are replicated,
+``u`` is gathered over "model", the whole block-diagonal gate applied
+and the rank's channels kept. Dense (r, r) gates hold the rank's output
+columns and read all of ``u``, which is gathered over "model" before
+them.
 """
 from __future__ import annotations
 
@@ -94,19 +96,20 @@ def rglru_gates(p, u):
 def _gates_split(p, u, rl):
     """``rglru_gates`` on this rank's ``rl`` channels ``u`` (B, S, rl) of
     a width split over "model": block-diagonal gates are the rank's
-    blocks; a dense gate holds the rank's columns and reads ``u``
+    blocks, or, replicated where the axis does not divide the blocks,
+    applied whole to ``u`` gathered over "model" (the rank's channels
+    kept); a dense gate holds the rank's columns and reads ``u``
     gathered over "model"."""
     lam = column_in(p["lam"]).narrow(0, model_offset(rl), rl)
 
     def gate(w):
-        if w.dim() == 3:
-            if w.shape[0] * w.shape[1] != rl:
-                raise ValueError(f"rglru: {w.shape[0]} gate blocks of "
-                                 f"{w.shape[1]} do not cover this rank's "
-                                 f"{rl} channels; shard over a model axis "
-                                 f"that divides the blocks")
-            return _gate(u, w)
-        return torch.matmul(column_in(gather_out(u, -1)), w).float()
+        if w.dim() == 3 and w.shape[0] * w.shape[1] == rl:
+            return _gate(u, w)               # the rank's blocks
+        whole = column_in(gather_out(u, -1))
+        if w.dim() == 3:                     # every block, on every rank
+            return _gate(whole, column_in(w)).narrow(-1, model_offset(rl),
+                                                     rl)
+        return torch.matmul(whole, w).float()
 
     r_g = torch.sigmoid(gate(p["w_rg"]))
     i_g = torch.sigmoid(gate(p["w_ig"]))

@@ -22,7 +22,13 @@ after it); the rank reads its heads' part of the replicated ``dt_bias``,
 are replicated. K5 runs on the local heads. The conv cache keeps the
 rank's pre-conv channels (its ``inner`` slice, then B and C), where the
 reference's axes replicate it: a deviation, which spares a gather of
-the x features at every step (``conv_channels``).
+the x features at every step (``conv_channels``). Where the rules split
+``inner`` mid-head (a model axis that divides ``inner`` but not the
+heads), the outputs of ``wz`` and ``wx`` and the ``conv_x`` weight are
+gathered over "model" and the block runs whole on every rank, K5 at all
+``ssm_heads``, as GSPMD reshards there; the conv cache then keeps every
+channel, and ``wo``'s rows stay the rules' slice
+(``layers.row_parallel``).
 """
 from __future__ import annotations
 
@@ -31,8 +37,10 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.ssd import ssd_chunk
-from repro_torch.models.layers import PSpec, rms_norm, rms_norm_split
-from repro_torch.sharding import column_in, model_offset, model_ranks, row_out
+from repro_torch.models.layers import (PSpec, rms_norm, rms_norm_split,
+                                       row_parallel)
+from repro_torch.sharding import (column_in, gather_out, model_offset,
+                                  model_ranks, row_out)
 
 
 def causal_conv(x, w):
@@ -136,16 +144,18 @@ def ssm_apply(cfg, p, x, positions, *, mode, cache=None):
     H = p["wdt"].shape[1]                        # this rank's heads
     inner = H * Pd
     split = H != cfg.ssm_heads
-    if p["wx"].shape[1] != inner:
-        raise ValueError(f"ssm_apply: the rules split inner "
-                         f"({cfg.ssm_inner}) but not the {cfg.ssm_heads} "
-                         f"heads over this model axis; Mamba-2 splits "
-                         f"over one that divides its heads")
+    # inner split mid-head: its columns gathered, every head computed
+    mid = p["wx"].shape[1] != inner
     tp = column_in if split else (lambda t: t)
     h = rms_norm(x, p["ln"])
     hs = tp(h)
-    z = torch.matmul(hs, p["wz"])
-    xs = torch.matmul(hs, p["wx"])
+    if mid:
+        p = dict(p, conv_x=gather_out(p["conv_x"], -1))
+        z = gather_out(torch.matmul(column_in(h), p["wz"]), -1)
+        xs = gather_out(torch.matmul(column_in(h), p["wx"]), -1)
+    else:
+        z = torch.matmul(hs, p["wz"])
+        xs = torch.matmul(hs, p["wx"])
     Bf = torch.matmul(h, p["wB"])
     Cf = torch.matmul(h, p["wC"])
     dt_raw = torch.matmul(hs, p["wdt"])
@@ -197,5 +207,6 @@ def ssm_apply(cfg, p, x, positions, *, mode, cache=None):
                              _local(p["gn"], inner, split), cfg.ssm_inner)
         out = row_out(torch.matmul(out, p["wo"]))
     else:
-        out = torch.matmul(rms_norm(gated.to(x.dtype), p["gn"]), p["wo"])
+        out = row_parallel(rms_norm(gated.to(x.dtype), p["gn"]), p["wo"],
+                           False)
     return x + out, cache

@@ -16,13 +16,17 @@ reference returns new arrays.
 
 Under a mesh (``sharding.axis_rules``) the train step takes the global
 batch and splits it over the data axes ("pod" and "data", the
-reference's ``shard`` of the batch, ``steps.py:53``), which must divide
-it; the model runs on the rank's rows, with its MoE blocks
+reference's ``shard`` of the batch, ``steps.py:53``) that divide it: as
+``resolve_spec`` drops an axis that does not divide a dim, a batch that
+no data axis divides is held whole by every rank, as the reference
+replicates it. The model runs on the rank's rows, with its MoE blocks
 expert-parallel over "model". Each rank's objective is its
-cross-entropy weighted by its share of the global labelled tokens plus
-the aux loss (global already, and differentiated only through the
-rank's own statistics), so an all-reduce SUM of the gradients over the
-data axes gives the gradient of the global-batch loss. The model runs
+cross-entropy weighted by its share of the labelled tokens that all the
+data ranks hold (the global tokens times the ranks that hold each row)
+plus the aux loss (global already, and differentiated only through the
+rank's own statistics) over the ranks that hold each row, so an
+all-reduce SUM of the gradients over the data axes gives the gradient
+of the global-batch loss, each row counted once. The model runs
 tensor-parallel over "model" (``sharding.LOCAL_RULES``): its blocks'
 ``column_in``/``row_out`` pairs make each rank's gradient of a
 replicated leaf the single-device one, and of a split leaf (heads, ff,
@@ -49,6 +53,8 @@ are never read, which drops them without a host sync or an out-of-range
 index.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -136,17 +142,19 @@ def value_and_grad(model, params, batch, remat=False, *, summed=None):
     groups = sharding.batch_groups(mesh)
     if groups and summed is None:
         summed = fsdp_leaves(model)
+    rows = next(iter(batch.values())).shape[0]
     if mesh is not None:
         batch = split_batch(batch)
     live = _optim.tree_map(lambda p: p.detach().requires_grad_(True),
                            params)
     leaves = _optim.tree_leaves(live)
-    with torch.enable_grad():
+    with torch.enable_grad(), sharding.global_batch(rows):
         loss, parts = loss_fn(model, live, batch, remat=remat)
         if groups:
             share = _token_share(batch, groups)
-            loss = share * parts["ce"] + \
-                model.cfg.router_aux_coef * parts["aux"]
+            copies = _row_copies(mesh)
+            aux = parts["aux"] if copies == 1 else parts["aux"] / copies
+            loss = share * parts["ce"] + model.cfg.router_aux_coef * aux
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -168,23 +176,27 @@ def value_and_grad(model, params, batch, remat=False, *, summed=None):
 
 def split_batch(batch):
     """This rank's rows of a global batch dict under the current mesh
-    (the reference's ``shard(v, "batch", ...)``); the data axes must
-    divide the batch."""
-    n = sharding.batch_ranks()
-    out = {}
-    for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"train step: a global batch of {v.shape[0]} "
-                             f"does not split over {n} data ranks")
-        out[k] = sharding.local_slice(v, ("batch",) + (None,) * (v.dim()
-                                                                 - 1))
-    return out
+    (the reference's ``shard(v, "batch", ...)``): split over the data
+    axes that divide the batch (``resolve_spec``), the whole batch where
+    none does."""
+    return {k: sharding.local_slice(v, ("batch",) + (None,) * (v.dim() - 1))
+            for k, v in batch.items()}
+
+
+def _row_copies(mesh):
+    """How many data ranks hold each row of the batch the model runs on:
+    the batch axes' ranks over those that split it (1 where the data
+    axes divide the batch)."""
+    sizes = sharding.mesh_shape(mesh)
+    split = sharding.batch_split_axes(mesh)
+    return sharding.batch_ranks(mesh) // math.prod(sizes[a] for a in split)
 
 
 def _token_share(batch, groups):
     """This rank's weight in the global mean cross-entropy: its labelled
-    tokens over the global batch's, summed over the data axes' ``groups``
-    (a ``mask`` counts its ones; the loss floors a denominator at 1)."""
+    tokens over those of every data rank, summed over the data axes'
+    ``groups`` (each row as many times as ranks hold it; a ``mask``
+    counts its ones; the loss floors a denominator at 1)."""
     mask = batch.get("mask")
     if mask is None:
         n = torch.tensor(float(batch["labels"][:, 1:].numel()),

@@ -98,6 +98,7 @@ class _Ctx:
     mesh = None
     rules: dict = DEFAULT_RULES
     fsdp: int | None = None     # apply_fsdp's min_size while FSDP is on
+    batch: int | None = None    # the global batch rows (``global_batch``)
 
 
 _CTX = _Ctx()
@@ -406,6 +407,37 @@ def batch_groups(mesh=None) -> list:
     sizes = mesh_shape(mesh)
     return [mesh.get_group(ax) for ax in LOCAL_RULES["batch"]
             if sizes.get(ax, 1) > 1]
+
+
+@contextmanager
+def global_batch(rows: int):
+    """Run the model on this rank's share of a global batch of ``rows``
+    rows, placed as ``resolve_spec`` places "batch": split over the data
+    axes that divide it, whole on the ranks of those that do not (the
+    reference replicates such a batch). ``batch_split_axes`` reads it."""
+    prev = _CTX.batch
+    _CTX.batch = rows
+    try:
+        yield
+    finally:
+        _CTX.batch = prev
+
+
+def batch_split_axes(mesh=None) -> tuple:
+    """The mesh axes of more than one rank that split the batch the model
+    runs on: ``resolve_spec``'s for the rows of ``global_batch``, or,
+    outside it, every batch axis of more than one rank (the caller holds
+    its rows of a batch the data axes divide)."""
+    mesh = mesh or _CTX.mesh
+    if mesh is None:
+        return ()
+    sizes = mesh_shape(mesh)
+    if _CTX.batch is None:
+        axes = LOCAL_RULES["batch"]
+    else:
+        axes = _entry_axes(resolve_spec((_CTX.batch,), ("batch",), mesh,
+                                        LOCAL_RULES)[0])
+    return tuple(ax for ax in axes if sizes.get(ax, 1) > 1)
 
 
 def batch_ranks(mesh=None) -> int:

@@ -329,13 +329,15 @@ def rank_launch(mesh, argv):
 
 
 def rank_refusals(mesh):
-    """The messages of what the slice refuses, under this group."""
+    """The messages of what the slice refuses, under this group, and what
+    the placements it once refused now give."""
     msgs = {}
 
     def catch(key, fn):
         try:
-            fn()
+            out = fn()
             msgs[key] = np.array("")
+            return out
         except (ValueError, RuntimeError) as e:
             msgs[key] = np.array(str(e))
 
@@ -343,8 +345,12 @@ def rank_refusals(mesh):
     cfg = _tcfg("smollm-135m")
     m14 = make_local_mesh(1, 4, "cpu")
     with sharding.axis_rules(m14):
-        catch("cache", lambda: tget_model(cfg).init_cache(2, 30,
-                                                          device="cpu"))
+        cache = catch("cache", lambda: tget_model(cfg).init_cache(
+            2, 30, device="cpu"))
+    if cache is not None:
+        msgs["cache_shape"] = np.array(cache[0]["k"].shape)
+        msgs["cache_split"] = np.array(
+            isinstance(cache[0], decode_sharded.SeqSplitCache))
     kcfg = _tcfg("kimi-k2-1t-a32b", num_experts=6)
     with sharding.axis_rules(m14):
         p = tget_model(kcfg).init(seed=0, device="cpu")
@@ -354,8 +360,10 @@ def rank_refusals(mesh):
         model = tget_model(cfg)
         params = model.init(seed=0, device="cpu")
         toks = torch.zeros(3, 8, dtype=torch.int32)
-        catch("batch", lambda: value_and_grad(
+        got = catch("batch", lambda: value_and_grad(
             model, params, {"tokens": toks, "labels": toks}))
+    if got is not None:
+        msgs["batch_loss"] = got[0].numpy()
     return msgs
 
 
@@ -743,14 +751,23 @@ def test_dtensor_views_gather_to_the_global_tensor(groups):
 
 
 def test_refusals_name_what_they_refuse(groups):
+    """The mesh and the experts are refused by name (the reference
+    asserts ``E % model_size == 0`` too). A cache of 30 slots on a model
+    axis of 4 that divides neither its 2 kv heads nor its slots, and a
+    global batch of 3 over 2 data ranks, were refused until P13e; they
+    now run as the reference places them: the cache whole on each rank,
+    the batch on each data rank."""
     (o, *_) = groups["2x2"].run("rank_refusals")
     assert "a 4x2 mesh needs 8 ranks, the process group has 4" \
         in str(o["mesh"])
-    assert "layer 0 (attn) has 30 cache slots, which do not split over " \
-        "the mesh's model axis of 4" in str(o["cache"])
+    assert str(o["cache"]) == ""
+    cfg = _tcfg("smollm-135m")
+    assert tuple(o["cache_shape"]) == (2, 30, cfg.num_kv_heads,
+                                       cfg.head_dim)
+    assert not bool(o["cache_split"])
     assert "6 experts do not split over a model axis of 4" \
         in str(o["experts"])
-    assert "a global batch of 3 does not split over 2 data ranks" \
-        in str(o["batch"])
+    assert str(o["batch"]) == ""
+    assert np.isfinite(o["batch_loss"])
     with pytest.raises(SystemExit, match="expected dxm"):
         tlaunch.main(LAUNCH + ["--mesh", "2by1"])

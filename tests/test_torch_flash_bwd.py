@@ -10,7 +10,8 @@ reference's train step differentiates.
   gradient holds to 2e-5 of its largest magnitude, or of 1 where that is
   smaller: the inputs are unit normals, so dP and D are of order 1, and
   where a gradient cancels to an exact zero in the reference (one key a
-  row: a window of 1, a single token) the port's dP - D leaves ~2e-7.
+  row: a window of 1, a single token) the port's is exactly zero too (D
+  is sum_j softmax(S)_ij dP_ij, so dP - D is 0 for a one-key row).
 * The formulas against autograd through the plain forward, with and
   without causal masking, and with Sq != Sk.
 * The kernel's walks (``csrc/flash_attention_bwd.cu``), modelled here tile
@@ -18,9 +19,10 @@ reference's train step differentiates.
   block walks cover every pair the mask allows, and each step of the
   dK/dV walk holds at least one such pair, at every tile size the kernel
   compiles.
-* The kernel's arithmetic: its seven products in 3xTF32 (fp32 operands
-  split into TF32 hi and lo, lo.hi' + hi.lo' + hi.hi', each k step added
-  in fp32), modelled with ``split_product`` of
+* The kernel's arithmetic: its products in 3xTF32 (fp32 operands split
+  into TF32 hi and lo, lo.hi' + hi.lo' + hi.hi', each k step added in
+  fp32), D from the softmax of its own scores and its dP, modelled with
+  ``split_product`` of
   tests/test_torch_prefill_split.py, hold ``chip_smoke.py``'s BWD_TOL
   (1e-4 of each gradient's largest) against the plain version at
   smollm-135m's, paligemma-3b's and recurrentgemma-9b's head dims and
@@ -237,8 +239,9 @@ BWD_TOL = 1e-4
 def _split_backward(q, k, v, o, lse, do, scale, window, prefix, passes):
     """The backward kernel's arithmetic on one batch row, causal: q, o, do
     (S, H, D), k, v (S, Hkv, D), lse (S, H). Every product (S, dP, dV, dK,
-    dQ) through ``split_product`` at ``passes`` TF32 passes; P, D and dS
-    in fp32, as the kernel holds them."""
+    dQ) through ``split_product`` at ``passes`` TF32 passes; P, D (the
+    softmax of the scores times dP, summed) and dS in fp32, as the kernel
+    holds them."""
     S, H, _ = q.shape
     G = H // k.shape[1]
     ok = _allowed(S, S, True, window, prefix)
@@ -248,9 +251,12 @@ def _split_backward(q, k, v, o, lse, do, scale, window, prefix, passes):
         s = split_product(qh, kh.T, False, False, passes).astype(np.float32)
         p = np.where(ok, np.exp(s * np.float32(scale) - lse[:, h, None]),
                      0).astype(np.float32)
-        dsum = (doh * o[:, h]).sum(-1, dtype=np.float32)
         dp = split_product(doh, vh.T, False, False, passes).astype(
             np.float32)
+        sc = np.where(ok, s * np.float32(scale), -np.inf)
+        e = np.exp(sc - sc.max(-1, keepdims=True)).astype(np.float32)
+        dsum = ((e * dp).sum(-1, dtype=np.float32)
+                / e.sum(-1, dtype=np.float32))
         ds = (p * (dp - dsum[:, None])).astype(np.float32)
         dv[:, h // G] += split_product(p.T, doh, False, False, passes)
         dk[:, h // G] += split_product(ds.T, qh, False, False,

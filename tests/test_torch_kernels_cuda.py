@@ -1256,10 +1256,10 @@ def _bwd_fp64(q, k, v, o, do, scale, window):
 
 def test_flash_bwd_window_one_is_within_fp32_noise(card):
     """A window of 1: each query attends only itself, P is 1 and the exact
-    dQ and dK are 0; dS = dP - D is fp32 rounding noise on both sides (dP
-    and D are sums of 64 products of order 1). The kernel's dQ and dK stay
-    within twice the plain version's own distance from the fp64 values,
-    which is what either fp32 computation can promise there."""
+    dQ and dK are 0. With D = sum_j softmax(S)_ij dP_ij, D is dP's own
+    value on both sides and dS is exactly 0 (with rowsum(dO * O) it was
+    fp32 rounding noise). The kernel's dQ and dK stay within twice the
+    plain version's own distance from the fp64 values."""
     args = _bwd_inputs(card, 464, 1, 200, 200, 6, 3, 64, True, 1, 0)
     got = flash_attention_bwd(*args, 64 ** -0.5, True, 1, 0)
     want = ref.flash_attention_bwd(*args, 64 ** -0.5, True, 1, 0)
