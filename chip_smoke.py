@@ -40,8 +40,10 @@ Phases (each raises on failure, and the script then exits non-zero):
    ``ref.flash_attention_bwd`` at the train group's shapes (causal at
    smollm's heads, B 8 x S 2048; paligemma's 256-token prefix at its
    heads, B 2 x S 512; recurrentgemma's train step, B 1 x S 2048 with
-   its window of 2048 (the causal walk), and a window of 512 at its
-   heads), each gradient within ``BWD_TOL`` of its largest and two
+   its window of 2048 (the causal walk), a window of 512 at its heads,
+   and P14c's train steps, B 1 x S 2048 causal, at the heads of
+   qwen3-4b, musicgen-large, glm4-9b and qwen3-32b, each with its
+   launches a step), each gradient within ``BWD_TOL`` of its largest and two
    launches bit-equal, with its device ms (CUDA events), the plain
    version's, SDPA's backward alone (``torch.autograd.grad`` on a graph
    built outside the timing; a yardstick, with the backend that ran) and
@@ -58,7 +60,8 @@ Phases (each raises on failure, and the script then exits non-zero):
    (1 x 2,048, C 4,096), each with device ms, the plain version's and its
    bound (bytes over HBM; no single PyTorch call computes either);
 4. serving paths, each on the quickstart mesh (laptop 6 slots, phone 1,
-   home-nas 8) serving smollm-135m at its full published widths with
+   home-nas 8) serving smollm-135m at its full published widths, cut to
+   its first ``MAIN_LAYERS`` (15) of 30 layers (30 before P14c), with
    seeded random weights through ``TickOrchestrator``, the launch counters
    zeroed just before and read just after, every kernel of the path
    required once per layer of every dispatch and no other kernel:
@@ -107,7 +110,7 @@ Phases (each raises on failure, and the script then exits non-zero):
      layer of every dispatch, one prefill and one decode geometry per
      batcher, one K1 and one K2 key-walk split per island (each launch's
      ``last_split``), streams under the near-tie rule, the work clock
-     within 1.25x; then, at full depth, the main path default and
+     within 1.25x; then, at ``MAIN_LAYERS``, the main path default and
      constant once each for wall tokens/s, and one profiled constant run for its
      device busy time against ``profile main_path``'s;
    - fp8 smollm: an fp32 and a ``float8_e4m3fn`` dense cache through
@@ -321,7 +324,17 @@ Phases (each raises on failure, and the script then exits non-zero):
    MIST's stage-2 classifier trained on the card and on the CPU, to the
    same classes. Each train reading gives step ms, tokens/s, peak memory
    and the model-flops share of 67 TFLOP/s fp32 beside the card's name
-   and power limit.
+   and power limit;
+15. P14c, the five configurations the card had not trained, after the
+   train group has freed its models (under 1 GB allocated, read out):
+   the launcher on each at full width, 3 steps of 1 x 2,048 with remat
+   at the learning rate ``P14C`` states: qwen3-4b and musicgen-large at
+   full depth, glm4-9b at 10 layers, deepseek-v2-lite-16b at its dense
+   first layer and 4 MoE layers, qwen3-32b at 3 layers; each step's K4
+   and backward launches ``train_launches`` (none for MLA) and its MLA
+   and MoE calls ``train_blocks``, every loss finite and the last below
+   the first, with the state bytes and peak memory; then each one's
+   card-vs-CPU step at a 2-layer cut within ``TRAIN_*_TOL``.
 
 The profile phases read the device spans from the profiler's raw
 events (parsing them into host-op trees takes ~60 s a main path run);
@@ -724,8 +737,11 @@ def bwd_kernel_rows(dev, gen):
     shapes: causal at smollm-135m's heads (B 8, S 2048: the train step's
     K4 launches), paligemma-3b's 256-token prefix at its heads (B 2, S
     512), recurrentgemma-9b's train step (B 1, S 2048, its window of 2048
-    covering every key, so the wrapper takes the causal walk) and a
-    window of 512 at its heads (S 2048). Each gradient holds to BWD_TOL
+    covering every key, so the wrapper takes the causal walk), a
+    window of 512 at its heads (S 2048), and the P14c train steps (B 1,
+    S 2048, causal) at the heads of the four P14C configs that run K4:
+    qwen3-4b (G 4), musicgen-large (G 1, D 64), glm4-9b (G 16) and
+    qwen3-32b (G 8). Each gradient holds to BWD_TOL
     of its largest magnitude. Device ms (CUDA
     events) of the kernel, the plain version and SDPA (a yardstick the
     port never calls): ``library_ms`` its backward alone, through
@@ -738,6 +754,7 @@ def bwd_kernel_rows(dev, gen):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs.base import get_config
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     out = {}
@@ -752,7 +769,14 @@ def bwd_kernel_rows(dev, gen):
              dict(S=2048, H=16, Hkv=1, D=256, window=2048)),
             ("window_512", "recurrentgemma-9b heads (S 2048, 16 on 1, D "
                            "256), window 512",
-             dict(S=2048, H=16, Hkv=1, D=256, window=512))):
+             dict(S=2048, H=16, Hkv=1, D=256, window=512)),
+            *((f"train {c.name}", f"{c.name} train step (B {P14C_B}, S "
+                                   f"{P14C_S}, {c.num_heads} on "
+                                   f"{c.num_kv_heads} heads, D "
+                                   f"{c.head_dim}), causal",
+               dict(B=P14C_B, S=P14C_S, H=c.num_heads, Hkv=c.num_kv_heads,
+                    D=c.head_dim))
+              for c in map(get_config, P14C) if not c.use_mla)):
         B = kw.pop("B", 1)
         one, _, fflops, S = dense_prefill_case(dev, gen, **kw)
         q, k, v = (torch.randn(B, *t.shape[1:], generator=gen, device=dev)
@@ -829,7 +853,8 @@ def bwd_kernel_rows(dev, gen):
         if role == "row":
             out = dict(entry, launches=None)
         else:
-            out[role] = entry
+            # launches a step: filled by the train phase that runs the shape
+            out[role] = dict(entry, launches=None)
         del q, k, v, o, lse, do, bargs, qq, kk, vv, dd, mask
     return out
 
@@ -2971,10 +2996,20 @@ def host_split_phase(cfg, params, device):
           "streams_identical": True})
 
 
+# the depth of smollm-135m's serving phases (the main path, its profile,
+# traced and constant-shape runs, the stacked, prefill="full", unfused
+# and per-request paths, fp8 caches, the replays): its first 15 of 30
+# layers at full widths. Their dispatches are host-bound (idle 88-93%),
+# so their time scales with the layers' launches; at full depth they
+# took ~154 s of the script's time limit, at 15 layers ~90 s, and P14c's
+# training of five more configurations needs the difference. The train
+# group keeps all 30 layers
+MAIN_LAYERS = 15
+
 # the depth of the smollm phases held to the port's scheduling on the
 # CPU or to a second run on the card, not to the served model's numbers
 # (degradation, trace harness, leakage, the constant-shape A/B, the
-# oversubscribed pool, churn, stochastic): its first 4 of 30 layers at
+# oversubscribed pool, churn, stochastic): its first 4 layers at
 # full widths. Those checks depend on neither the depth nor the
 # weights; at full depth the phases took ~280 s of the script's time
 # limit, at 8 layers ~94 s, which the P13d group's gloo gathers now
@@ -3550,7 +3585,7 @@ def constant_shape_phase(cfg, params, device, main_busy_s, sched):
     shape), (b) the main path's traffic with ``constant_shape`` on every
     island. Both: ``_shape_ab``, serving ``sched`` (the config and
     weights of the served model's first ``SCHED_LAYERS`` layers). Then
-    (b)'s card cost at full depth: wall tokens/s of
+    (b)'s card cost at ``MAIN_LAYERS``: wall tokens/s of
     the serving path (launches checked by ``serve_path``) run default
     then constant (one pair: host walls drift within a call, so the
     ratio is a rough reading), and device busy seconds from one profiled rerun, against
@@ -5839,6 +5874,29 @@ MAMBA2_TRAIN_B, MAMBA2_TRAIN_S, MAMBA2_TRAIN_STEPS = 8, 2048, 4
 RG_TRAIN = "recurrentgemma-9b"
 RG_TRAIN_LAYERS, RG_TRAIN_B, RG_TRAIN_S, RG_TRAIN_STEPS = 8, 1, 2048, 5
 RG_TRAIN_LR = 3e-4
+# P14c: the launcher on the five configurations the card had not trained,
+# each 3 steps of batch 1 x 2,048 with remat, fp32 weights: arch ->
+# (layers, lr), layers None for full depth. Parameters and state
+# (weights, gradients and two AdamW moments, 16 B a parameter) at each
+# cut, counted on meta tensors (tests/test_torch_p14c_cuts.py), and the
+# peak an H100 read (PERF.md):
+#   qwen3-4b        36 of 36 layers  4,022,468,096  64.4 GB  peak 75.7 GB
+#   musicgen-large  48 of 48         3,229,812,736  51.7 GB       52.2
+#   glm4-9b         10 of 40         3,281,080,320  52.5 GB       69.9
+#   deepseek-v2-lite-16b  5 of 27 (its dense first layer and 4 MoE
+#                   layers)          2,839,831,040  45.4 GB       51.4
+#   qwen3-32b        3 of 64         3,018,624,768  48.3 GB       70.2
+# glm4's and qwen3-32b's peaks sit ~18-22 GB above their state: AdamW's
+# temporaries on their untied 151,552- and 151,936-row tables (2.5 and
+# 3.1 GB each). The warmup is 0 steps at 3 steps (the launcher's
+# min(20, steps // 5)), so the first update takes the full rate: at 1e-4
+# and above the loss of qwen3-4b, glm4-9b and qwen3-32b rose again by
+# step 3, qwen3-32b's after one step; at 3e-5 (1e-5 for qwen3-32b, d_model
+# 5,120) each fell (PERF.md)
+P14C_B, P14C_S, P14C_STEPS = 1, 2048, 3
+P14C = {"qwen3-4b": (None, 3e-5), "musicgen-large": (None, 3e-5),
+        "glm4-9b": (10, 3e-5), "deepseek-v2-lite-16b": (5, 3e-5),
+        "qwen3-32b": (3, 1e-5)}
 # the kernels that have no backward kernel (K1-K3, the decode and chunked
 # prefill walks of the serving paths): under autograd on the card each
 # must raise, never drop a gradient
@@ -5847,9 +5905,11 @@ NO_BACKWARD = ("paged_decode_attention", "chunked_prefill_attention",
 # card vs CPU, one step's gradient at a cut (every width and the whole
 # vocabulary): smollm 2 x 512 tokens, paligemma 1 x (256 + 64), mamba2
 # 2 x 512 (two chunks of 256) at 2 layers, recurrentgemma 1 x 256 at one
-# pattern cycle (3 layers: its attention layer included)
+# pattern cycle (3 layers: its attention layer included), the P14C
+# configs 1 x 256 at 2 layers (deepseek's dense first layer and one MoE
+# layer)
 CUT_BATCH = {TRAIN: (2, 512), PALI_TRAIN: (1, 320), MAMBA2_TRAIN: (2, 512),
-             RG_TRAIN: (1, 256)}
+             RG_TRAIN: (1, 256), **dict.fromkeys(P14C, (1, 256))}
 CUT_LAYERS = {RG_TRAIN: 3}
 # tolerances of the card-vs-CPU step. Both sides are fp32 (TF32 off) and
 # differ in summation order only (cuBLAS, K4's 3xTF32 walk and its
@@ -5913,15 +5973,20 @@ def _step_recorder():
 
 
 def _train_flops(model, n_params, B, S):
-    """Model flops of one train step: 6 N per token for the parameters,
-    plus three times the causal forward attention (QK^T and PV over the
-    pairs the mask allows) in every attention layer."""
+    """Model flops of one train step: 6 N per token for the parameters
+    (N every parameter: the MoE's dense expert path runs every expert on
+    every token), plus three times the causal forward attention (QK^T
+    and PV over the pairs the mask allows) in every attention layer and
+    every MLA layer (q/k at the nope + rope width, v at its own)."""
     cfg = model.cfg
     P = cfg.num_prefix_tokens if cfg.prefix_lm else 0
     pairs = sum(max(t + 1, min(P, S)) for t in range(S))
     attn = 4 * cfg.num_heads * cfg.head_dim * pairs * B
+    mla = (2 * cfg.num_heads * (cfg.nope_head_dim + cfg.rope_head_dim
+                                + cfg.v_head_dim) * pairs * B)
     return (6 * n_params * B * S
-            + 3 * attn * model.block_types.count("attn"))
+            + 3 * attn * model.block_types.count("attn")
+            + 3 * mla * model.block_types.count("mla"))
 
 
 def train_readings(name, cfg, records, B, S, card):
@@ -5953,15 +6018,31 @@ def train_readings(name, cfg, records, B, S, card):
 def train_launches(model, remat=False):
     """Kernel launches of one train step of ``model``: each layer's
     forward kernel once (twice in a pattern group under ``remat``, whose
-    forward runs again in the backward) and its backward kernel once."""
+    forward runs again in the backward) and its backward kernel once. An
+    MLA layer launches none (``mla_apply`` is torch ops)."""
     fwd = {"attn": "flash_attention", "ssm": "ssd_chunk",
-           "rglru": "rglru_scan"}
+           "rglru": "rglru_scan", "mla": None}
     want = {}
     for lo, hi, grouped in model.layer_spans():
         for bt in model.block_types[lo:hi]:
             k = fwd[bt]
+            if k is None:
+                continue
             want[k] = want.get(k, 0) + (2 if remat and grouped else 1)
             want[f"{k}_bwd"] = want.get(f"{k}_bwd", 0) + 1
+    return want
+
+
+def train_blocks(model, remat=False):
+    """MLA and MoE calls of one train step of ``model``: one a layer's
+    forward, two in a pattern group under ``remat``."""
+    _, moe = block_layers(model)
+    want = dict.fromkeys(block_fns(), 0)
+    for lo, hi, grouped in model.layer_spans():
+        n = 2 if remat and grouped else 1
+        for i in range(lo, hi):
+            want["mla_apply"] += n * (model.block_types[i] == "mla")
+            want["moe_apply"] += n * (i >= model.cfg.num_layers - moe)
     return want
 
 
@@ -6277,12 +6358,15 @@ def no_backward_phase(device):
     emit(result)
 
 
-def train_scan_phase(arch, device, card, B, S, steps, layers=None,
-                     remat=False, lr=None):
+def train_launcher_phase(arch, device, card, B, S, steps, layers=None,
+                         remat=False, lr=None):
     """The launcher on ``arch`` (its first ``layers`` layers, every width
-    kept): ``steps`` steps of B x S tokens, each timed, each launching
-    exactly ``train_launches`` (K5/K6, K4 on the attention layers, and
-    their backward kernels) and no other kernel; the loss falls."""
+    kept, as ``--layers`` cuts it): ``steps`` steps of B x S tokens, each
+    timed, each launching exactly ``train_launches`` (K4 on the attention
+    layers, K5/K6 on the scan layers, and their backward kernels; none on
+    MLA layers) and no other kernel, and calling the MLA and MoE blocks
+    ``train_blocks`` times; every loss finite and the last below the
+    first. Reads the peak memory and the weight and moment bytes held."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -6292,7 +6376,7 @@ def train_scan_phase(arch, device, card, B, S, steps, layers=None,
     argv = ["--arch", arch, "--steps", str(steps), "--batch", str(B),
             "--seq", str(S), "--log-every", "1"]
     if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg = train.cut_config(cfg, layers)
         argv += ["--layers", str(layers)]
     if remat:
         argv.append("--remat")
@@ -6304,14 +6388,25 @@ def train_scan_phase(arch, device, card, B, S, steps, layers=None,
         hist = train.main(argv)
     finally:
         undo()
-    want = train_launches(get_model(cfg), remat)
+    model = get_model(cfg)
+    want, blocks = train_launches(model, remat), train_blocks(model, remat)
     reading = train_readings(arch, cfg, records, B, S, card)
     _launch_counts(arch, records, want)
+    got_blocks = [{k: r[k] for k in blocks} for r in records]
     losses = [h["loss"] for h in hist]
-    reading.update(layers=cfg.num_layers, remat=remat, lr=lr, loss=losses,
+    reading.update(layers=cfg.num_layers, of=get_config(arch).num_layers,
+                   remat=remat, lr=lr, loss=losses,
                    grad_norm=[h["grad_norm"] for h in hist],
-                   launches_per_step=want)
+                   launches_per_step=want, block_calls_per_step=got_blocks,
+                   weight_bytes=records[-1]["weight_bytes"],
+                   moment_bytes=records[-1]["moment_bytes"],
+                   # weights, their gradients and the AdamW moments
+                   state_bytes=2 * records[-1]["weight_bytes"]
+                   + records[-1]["moment_bytes"])
     emit(reading)
+    if got_blocks != [blocks] * len(records):
+        raise AssertionError(f"train {arch}: MLA/MoE calls {got_blocks} "
+                             f"!= {blocks} a step")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"train {arch}: the loss did not fall: "
@@ -6364,7 +6459,9 @@ def train_group(device, timed, rows, card):
     timed("train remat", remat_phase, device)
     gc.collect()
     torch.cuda.empty_cache()
-    timed(f"train {PALI_TRAIN}", train_pali_phase, device, card)
+    reading = timed(f"train {PALI_TRAIN}", train_pali_phase, device, card)
+    rows["flash_attention_bwd"]["prefix_S512"]["launches"] = reading[
+        "launches_per_step"]["flash_attention_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
     timed("train kimi", train_kimi_phase, device)
@@ -6375,8 +6472,8 @@ def train_group(device, timed, rows, card):
     # the scan families (P14b): K5, K6 and their backward kernels
     gc.collect()
     torch.cuda.empty_cache()
-    reading = timed(f"train {MAMBA2_TRAIN}", train_scan_phase, MAMBA2_TRAIN,
-                    device, card, MAMBA2_TRAIN_B, MAMBA2_TRAIN_S,
+    reading = timed(f"train {MAMBA2_TRAIN}", train_launcher_phase,
+                    MAMBA2_TRAIN, device, card, MAMBA2_TRAIN_B, MAMBA2_TRAIN_S,
                     MAMBA2_TRAIN_STEPS, remat=True)
     rows["ssd_chunk_bwd"]["launches"] = reading["launches_per_step"][
         "ssd_chunk_bwd"]
@@ -6386,11 +6483,13 @@ def train_group(device, timed, rows, card):
           2, MAMBA2_TRAIN_S)
     gc.collect()
     torch.cuda.empty_cache()
-    reading = timed(f"train {RG_TRAIN}", train_scan_phase, RG_TRAIN, device,
-                    card, RG_TRAIN_B, RG_TRAIN_S, RG_TRAIN_STEPS,
+    reading = timed(f"train {RG_TRAIN}", train_launcher_phase, RG_TRAIN,
+                    device, card, RG_TRAIN_B, RG_TRAIN_S, RG_TRAIN_STEPS,
                     layers=RG_TRAIN_LAYERS, remat=True, lr=RG_TRAIN_LR)
     rows["rglru_scan_bwd"]["launches"] = reading["launches_per_step"][
         "rglru_scan_bwd"]
+    rows["flash_attention_bwd"]["window_2048"]["launches"] = reading[
+        "launches_per_step"]["flash_attention_bwd"]
     gc.collect()
     torch.cuda.empty_cache()
     for arch in (MAMBA2_TRAIN, RG_TRAIN):
@@ -6400,6 +6499,39 @@ def train_group(device, timed, rows, card):
     timed("train refusal", no_backward_phase, device)
     timed("train classifier", classifier_phase, device)
     emit({"phase": "train group", "card": card,
+          "seconds": time.perf_counter() - t0})
+
+
+def p14c_group(device, timed, rows, card):
+    """P14c on the card, after the train group has freed its models: the
+    launcher on each P14C configuration at its cut (3 steps of 1 x 2,048
+    with remat, ``train_launcher_phase``), its K4 backward launches a step
+    into the kernel row of its train shape; then each one's card-vs-CPU
+    step at a 2-layer cut (``train_replay_phase``)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    emit({"phase": "memory before p14c", "memory_allocated_bytes": held,
+          "under_1_gb": held < 1e9})
+    if held >= 1e9:
+        raise AssertionError(f"p14c: {held} bytes held before the group")
+    t0 = time.perf_counter()
+    for arch, (layers, lr) in P14C.items():
+        reading = timed(f"train {arch}", train_launcher_phase, arch, device,
+                        card, P14C_B, P14C_S, P14C_STEPS, layers=layers,
+                        remat=True, lr=lr)
+        row = rows["flash_attention_bwd"].get(f"train {arch}")
+        if row is not None:
+            row["launches"] = reading["launches_per_step"][
+                "flash_attention_bwd"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in P14C:
+        timed(f"train replay {arch}", train_replay_phase, arch, device)
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "p14c group", "card": card,
           "seconds": time.perf_counter() - t0})
 
 
@@ -6542,8 +6674,9 @@ def main() -> int:
 
     rows = timed("kernels", kernel_phase, gpu)
 
-    cfg = get_config("smollm-135m")            # full width, not .reduced()
-    params = get_model(cfg).init(seed=0, device=gpu)
+    full = get_config("smollm-135m")           # full width, not .reduced()
+    cfg, params = cut_model(full, get_model(full).init(seed=0, device=gpu),
+                            MAIN_LAYERS, "main cut")
     launches, wall = timed("main_path", main_path, cfg, params, gpu)
     for k in ("paged_decode_attention", "chunked_prefill_attention"):
         rows[k]["launches"] = launches[k]
@@ -6687,6 +6820,8 @@ def main() -> int:
     # P14a: training on the card, last (paligemma's weights and AdamW
     # state are 40 GB)
     train_group(gpu, timed, rows, card)
+    # P14c: the five configurations the card had not trained
+    p14c_group(gpu, timed, rows, card)
     emit({"phase": "seconds", **seconds})
 
     print(card)

@@ -76,6 +76,15 @@ def parse_mesh(text):
     return d, m
 
 
+def cut_config(cfg, layers):
+    """``cfg`` cut to its first ``layers`` layers (``--layers``): the
+    pattern continued, every width and the whole vocabulary kept."""
+    if not 0 < layers <= cfg.num_layers:
+        raise SystemExit(f"--layers {layers}: {cfg.name} has "
+                         f"{cfg.num_layers}")
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
 def _global(tree, axes, shapes, mesh):
     """Every shard gathered: the tree in the global layout."""
     return optim.tree_map(
@@ -156,10 +165,7 @@ def _train(args, device, mesh):
     if args.smoke:
         cfg = cfg.reduced()
     if args.layers is not None:
-        if not 0 < args.layers <= cfg.num_layers:
-            raise SystemExit(f"--layers {args.layers}: {cfg.name} has "
-                             f"{cfg.num_layers}")
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = cut_config(cfg, args.layers)
     model = get_model(cfg)
     ocfg = optim.AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                              total_steps=args.steps)

@@ -54,7 +54,8 @@ from repro_torch.training import optim as toptim
 pytestmark = pytest.mark.usefixtures("lean_cpu")
 
 ARCHS = ["smollm-135m", "qwen3-4b", "paligemma-3b", "musicgen-large",
-         "deepseek-v2-lite-16b", "mamba2-370m", "recurrentgemma-9b"]
+         "deepseek-v2-lite-16b", "mamba2-370m", "recurrentgemma-9b",
+         "glm4-9b", "qwen3-32b", "kimi-k2-1t-a32b"]
 SEQ = {"recurrentgemma-9b": 80}      # past its .reduced() window of 64
 LR = 3e-3
 
